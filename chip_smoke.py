@@ -1,0 +1,420 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each (any failure raises and exits non-zero):
+  build       compile every CUDA kernel from the sources in this checkout
+  kernel ...  hold each kernel against its plain PyTorch version on the card
+              at the main path's shapes, and time kernel, plain version,
+              the nearest PyTorch library call, and the card's bound
+  serve       full-width gemma2-2b (bf16, random weights from a seed) through
+              ``BatchedServer``: 8 requests, batch 4, prompt 1024, 16 new
+              tokens; the kernel must launch 26 times per prefill; the same
+              requests again with ``attn_impl="ref"`` for comparison
+  task        ``Kernel("lm.decode")`` on gemma2-2b on the card
+  continuous  the continuous-batching loop on ``serve-tiny`` on the card
+Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
+when CUDA is missing or the port's package is not beside this script.
+"""
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu"
+FA_REPLACES = "src/repro/kernels/flash_attention/pallas_kernel.py:100"
+
+# name, B, Sq, Sk, H, KH, D, causal, window, softcap, scale, q_offset, dtype,
+# tolerance.  bf16: one rounding of an O(1) output (3e-2, as the CPU tests);
+# f32: summation order over up to 1024 keys plus tanhf/expf against torch.
+G2 = dict(H=8, KH=4, D=256, softcap=50.0, scale=1.0 / 16)
+FA_CASES = [
+    dict(name="serve", B=4, Sq=1024, Sk=1024, causal=True, window=4096,
+         q_offset=0, dtype="bfloat16", tol=3e-2, **G2),
+    dict(name="window_lt_seq", B=1, Sq=8192, Sk=8192, causal=True,
+         window=4096, q_offset=0, dtype="bfloat16", tol=3e-2, **G2),
+    dict(name="q_offset", B=4, Sq=128, Sk=1024, causal=True, window=4096,
+         q_offset=896, dtype="bfloat16", tol=3e-2, **G2),
+    dict(name="non_causal", B=2, Sq=512, Sk=512, causal=False, window=0,
+         q_offset=0, dtype="bfloat16", tol=3e-2, **G2),
+    dict(name="ragged", B=2, Sq=1000, Sk=1000, causal=True, window=300,
+         q_offset=0, dtype="bfloat16", tol=3e-2, **G2),
+    dict(name="f32", B=2, Sq=512, Sk=512, causal=True, window=4096,
+         q_offset=0, dtype="float32", tol=1e-4, **G2),
+    dict(name="serve_tiny", B=2, Sq=8, Sk=8, H=2, KH=1, D=16, causal=True,
+         window=0, softcap=0.0, scale=None, q_offset=0, dtype="bfloat16",
+         tol=3e-2),
+]
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    info = _build.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": {k: {"seconds": v["seconds"], "cached": v["cached"]}
+                        for k, v in info.items()},
+          "ptxas": {k: ptxas_report(v["ptxas"]) for k, v in info.items()}})
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spills per kernel instantiation from ``-Xptxas=-v``."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"(flash_attention_fwd_(?:tc|cc))ILi(\d+)E",
+                          entry[1])
+            name = f"{m[1]}<{m[2]}>" if m else entry[1]
+        elif name and ("registers" in line or "spill" in line):
+            out[name] = (out.get(name, "") + " " +
+                         line.split(":", 1)[-1].strip()).strip()
+    return out
+
+
+def _mask(c, device):
+    import torch
+    qpos = c["q_offset"] + torch.arange(c["Sq"], device=device)[:, None]
+    kpos = torch.arange(c["Sk"], device=device)[None, :]
+    m = torch.ones((c["Sq"], c["Sk"]), dtype=torch.bool, device=device)
+    if c["causal"]:
+        m &= kpos <= qpos
+    if c["window"]:
+        m &= qpos - kpos < c["window"]
+    return m
+
+
+def phase_kernel_flash_attention(dev):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    gen = torch.Generator(device=dev).manual_seed(0)
+    results = {}
+    for c in FA_CASES:
+        dt = getattr(torch, c["dtype"])
+        B, Sq, Sk, H, KH, D = (c[k] for k in ("B", "Sq", "Sk", "H", "KH", "D"))
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
+        kw = dict(causal=c["causal"], window=c["window"],
+                  softcap=c["softcap"], scale=c["scale"],
+                  q_offset=c["q_offset"])
+        out = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref = attention_ref(q, k, v, **kw)
+        err = float((out.float() - ref.float()).abs().max())
+        finite = bool(torch.isfinite(out.float()).all())
+        del ref
+        big = Sq * Sk > 4_000_000
+        ms = time_ms(lambda: flash_attention(q, k, v, **kw), 3 if big else 10)
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), 2 if big else 5)
+
+        # yardstick: one SDPA call, same q/k/v and masks, without softcap
+        mask = _mask(c, dev)
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(H // KH, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(H // KH, dim=2).transpose(1, 2).contiguous()
+        plain_causal = (c["causal"] and c["q_offset"] == 0 and Sq == Sk
+                        and (not c["window"] or c["window"] >= Sk))
+        if plain_causal:
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, scale=c["scale"])
+        else:
+            def lib():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=c["scale"])
+        library_ms = time_ms(lib, 3 if big else 10)
+
+        pairs = int(mask.sum())
+        flops = 4 * D * pairs * H * B
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        t_ops = flops / PEAK_FLOPS[c["dtype"]]
+        t_bytes = nbytes / PEAK_BYTES
+        bound_ms = 1e3 * max(t_ops, t_bytes)
+        ok = finite and err <= c["tol"]
+        row = {"phase": "kernel flash_attention", "case": c["name"],
+               "shape": {n: c[n] for n in ("B", "Sq", "Sk", "H", "KH", "D")},
+               "causal": c["causal"], "window": c["window"],
+               "softcap": c["softcap"], "q_offset": c["q_offset"],
+               "dtype": c["dtype"], "max_abs_err": err, "tol": c["tol"],
+               "ok": ok, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library": "scaled_dot_product_attention, no softcap",
+               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+               "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "f32_matmul_precision": torch.get_float32_matmul_precision(),
+               "tf32": torch.backends.cuda.matmul.allow_tf32}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"flash_attention case {c['name']}: "
+                                 f"max error {err} > {c['tol']} "
+                                 f"(finite={finite})")
+        results[c["name"]] = row
+        del q, k, v, out, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    return results
+
+
+def _requests(cfg, n, S0, new, seed=0):
+    import numpy as np
+
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, S0),
+                    max_new_tokens=new) for i in range(n)]
+
+
+def phase_serve(dev):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import init_params
+    from repro_torch.serve import BatchedServer, build_prefill_step
+
+    cfg = get_config("gemma2-2b").replace(param_dtype="bfloat16")
+    B, S0, NEW, NREQ = 4, 1024, 16, 8
+    max_len = S0 + NEW + 1
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+
+    def serve(attn_impl):
+        srv = BatchedServer(cfg, params, batch=B, prompt_len=S0,
+                            max_len=max_len, device=dev, attn_impl=attn_impl)
+        srv.submit(_requests(cfg, NREQ, S0, NEW))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        done = srv.run()
+        torch.cuda.synchronize()
+        return srv, {r.rid: r.out_tokens for r in done}, \
+            time.perf_counter() - t
+
+    # warm-up wave (library handles, allocator), outside the counted run
+    warm = BatchedServer(cfg, params, batch=B, prompt_len=S0,
+                         max_len=max_len, device=dev)
+    warm.submit(_requests(cfg, B, S0, 2))
+    warm.run()
+    torch.cuda.synchronize()
+
+    reset_launches()
+    srv, tokens, wall = serve(None)
+    launches = LAUNCHES["flash_attention"]
+    per_prefill = cfg.num_layers
+    if srv.stats["prefills"] != 2 or launches != per_prefill * 2:
+        raise AssertionError(f"flash_attention launched {launches} times in "
+                             f"{srv.stats['prefills']} prefills; expected "
+                             f"{per_prefill} per prefill")
+    ntok = sum(len(t) for t in tokens.values())
+    if len(tokens) != NREQ or any(len(t) != NEW or min(t) < 0 or
+                                  max(t) >= cfg.vocab_size
+                                  for t in tokens.values()):
+        raise AssertionError(f"bad serve output: {tokens}")
+
+    _, tokens_ref, wall_ref = serve("ref")
+    same = sum(a == b for rid in tokens
+               for a, b in zip(tokens[rid], tokens_ref[rid]))
+
+    # prefill logits and step times, kernel against plain attention
+    wave = torch.stack([torch.as_tensor(r.prompt) for r in
+                        _requests(cfg, B, S0, NEW)]).to(dev)
+    with torch.inference_mode():
+        pre_k = build_prefill_step(cfg, cache_len=max_len)
+        pre_r = build_prefill_step(cfg, cache_len=max_len, attn_impl="ref")
+        lk = pre_k(params, {"tokens": wave})["logits"]
+        lr = pre_r(params, {"tokens": wave})["logits"]
+        logit_err = float((lk - lr).abs().max())
+        finite = bool(torch.isfinite(lk).all())
+        prefill_ms = time_ms(lambda: pre_k(params, {"tokens": wave}), 3)
+        prefill_ref_ms = time_ms(lambda: pre_r(params, {"tokens": wave}), 3)
+        out = pre_k(params, {"tokens": wave})
+        cache, last = out["cache"], out["logits"][:, 0].argmax(-1)
+        state = {"pos": S0}
+
+        def step():
+            pos = torch.full((B,), state["pos"], dtype=torch.int32,
+                             device=dev)
+            srv.step(params, cache, last[:, None], pos)
+            state["pos"] += 1
+        decode_ms = time_ms(step, NEW - 2)
+    tol = LOGIT_TOL
+    row = {"phase": "serve", "arch": cfg.name, "dtype": cfg.dtype,
+           "param_dtype": cfg.param_dtype, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": n_params, "param_gb": n_bytes / 1e9,
+           "init_s": init_s, "batch": B, "requests": NREQ,
+           "prompt_len": S0, "new_tokens": NEW, "stats": srv.stats,
+           "flash_attention_launches": launches,
+           "launches_per_prefill": launches / srv.stats["prefills"],
+           "wall_s": wall, "tokens_per_s": ntok / wall,
+           "ref_wall_s": wall_ref, "prefill_ms": prefill_ms,
+           "prefill_ref_ms": prefill_ref_ms, "decode_step_ms": decode_ms,
+           "prefill_logit_max_abs_err": logit_err, "logit_tol": tol,
+           "greedy_token_agreement": same / ntok,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    emit(row)
+    if not finite or logit_err > tol:
+        raise AssertionError(f"prefill logits: kernel vs ref {logit_err} > "
+                             f"{tol} (finite={finite})")
+    return row
+
+
+# bf16 through 26 layers: kernel and plain attention round their outputs to
+# bf16 at different elements, and the residual stream carries that on.
+LOGIT_TOL = 0.25
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_task(dev):
+    import torch
+
+    from repro_torch.core.kernel_plugin import Kernel
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.plugins.lm import resolve_cfg
+    k = Kernel("lm.decode")
+    k.arguments = {"arch": "gemma2-2b", "device": str(dev), "prompt_len": 256,
+                   "batch": 2, "requests": 2, "new_tokens": 4}
+    reset_launches()
+    out = k.execute()
+    torch.cuda.synchronize()
+    launches = LAUNCHES["flash_attention"]
+    emit({"phase": "task", "kernel": "lm.decode", "arguments": k.arguments,
+          "result": out, "flash_attention_launches": launches,
+          "exec_s": k.timings["exec"]})
+    per_prefill = resolve_cfg(k.arguments["arch"]).num_layers
+    if out["served"] != 2 or launches != per_prefill * out["stats"]["prefills"]:
+        raise AssertionError(f"lm.decode: {out}, {launches} launches")
+    return launches
+
+
+def phase_continuous(dev):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import init_params
+    from repro_torch.serve import BatchedServer, Request
+    cfg = get_config("serve-tiny")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    new = [3, 5, 2, 4, 3]
+    S0 = 8
+
+    def serve(attn_impl):
+        import numpy as np
+        rng = np.random.default_rng(0)
+        srv = BatchedServer(cfg, params, batch=2, prompt_len=S0,
+                            max_len=S0 + max(new), device=dev,
+                            attn_impl=attn_impl)
+        srv.submit([Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, S0),
+                            max_new_tokens=n) for i, n in enumerate(new)])
+        return srv, {r.rid: r.out_tokens for r in srv.run()}
+
+    reset_launches()
+    srv, tokens = serve(None)
+    torch.cuda.synchronize()
+    launches = LAUNCHES["flash_attention"]
+    _, tokens_ref = serve("ref")
+    same = sum(a == b for rid in tokens
+               for a, b in zip(tokens[rid], tokens_ref[rid]))
+    emit({"phase": "continuous", "arch": cfg.name,
+          "continuous": srv.continuous, "stats": srv.stats,
+          "flash_attention_launches": launches, "tokens": tokens,
+          "greedy_token_agreement_with_ref": same / sum(new)})
+    if (not srv.continuous or [len(tokens[i]) for i in range(len(new))] != new
+            or launches != cfg.num_layers * srv.stats["prefills"]):
+        raise AssertionError(f"continuous loop: {srv.stats}, {launches}")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+
+    phase_build()
+    with torch.inference_mode():
+        fa = phase_kernel_flash_attention(dev)
+        serve = phase_serve(dev)
+        torch.cuda.empty_cache()
+        phase_task(dev)
+        phase_continuous(dev)
+
+    s = fa["serve"]
+    emit({"kernels": [{
+        "name": "flash_attention", "route": "cuda", "source": FA_SOURCE,
+        "replaces": FA_REPLACES,
+        "launches": serve["flash_attention_launches"],
+        "max_abs_err": s["max_abs_err"], "ms": s["ms"],
+        "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+        "bound_by": s["bound_by"], "library_ms": s["library_ms"]}],
+        "seconds": time.perf_counter() - t0})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,18 @@
+"""Arch registry: importing this package registers the ported architectures."""
+from repro_torch.configs.base import (  # noqa: F401
+    ModelConfig,
+    get_config,
+    list_configs,
+    reduced,
+    register,
+)
+
+from repro_torch.configs import gemma2_2b  # noqa: F401
+
+# The small dense model the serving plugins decode with when no arch is
+# given (``repro/plugins/serve.py::_serve_cfg``): all-global attention, so
+# ``BatchedServer`` runs its continuous-batching loop on it.
+SERVE_TINY = register(ModelConfig(
+    name="serve-tiny", family="dense", num_layers=2, d_model=32, num_heads=2,
+    num_kv_heads=1, head_dim=16, d_ff=64, vocab_size=256,
+    layer_pattern=("global",)))

@@ -1,0 +1,96 @@
+"""Build the CUDA kernels with ``nvcc`` at first use and load them with ctypes.
+
+Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled
+into its own shared library under ``kernels/_build/`` (listed in
+``.gitignore``).  A library's file name carries a hash of its source and the
+compiler flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is.  ``build`` starts one ``nvcc`` per missing library, all at
+once, and waits for them together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+_KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_DIR = _KERNELS_DIR / "_build"
+
+# kernel library name -> its source, relative to this package
+SOURCES: Dict[str, str] = {
+    "flash_attention_fwd": "flash_attention/csrc/flash_attention_fwd.cu",
+}
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the kernels (looked on PATH and in /usr/local/cuda)")
+
+
+def library_path(name: str) -> Path:
+    src = _KERNELS_DIR / SOURCES[name]
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile every named library that is missing, in parallel.
+
+    Returns ``{name: {"seconds", "cached", "ptxas"}}``; ``ptxas`` holds the
+    compiler's register and shared-memory report.  Raises on a failed build.
+    """
+    names = list(SOURCES if names is None else names)
+    info: Dict[str, dict] = {}
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            info[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(_KERNELS_DIR / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        info[name] = {"seconds": time.perf_counter() - t0, "cached": False,
+                      "ptxas": log}
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return info
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if missing."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LOADED[name] = lib
+    return lib

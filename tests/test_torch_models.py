@@ -1,0 +1,163 @@
+"""The port's dense model against the JAX package's, on reduced configs in f32.
+
+Parameters come from the JAX ``init_params`` and reach the port through
+``params_from_numpy``; token ids come from numpy.  JAX runs its default
+``xla`` path on the CPU with matmul precision "highest"
+(``tests/conftest.py``), so f32 is compared with f32: hidden states and
+logits at 1e-4 absolute, which leaves room for the different summation
+order of the two frameworks' CPU matmuls over a few layers.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.checkpoint.checkpoint import _flatten  # noqa: E402
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import reduced as jax_reduced  # noqa: E402
+from repro.models import decode_step as jax_decode_step  # noqa: E402
+from repro.models import forward as jax_forward  # noqa: E402
+from repro.models import init_params as jax_init_params  # noqa: E402
+from repro.models.transformer import lm_logits as jax_lm_logits  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.models import decode_step, forward, init_params, lm_logits  # noqa: E402
+from repro_torch.models.convert import (  # noqa: E402
+    layers_from_numpy,
+    params_from_numpy,
+    params_to_numpy,
+)
+
+DENSE_ARCHS = ["gemma2-2b", "gemma3-4b", "minicpm-2b", "nemotron-4-15b"]
+ATOL = 1e-4
+
+
+def port_cfg(jcfg) -> ModelConfig:
+    return ModelConfig(**{f.name: getattr(jcfg, f.name)
+                          for f in dataclasses.fields(ModelConfig)})
+
+
+def _setup(arch, seed=0):
+    jcfg = jax_reduced(jax_get_config(arch))
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(seed))
+    flat = {k: np.asarray(v) for k, v in _flatten(jparams).items()}
+    cfg = port_cfg(jcfg)
+    return jcfg, jparams, cfg, params_from_numpy(flat, cfg), flat
+
+
+def _tokens(cfg, B, S, seed=1):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def test_configs_match_jax():
+    for name in ("gemma2-2b",):
+        jcfg = jax_get_config(name)
+        assert get_config(name) == port_cfg(jcfg)
+        assert reduced(get_config(name)) == port_cfg(jax_reduced(jcfg))
+    assert get_config("gemma2-2b").param_count() == \
+        jax_get_config("gemma2-2b").param_count()
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_init_params_match_jax_layout(arch):
+    jcfg = jax_reduced(jax_get_config(arch))
+    want = {k: (v.shape, str(v.dtype)) for k, v in
+            _flatten(jax.eval_shape(lambda: jax_init_params(
+                jcfg, jax.random.PRNGKey(0)))).items()}
+    mine = params_to_numpy(
+        init_params(port_cfg(jcfg), torch.Generator().manual_seed(0)),
+        port_cfg(jcfg))
+    assert {k: (v.shape, str(v.dtype)) for k, v in mine.items()} == want
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_forward_matches_jax(arch):
+    jcfg, jparams, cfg, params, _ = _setup(arch)
+    tok = _tokens(cfg, 2, 32)
+    jh = jax_forward(jcfg, jparams, jnp.asarray(tok))["h"]
+    h = forward(cfg, params, torch.from_numpy(tok).long())["h"]
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=ATOL)
+    np.testing.assert_allclose(lm_logits(cfg, params, h).numpy(),
+                               np.asarray(jax_lm_logits(jcfg, jparams, jh)),
+                               atol=ATOL)
+
+
+def test_prefill_cache_matches_jax():
+    jcfg, jparams, cfg, params, _ = _setup("gemma2-2b")
+    tok = _tokens(cfg, 2, 24)
+    jcache = jax_forward(jcfg, jparams, jnp.asarray(tok), cache_len=40)["cache"]
+    want = layers_from_numpy({k: np.asarray(v) for k, v in
+                              _flatten(jcache).items()}, cfg)
+    got = forward(cfg, params, torch.from_numpy(tok).long(),
+                  cache_len=40)["cache"]
+    assert len(got) == len(want) == cfg.num_layers
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for key in g:
+            assert g[key].shape == w[key].shape and g[key].dtype == w[key].dtype
+            np.testing.assert_allclose(g[key].numpy(), w[key].numpy(),
+                                       atol=ATOL)
+
+
+def test_decode_step_matches_jax():
+    jcfg, jparams, cfg, params, _ = _setup("gemma2-2b")
+    B, S, EXTRA = 2, 24, 4
+    tok = _tokens(cfg, B, S + EXTRA)
+    jcache = jax_forward(jcfg, jparams, jnp.asarray(tok[:, :S]),
+                         cache_len=40)["cache"]
+    cache = layers_from_numpy({k: np.asarray(v) for k, v in
+                               _flatten(jcache).items()}, cfg)
+    for t in range(EXTRA):
+        pos = np.full((B,), S + t, np.int32)
+        step = tok[:, S + t:S + t + 1]
+        jlogits, jcache = jax_decode_step(jcfg, jparams, jcache,
+                                          jnp.asarray(step), jnp.asarray(pos))
+        logits, cache = decode_step(cfg, params, cache,
+                                    torch.from_numpy(step).long(),
+                                    torch.from_numpy(pos))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_prefill_decode_matches_forward(arch):
+    """As ``test_models.py``: prefill-then-decode equals the full forward."""
+    cfg = reduced(port_cfg(jax_get_config(arch)))
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    B, S, EXTRA, CLEN = 2, 24, 4, 48
+    tok = torch.from_numpy(_tokens(cfg, B, S + EXTRA)).long()
+    full = lm_logits(cfg, params, forward(cfg, params, tok)["h"])
+    cache = forward(cfg, params, tok[:, :S], cache_len=CLEN)["cache"]
+    errs = []
+    for t in range(EXTRA):
+        pos = torch.full((B,), S + t, dtype=torch.int32)
+        logits, cache = decode_step(cfg, params, cache,
+                                    tok[:, S + t:S + t + 1], pos)
+        errs.append(float((logits[:, 0] - full[:, S + t]).abs().max()))
+    assert max(errs) < 2e-2, (arch, errs)
+
+
+def test_params_roundtrip_exact():
+    _, _, cfg, params, flat = _setup("gemma2-2b")
+    back = params_to_numpy(params, cfg)
+    assert set(back) == set(flat)
+    for key, arr in flat.items():
+        assert back[key].dtype == arr.dtype
+        np.testing.assert_array_equal(back[key], arr)
+    # bfloat16 leaves keep their values (returned as float32)
+    bf = {k: np.asarray(jnp.asarray(v, jnp.bfloat16)) for k, v in flat.items()}
+    back = params_to_numpy(params_from_numpy(bf, cfg), cfg)
+    for key, arr in bf.items():
+        np.testing.assert_array_equal(back[key], arr.astype(np.float32))
+
+
+def test_unported_kinds_raise():
+    cfg = port_cfg(jax_reduced(jax_get_config("recurrentgemma-2b")))
+    with pytest.raises(NotImplementedError):
+        init_params(cfg, torch.Generator().manual_seed(0))

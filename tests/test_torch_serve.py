@@ -1,0 +1,132 @@
+"""The port's serving path against the JAX package's, on the CPU.
+
+Both ``BatchedServer``s get the same params (JAX ``init_params`` through
+``params_from_numpy``) and the same numpy prompts; their greedy tokens must
+be identical, in the wave loop (reduced gemma2-2b, sliding-window layers)
+and in the continuous loop (``serve-tiny``, unequal ``max_new_tokens``).
+"""
+import dataclasses
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+
+from repro.checkpoint.checkpoint import _flatten  # noqa: E402
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.configs import reduced as jax_reduced  # noqa: E402
+from repro.models import init_params as jax_init_params  # noqa: E402
+from repro.plugins.serve import _serve_cfg  # noqa: E402
+from repro.serve import BatchedServer as JaxServer  # noqa: E402
+from repro.serve import Request as JaxRequest  # noqa: E402
+from repro_torch import resolve_device  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.core.kernel_plugin import Kernel, kernel_names  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.serve import BatchedServer, Request  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def port_cfg(jcfg) -> ModelConfig:
+    return ModelConfig(**{f.name: getattr(jcfg, f.name)
+                          for f in dataclasses.fields(ModelConfig)})
+
+
+def _serve_both(jcfg, *, batch, S0, new):
+    jparams = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    cfg = port_cfg(jcfg)
+    params = params_from_numpy(
+        {k: np.asarray(v) for k, v in _flatten(jparams).items()}, cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, S0) for _ in new]
+    max_len = S0 + max(new) + 1
+
+    jsrv = JaxServer(jcfg, jparams, batch=batch, prompt_len=S0,
+                     max_len=max_len)
+    jsrv.submit([JaxRequest(rid=i, prompt=p, max_new_tokens=n)
+                 for i, (p, n) in enumerate(zip(prompts, new))])
+    want = {r.rid: r.out_tokens for r in jsrv.run()}
+
+    srv = BatchedServer(cfg, params, batch=batch, prompt_len=S0,
+                        max_len=max_len, device="cpu")
+    srv.submit([Request(rid=i, prompt=p, max_new_tokens=n)
+                for i, (p, n) in enumerate(zip(prompts, new))])
+    got = {r.rid: r.out_tokens for r in srv.run()}
+    return srv, jsrv, got, want
+
+
+def test_wave_loop_tokens_match_jax():
+    srv, jsrv, got, want = _serve_both(
+        jax_reduced(jax_get_config("gemma2-2b")), batch=2, S0=20,
+        new=[4, 6, 3])
+    assert not srv.continuous and not jsrv.continuous
+    assert got == want
+    assert srv.stats == jsrv.stats
+
+
+def test_continuous_loop_tokens_match_jax():
+    jcfg = _serve_cfg(None)
+    assert get_config("serve-tiny") == port_cfg(jcfg)
+    srv, jsrv, got, want = _serve_both(jcfg, batch=2, S0=6,
+                                       new=[3, 5, 2, 4, 3])
+    assert srv.continuous and jsrv.continuous
+    assert got == want
+    assert srv.stats == jsrv.stats
+    assert [len(got[i]) for i in range(5)] == [3, 5, 2, 4, 3]
+
+
+def test_submit_guard_and_clock():
+    cfg = get_config("serve-tiny")
+    tick = iter(range(100))
+    srv = BatchedServer(cfg, None, batch=2, prompt_len=4, max_len=8,
+                        device="cpu", clock=lambda: float(next(tick)))
+    with pytest.raises(ValueError):
+        srv.submit([Request(rid=9, prompt=np.zeros(4, int),
+                            max_new_tokens=99)])
+    ok = Request(rid=1, prompt=np.zeros(4, int), max_new_tokens=2)
+    srv.submit([ok])
+    assert ok.submitted_at == 0.0 and len(srv.queue) == 1
+
+
+def test_lm_decode_task_serves_on_cpu():
+    assert "lm.decode" in kernel_names()
+    k = Kernel("lm.decode")
+    k.arguments = {"arch": "reduced:gemma2-2b", "device": "cpu",
+                   "requests": 3, "batch": 2, "new_tokens": 3}
+    out = k.execute()
+    assert out["served"] == 3
+    assert all(len(t) == 3 for t in out["tokens"].values())
+    assert out["stats"]["prefills"] == 2          # two waves of batch 2
+    assert k.timings["exec"] > 0
+
+
+def test_resolve_device(monkeypatch):
+    assert resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        BatchedServer(get_config("serve-tiny"), None, batch=1, prompt_len=2,
+                      max_len=4)
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    banned = re.compile(r"^\s*(import jax|from jax|import repro\.|"
+                        r"import repro\s*$|from repro\.|from repro import)",
+                        re.M)
+    for f in files:
+        hits = banned.findall(f.read_text())
+        assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
