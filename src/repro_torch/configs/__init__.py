@@ -7,7 +7,7 @@ from repro_torch.configs.base import (  # noqa: F401
     register,
 )
 
-from repro_torch.configs import gemma2_2b  # noqa: F401
+from repro_torch.configs import falcon_mamba_7b, gemma2_2b, recurrentgemma_2b  # noqa: F401
 
 # The small dense model the serving plugins decode with when no arch is
 # given (``repro/plugins/serve.py::_serve_cfg``): all-global attention, so

@@ -24,6 +24,8 @@ BUILD_DIR = _KERNELS_DIR / "_build"
 # kernel library name -> its source, relative to this package
 SOURCES: Dict[str, str] = {
     "flash_attention_fwd": "flash_attention/csrc/flash_attention_fwd.cu",
+    "linear_scan": "rglru/csrc/linear_scan.cu",
+    "selective_scan": "mamba/csrc/selective_scan.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

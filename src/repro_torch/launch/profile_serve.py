@@ -1,10 +1,11 @@
 """Where the serve time goes: profile one prefill wave and a run of decode
-steps of full-width gemma2-2b (bf16 params, random weights from seed 0) on
+steps of a full-width model (bf16 params, random weights from seed 0) on
 the GPU, and print one JSON line per step kind.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        [--arch gemma2-2b|recurrentgemma-2b|falcon-mamba-7b]
 
-The shape is the serve phase of ``chip_smoke.py``: batch 4, prompt 1024,
+The shape is the serve phases of ``chip_smoke.py``: batch 4, prompt 1024,
 8 decode steps.  Each line holds the host wall time per call (ending in a
 synchronize), the summed device time of the kernels that ran (one stream,
 so kernels do not overlap), the device's idle share of the wall time, and
@@ -13,6 +14,7 @@ the device time by kernel group and by the heaviest kernel names, from
 """
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -26,6 +28,8 @@ from repro_torch.serve import build_prefill_step, build_serve_step
 
 B, S0, DECODE_STEPS = 4, 1024, 8
 _GROUPS = (("flash_attention", ("flash_attention_fwd",)),
+           ("linear_scan", ("linear_scan_kernel",)),
+           ("selective_scan", ("selective_scan_kernel",)),
            ("matmul", ("gemm", "gemv", "nvjet", "sm90", "cutlass", "xmma",
                        "cublas")),
            ("copy_cast", ("copy", "convert", "cast")))
@@ -66,11 +70,14 @@ def _profile(fn, calls: int, dev):
             "top_kernels_ms": {k[:80]: v for k, v in top}}
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma2-2b")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve measures the GPU; CUDA is missing")
     dev = torch.device("cuda")
-    cfg = get_config("gemma2-2b").replace(param_dtype="bfloat16")
+    cfg = get_config(args.arch).replace(param_dtype="bfloat16")
     max_len = S0 + DECODE_STEPS + 2
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     tokens = torch.from_numpy(np.random.default_rng(0).integers(

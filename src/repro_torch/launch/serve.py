@@ -1,6 +1,7 @@
 """Serving entry point: batched prefill+decode on a (reduced) arch.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --reduced --device cpu
 """

@@ -1,14 +1,16 @@
-"""Model substrate layers for dense attention models: norms, rope, MLP
-variants and GQA attention (prefill and single-token decode).
+"""Model substrate layers: norms, rope, MLP variants, GQA attention (prefill
+and single-token decode), the Griffin RG-LRU mixer and the Mamba-1 mixer.
 
 Conventions (as in ``repro.models.layers``):
   * params stored in ``cfg.param_dtype``; compute in ``cfg.dtype``
-    (norm/softmax accumulation in float32).
+    (norm/softmax/scan accumulation in float32).  The RG-LRU ``a_param``
+    and Mamba's ``A_log``, ``D`` and ``dt_bias`` stay float32 whatever
+    ``param_dtype`` is, as do the scan states.
   * activations layout (B, S, D); attention heads (B, S, H, head_dim).
   * params are plain dicts of tensors; randomness comes from an explicit
     ``torch.Generator`` on the device the tensors are made on.
 
-MoE, RG-LRU and Mamba mixers are not ported yet.
+The MoE mixer is not ported yet.
 """
 from __future__ import annotations
 
@@ -20,8 +22,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.mamba.ops import selective_scan, selective_step
+from repro_torch.kernels.rglru.ops import linear_scan
 
 Params = Dict[str, Any]
+
+RGLRU_C = 8.0  # Griffin's recurrent-gate temperature
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -251,3 +257,168 @@ def attn_decode(cfg: ModelConfig, p: Params, x, cache: Params, positions,
 def attn_decode_cross(cfg: ModelConfig, p: Params, x, cache: Params):
     """Cross-attention decode (encoder-decoder models): not ported yet."""
     raise NotImplementedError("cross-attention decode is not ported yet")
+
+
+# ---------------------------------------------------------------- conv1d
+
+def causal_conv1d(x, w, b):
+    """Depthwise causal conv.  x: (B,S,C); w: (cw, C); b: (C,).
+
+    cw shifted elementwise multiply-accumulates in float32, as the JAX
+    package writes it."""
+    cw, _ = w.shape
+    S = x.shape[1]
+    xf = x.float()
+    wf = w.float()
+    acc = xf * wf[cw - 1]
+    for j in range(1, cw):
+        shifted = F.pad(xf, (0, 0, j, 0))[:, :S]
+        acc = acc + shifted * wf[cw - 1 - j]
+    return (acc + b.float()).to(x.dtype)
+
+
+def conv1d_step(x1, buf, w, b):
+    """Single-token conv step.  x1: (B,C); buf: (B,cw-1,C) past inputs.
+    Returns (y (B,C), new buf)."""
+    full = torch.cat([buf, x1[:, None, :]], dim=1)          # (B, cw, C)
+    y = torch.einsum("bwc,wc->bc", full.float(), w.float())
+    y = (y + b.float()).to(x1.dtype)
+    return y, full[:, 1:]
+
+
+def _uniform(gen: torch.Generator, shape, lo: float, hi: float):
+    u = torch.rand(shape, generator=gen, device=gen.device,
+                   dtype=torch.float32)
+    return lo + (hi - lo) * u
+
+
+# ---------------------------------------------------------------- RG-LRU
+
+def init_rglru(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    D, W = cfg.d_model, cfg.lru_width_
+    std = 0.02
+    std_out = 0.02 / math.sqrt(2 * cfg.num_layers)
+    # Lambda init so that a^c is in [0.9, 0.999]
+    root = _uniform(gen, (W,), 0.9, 0.999) ** (1.0 / RGLRU_C)
+    return {
+        "wx": _normal(gen, (D, W), std, _pd(cfg)),
+        "wy": _normal(gen, (D, W), std, _pd(cfg)),
+        "conv_w": _normal(gen, (cfg.ssm_conv, W), std, _pd(cfg)),
+        "conv_b": torch.zeros((W,), dtype=_pd(cfg), device=gen.device),
+        "wa": _normal(gen, (W, W), std, _pd(cfg)),
+        "wi_g": _normal(gen, (W, W), std, _pd(cfg)),
+        "a_param": torch.log(root / (1.0 - root)),           # logit, f32
+        "wo": _normal(gen, (W, D), std_out, _pd(cfg)),
+    }
+
+
+def _rglru_gates(p: Params, xb):
+    """Returns (a, x_eff) for h_t = a_t h_{t-1} + x_eff_t (float32)."""
+    xf = xb.float()
+    r = torch.sigmoid(xf @ p["wa"].float())
+    i = torch.sigmoid(xf @ p["wi_g"].float())
+    log_a = RGLRU_C * r * F.logsigmoid(p["a_param"])[None]
+    a = torch.exp(log_a)
+    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    return a, mult * i * xf
+
+
+def apply_rglru(cfg: ModelConfig, p: Params, x, *, h0=None, conv_buf=None,
+                return_state: bool = False, impl: Optional[str] = None):
+    """Griffin recurrent mixer.  x: (B,S,D).  ``impl`` goes to
+    ``linear_scan`` (None or "ref")."""
+    B = x.shape[0]
+    W = cfg.lru_width_
+    xb = x @ cast(cfg, p["wx"])
+    yb = F.gelu(x @ cast(cfg, p["wy"]), approximate="tanh")
+    if conv_buf is not None:
+        raise NotImplementedError(
+            "stateful RG-LRU prefill (a conv buffer carried in): the JAX "
+            "package does not have it either")
+    a, x_eff = _rglru_gates(p, causal_conv1d(xb, p["conv_w"], p["conv_b"]))
+    if h0 is None:
+        h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
+    h, h_last = linear_scan(x_eff, a, h0, impl=impl)
+    out = (h.to(_dt(cfg)) * yb) @ cast(cfg, p["wo"])
+    if return_state:
+        # conv state: the last (cw-1) pre-conv inputs, copied out of xb
+        buf = xb[:, -(cfg.ssm_conv - 1):, :].contiguous()
+        return out, {"h": h_last, "conv": buf}
+    return out
+
+
+def rglru_decode(cfg: ModelConfig, p: Params, x, cache: Params):
+    """x: (B,1,D).  cache: {"h": (B,W) f32, "conv": (B,cw-1,W)}."""
+    x1 = x[:, 0, :]
+    xb1 = x1 @ cast(cfg, p["wx"])
+    yb1 = F.gelu(x1 @ cast(cfg, p["wy"]), approximate="tanh")
+    xc, new_buf = conv1d_step(xb1, cache["conv"], p["conv_w"], p["conv_b"])
+    a, x_eff = _rglru_gates(p, xc[:, None, :])
+    h = a[:, 0] * cache["h"] + x_eff[:, 0]
+    out = (h.to(_dt(cfg)) * yb1) @ cast(cfg, p["wo"])
+    return out[:, None, :], {"h": h, "conv": new_buf}
+
+
+# ---------------------------------------------------------------- Mamba
+
+def init_mamba(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    D, di, n, dr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank_
+    dev = gen.device
+    std = 0.02
+    std_out = 0.02 / math.sqrt(2 * cfg.num_layers)
+    A = torch.arange(1, n + 1, dtype=torch.float32, device=dev)[None].repeat(
+        di, 1)
+    dt = torch.exp(_uniform(gen, (di,), math.log(1e-3), math.log(1e-1)))
+    return {
+        "in_proj": _normal(gen, (D, 2 * di), std, _pd(cfg)),
+        "conv_w": _normal(gen, (cfg.ssm_conv, di), std, _pd(cfg)),
+        "conv_b": torch.zeros((di,), dtype=_pd(cfg), device=dev),
+        "x_proj": _normal(gen, (di, dr + 2 * n), std, _pd(cfg)),
+        "dt_proj": _normal(gen, (dr, di), dr ** -0.5, _pd(cfg)),
+        "dt_bias": dt + torch.log(-torch.expm1(-dt)),    # inverse softplus
+        "A_log": torch.log(A),
+        "D": torch.ones((di,), dtype=torch.float32, device=dev),
+        "out_proj": _normal(gen, (di, D), std_out, _pd(cfg)),
+    }
+
+
+def _mamba_bcdt(cfg: ModelConfig, p: Params, xin):
+    """(dt f32, Bm, C) of the scan.  Bm and C are column slices of the
+    ``x_proj`` output (not contiguous; the scan kernel reads them in place)."""
+    n, dr = cfg.ssm_state, cfg.dt_rank_
+    xdbc = xin @ cast(cfg, p["x_proj"])
+    dt_r, Bm, Cc = torch.split(xdbc, [dr, n, n], dim=-1)
+    dt = F.softplus(dt_r.float() @ p["dt_proj"].float() + p["dt_bias"][None])
+    return dt, Bm, Cc
+
+
+def apply_mamba(cfg: ModelConfig, p: Params, x, *,
+                return_state: bool = False, impl: Optional[str] = None):
+    """Mamba-1 mixer.  x: (B,S,D).  ``impl`` goes to ``selective_scan``
+    (None or "ref")."""
+    B = x.shape[0]
+    di, n = cfg.d_inner, cfg.ssm_state
+    xin, z = (x @ cast(cfg, p["in_proj"])).chunk(2, dim=-1)
+    xc = F.silu(causal_conv1d(xin, p["conv_w"], p["conv_b"]))
+    dt, Bm, Cc = _mamba_bcdt(cfg, p, xc)
+    A = -torch.exp(p["A_log"])
+    h0 = torch.zeros((B, di, n), dtype=torch.float32, device=x.device)
+    y, h_last = selective_scan(xc, dt, A, Bm, Cc, p["D"], h0, impl=impl)
+    out = (y * F.silu(z)) @ cast(cfg, p["out_proj"])
+    if return_state:
+        # conv state: the last (cw-1) pre-conv inputs, copied out of xin
+        buf = xin[:, -(cfg.ssm_conv - 1):, :].contiguous()
+        return out, {"h": h_last, "conv": buf}
+    return out
+
+
+def mamba_decode(cfg: ModelConfig, p: Params, x, cache: Params):
+    """x: (B,1,D).  cache: {"h": (B,di,n) f32, "conv": (B,cw-1,di)}."""
+    xin, z = (x[:, 0, :] @ cast(cfg, p["in_proj"])).chunk(2, dim=-1)
+    xc, new_buf = conv1d_step(xin, cache["conv"], p["conv_w"], p["conv_b"])
+    xc = F.silu(xc)
+    dt, Bm, Cc = _mamba_bcdt(cfg, p, xc)
+    A = -torch.exp(p["A_log"])
+    y, h = selective_step(xc, dt, A, Bm, Cc, p["D"], cache["h"])
+    out = ((y * F.silu(z)) @ cast(cfg, p["out_proj"]))[:, None, :]
+    return out, {"h": h, "conv": new_buf}

@@ -1,7 +1,9 @@
-"""Dense decoder: parameter init, forward (prefill) and decode step.
+"""Decoder: parameter init, forward (prefill) and decode step.
 
-Counterpart of ``repro.models.transformer`` for the dense attention kinds
-("global", "local").  Where the JAX package scans stacked ``(G, ...)``
+Counterpart of ``repro.models.transformer`` for the layer kinds "global" and
+"local" (attention), "rec" (RG-LRU, recurrentgemma) and "mamba" (Mamba-1,
+falcon-mamba); mixture-of-experts layers, encoders and vision tokens are not
+ported yet.  Where the JAX package scans stacked ``(G, ...)``
 parameter groups with ``lax.scan``, the port keeps one parameter dict per
 layer in ``params["layers"]`` (layer ``i`` has kind ``cfg.layer_kind(i)``)
 and loops over them in Python; ``models.convert`` maps between the two
@@ -21,26 +23,37 @@ from repro_torch.models import layers as L
 Params = Dict[str, Any]
 Cache = List[Params]
 
-_DENSE_KINDS = ("global", "local")
+_ATTN_KINDS = ("global", "local")
+_REC_KINDS = ("rec", "mamba")           # recurrent mixers with (h, conv) state
+_KINDS = _ATTN_KINDS + _REC_KINDS
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    bad = sorted({k for k in cfg.layer_kinds if k not in _DENSE_KINDS})
+def _check_ported(cfg: ModelConfig) -> None:
+    bad = sorted({k for k in cfg.layer_kinds if k not in _KINDS})
     if bad or cfg.num_experts or cfg.encoder_layers or cfg.vision_tokens:
         raise NotImplementedError(
-            f"{cfg.name}: only dense global/local attention models are "
-            f"ported so far (found kinds {bad}, experts {cfg.num_experts}, "
-            f"encoder layers {cfg.encoder_layers}, vision tokens "
-            f"{cfg.vision_tokens})")
+            f"{cfg.name}: only decoders of {'/'.join(_KINDS)} layers without "
+            f"experts are ported so far (found kinds {bad}, experts "
+            f"{cfg.num_experts}, encoder layers {cfg.encoder_layers}, vision "
+            f"tokens {cfg.vision_tokens})")
 
 
 # ---------------------------------------------------------------- init
 
 def _init_block(cfg: ModelConfig, gen: torch.Generator, kind: str) -> Params:
-    if kind not in _DENSE_KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
     dev = gen.device
-    p: Params = {"ln1": L.init_norm(cfg, dev), "attn": L.init_attn(cfg, gen)}
+    p: Params = {"ln1": L.init_norm(cfg, dev)}
+    if kind == "rec":
+        p["rec"] = L.init_rglru(cfg, gen)
+        p["ln2"] = L.init_norm(cfg, dev)
+        p["mlp"] = L.init_mlp(cfg, gen)
+        return p
+    if kind == "mamba":
+        p["mamba"] = L.init_mamba(cfg, gen)
+        return p
+    if kind not in _ATTN_KINDS:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    p["attn"] = L.init_attn(cfg, gen)
     if cfg.post_norms:
         p["ln1_post"] = L.init_norm(cfg, dev)
     p["ln2"] = L.init_norm(cfg, dev)
@@ -62,7 +75,7 @@ def _layout(cfg: ModelConfig) -> Tuple[int, int, int]:
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random parameters with the JAX package's stds and dtypes, made on
     ``gen.device`` from ``gen`` (the numbers differ from JAX's)."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     params: Params = {
         "embed": {"tok": L._normal(gen, (V, D), 0.02, L._pd(cfg))},
@@ -79,17 +92,24 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 def forward_block(cfg: ModelConfig, bp: Params, h, kind: str, *, positions,
                   seg_ids, cache_len: Optional[int],
-                  attn_impl: Optional[str] = None):
-    """Returns (h, cache_or_None)."""
+                  impl: Optional[str] = None):
+    """Returns (h, cache_or_None).  ``impl`` goes to the block's kernel."""
     cache = None
     xin = L.apply_norm(cfg, bp["ln1"], h)
+    if kind in _REC_KINDS:
+        mixer = L.apply_rglru if kind == "rec" else L.apply_mamba
+        if cache_len:
+            m, cache = mixer(cfg, bp[kind], xin, return_state=True, impl=impl)
+        else:
+            m = mixer(cfg, bp[kind], xin, impl=impl)
+        return _rec_mlp(cfg, bp, h + m), cache
     if cache_len:
         a, cache = _attn_with_cache(cfg, bp["attn"], xin, kind=kind,
                                     positions=positions, seg_ids=seg_ids,
-                                    cache_len=cache_len, attn_impl=attn_impl)
+                                    cache_len=cache_len, impl=impl)
     else:
         a = L.apply_attn(cfg, bp["attn"], xin, kind=kind, positions=positions,
-                         seg_ids=seg_ids, impl=attn_impl)
+                         seg_ids=seg_ids, impl=impl)
     if cfg.post_norms:
         a = L.apply_norm(cfg, bp["ln1_post"], a)
     h = h + a
@@ -99,8 +119,15 @@ def forward_block(cfg: ModelConfig, bp: Params, h, kind: str, *, positions,
     return h + y, cache
 
 
+def _rec_mlp(cfg: ModelConfig, bp: Params, h):
+    """The MLP half of a Griffin residual block; Mamba blocks have none."""
+    if "mlp" not in bp:
+        return h
+    return h + L.apply_mlp(cfg, bp["mlp"], L.apply_norm(cfg, bp["ln2"], h))
+
+
 def _attn_with_cache(cfg, p, x, *, kind, positions, seg_ids, cache_len,
-                     attn_impl=None):
+                     impl=None):
     """Prefill: compute attention AND return the kv cache (roped keys)."""
     B, S, _ = x.shape
     q, k, v = L._qkv(cfg, p, x, positions, kind)
@@ -108,7 +135,7 @@ def _attn_with_cache(cfg, p, x, *, kind, positions, seg_ids, cache_len,
     o = flash_attention(q, k, v, causal=kind != "enc", window=window,
                         softcap=cfg.attn_softcap,
                         scale=cfg.attn_scale or None,
-                        seg_q=seg_ids, seg_kv=seg_ids, impl=attn_impl)
+                        seg_q=seg_ids, seg_kv=seg_ids, impl=impl)
     out = o.reshape(B, S, cfg.q_dim) @ L.cast(cfg, p["wo"])
     if kind == "local" and cfg.sliding_window:
         W = cfg.sliding_window
@@ -133,6 +160,10 @@ def decode_block(cfg: ModelConfig, bp: Params, h, cache: Params, kind: str,
                  *, positions):
     """Single-token step.  h: (B,1,D).  Returns (h, cache)."""
     xin = L.apply_norm(cfg, bp["ln1"], h)
+    if kind in _REC_KINDS:
+        step = L.rglru_decode if kind == "rec" else L.mamba_decode
+        m, cache = step(cfg, bp[kind], xin, cache)
+        return _rec_mlp(cfg, bp, h + m), cache
     a, cache = L.attn_decode(cfg, bp["attn"], xin, cache, positions,
                              kind=kind)
     if cfg.post_norms:
@@ -171,14 +202,16 @@ def lm_logits(cfg: ModelConfig, params: Params, h):
 
 def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
             seg_ids=None, cache_len: Optional[int] = None,
-            attn_impl: Optional[str] = None):
+            impl: Optional[str] = None):
     """Returns dict with h (B,S,D final-normed), aux (scalar), cache (or None).
 
     ``cache_len``: when set, collect a decode cache (prefill mode); caches
     for global-attention layers are padded to this length.
-    ``attn_impl``: passed to ``flash_attention`` (None or "ref").
+    ``impl``: passed to every kernel wrapper on the path
+    (``flash_attention``, ``linear_scan``, ``selective_scan``): None (the
+    tensors' device decides) or "ref" (the plain versions).
     """
-    _check_dense(cfg)
+    _check_ported(cfg)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
@@ -188,7 +221,7 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     for i, bp in enumerate(params["layers"]):
         h, c = forward_block(cfg, bp, h, cfg.layer_kind(i),
                              positions=positions, seg_ids=seg_ids,
-                             cache_len=cache_len, attn_impl=attn_impl)
+                             cache_len=cache_len, impl=impl)
         cache.append(c)
     h = L.apply_norm(cfg, params["final_norm"], h)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -223,11 +256,17 @@ def _block_cache_zeros(cfg: ModelConfig, kind: str, B: int, cache_len: int,
         return {"k": torch.zeros((B, W, KH, Dh), dtype=dt, device=device),
                 "v": torch.zeros((B, W, KH, Dh), dtype=dt, device=device),
                 "pos": torch.full((W,), -1, dtype=torch.int32, device=device)}
-    if kind in _DENSE_KINDS:
+    if kind in _ATTN_KINDS:
         return {"k": torch.zeros((B, cache_len, KH, Dh), dtype=dt,
                                  device=device),
                 "v": torch.zeros((B, cache_len, KH, Dh), dtype=dt,
                                  device=device)}
+    if kind in _REC_KINDS:
+        W = cfg.lru_width_ if kind == "rec" else cfg.d_inner
+        h = (B, W) if kind == "rec" else (B, W, cfg.ssm_state)
+        return {"h": torch.zeros(h, dtype=torch.float32, device=device),
+                "conv": torch.zeros((B, cfg.ssm_conv - 1, W), dtype=dt,
+                                    device=device)}
     raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
 
 

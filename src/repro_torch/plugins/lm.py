@@ -1,7 +1,9 @@
 """LM kernel plugins: the science workloads an ensemble schedules.
 
-Only ``lm.decode`` is ported so far; ``lm.train``, ``lm.eval`` and
-``lm.checkpoint`` come with the training port.
+Only ``lm.decode`` is ported so far; it serves every ported arch
+(gemma2-2b, recurrentgemma-2b, falcon-mamba-7b, serve-tiny, and the
+``reduced:<arch>`` forms).  ``lm.train``, ``lm.eval`` and ``lm.checkpoint``
+come with the training port.
 """
 from __future__ import annotations
 

@@ -17,10 +17,12 @@ from repro_torch.models import decode_step, forward, lm_logits
 
 
 def build_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None,
-                       attn_impl: Optional[str] = None):
+                       impl: Optional[str] = None):
+    """``impl`` goes to every kernel wrapper of the forward pass (None: the
+    device decides; "ref": the plain versions)."""
     def prefill_step(params, batch):
         out = forward(cfg, params, batch["tokens"], cache_len=cache_len,
-                      attn_impl=attn_impl)
+                      impl=impl)
         logits = lm_logits(cfg, params, out["h"][:, -1:])
         if cache_len is None:
             return {"logits": logits}
@@ -50,7 +52,8 @@ class Request:
 def _merge_rows(old, new, mask):
     """Select ``new``'s batch rows where ``mask`` is set, ``old``'s
     elsewhere, for every tensor of a cache (nested lists and dicts, the
-    batch on axis 0 of every leaf)."""
+    batch on axis 0 of every leaf: attention k/v, and the recurrent ``h``
+    and ``conv`` states of rec and mamba layers)."""
     if isinstance(old, dict):
         return {k: _merge_rows(old[k], new[k], mask) for k in old}
     if isinstance(old, (list, tuple)):
@@ -71,14 +74,14 @@ class BatchedServer:
     run the synchronized wave loop instead (no mid-wave admission).
 
     ``device`` is where params, tokens and caches live (default ``cuda``);
-    ``attn_impl`` goes to prefill attention (None: the device decides;
-    "ref": the plain version).  ``clock`` stamps ``Request.submitted_at``
-    and ``done_at``.
+    ``impl`` goes to every kernel of the prefill (attention and the scans;
+    None: the device decides; "ref": the plain versions).  ``clock`` stamps
+    ``Request.submitted_at`` and ``done_at``.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, batch: int,
                  prompt_len: int, max_len: int, device=None,
-                 attn_impl: Optional[str] = None, clock=time.perf_counter):
+                 impl: Optional[str] = None, clock=time.perf_counter):
         self.cfg, self.params = cfg, params
         self.device = resolve_device(device)
         self.B, self.S0, self.Smax = batch, prompt_len, max_len
@@ -87,7 +90,7 @@ class BatchedServer:
         self.continuous = not (cfg.sliding_window and any(
             cfg.layer_kind(i) == "local" for i in range(cfg.num_layers)))
         self.prefill = build_prefill_step(cfg, cache_len=max_len,
-                                          attn_impl=attn_impl)
+                                          impl=impl)
         self.step = build_serve_step(cfg)
         self.queue: collections.deque = collections.deque()
         self.stats = {"served": 0, "decode_steps": 0, "prefills": 0,

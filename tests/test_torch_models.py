@@ -1,4 +1,6 @@
-"""The port's dense model against the JAX package's, on reduced configs in f32.
+"""The port's models against the JAX package's, on reduced configs in f32:
+the dense attention archs, and recurrentgemma-2b (RG-LRU + local attention)
+and falcon-mamba-7b (Mamba-1), whose scans run their plain versions here.
 
 Parameters come from the JAX ``init_params`` and reach the port through
 ``params_from_numpy``; token ids come from numpy.  JAX runs its default
@@ -34,6 +36,7 @@ from repro_torch.models.convert import (  # noqa: E402
 )
 
 DENSE_ARCHS = ["gemma2-2b", "gemma3-4b", "minicpm-2b", "nemotron-4-15b"]
+SCAN_ARCHS = ["recurrentgemma-2b", "falcon-mamba-7b"]
 ATOL = 1e-4
 
 
@@ -56,15 +59,14 @@ def _tokens(cfg, B, S, seed=1):
 
 
 def test_configs_match_jax():
-    for name in ("gemma2-2b",):
+    for name in ("gemma2-2b", *SCAN_ARCHS):
         jcfg = jax_get_config(name)
         assert get_config(name) == port_cfg(jcfg)
         assert reduced(get_config(name)) == port_cfg(jax_reduced(jcfg))
-    assert get_config("gemma2-2b").param_count() == \
-        jax_get_config("gemma2-2b").param_count()
+        assert get_config(name).param_count() == jcfg.param_count()
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + SCAN_ARCHS)
 def test_init_params_match_jax_layout(arch):
     jcfg = jax_reduced(jax_get_config(arch))
     want = {k: (v.shape, str(v.dtype)) for k, v in
@@ -76,7 +78,7 @@ def test_init_params_match_jax_layout(arch):
     assert {k: (v.shape, str(v.dtype)) for k, v in mine.items()} == want
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + SCAN_ARCHS)
 def test_forward_matches_jax(arch):
     jcfg, jparams, cfg, params, _ = _setup(arch)
     tok = _tokens(cfg, 2, 32)
@@ -158,6 +160,126 @@ def test_params_roundtrip_exact():
 
 
 def test_unported_kinds_raise():
-    cfg = port_cfg(jax_reduced(jax_get_config("recurrentgemma-2b")))
-    with pytest.raises(NotImplementedError):
-        init_params(cfg, torch.Generator().manual_seed(0))
+    """Experts (qwen3-moe) and encoders (whisper) are not ported yet."""
+    for arch in ("qwen3-moe-30b-a3b", "whisper-large-v3"):
+        cfg = port_cfg(jax_reduced(jax_get_config(arch)))
+        with pytest.raises(NotImplementedError):
+            init_params(cfg, torch.Generator().manual_seed(0))
+        with pytest.raises(NotImplementedError):
+            forward(cfg, {"layers": []}, torch.zeros(1, 4, dtype=torch.long))
+
+
+def _jax_cache_layers(jcache, cfg):
+    return layers_from_numpy({k: np.asarray(v) for k, v in
+                              _flatten(jcache).items()}, cfg)
+
+
+@pytest.mark.parametrize("arch", SCAN_ARCHS)
+def test_scan_prefill_cache_matches_jax(arch):
+    """The recurrent ``h`` (f32) and ``conv`` states, and recurrentgemma's
+    local-attention ring cache."""
+    jcfg, jparams, cfg, params, _ = _setup(arch)
+    tok = _tokens(cfg, 2, 24)
+    jcache = jax_forward(jcfg, jparams, jnp.asarray(tok), cache_len=40)["cache"]
+    want = _jax_cache_layers(jcache, cfg)
+    got = forward(cfg, params, torch.from_numpy(tok).long(),
+                  cache_len=40)["cache"]
+    assert len(got) == len(want) == cfg.num_layers
+    kinds = set()
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert set(g) == set(w)
+        kinds.add((cfg.layer_kind(i), tuple(sorted(g))))
+        for key in g:
+            assert g[key].shape == w[key].shape and g[key].dtype == w[key].dtype
+            np.testing.assert_allclose(g[key].numpy(), w[key].numpy(),
+                                       atol=ATOL)
+        if "h" in g:
+            assert g["h"].dtype == torch.float32
+    assert {k for k, _ in kinds} == set(cfg.layer_kinds)
+
+
+@pytest.mark.parametrize("arch", SCAN_ARCHS)
+def test_scan_decode_steps_match_jax(arch):
+    jcfg, jparams, cfg, params, _ = _setup(arch)
+    B, S, EXTRA = 2, 24, 4
+    tok = _tokens(cfg, B, S + EXTRA)
+    jcache = jax_forward(jcfg, jparams, jnp.asarray(tok[:, :S]),
+                         cache_len=40)["cache"]
+    cache = _jax_cache_layers(jcache, cfg)
+    for t in range(EXTRA):
+        pos = np.full((B,), S + t, np.int32)
+        step = tok[:, S + t:S + t + 1]
+        jlogits, jcache = jax_decode_step(jcfg, jparams, jcache,
+                                          jnp.asarray(step), jnp.asarray(pos))
+        logits, cache = decode_step(cfg, params, cache,
+                                    torch.from_numpy(step).long(),
+                                    torch.from_numpy(pos))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   atol=ATOL)
+    for g, w in zip(cache, _jax_cache_layers(jcache, cfg)):
+        for key in ("h", "conv"):
+            if key in g:
+                np.testing.assert_allclose(g[key].numpy(), w[key].numpy(),
+                                           atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", SCAN_ARCHS)
+def test_scan_prefill_decode_matches_forward(arch):
+    """Prefill, then decode token by token, equals the full forward: the
+    sequential decode recurrences continue the prefill scans exactly."""
+    cfg = reduced(port_cfg(jax_get_config(arch)))
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    B, S, EXTRA, CLEN = 2, 24, 6, 48
+    tok = torch.from_numpy(_tokens(cfg, B, S + EXTRA)).long()
+    full = lm_logits(cfg, params, forward(cfg, params, tok)["h"])
+    cache = forward(cfg, params, tok[:, :S], cache_len=CLEN)["cache"]
+    for t in range(EXTRA):
+        pos = torch.full((B,), S + t, dtype=torch.int32)
+        logits, cache = decode_step(cfg, params, cache,
+                                    tok[:, S + t:S + t + 1], pos)
+        np.testing.assert_allclose(logits[:, 0].numpy(),
+                                   full[:, S + t].numpy(), atol=ATOL)
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, f"{prefix}{k}/")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _paths(v, f"{prefix}{i}/")
+    else:
+        yield prefix.rstrip("/"), tree
+
+
+@pytest.mark.parametrize("arch", SCAN_ARCHS)
+def test_scan_params_carry_layout_and_float32_leaves(arch):
+    """bf16 params: recurrentgemma (unscanned, every layer under
+    ``tail/block_j``) and falcon-mamba (scanned ``(G, ...)`` stacks) convert
+    exactly, and ``a_param``, ``A_log``, ``D`` and ``dt_bias`` stay f32, in
+    the converted params and in the port's own init."""
+    jcfg = jax_reduced(jax_get_config(arch)).replace(param_dtype="bfloat16")
+    flat = {k: np.asarray(v) for k, v in _flatten(
+        jax_init_params(jcfg, jax.random.PRNGKey(0))).items()}
+    cfg = port_cfg(jcfg)
+    roots = {k.split("/", 1)[0] for k in flat}
+    if cfg.scan_layers:          # falcon-mamba: (num_layers, ...) stacks
+        assert "blocks" in roots and "tail" not in roots
+        assert all(v.shape[0] == cfg.num_layers for k, v in flat.items()
+                   if k.startswith("blocks/"))
+    else:                        # recurrentgemma: one tail block per layer
+        assert "tail" in roots and "blocks" not in roots
+    conv = dict(_paths(params_from_numpy(flat, cfg)))
+    mine = dict(_paths(init_params(cfg, torch.Generator().manual_seed(0))))
+    assert conv.keys() == mine.keys()
+    f32 = set()
+    for key, t in conv.items():
+        assert (t.dtype, t.shape) == (mine[key].dtype, mine[key].shape), key
+        if t.dtype == torch.float32:
+            f32.add(key.rsplit("/", 1)[-1])
+    assert f32 == ({"a_param"} if arch == "recurrentgemma-2b"
+                   else {"A_log", "D", "dt_bias"})
+    back = params_to_numpy(params_from_numpy(flat, cfg), cfg)
+    assert set(back) == set(flat)
+    for key, arr in flat.items():
+        np.testing.assert_array_equal(back[key], arr.astype(np.float32))

@@ -2,8 +2,9 @@
 
 Both ``BatchedServer``s get the same params (JAX ``init_params`` through
 ``params_from_numpy``) and the same numpy prompts; their greedy tokens must
-be identical, in the wave loop (reduced gemma2-2b, sliding-window layers)
-and in the continuous loop (``serve-tiny``, unequal ``max_new_tokens``).
+be identical, in the wave loop (reduced gemma2-2b and recurrentgemma-2b,
+sliding-window layers) and in the continuous loop (``serve-tiny`` and
+reduced falcon-mamba-7b, unequal ``max_new_tokens``).
 """
 import dataclasses
 import re
@@ -29,6 +30,7 @@ from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core.kernel_plugin import Kernel, kernel_names  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve import BatchedServer, Request  # noqa: E402
+from repro_torch.serve.engine import _merge_rows  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -81,6 +83,38 @@ def test_continuous_loop_tokens_match_jax():
     assert [len(got[i]) for i in range(5)] == [3, 5, 2, 4, 3]
 
 
+def test_wave_loop_tokens_match_jax_recurrentgemma():
+    """RG-LRU layers and the local-attention ring cache in the wave loop."""
+    srv, jsrv, got, want = _serve_both(
+        jax_reduced(jax_get_config("recurrentgemma-2b")), batch=2, S0=20,
+        new=[4, 6, 3])
+    assert not srv.continuous and not jsrv.continuous
+    assert got == want
+    assert srv.stats == jsrv.stats
+
+
+def test_continuous_loop_tokens_match_jax_falcon_mamba():
+    """Mamba rows join mid-wave: their ``h`` and ``conv`` states are merged
+    row-wise into the live cache."""
+    srv, jsrv, got, want = _serve_both(
+        jax_reduced(jax_get_config("falcon-mamba-7b")), batch=2, S0=6,
+        new=[3, 5, 2, 4, 3])
+    assert srv.continuous and jsrv.continuous
+    assert got == want
+    assert srv.stats == jsrv.stats
+    assert srv.stats["prefills"] > 2          # admissions into a live wave
+    assert [len(got[i]) for i in range(5)] == [3, 5, 2, 4, 3]
+
+
+def test_merge_rows_carries_recurrent_states():
+    old = [{"h": torch.zeros(3, 4, 2), "conv": torch.zeros(3, 3, 4)}]
+    new = [{"h": torch.ones(3, 4, 2), "conv": torch.ones(3, 3, 4)}]
+    out = _merge_rows(old, new, torch.tensor([False, True, False]))
+    for key in ("h", "conv"):
+        assert out[0][key][1].eq(1).all()
+        assert out[0][key][[0, 2]].eq(0).all()
+
+
 def test_submit_guard_and_clock():
     cfg = get_config("serve-tiny")
     tick = iter(range(100))
@@ -104,6 +138,16 @@ def test_lm_decode_task_serves_on_cpu():
     assert all(len(t) == 3 for t in out["tokens"].values())
     assert out["stats"]["prefills"] == 2          # two waves of batch 2
     assert k.timings["exec"] > 0
+
+
+def test_lm_decode_task_serves_falcon_mamba_on_cpu():
+    k = Kernel("lm.decode")
+    k.arguments = {"arch": "reduced:falcon-mamba-7b", "device": "cpu",
+                   "requests": 3, "batch": 2, "new_tokens": 3}
+    out = k.execute()
+    assert out["served"] == 3
+    assert all(len(t) == 3 for t in out["tokens"].values())
+    assert out["stats"]["prefills"] == 2      # continuous loop: 2 admissions
 
 
 def test_resolve_device(monkeypatch):
