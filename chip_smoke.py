@@ -7,18 +7,19 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   build          compile every CUDA kernel from the sources in this checkout
                  (one nvcc per source, all started together)
   kernel ...     hold each kernel (flash_attention, linear_scan,
-                 selective_scan) against its plain PyTorch version on the
-                 card at the main paths' shapes, and time kernel, plain
+                 selective_scan, gmm) against its plain PyTorch version on
+                 the card at the main paths' shapes, and time kernel, plain
                  version, the nearest PyTorch library call (where one
                  computes the same function) and the card's bound
-  serve <arch>   full-width gemma2-2b, recurrentgemma-2b and falcon-mamba-7b
-                 (bf16, random weights from seed 0) through ``BatchedServer``:
-                 8 requests, batch 4, prompt 1024, 16 new tokens; asserts the
-                 loop (wave or continuous) and each kernel's launches per
-                 prefill; then one prefill of the first wave with
+  serve <arch>   full-width gemma2-2b, recurrentgemma-2b, falcon-mamba-7b
+                 and qwen3-moe-30b-a3b (bf16, random weights from seed 0;
+                 qwen3 needs ~65 GB) through ``BatchedServer``: 8 requests,
+                 batch 4, prompt 1024, 16 new tokens; asserts the loop (wave
+                 or continuous) and each kernel's launches per prefill and
+                 per decode step; then one prefill of the first wave with
                  ``impl="ref"`` (the plain versions): prefill logits within a
                  stated tolerance, and greedy tokens decoded from its cache
-                 against the served ones
+                 by ``impl="ref"`` decode steps against the served ones
   task           ``Kernel("lm.decode")`` on gemma2-2b on the card
   continuous     the continuous-batching loop on ``serve-tiny`` on the card
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -51,6 +52,8 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
                     "src/repro/kernels/rglru/pallas_kernel.py:34"),
     "selective_scan": ("src/repro_torch/kernels/mamba/csrc/selective_scan.cu",
                        "src/repro/kernels/mamba/pallas_kernel.py:41"),
+    "gmm": ("src/repro_torch/kernels/moe_gmm/csrc/gmm.cu",
+            "src/repro/kernels/moe_gmm/pallas_kernel.py:45"),
 }
 
 # name, B, Sq, Sk, H, KH, D, causal, window, softcap, scale, q_offset, dtype,
@@ -78,6 +81,9 @@ FA_CASES = [
          window=2048, q_offset=0, dtype="bfloat16", tol=3e-2, **RG),
     dict(name="recurrentgemma_window", B=1, Sq=4096, Sk=4096, causal=True,
          window=2048, q_offset=0, dtype="bfloat16", tol=3e-2, **RG),
+    dict(name="qwen3_serve", B=4, Sq=1024, Sk=1024, H=32, KH=4, D=128,
+         causal=True, window=0, softcap=0.0, scale=128 ** -0.5, q_offset=0,
+         dtype="bfloat16", tol=3e-2),
 ]
 
 # Scan cases.  Tolerances: a float32 output at 1e-4 (the serial chain is the
@@ -100,11 +106,41 @@ SS_CASES = [   # the serve shape of falcon-mamba-7b: x, Bm, C bf16, Bm and C
 ]
 DT_RANK = 256
 
-# serve phases: arch, the loop it must run, kernel launches per prefill
+# Grouped-matmul cases, x (E, C, D) @ w (E, D, F) with per-expert sizes.
+# "route": (T, k), the sizes of T tokens each sent to k distinct experts
+# drawn at random, as a random-weight router sends them, clipped to C; the
+# serve shapes are qwen3-moe-30b-a3b's: prefill (B=4, prompt 1024: T=4096,
+# C=384) for wi/wg and wo, and a decode step (T=4, C=8, ~28 live experts).
+# x ~ N(0, 1), w ~ 0.02 N(0, 1) as the model's weights.  Tolerances: bf16
+# one bf16 step of the largest output (kernel and plain version round f32
+# sums that agree to ~1e-6); f32 1e-4 (summation order).  Padding rows must
+# be exactly 0.
+GMM_CASES = [
+    dict(name="serve", E=128, C=384, D=2048, F=768, route=(4096, 8),
+         dtype="bfloat16"),
+    dict(name="wo", E=128, C=384, D=768, F=2048, route=(4096, 8),
+         dtype="bfloat16"),
+    dict(name="decode", E=128, C=8, D=2048, F=768, route=(4, 8),
+         dtype="bfloat16"),
+    dict(name="ragged", E=5, C=100, D=200, F=300, sizes=[0, 100, 37, 64, 1],
+         dtype="bfloat16"),
+    dict(name="ragged_aligned", E=6, C=200, D=136, F=264,
+         sizes=[200, 0, 129, 64, 1, 63], dtype="bfloat16"),
+    dict(name="empty", E=128, C=384, D=2048, F=768, sizes=[0] * 128,
+         dtype="bfloat16"),
+    dict(name="f32", E=8, C=256, D=512, F=384, route=(512, 2),
+         dtype="float32"),
+]
+
+# serve phases: arch, the loop it must run, kernel launches per prefill and
+# per decode step
 SERVE = [
-    ("gemma2-2b", "wave", {"flash_attention": 26}),
-    ("recurrentgemma-2b", "wave", {"linear_scan": 18, "flash_attention": 8}),
-    ("falcon-mamba-7b", "continuous", {"selective_scan": 64}),
+    ("gemma2-2b", "wave", {"flash_attention": 26}, {}),
+    ("recurrentgemma-2b", "wave", {"linear_scan": 18, "flash_attention": 8},
+     {}),
+    ("falcon-mamba-7b", "continuous", {"selective_scan": 64}, {}),
+    ("qwen3-moe-30b-a3b", "continuous", {"flash_attention": 48, "gmm": 144},
+     {"gmm": 144}),
 ]
 # Prefill logits, kernels against plain versions, bf16 through every layer:
 # the two round their outputs to bf16 at different elements, and the
@@ -148,8 +184,9 @@ def ptxas_report(log: str) -> dict:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             m = re.search(r"(flash_attention_fwd_(?:tc|cc)|linear_scan_kernel|"
-                          r"selective_scan_kernel)I(.+?)EE+v", entry[1])
-            name = f"{m[1]}<{m[2]}>" if m else entry[1]
+                          r"selective_scan_kernel|gmm_tc)I(.+?)EE+v", entry[1])
+            name = (f"{m[1]}<{m[2]}>" if m else
+                    "gmm_cc" if "gmm_cc" in entry[1] else entry[1])
         elif name and ("registers" in line or "spill" in line):
             out[name] = (out.get(name, "") + " " +
                          line.split(":", 1)[-1].strip()).strip()
@@ -335,6 +372,74 @@ def phase_kernel_selective_scan(dev):
     return results
 
 
+def _gmm_sizes(c, gen, dev):
+    import torch
+    if "sizes" in c:
+        return torch.tensor(c["sizes"], dtype=torch.int32, device=dev)
+    T, k = c["route"]
+    idx = torch.rand((T, c["E"]), generator=gen, device=dev).topk(k).indices
+    counts = torch.zeros(c["E"], dtype=torch.int32, device=dev).scatter_add_(
+        0, idx.reshape(-1), torch.ones(T * k, dtype=torch.int32, device=dev))
+    return counts.clamp(max=c["C"])
+
+
+def phase_kernel_gmm(dev):
+    import torch
+
+    from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+    gen = torch.Generator(device=dev).manual_seed(3)
+    results = {}
+    for c in GMM_CASES:
+        dt = getattr(torch, c["dtype"])
+        E, C, D, F = c["E"], c["C"], c["D"], c["F"]
+        x = torch.randn((E, C, D), generator=gen, device=dev).to(dt)
+        w = (0.02 * torch.randn((E, D, F), generator=gen, device=dev)).to(dt)
+        sizes = _gmm_sizes(c, gen, dev)
+        out = gmm(x, w, sizes)
+        torch.cuda.synchronize()
+        ref = gmm_ref(x, w, sizes)
+        err = float((out.float() - ref.float()).abs().max())
+        scale = max(1.0, float(ref.float().abs().max()))
+        tol = 2.0 ** -7 * scale if c["dtype"] == "bfloat16" else 1e-4
+        valid = torch.arange(C, device=dev)[None, :] < sizes[:, None]
+        padding_zero = bool((out[~valid] == 0).all())
+        finite = bool(torch.isfinite(out.float()).all())
+        del ref
+        big = E * C * D > 10_000_000
+        ms = time_ms(lambda: gmm(x, w, sizes), 10 if big else 50)
+        plain_ms = time_ms(lambda: gmm_ref(x, w, sizes), 2 if big else 10)
+        library_ms = time_ms(lambda: torch.bmm(x, w), 10 if big else 50)
+
+        live_rows = int(sizes.sum())
+        live_experts = int((sizes > 0).sum())
+        esz = x.element_size()
+        flops = 2 * live_rows * D * F
+        nbytes = (live_rows * D + live_experts * D * F + E * C * F) * esz \
+            + 4 * E
+        t_ops = flops / PEAK_FLOPS[c["dtype"]]
+        t_bytes = nbytes / PEAK_BYTES
+        ok = finite and padding_zero and err <= tol
+        row = {"phase": "kernel gmm", "case": c["name"],
+               "shape": {n: c[n] for n in ("E", "C", "D", "F")},
+               "dtype": c["dtype"], "live_rows": live_rows,
+               "live_experts": live_experts, "max_abs_err": err, "tol": tol,
+               "all_padding_zero": padding_zero, "ok": ok, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library": "torch.bmm in x's dtype over every row and expert",
+               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"gmm case {c['name']}: max error {err} > "
+                                 f"{tol}, padding rows zero={padding_zero}, "
+                                 f"finite={finite}")
+        results[c["name"]] = row
+        del x, w, sizes, out, valid
+        torch.cuda.empty_cache()
+    return results
+
+
 def _requests(cfg, n, S0, new, seed=0):
     import numpy as np
 
@@ -358,13 +463,17 @@ def _greedy(step, params, out, S0, new, dev):
     return torch.stack(toks, 1).tolist()
 
 
-def phase_serve(dev, arch, loop, per_prefill):
+def phase_serve(dev, arch, loop, per_prefill, per_decode):
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import init_params
-    from repro_torch.serve import BatchedServer, build_prefill_step
+    from repro_torch.serve import (
+        BatchedServer,
+        build_prefill_step,
+        build_serve_step,
+    )
 
     cfg = get_config(arch).replace(param_dtype="bfloat16")
     B, S0, NEW, NREQ = 4, 1024, 16, 8
@@ -398,13 +507,15 @@ def phase_serve(dev, arch, loop, per_prefill):
     launches = dict(LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     tokens = {r.rid: r.out_tokens for r in done}
-    prefills = srv.stats["prefills"]
-    want = {k: per_prefill.get(k, 0) * prefills for k in launches}
+    prefills, steps = srv.stats["prefills"], srv.stats["decode_steps"]
+    want = {k: per_prefill.get(k, 0) * prefills + per_decode.get(k, 0) * steps
+            for k in launches}
     if srv.continuous != (loop == "continuous") or prefills != 2 \
             or launches != want:
         raise AssertionError(f"{arch}: continuous={srv.continuous}, "
-                             f"{prefills} prefills, launches {launches}; "
-                             f"expected the {loop} loop, 2 prefills, {want}")
+                             f"{prefills} prefills, {steps} decode steps, "
+                             f"launches {launches}; expected the {loop} "
+                             f"loop, 2 prefills, {want}")
     ntok = sum(len(t) for t in tokens.values())
     if len(tokens) != NREQ or any(len(t) != NEW or min(t) < 0 or
                                   max(t) >= cfg.vocab_size
@@ -423,7 +534,8 @@ def phase_serve(dev, arch, loop, per_prefill):
         torch.cuda.synchronize()
         prefill_ref_ms = 1e3 * (time.perf_counter() - t)
         lr = out_r["logits"]
-        ref_tokens = _greedy(srv.step, params, out_r, S0, NEW, dev)
+        ref_tokens = _greedy(build_serve_step(cfg, impl="ref"), params,
+                             out_r, S0, NEW, dev)
         del out_r
         lk = pre_k(params, {"tokens": wave})["logits"]
         logit_err = float((lk - lr).abs().max())
@@ -449,14 +561,19 @@ def phase_serve(dev, arch, loop, per_prefill):
     row = {"phase": f"serve {arch}", "arch": cfg.name, "dtype": cfg.dtype,
            "param_dtype": cfg.param_dtype, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-           "lru_width": cfg.lru_width, "d_inner": cfg.d_inner,
-           "ssm_state": cfg.ssm_state, "params": n_params,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.head_dim, "lru_width": cfg.lru_width,
+           "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+           "num_experts": cfg.num_experts,
+           "experts_per_tok": cfg.experts_per_tok,
+           "expert_ff": cfg.expert_ff if cfg.num_experts else 0,
+           "params": n_params,
            "param_gb": n_bytes / 1e9, "init_s": init_s, "batch": B,
            "requests": NREQ, "prompt_len": S0, "new_tokens": NEW,
            "loop": "continuous" if srv.continuous else "wave",
            "stats": srv.stats, "launches": launches,
-           "launches_per_prefill": {k: v / prefills
-                                    for k, v in launches.items() if v},
+           "launches_per_prefill": per_prefill,
+           "launches_per_decode_step": per_decode,
            "wall_s": wall, "tokens_per_s": ntok / wall,
            "prefill_ms": prefill_ms, "prefill_ref_ms": prefill_ref_ms,
            "decode_step_ms": decode_ms,
@@ -464,8 +581,10 @@ def phase_serve(dev, arch, loop, per_prefill):
            "greedy_token_agreement": same / (B * NEW),
            "prefill_argmax_agreement": argmax_same,
            "prefill_top2_gap_min": float((top2[:, 0] - top2[:, 1]).min()),
-           "greedy_compared": "first wave's served tokens against tokens "
-                              "decoded from the impl='ref' prefill's cache",
+           "greedy_compared": "first wave's served tokens (kernels) against "
+                              "tokens decoded by impl='ref' decode steps "
+                              "(plain versions) from the impl='ref' "
+                              "prefill's cache",
            "peak_mem_gb": peak_gb}
     emit(row)
     if not finite or logit_err > tol:
@@ -571,11 +690,12 @@ def main() -> int:
     with torch.inference_mode():
         cases = {"flash_attention": phase_kernel_flash_attention(dev),
                  "linear_scan": phase_kernel_linear_scan(dev),
-                 "selective_scan": phase_kernel_selective_scan(dev)}
+                 "selective_scan": phase_kernel_selective_scan(dev),
+                 "gmm": phase_kernel_gmm(dev)}
         _release()
         launches = {name: {} for name in KERNELS}
-        for arch, loop, per_prefill in SERVE:
-            row = phase_serve(dev, arch, loop, per_prefill)
+        for arch, loop, per_prefill, per_decode in SERVE:
+            row = phase_serve(dev, arch, loop, per_prefill, per_decode)
             for name, n in row["launches"].items():
                 if n:
                     launches[name][arch] = n

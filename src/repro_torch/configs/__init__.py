@@ -7,7 +7,12 @@ from repro_torch.configs.base import (  # noqa: F401
     register,
 )
 
-from repro_torch.configs import falcon_mamba_7b, gemma2_2b, recurrentgemma_2b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    falcon_mamba_7b,
+    gemma2_2b,
+    qwen3_moe_30b_a3b,
+    recurrentgemma_2b,
+)
 
 # The small dense model the serving plugins decode with when no arch is
 # given (``repro/plugins/serve.py::_serve_cfg``): all-global attention, so

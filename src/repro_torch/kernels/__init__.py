@@ -9,7 +9,7 @@ from __future__ import annotations
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "linear_scan": 0,
-                             "selective_scan": 0}
+                             "selective_scan": 0, "gmm": 0}
 
 
 def reset_launches() -> None:

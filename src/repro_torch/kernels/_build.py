@@ -26,6 +26,7 @@ SOURCES: Dict[str, str] = {
     "flash_attention_fwd": "flash_attention/csrc/flash_attention_fwd.cu",
     "linear_scan": "rglru/csrc/linear_scan.cu",
     "selective_scan": "mamba/csrc/selective_scan.cu",
+    "gmm": "moe_gmm/csrc/gmm.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -3,7 +3,7 @@ steps of a full-width model (bf16 params, random weights from seed 0) on
 the GPU, and print one JSON line per step kind.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--arch gemma2-2b|recurrentgemma-2b|falcon-mamba-7b]
+        [--arch gemma2-2b|recurrentgemma-2b|falcon-mamba-7b|qwen3-moe-30b-a3b]
 
 The shape is the serve phases of ``chip_smoke.py``: batch 4, prompt 1024,
 8 decode steps.  Each line holds the host wall time per call (ending in a
@@ -30,6 +30,7 @@ B, S0, DECODE_STEPS = 4, 1024, 8
 _GROUPS = (("flash_attention", ("flash_attention_fwd",)),
            ("linear_scan", ("linear_scan_kernel",)),
            ("selective_scan", ("selective_scan_kernel",)),
+           ("gmm", ("gmm_tc", "gmm_cc")),
            ("matmul", ("gemm", "gemv", "nvjet", "sm90", "cutlass", "xmma",
                        "cublas")),
            ("copy_cast", ("copy", "convert", "cast")))
@@ -62,7 +63,7 @@ def _profile(fn, calls: int, dev):
     groups: dict = {}
     for name, ms in kernels.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + ms
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     return {"wall_ms": wall_ms,
             "device_ms": busy if busy else "not measured",
             "idle_share": 1 - busy / wall_ms if busy else "not measured",

@@ -2,6 +2,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --reduced --device cpu
 """

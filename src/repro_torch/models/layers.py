@@ -1,5 +1,6 @@
 """Model substrate layers: norms, rope, MLP variants, GQA attention (prefill
-and single-token decode), the Griffin RG-LRU mixer and the Mamba-1 mixer.
+and single-token decode), the mixture-of-experts FFN, the Griffin RG-LRU
+mixer and the Mamba-1 mixer.
 
 Conventions (as in ``repro.models.layers``):
   * params stored in ``cfg.param_dtype``; compute in ``cfg.dtype``
@@ -8,9 +9,8 @@ Conventions (as in ``repro.models.layers``):
     ``param_dtype`` is, as do the scan states.
   * activations layout (B, S, D); attention heads (B, S, H, head_dim).
   * params are plain dicts of tensors; randomness comes from an explicit
-    ``torch.Generator`` on the device the tensors are made on.
-
-The MoE mixer is not ported yet.
+    ``torch.Generator`` on the device the tensors are made on.  The MoE
+    router stays float32 too.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.mamba.ops import selective_scan, selective_step
+from repro_torch.kernels.moe_gmm.ops import gmm
 from repro_torch.kernels.rglru.ops import linear_scan
 
 Params = Dict[str, Any]
@@ -257,6 +258,110 @@ def attn_decode(cfg: ModelConfig, p: Params, x, cache: Params, positions,
 def attn_decode_cross(cfg: ModelConfig, p: Params, x, cache: Params):
     """Cross-attention decode (encoder-decoder models): not ported yet."""
     raise NotImplementedError("cross-attention decode is not ported yet")
+
+
+# ---------------------------------------------------------------- MoE
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    D, Fe, E = cfg.d_model, cfg.expert_ff, cfg.num_experts
+    std = 0.02
+    std_out = 0.02 / math.sqrt(2 * cfg.num_layers)
+    p = {"router": _normal(gen, (D, E), std, torch.float32),
+         "wi": _normal(gen, (E, D, Fe), std, _pd(cfg)),
+         "wo": _normal(gen, (E, Fe, D), std_out, _pd(cfg))}
+    if cfg.mlp in ("swiglu", "geglu"):
+        p["wg"] = _normal(gen, (E, D, Fe), std, _pd(cfg))
+    return p
+
+
+def _moe_local(cfg: ModelConfig, p: Params, xt, capacity_factor: float,
+               impl: Optional[str] = None):
+    """Sort+scatter dispatch over every expert, as
+    ``repro.models.layers._moe_local`` with the whole expert population
+    local (``e_base=0``, ``E_local=E``: its ``mesh=None`` branch).
+
+    xt: (T, D) tokens.  Returns (y (T, D), aux load-balance loss).  The
+    router runs in f32; top-k weights are renormalised; assignments past an
+    expert's capacity C go to a spare row and are dropped.  Nothing here
+    waits for the device: counts are built with ``scatter_add_`` and C
+    depends only on T, k, E and ``capacity_factor``.
+
+    The combine is deterministic (no atomics): each token's k contributions
+    ``back * w`` (rounded to ``ye``'s dtype) are added one after another in
+    xt's dtype, starting from 0, in their order in the sorted dispatch
+    (ascending expert id).  That is the order and the rounding of the JAX
+    reference's ``zeros.at[tid_s].add(...)`` on the CPU.
+    """
+    T, D = xt.shape
+    E, k = cfg.num_experts, cfg.experts_per_tok
+    dev = xt.device
+    logits = xt.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)                        # (T, E)
+    wts, idx = torch.topk(probs, k, dim=-1, sorted=True)         # (T, k)
+    wts = wts / wts.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    eids = idx.reshape(-1)                                       # (T*k,)
+    tids = torch.arange(T, device=dev).repeat_interleave(k)
+    counts = torch.zeros((E,), dtype=torch.int32, device=dev).scatter_add_(
+        0, eids, torch.ones_like(eids, dtype=torch.int32))
+    # aux loss (switch-style)
+    aux = E * (counts.float() / (T * k) * probs.mean(dim=0)).sum()
+
+    order = torch.argsort(eids, stable=True)
+    e_s = eids[order]
+    tid_s = tids[order]
+    w_s = wts.reshape(-1)[order]
+    pos_in_e = (torch.arange(T * k, device=dev)
+                - (torch.cumsum(counts, 0) - counts)[e_s])
+
+    cap_block = 128 if T * k // E >= 128 else 8
+    C = max(cap_block,
+            _round_up(int(math.ceil(T * k / E * capacity_factor)), cap_block))
+    keep = pos_in_e < C
+    slot = torch.where(keep, e_s * C + pos_in_e, torch.full_like(e_s, E * C))
+
+    xe = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=dev)
+    xe[slot] = xt[tid_s] * keep[:, None].to(xt.dtype)
+    xe = xe[:-1].reshape(E, C, D)
+    group_sizes = torch.clamp(counts, max=C)
+
+    hi = gmm(xe, cast(cfg, p["wi"]), group_sizes, impl=impl)
+    hg = (gmm(xe, cast(cfg, p["wg"]), group_sizes, impl=impl)
+          if "wg" in p else None)
+    h = _mlp_act(cfg, hi, hg)
+    ye = gmm(h, cast(cfg, p["wo"]), group_sizes, impl=impl)
+
+    flat = torch.cat([ye.reshape(E * C, D),
+                      torch.zeros((1, D), dtype=ye.dtype, device=dev)])
+    contrib = flat[slot] * keep[:, None].to(ye.dtype) * w_s[:, None].to(
+        ye.dtype)
+    # each token's k positions in the sorted order, ascending
+    rank = torch.empty_like(order).scatter_(
+        0, order, torch.arange(T * k, device=dev))
+    rank = rank.view(T, k).sort(dim=1).values
+    y = torch.zeros((T, D), dtype=xt.dtype, device=dev)
+    for j in range(k):
+        y = y + contrib[rank[:, j]]
+    return y, aux
+
+
+def apply_moe(cfg: ModelConfig, p: Params, x, *, mesh=None,
+              capacity_factor: float = 1.25, impl: Optional[str] = None):
+    """Returns (y, aux_loss).  The local dispatch (``mesh=None``) only:
+    expert parallelism over a device mesh is not ported yet.  ``impl`` goes
+    to ``gmm`` (None or "ref")."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "apply_moe over a device mesh (expert parallelism) is not "
+            "ported yet")
+    B, S, D = x.shape
+    y, aux = _moe_local(cfg, p, x.reshape(-1, D), capacity_factor,
+                        impl=impl)
+    return y.reshape(B, S, D), aux
 
 
 # ---------------------------------------------------------------- conv1d

@@ -1,13 +1,14 @@
 """Decoder: parameter init, forward (prefill) and decode step.
 
 Counterpart of ``repro.models.transformer`` for the layer kinds "global" and
-"local" (attention), "rec" (RG-LRU, recurrentgemma) and "mamba" (Mamba-1,
-falcon-mamba); mixture-of-experts layers, encoders and vision tokens are not
-ported yet.  Where the JAX package scans stacked ``(G, ...)``
-parameter groups with ``lax.scan``, the port keeps one parameter dict per
-layer in ``params["layers"]`` (layer ``i`` has kind ``cfg.layer_kind(i)``)
-and loops over them in Python; ``models.convert`` maps between the two
-layouts.  The decode cache is likewise a list with one dict per layer.
+"local" (attention, with a dense MLP or a mixture-of-experts FFN), "rec"
+(RG-LRU, recurrentgemma) and "mamba" (Mamba-1, falcon-mamba); encoders and
+vision tokens are not ported yet.  Where the JAX package scans stacked
+``(G, ...)`` parameter groups with ``lax.scan``, the port keeps one
+parameter dict per layer in ``params["layers"]`` (layer ``i`` has kind
+``cfg.layer_kind(i)``) and loops over them in Python; ``models.convert``
+maps between the two layouts.  The decode cache is likewise a list with one
+dict per layer.
 """
 from __future__ import annotations
 
@@ -30,12 +31,11 @@ _KINDS = _ATTN_KINDS + _REC_KINDS
 
 def _check_ported(cfg: ModelConfig) -> None:
     bad = sorted({k for k in cfg.layer_kinds if k not in _KINDS})
-    if bad or cfg.num_experts or cfg.encoder_layers or cfg.vision_tokens:
+    if bad or cfg.encoder_layers or cfg.vision_tokens:
         raise NotImplementedError(
-            f"{cfg.name}: only decoders of {'/'.join(_KINDS)} layers without "
-            f"experts are ported so far (found kinds {bad}, experts "
-            f"{cfg.num_experts}, encoder layers {cfg.encoder_layers}, vision "
-            f"tokens {cfg.vision_tokens})")
+            f"{cfg.name}: only decoders of {'/'.join(_KINDS)} layers are "
+            f"ported so far (found kinds {bad}, encoder layers "
+            f"{cfg.encoder_layers}, vision tokens {cfg.vision_tokens})")
 
 
 # ---------------------------------------------------------------- init
@@ -57,7 +57,10 @@ def _init_block(cfg: ModelConfig, gen: torch.Generator, kind: str) -> Params:
     if cfg.post_norms:
         p["ln1_post"] = L.init_norm(cfg, dev)
     p["ln2"] = L.init_norm(cfg, dev)
-    p["mlp"] = L.init_mlp(cfg, gen)
+    if cfg.num_experts:
+        p["moe"] = L.init_moe(cfg, gen)
+    else:
+        p["mlp"] = L.init_mlp(cfg, gen)
     if cfg.post_norms:
         p["ln2_post"] = L.init_norm(cfg, dev)
     return p
@@ -93,7 +96,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 def forward_block(cfg: ModelConfig, bp: Params, h, kind: str, *, positions,
                   seg_ids, cache_len: Optional[int],
                   impl: Optional[str] = None):
-    """Returns (h, cache_or_None).  ``impl`` goes to the block's kernel."""
+    """Returns (h, aux, cache_or_None); aux is the MoE load-balance loss
+    (0 without experts).  ``impl`` goes to the block's kernels."""
     cache = None
     xin = L.apply_norm(cfg, bp["ln1"], h)
     if kind in _REC_KINDS:
@@ -102,7 +106,7 @@ def forward_block(cfg: ModelConfig, bp: Params, h, kind: str, *, positions,
             m, cache = mixer(cfg, bp[kind], xin, return_state=True, impl=impl)
         else:
             m = mixer(cfg, bp[kind], xin, impl=impl)
-        return _rec_mlp(cfg, bp, h + m), cache
+        return _rec_mlp(cfg, bp, h + m), 0.0, cache
     if cache_len:
         a, cache = _attn_with_cache(cfg, bp["attn"], xin, kind=kind,
                                     positions=positions, seg_ids=seg_ids,
@@ -113,10 +117,17 @@ def forward_block(cfg: ModelConfig, bp: Params, h, kind: str, *, positions,
     if cfg.post_norms:
         a = L.apply_norm(cfg, bp["ln1_post"], a)
     h = h + a
-    y = L.apply_mlp(cfg, bp["mlp"], L.apply_norm(cfg, bp["ln2"], h))
+    y, aux = _ffn(cfg, bp, L.apply_norm(cfg, bp["ln2"], h), impl)
     if cfg.post_norms:
         y = L.apply_norm(cfg, bp["ln2_post"], y)
-    return h + y, cache
+    return h + y, aux, cache
+
+
+def _ffn(cfg: ModelConfig, bp: Params, x, impl: Optional[str]):
+    """The FFN half of an attention block: (y, aux), aux 0 for a dense MLP."""
+    if "moe" in bp:
+        return L.apply_moe(cfg, bp["moe"], x, impl=impl)
+    return L.apply_mlp(cfg, bp["mlp"], x), 0.0
 
 
 def _rec_mlp(cfg: ModelConfig, bp: Params, h):
@@ -157,8 +168,9 @@ def _attn_with_cache(cfg, p, x, *, kind, positions, seg_ids, cache_len,
 
 
 def decode_block(cfg: ModelConfig, bp: Params, h, cache: Params, kind: str,
-                 *, positions):
-    """Single-token step.  h: (B,1,D).  Returns (h, cache)."""
+                 *, positions, impl: Optional[str] = None):
+    """Single-token step.  h: (B,1,D).  Returns (h, cache).  ``impl`` goes
+    to the block's kernels (the MoE FFN's ``gmm``)."""
     xin = L.apply_norm(cfg, bp["ln1"], h)
     if kind in _REC_KINDS:
         step = L.rglru_decode if kind == "rec" else L.mamba_decode
@@ -169,7 +181,7 @@ def decode_block(cfg: ModelConfig, bp: Params, h, cache: Params, kind: str,
     if cfg.post_norms:
         a = L.apply_norm(cfg, bp["ln1_post"], a)
     h = h + a
-    y = L.apply_mlp(cfg, bp["mlp"], L.apply_norm(cfg, bp["ln2"], h))
+    y, _ = _ffn(cfg, bp, L.apply_norm(cfg, bp["ln2"], h), impl)
     if cfg.post_norms:
         y = L.apply_norm(cfg, bp["ln2_post"], y)
     return h + y, cache
@@ -208,8 +220,8 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     ``cache_len``: when set, collect a decode cache (prefill mode); caches
     for global-attention layers are padded to this length.
     ``impl``: passed to every kernel wrapper on the path
-    (``flash_attention``, ``linear_scan``, ``selective_scan``): None (the
-    tensors' device decides) or "ref" (the plain versions).
+    (``flash_attention``, ``linear_scan``, ``selective_scan``, ``gmm``):
+    None (the tensors' device decides) or "ref" (the plain versions).
     """
     _check_ported(cfg)
     B, S = tokens.shape
@@ -218,13 +230,14 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
                                  device=tokens.device)[None].expand(B, S)
     h = embed_tokens(cfg, params, tokens, positions)
     cache: Cache = []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, bp in enumerate(params["layers"]):
-        h, c = forward_block(cfg, bp, h, cfg.layer_kind(i),
-                             positions=positions, seg_ids=seg_ids,
-                             cache_len=cache_len, impl=impl)
+        h, a, c = forward_block(cfg, bp, h, cfg.layer_kind(i),
+                                positions=positions, seg_ids=seg_ids,
+                                cache_len=cache_len, impl=impl)
+        aux = aux + a
         cache.append(c)
     h = L.apply_norm(cfg, params["final_norm"], h)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return {"h": h, "aux": aux,
             "cache": cache if cache_len is not None else None}
 
@@ -232,14 +245,15 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
 # ---------------------------------------------------------------- decode
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache, tokens,
-                positions):
+                positions, impl: Optional[str] = None):
     """One token for the whole batch.  tokens: (B,1); positions: (B,)
-    per-row offsets.  Returns (logits (B,1,V), cache updated in place)."""
+    per-row offsets.  Returns (logits (B,1,V), cache updated in place).
+    ``impl`` as in ``forward``."""
     h = embed_tokens(cfg, params, tokens, positions[:, None])
     new_cache: Cache = []
     for i, bp in enumerate(params["layers"]):
         h, c = decode_block(cfg, bp, h, cache[i], cfg.layer_kind(i),
-                            positions=positions)
+                            positions=positions, impl=impl)
         new_cache.append(c)
     h = L.apply_norm(cfg, params["final_norm"], h)
     return lm_logits(cfg, params, h), new_cache

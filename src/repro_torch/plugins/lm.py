@@ -1,8 +1,8 @@
 """LM kernel plugins: the science workloads an ensemble schedules.
 
 Only ``lm.decode`` is ported so far; it serves every ported arch
-(gemma2-2b, recurrentgemma-2b, falcon-mamba-7b, serve-tiny, and the
-``reduced:<arch>`` forms).  ``lm.train``, ``lm.eval`` and ``lm.checkpoint``
+(gemma2-2b, recurrentgemma-2b, falcon-mamba-7b, qwen3-moe-30b-a3b,
+serve-tiny, and the ``reduced:<arch>`` forms).  ``lm.train``, ``lm.eval`` and ``lm.checkpoint``
 come with the training port.
 """
 from __future__ import annotations

@@ -30,10 +30,11 @@ def build_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None,
     return prefill_step
 
 
-def build_serve_step(cfg: ModelConfig):
-    """decode: one new token for the whole batch against the cache."""
+def build_serve_step(cfg: ModelConfig, impl: Optional[str] = None):
+    """decode: one new token for the whole batch against the cache.
+    ``impl`` goes to every kernel wrapper of the step, as in prefill."""
     def serve_step(params, cache, tokens, positions):
-        return decode_step(cfg, params, cache, tokens, positions)
+        return decode_step(cfg, params, cache, tokens, positions, impl=impl)
     return serve_step
 
 
@@ -74,9 +75,10 @@ class BatchedServer:
     run the synchronized wave loop instead (no mid-wave admission).
 
     ``device`` is where params, tokens and caches live (default ``cuda``);
-    ``impl`` goes to every kernel of the prefill (attention and the scans;
-    None: the device decides; "ref": the plain versions).  ``clock`` stamps
-    ``Request.submitted_at`` and ``done_at``.
+    ``impl`` goes to every kernel of prefill and decode (attention, the
+    scans and the MoE grouped matmul; None: the device decides; "ref": the
+    plain versions).  ``clock`` stamps ``Request.submitted_at`` and
+    ``done_at``.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, batch: int,
@@ -91,7 +93,7 @@ class BatchedServer:
             cfg.layer_kind(i) == "local" for i in range(cfg.num_layers)))
         self.prefill = build_prefill_step(cfg, cache_len=max_len,
                                           impl=impl)
-        self.step = build_serve_step(cfg)
+        self.step = build_serve_step(cfg, impl=impl)
         self.queue: collections.deque = collections.deque()
         self.stats = {"served": 0, "decode_steps": 0, "prefills": 0,
                       "slot_steps": 0}

@@ -1,6 +1,7 @@
 """The port's models against the JAX package's, on reduced configs in f32:
-the dense attention archs, and recurrentgemma-2b (RG-LRU + local attention)
-and falcon-mamba-7b (Mamba-1), whose scans run their plain versions here.
+the dense attention archs, recurrentgemma-2b (RG-LRU + local attention),
+falcon-mamba-7b (Mamba-1) and qwen3-moe-30b-a3b (mixture of experts), whose
+scans and grouped matmuls run their plain versions here.
 
 Parameters come from the JAX ``init_params`` and reach the port through
 ``params_from_numpy``; token ids come from numpy.  JAX runs its default
@@ -37,6 +38,7 @@ from repro_torch.models.convert import (  # noqa: E402
 
 DENSE_ARCHS = ["gemma2-2b", "gemma3-4b", "minicpm-2b", "nemotron-4-15b"]
 SCAN_ARCHS = ["recurrentgemma-2b", "falcon-mamba-7b"]
+MOE_ARCHS = ["qwen3-moe-30b-a3b"]
 ATOL = 1e-4
 
 
@@ -59,14 +61,14 @@ def _tokens(cfg, B, S, seed=1):
 
 
 def test_configs_match_jax():
-    for name in ("gemma2-2b", *SCAN_ARCHS):
+    for name in ("gemma2-2b", *SCAN_ARCHS, *MOE_ARCHS):
         jcfg = jax_get_config(name)
         assert get_config(name) == port_cfg(jcfg)
         assert reduced(get_config(name)) == port_cfg(jax_reduced(jcfg))
         assert get_config(name).param_count() == jcfg.param_count()
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + SCAN_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + SCAN_ARCHS + MOE_ARCHS)
 def test_init_params_match_jax_layout(arch):
     jcfg = jax_reduced(jax_get_config(arch))
     want = {k: (v.shape, str(v.dtype)) for k, v in
@@ -78,7 +80,7 @@ def test_init_params_match_jax_layout(arch):
     assert {k: (v.shape, str(v.dtype)) for k, v in mine.items()} == want
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS + SCAN_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + SCAN_ARCHS + MOE_ARCHS)
 def test_forward_matches_jax(arch):
     jcfg, jparams, cfg, params, _ = _setup(arch)
     tok = _tokens(cfg, 2, 32)
@@ -127,7 +129,7 @@ def test_decode_step_matches_jax():
                                    atol=ATOL)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", DENSE_ARCHS + MOE_ARCHS)
 def test_prefill_decode_matches_forward(arch):
     """As ``test_models.py``: prefill-then-decode equals the full forward."""
     cfg = reduced(port_cfg(jax_get_config(arch)))
@@ -160,8 +162,8 @@ def test_params_roundtrip_exact():
 
 
 def test_unported_kinds_raise():
-    """Experts (qwen3-moe) and encoders (whisper) are not ported yet."""
-    for arch in ("qwen3-moe-30b-a3b", "whisper-large-v3"):
+    """Vision tokens (internvl2) and encoders (whisper) are not ported yet."""
+    for arch in ("internvl2-26b", "whisper-large-v3"):
         cfg = port_cfg(jax_reduced(jax_get_config(arch)))
         with pytest.raises(NotImplementedError):
             init_params(cfg, torch.Generator().manual_seed(0))
@@ -283,3 +285,82 @@ def test_scan_params_carry_layout_and_float32_leaves(arch):
     assert set(back) == set(flat)
     for key, arr in flat.items():
         np.testing.assert_array_equal(back[key], arr.astype(np.float32))
+
+
+# ---------------------------------------------------------------- MoE
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_aux_and_prefill_cache_match_jax(arch):
+    """The summed load-balance loss of the MoE layers, and the kv cache."""
+    jcfg, jparams, cfg, params, _ = _setup(arch)
+    tok = _tokens(cfg, 2, 24)
+    jout = jax_forward(jcfg, jparams, jnp.asarray(tok), cache_len=40)
+    out = forward(cfg, params, torch.from_numpy(tok).long(), cache_len=40)
+    assert float(out["aux"]) > 0
+    np.testing.assert_allclose(float(out["aux"]), float(jout["aux"]),
+                               atol=ATOL)
+    np.testing.assert_allclose(out["h"].numpy(), np.asarray(jout["h"]),
+                               atol=ATOL)
+    want = _jax_cache_layers(jout["cache"], cfg)
+    assert len(out["cache"]) == len(want) == cfg.num_layers
+    for g, w in zip(out["cache"], want):
+        assert set(g) == set(w) == {"k", "v"}
+        for key in g:
+            assert g[key].shape == w[key].shape and g[key].dtype == w[key].dtype
+            np.testing.assert_allclose(g[key].numpy(), w[key].numpy(),
+                                       atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_steps_match_jax(arch):
+    jcfg, jparams, cfg, params, _ = _setup(arch)
+    B, S, EXTRA = 2, 24, 4
+    tok = _tokens(cfg, B, S + EXTRA)
+    jcache = jax_forward(jcfg, jparams, jnp.asarray(tok[:, :S]),
+                         cache_len=40)["cache"]
+    cache = _jax_cache_layers(jcache, cfg)
+    for t in range(EXTRA):
+        pos = np.full((B,), S + t, np.int32)
+        step = tok[:, S + t:S + t + 1]
+        jlogits, jcache = jax_decode_step(jcfg, jparams, jcache,
+                                          jnp.asarray(step), jnp.asarray(pos))
+        logits, cache = decode_step(cfg, params, cache,
+                                    torch.from_numpy(step).long(),
+                                    torch.from_numpy(pos))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_params_roundtrip_exact(arch):
+    """bf16 params: the router stays f32, and ``wi``/``wg`` (E, D, F) and
+    ``wo`` (E, F, D) are stacked as (G, E, ...) under ``blocks/sub_0/moe``;
+    both directions of the conversion are exact."""
+    jcfg = jax_reduced(jax_get_config(arch)).replace(param_dtype="bfloat16")
+    flat = {k: np.asarray(v) for k, v in _flatten(
+        jax_init_params(jcfg, jax.random.PRNGKey(0))).items()}
+    cfg = port_cfg(jcfg)
+    E, D, Fe, G = cfg.num_experts, cfg.d_model, cfg.expert_ff, cfg.num_layers
+    moe = {k.rsplit("/", 1)[-1]: v for k, v in flat.items()
+           if k.startswith("blocks/sub_0/moe/")}
+    assert {k: v.shape for k, v in moe.items()} == {
+        "router": (G, D, E), "wi": (G, E, D, Fe), "wg": (G, E, D, Fe),
+        "wo": (G, E, Fe, D)}
+    assert moe["router"].dtype == np.float32
+    params = params_from_numpy(flat, cfg)
+    mine = init_params(cfg, torch.Generator().manual_seed(0))
+    for layer, ref in zip(params["layers"], mine["layers"]):
+        assert "mlp" not in layer and set(layer["moe"]) == set(ref["moe"])
+        for key, t in layer["moe"].items():
+            assert (t.dtype, t.shape) == (ref["moe"][key].dtype,
+                                          ref["moe"][key].shape), key
+        assert layer["moe"]["router"].dtype == torch.float32
+        assert layer["moe"]["wi"].dtype == torch.bfloat16
+    back = params_to_numpy(params, cfg)
+    assert set(back) == set(flat)
+    for key, arr in flat.items():
+        np.testing.assert_array_equal(back[key], arr.astype(np.float32))
+    for g in range(G):
+        np.testing.assert_array_equal(
+            params["layers"][g]["moe"]["wo"].float().numpy(),
+            moe["wo"][g].astype(np.float32))

@@ -3,8 +3,8 @@
 Both ``BatchedServer``s get the same params (JAX ``init_params`` through
 ``params_from_numpy``) and the same numpy prompts; their greedy tokens must
 be identical, in the wave loop (reduced gemma2-2b and recurrentgemma-2b,
-sliding-window layers) and in the continuous loop (``serve-tiny`` and
-reduced falcon-mamba-7b, unequal ``max_new_tokens``).
+sliding-window layers) and in the continuous loop (``serve-tiny``, reduced
+falcon-mamba-7b and reduced qwen3-moe-30b-a3b, unequal ``max_new_tokens``).
 """
 import dataclasses
 import re
@@ -28,6 +28,8 @@ from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core.kernel_plugin import Kernel, kernel_names  # noqa: E402
+from repro_torch.kernels.moe_gmm import gmm_ref  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.serve import BatchedServer, Request  # noqa: E402
 from repro_torch.serve.engine import _merge_rows  # noqa: E402
@@ -106,6 +108,44 @@ def test_continuous_loop_tokens_match_jax_falcon_mamba():
     assert [len(got[i]) for i in range(5)] == [3, 5, 2, 4, 3]
 
 
+def test_continuous_loop_tokens_match_jax_qwen3_moe():
+    """MoE layers in prefill and decode; a joiner's zero rows still route
+    tokens and compete for capacity, as in the JAX server."""
+    srv, jsrv, got, want = _serve_both(
+        jax_reduced(jax_get_config("qwen3-moe-30b-a3b")), batch=2, S0=6,
+        new=[3, 5, 2, 4, 3])
+    assert srv.continuous and jsrv.continuous
+    assert got == want
+    assert srv.stats == jsrv.stats
+    assert [len(got[i]) for i in range(5)] == [3, 5, 2, 4, 3]
+
+
+@pytest.mark.parametrize("impl", [None, "ref"])
+def test_server_impl_reaches_every_gmm_call(monkeypatch, impl):
+    """``BatchedServer(impl=...)`` hands ``impl`` to the grouped matmuls of
+    decode steps as well as of prefills: three calls per MoE layer each."""
+    from repro_torch.models import layers
+    seen = []
+
+    def counting_gmm(x, w, group_sizes, *, impl=None):
+        seen.append(impl)
+        return gmm_ref(x, w, group_sizes)
+
+    monkeypatch.setattr(layers, "gmm", counting_gmm)
+    cfg = port_cfg(jax_reduced(jax_get_config("qwen3-moe-30b-a3b")))
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    srv = BatchedServer(cfg, params, batch=2, prompt_len=4, max_len=9,
+                        device="cpu", impl=impl)
+    rng = np.random.default_rng(0)
+    srv.submit([Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, 4),
+                        max_new_tokens=n) for i, n in enumerate([2, 4, 3])])
+    srv.run()
+    steps = srv.stats["prefills"] + srv.stats["decode_steps"]
+    assert srv.stats["decode_steps"] > 0
+    assert len(seen) == 3 * cfg.num_layers * steps
+    assert set(seen) == {impl}
+
+
 def test_merge_rows_carries_recurrent_states():
     old = [{"h": torch.zeros(3, 4, 2), "conv": torch.zeros(3, 3, 4)}]
     new = [{"h": torch.ones(3, 4, 2), "conv": torch.ones(3, 3, 4)}]
@@ -143,6 +183,16 @@ def test_lm_decode_task_serves_on_cpu():
 def test_lm_decode_task_serves_falcon_mamba_on_cpu():
     k = Kernel("lm.decode")
     k.arguments = {"arch": "reduced:falcon-mamba-7b", "device": "cpu",
+                   "requests": 3, "batch": 2, "new_tokens": 3}
+    out = k.execute()
+    assert out["served"] == 3
+    assert all(len(t) == 3 for t in out["tokens"].values())
+    assert out["stats"]["prefills"] == 2      # continuous loop: 2 admissions
+
+
+def test_lm_decode_task_serves_qwen3_moe_on_cpu():
+    k = Kernel("lm.decode")
+    k.arguments = {"arch": "reduced:qwen3-moe-30b-a3b", "device": "cpu",
                    "requests": 3, "batch": 2, "new_tokens": 3}
     out = k.execute()
     assert out["served"] == 3
