@@ -1,22 +1,32 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline OLD_flash_attention_fwd.cu]
 
 Phases, one JSON line each (any failure raises and exits non-zero):
   build          compile every CUDA kernel from the sources in this checkout
-                 (one nvcc per source, all started together)
+                 (one nvcc per source, all started together) and report
+                 each kernel's registers, spills and shared memory (ptxas)
   kernel ...     hold each kernel (flash_attention, linear_scan,
                  selective_scan, gmm) against its plain PyTorch version on
                  the card at the main paths' shapes, and time kernel, plain
                  version, the nearest PyTorch library call (where one
-                 computes the same function) and the card's bound
+                 computes the same function) and the card's bound.  Kernel
+                 and library times are device times: the timed calls queue
+                 behind a sleep kernel, so host launch overhead is not in
+                 them.  Flash attention reports the kernel variant each case
+                 took (wgmma, mma_sync, f32; its launch counter must show
+                 it), the tile plan the library states (held against
+                 ``ops.tile_plan``) and TFLOP/s; ``--baseline`` builds an
+                 earlier version of ``flash_attention_fwd.cu`` (same C
+                 interface) and times it on the serve shapes in the same run
   serve <arch>   full-width gemma2-2b, recurrentgemma-2b, falcon-mamba-7b
                  and qwen3-moe-30b-a3b (bf16, random weights from seed 0;
                  qwen3 needs ~65 GB) through ``BatchedServer``: 8 requests,
                  batch 4, prompt 1024, 16 new tokens; asserts the loop (wave
                  or continuous) and each kernel's launches per prefill and
-                 per decode step; then one prefill of the first wave with
+                 per decode step (flash attention's all through the wgmma
+                 variant); then one prefill of the first wave with
                  ``impl="ref"`` (the plain versions): prefill logits within a
                  stated tolerance, and greedy tokens decoded from its cache
                  by ``impl="ref"`` decode steps against the served ones
@@ -86,6 +96,9 @@ FA_CASES = [
          dtype="bfloat16", tol=3e-2),
 ]
 
+# cases timed also through the kernel given by --baseline: the serve shapes
+BASELINE_CASES = ("serve", "recurrentgemma_serve", "qwen3_serve")
+
 # Scan cases.  Tolerances: a float32 output at 1e-4 (the serial chain is the
 # same; FMA contraction and the order of C . h differ); a bf16 output at one
 # bf16 step of its largest value, 2**-7 * max(1, max |ref|), since kernel and
@@ -133,13 +146,17 @@ GMM_CASES = [
 ]
 
 # serve phases: arch, the loop it must run, kernel launches per prefill and
-# per decode step
+# per decode step ("flash_attention.wgmma": the launches of flash attention's
+# wgmma kernel, which must be all of them)
 SERVE = [
-    ("gemma2-2b", "wave", {"flash_attention": 26}, {}),
-    ("recurrentgemma-2b", "wave", {"linear_scan": 18, "flash_attention": 8},
+    ("gemma2-2b", "wave",
+     {"flash_attention": 26, "flash_attention.wgmma": 26}, {}),
+    ("recurrentgemma-2b", "wave",
+     {"linear_scan": 18, "flash_attention": 8, "flash_attention.wgmma": 8},
      {}),
     ("falcon-mamba-7b", "continuous", {"selective_scan": 64}, {}),
-    ("qwen3-moe-30b-a3b", "continuous", {"flash_attention": 48, "gmm": 144},
+    ("qwen3-moe-30b-a3b", "continuous",
+     {"flash_attention": 48, "flash_attention.wgmma": 48, "gmm": 144},
      {"gmm": 144}),
 ]
 # Prefill logits, kernels against plain versions, bf16 through every layer:
@@ -153,7 +170,8 @@ def emit(obj) -> None:
 
 
 def time_ms(fn, iters: int, warmup: int = 1) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, by CUDA events."""
+    """Mean time of ``fn`` over ``iters`` calls, by CUDA events, host
+    launch gaps included (model calls)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -167,14 +185,41 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls (kernels): the calls
+    are queued behind ~20 ms of a sleep kernel, so the card runs them back
+    to back however slowly the host launches them."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def phase_build():
+    import torch
+
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.ops import kernel_tile_plan
     t0 = time.perf_counter()
     info = _build.build()
+    # dynamic shared memory per block (ptxas reports only static memory)
+    smem = {f"flash_attention_fwd_wgmma<{D}>":
+            kernel_tile_plan(torch.bfloat16, D, 1)["smem_bytes"]
+            for D in (64, 128, 256)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: {"seconds": v["seconds"], "cached": v["cached"]}
                         for k, v in info.items()},
-          "ptxas": {k: ptxas_report(v["ptxas"]) for k, v in info.items()}})
+          "ptxas": {k: ptxas_report(v["ptxas"]) for k, v in info.items()},
+          "dynamic_smem_bytes": smem})
 
 
 def ptxas_report(log: str) -> dict:
@@ -183,11 +228,13 @@ def ptxas_report(log: str) -> dict:
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"(flash_attention_fwd_(?:tc|cc)|linear_scan_kernel|"
-                          r"selective_scan_kernel|gmm_tc)I(.+?)EE+v", entry[1])
+            m = re.search(r"(flash_attention_fwd_(?:wgmma|tc|cc)|"
+                          r"linear_scan_kernel|selective_scan_kernel|gmm_tc)"
+                          r"I(?:Li)?(.+?)EE+v", entry[1])
             name = (f"{m[1]}<{m[2]}>" if m else
                     "gmm_cc" if "gmm_cc" in entry[1] else entry[1])
-        elif name and ("registers" in line or "spill" in line):
+        elif name and ("registers" in line or "spill" in line
+                       or "smem" in line):
             out[name] = (out.get(name, "") + " " +
                          line.split(":", 1)[-1].strip()).strip()
     return out
@@ -205,12 +252,41 @@ def _mask(c, device):
     return m
 
 
-def phase_kernel_flash_attention(dev):
+def _baseline_flash(path):
+    """``flash_attention_cuda`` on an earlier ``flash_attention_fwd.cu``
+    (same C interface), built here with the repo's nvcc flags."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops
+    out = _build.BUILD_DIR / f"libflash_attention_fwd_baseline-{time.time_ns()}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(path)], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    mine = _build.load("flash_attention_fwd")
+
+    def run(q, k, v, **kw):
+        _build._LOADED["flash_attention_fwd"] = lib
+        try:
+            return ops.flash_attention_cuda(q, k, v, **kw)
+        finally:
+            _build._LOADED["flash_attention_fwd"] = mine
+    return run
+
+
+def phase_kernel_flash_attention(dev, baseline=None):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention.ops import (
+        kernel_tile_plan,
+        tile_plan,
+    )
     gen = torch.Generator(device=dev).manual_seed(0)
+    old = _baseline_flash(baseline) if baseline else None
     results = {}
     for c in FA_CASES:
         dt = getattr(torch, c["dtype"])
@@ -221,15 +297,27 @@ def phase_kernel_flash_attention(dev):
         kw = dict(causal=c["causal"], window=c["window"],
                   softcap=c["softcap"], scale=c["scale"],
                   q_offset=c["q_offset"])
+        plan = tile_plan(dt, D, H // KH)
+        lib_plan = kernel_tile_plan(dt, D, H // KH)
+        if lib_plan != plan:
+            raise AssertionError(f"flash_attention case {c['name']}: tile plan "
+                                 f"{plan} in ops.py, {lib_plan} in the kernel")
+        counter = f"flash_attention.{plan['variant']}"
+        before = LAUNCHES[counter]
         out = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        if LAUNCHES[counter] != before + 1:
+            raise AssertionError(f"flash_attention case {c['name']} did not "
+                                 f"launch the {plan['variant']} kernel")
         ref = attention_ref(q, k, v, **kw)
         err = float((out.float() - ref.float()).abs().max())
         finite = bool(torch.isfinite(out.float()).all())
         del ref
         big = Sq * Sk > 4_000_000
-        ms = time_ms(lambda: flash_attention(q, k, v, **kw), 3 if big else 10)
+        ms = device_ms(lambda: flash_attention(q, k, v, **kw), 3 if big else 10)
         plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), 2 if big else 5)
+        baseline_ms = (device_ms(lambda: old(q, k, v, **kw), 10)
+                       if old and c["name"] in BASELINE_CASES else None)
 
         # yardstick: one SDPA call, same q/k/v and masks, without softcap
         mask = _mask(c, dev)
@@ -246,7 +334,7 @@ def phase_kernel_flash_attention(dev):
             def lib():
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask, scale=c["scale"])
-        library_ms = time_ms(lib, 3 if big else 10)
+        library_ms = device_ms(lib, 3 if big else 10)
 
         pairs = int(mask.sum())
         flops = 4 * D * pairs * H * B
@@ -259,8 +347,10 @@ def phase_kernel_flash_attention(dev):
                "shape": {n: c[n] for n in ("B", "Sq", "Sk", "H", "KH", "D")},
                "causal": c["causal"], "window": c["window"],
                "softcap": c["softcap"], "q_offset": c["q_offset"],
-               "dtype": c["dtype"], "max_abs_err": err, "tol": c["tol"],
-               "ok": ok, "ms": ms, "plain_ms": plain_ms,
+               "dtype": c["dtype"], "variant": plan["variant"],
+               "tile_plan": plan, "max_abs_err": err, "tol": c["tol"],
+               "ok": ok, "ms": ms, "tflops": flops / ms / 1e9,
+               "baseline_ms": baseline_ms, "plain_ms": plain_ms,
                "library_ms": library_ms,
                "library": "scaled_dot_product_attention, no softcap",
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
@@ -292,7 +382,7 @@ def _scan_check(name, case, kernel, plain, y_dtype, nbytes, flops, extra):
     y_tol = 1e-4 if y_dtype == "float32" else 2.0 ** -7 * scale
     finite = bool(torch.isfinite(y.float()).all() and torch.isfinite(h).all())
     ok = finite and y_err <= y_tol and h_err <= 1e-4
-    ms = time_ms(kernel, 20)
+    ms = device_ms(kernel, 20)
     plain_ms = time_ms(plain, 2)
     t_bytes = nbytes / PEAK_BYTES
     t_ops = flops / PEAK_FLOPS["float32"]
@@ -406,9 +496,9 @@ def phase_kernel_gmm(dev):
         finite = bool(torch.isfinite(out.float()).all())
         del ref
         big = E * C * D > 10_000_000
-        ms = time_ms(lambda: gmm(x, w, sizes), 10 if big else 50)
+        ms = device_ms(lambda: gmm(x, w, sizes), 10 if big else 50)
         plain_ms = time_ms(lambda: gmm_ref(x, w, sizes), 2 if big else 10)
-        library_ms = time_ms(lambda: torch.bmm(x, w), 10 if big else 50)
+        library_ms = device_ms(lambda: torch.bmm(x, w), 10 if big else 50)
 
         live_rows = int(sizes.sum())
         live_experts = int((sizes > 0).sum())
@@ -671,6 +761,12 @@ def _release():
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="an earlier flash_attention_fwd.cu to time beside "
+                         "the kernel on the serve shapes")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -688,7 +784,8 @@ def main() -> int:
 
     phase_build()
     with torch.inference_mode():
-        cases = {"flash_attention": phase_kernel_flash_attention(dev),
+        cases = {"flash_attention": phase_kernel_flash_attention(
+                     dev, args.baseline),
                  "linear_scan": phase_kernel_linear_scan(dev),
                  "selective_scan": phase_kernel_selective_scan(dev),
                  "gmm": phase_kernel_gmm(dev)}
@@ -697,7 +794,7 @@ def main() -> int:
         for arch, loop, per_prefill, per_decode in SERVE:
             row = phase_serve(dev, arch, loop, per_prefill, per_decode)
             for name, n in row["launches"].items():
-                if n:
+                if n and name in launches:
                     launches[name][arch] = n
             _release()
         phase_task(dev)

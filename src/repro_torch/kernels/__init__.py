@@ -2,13 +2,17 @@
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made on a CUDA
 tensor (and nothing else), so a run can show that its main path went
-through the kernels.  ``reset_launches`` sets every count to 0.
+through the kernels; "flash_attention.<variant>" counts the launches of
+each of flash attention's kernels besides.  ``reset_launches`` sets every
+count to 0.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "linear_scan": 0,
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention.wgmma": 0,
+                             "flash_attention.mma_sync": 0,
+                             "flash_attention.f32": 0, "linear_scan": 0,
                              "selective_scan": 0, "gmm": 0}
 
 

@@ -2,21 +2,23 @@
 
 Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled
 into its own shared library under ``kernels/_build/`` (listed in
-``.gitignore``).  A library's file name carries a hash of its source and the
-compiler flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  ``build`` starts one ``nvcc`` per missing library, all at
-once, and waits for them together.
+``.gitignore``).  A library's file name carries a hash of its source, the
+headers it includes (``common/hopper.cuh``) and the compiler flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it
+is.  ``build`` starts one ``nvcc`` per missing library, all at once, and
+waits for them together.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 _KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS_DIR / "_build"
@@ -46,11 +48,39 @@ def nvcc_path() -> str:
                        "the kernels (looked on PATH and in /usr/local/cuda)")
 
 
-def library_path(name: str) -> Path:
-    src = _KERNELS_DIR / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes())
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(src: Path) -> List[Path]:
+    """``src`` and every header it includes with ``#include "..."``,
+    directly or through another header, resolved against the including
+    file's directory; headers that do not exist there (the toolkit's) are
+    left out."""
+    files, todo = [], [src.resolve()]
+    while todo:
+        path = todo.pop()
+        if path in files:
+            continue
+        files.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            dep = (path.parent / inc).resolve()
+            if dep.is_file():
+                todo.append(dep)
+    return files
+
+
+def source_digest(src: Path) -> str:
+    """Hash of ``src``, the headers it includes and the compiler flags."""
+    h = hashlib.sha256()
+    for path in source_files(src):
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()
+
+
+def library_path(name: str) -> Path:
+    digest = source_digest(_KERNELS_DIR / SOURCES[name])
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:

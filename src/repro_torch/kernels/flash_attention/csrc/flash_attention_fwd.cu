@@ -12,35 +12,66 @@
 //   ids are not taken (the wrapper raises on them, as the Pallas kernel
 //   does).
 //
-// What bounds it on an H100.  At the serve prefill shape of gemma2-2b
-// (B=4, S=1024, H=8, KH=4, D=256, causal) the function needs about
-// 17 GFLOP (4*D flops per unmasked (q, k) pair and head) and moves about
-// 50 MB (q, k, v read once, o written once): about 17 us at the data-sheet
-// bf16 tensor-core peak (989 TFLOP/s) and 15 us at 3.35 TB/s.  So the
-// function is bound by operations, and only the tensor cores can come near
-// that bound.
+// What bounds it on an H100.  The function needs 4*D flops per unmasked
+// (q, k) pair and q head, and moves q, k, v and o once.  At the serve
+// prefill shapes (B=4, S=1024, causal) that is, at the data-sheet bf16
+// tensor-core peak (989 TFLOP/s) and 3.35 TB/s:
+//   gemma2-2b       (H=8,  KH=4, D=256)  17 GFLOP, 50 MB: 17.4 us (ops)
+//   recurrentgemma  (H=10, KH=1, D=256)  21 GFLOP, 46 MB: 21.7 us (ops)
+//   qwen3-moe       (H=32, KH=4, D=128)  34 GFLOP, 71 MB: 34.8 us (ops)
+// So the function is bound by operations, and only wgmma, Hopper's
+// warpgroup tensor-core product, reaches the full bf16 rate.
 //
-// What the design does about it.  Both kernels keep every intermediate out
-// of device memory, as the Pallas kernel does: a block owns the G*BQ = 64
-// folded rows of the G q heads that share one kv head (so the group reads
-// each k and v tile once), keeps them for the whole kv loop, streams k and
-// v tiles through shared memory, keeps the running max and sum and the
-// 64 x D output accumulator in registers, and visits only the kv tiles that
-// the causal and window masks leave live.
-//  * bf16 (the serving path): the two products run on the tensor cores with
-//    warp-level mma.sync (m16n8k16, f32 accumulate); 4 warps own 16 rows
-//    each.  q.k^T multiplies the bf16 inputs exactly.  For p.v the f32
-//    probabilities are split into a bf16 high part and a bf16 remainder and
-//    both are multiplied, so p keeps about 16 bits as the f32 reference's
-//    does.  Tiles arrive by cp.async (zero-filled past the ragged end), the
-//    v operand by ldmatrix.trans; shared-memory rows are padded by 16 bytes,
-//    so fragment reads are free of bank conflicts.  About 100 KB of shared
-//    memory lets two blocks share an SM, so one block's loads overlap the
-//    other's products.
-//  * f32: CUDA-core FMAs in f32, exact against the f32 reference.  Reads go
-//    16 bytes at a time from device and shared memory.
-// Not done yet: wgmma, TMA, warp specialisation and double buffering, which
-// a kernel needs to come near the bound.
+// Three kernels, chosen by dtype and head dim (the rule is also written in
+// ops.py, which counts each one's launches):
+//  * wgmma (bf16, D = 64, 128, 256: the serving path).
+//    - Work items.  An item is the G * BQ <= 128 folded rows of the G q
+//      heads that share one kv head, BQ = 128 / G positions each (row r is
+//      position r / G, head r % G), so the group reads each k and v tile
+//      once; it visits only the kv tiles that its causal and window masks
+//      leave live.  The grid is persistent (one block per SM); items are
+//      numbered longest first and dealt to the blocks in snake order, so
+//      the blocks' sums of kv tiles are close.
+//    - Warp roles.  384 threads: two consumer warpgroups of 64 rows each
+//      and one producer warpgroup; setmaxnreg gives the producer 24
+//      registers and the consumers 240.  One producer thread loads an
+//      item's q once and k and v tiles of BK positions by TMA (128-byte
+//      swizzle, zero fill past the ragged ends) into a ring of 2 stages.
+//      Per stage, "k full" and "v full" mbarriers carry the TMA bytes and
+//      "k empty" and "v empty" ones the consumers' releases, so a k stage
+//      is refilled as soon as its q.k^T is done, a v stage after its P.V.
+//      The ring runs on across items: the next item's tiles load while
+//      the consumers finish the current one.
+//    - Products.  S = q.k^T is a wgmma with both operands in shared memory
+//      (k is a K-major operand).  O += P.V is a wgmma with P from
+//      registers (the S accumulator converted once to bf16, in place: its
+//      fragment layout is wgmma's A layout) and v an MN-major operand.  A
+//      consumer issues tile i's q.k^T, rescales O while it runs, issues
+//      tile i-1's P.V, and runs tile i's softmax while P.V is in flight;
+//      the two consumers take turns to issue (named barriers), so one's
+//      softmax also overlaps the other's products.
+//    - Softmax.  f32 m, l and O; exp2 with log2 e folded into the scale
+//      (or into the softcap's output scale) inside one FMA; tanh is
+//      tanh.approx.f32; the masks run only on tiles that cross the causal
+//      diagonal, the window edge or Sk.
+//    - Shared memory per block (1 KB alignment slack, q, 2 x (k + v),
+//      18 mbarriers):
+//        D = 256: BK 64:  1 + 64 + 2 x (32 + 32) KB = 197,712 bytes
+//        D = 128: BK 128: 1 + 32 + 2 x (32 + 32) KB = 164,944 bytes
+//        D = 64:  BK 128: 1 + 16 + 2 x (16 + 16) KB =  83,024 bytes
+//      Registers per consumer thread: S (BK / 2) and O (D / 2) f32 plus P
+//      (BK / 4) bf16 pairs: 176 at D = 256, 160 at D = 128; no spills.
+//    What this does about the bound: both products run on wgmma, the
+//    loads run ahead of the consumers, and the exponentials, the other main
+//    cost, overlap the other warpgroup's products.  Not done: cheaper
+//    diagonal tiles (at D = 128 the last tile of a 16-position item is on
+//    average half masked; a half-width last tile behind a branch made
+//    ptxas serialize the products and was slower).  Times in PERF.md.
+//  * mma.sync (bf16, D = 16, 32: the reduced configurations).  64 folded
+//    rows, 4 warps of 16 rows, warp-level mma.sync m16n8k16; tiles by
+//    cp.async; p split into bf16 hi + lo parts for p.v.  A 32-byte row is
+//    below TMA's 128-byte swizzle atom, so these head dims keep it.
+//  * f32 (CUDA cores): FMAs in f32, exact against the f32 reference.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -52,17 +83,19 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "../../common/hopper.cuh"
+
 namespace {
 
-constexpr int kRows = 64;          // folded q rows per block (G * BQ <= 64)
+constexpr int kRows = 64;          // folded q rows per block of tc and cc
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   int B, Sq, Sk, H, KH, G, BQ;
   int causal, window, q_offset;
   float softcap, scale;
 };
-
 // The kv range [begin, end) that can hold a live entry for some row of the
 // q tile starting at q0, with begin rounded down to a multiple of `tile`.
 __device__ __forceinline__ void kv_range(const Params& p, int q0, int tile,
@@ -93,7 +126,7 @@ __device__ __forceinline__ size_t q_offset_of(const Params& p, int b, int kh,
          (size_t)D;
 }
 
-// ===================================================== bf16: tensor cores
+// ================================= bf16, D = 16 and 32: warp-level mma.sync
 
 namespace tc {
 
@@ -469,10 +502,444 @@ flash_attention_fwd_cc(const float* __restrict__ q, const float* __restrict__ k,
 
 }  // namespace cc
 
+// =============================================== bf16: wgmma, TMA, mbarrier
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kConsumers = 2;                    // consumer warpgroups
+constexpr int kRows = 64 * kConsumers;           // folded q rows per block
+constexpr int kThreads = 128 * (kConsumers + 1);  // + one producer warpgroup
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;  // 2 x 128 x 240 + 128 x 24 <= 65536
+
+template <int D>
+struct Tile {
+  static constexpr int BK = D == 256 ? 64 : 128;   // kv positions per stage
+  static constexpr int kStages = 2;
+  static constexpr int kBlocks = D / 64;           // 64-wide column blocks
+  static constexpr int ON = D < 128 ? D : 128;     // output cols per wgmma
+  static constexpr uint32_t kQBytes = kRows * D * 2;
+  static constexpr uint32_t kTileBytes = BK * D * 2;   // one k or v stage
+  static constexpr size_t kSmem =
+      1024 + kQBytes + 2 * size_t(kStages) * kTileBytes + 8 * (2 + 4 * kStages);
+};
+
+// S (64 x BK, this thread's fragment) -> t = tanh(S * in_scale) when
+// kCap, else S, and -inf where kMask's masks hide the entry; the row maxima
+// of t are folded into mx (two partial maxima per row for ILP).  The score
+// in log2 units is t * mult (mult = softcap * log2 e, or scale * log2 e),
+// which the exponent's FMA applies.
+template <int BK, bool kMask, bool kCap>
+__device__ __forceinline__ void scores(float (&sc)[BK / 2], const Params& p,
+                                       float in_scale, int k0, int lane,
+                                       const int (&qpos)[2], float (&mx)[2]) {
+  float mp[2][2] = {{mx[0], mx[0]}, {mx[1], mx[1]}};
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    float x = kCap ? tanh_approx(sc[e] * in_scale) : sc[e];
+    const int h = (e / 2) % 2;
+    if (kMask) {
+      const int kp = k0 + 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
+      bool ok = kp < p.Sk;
+      if (p.causal) ok = ok && kp <= qpos[h];
+      if (p.window > 0) ok = ok && qpos[h] - kp < p.window;
+      x = ok ? x : -INFINITY;
+    }
+    sc[e] = x;
+    mp[h][e % 2] = fmaxf(mp[h][e % 2], x);
+  }
+  mx[0] = fmaxf(mp[0][0], mp[0][1]);
+  mx[1] = fmaxf(mp[1][0], mp[1][1]);
+}
+
+// One work item: the q tile of BQ positions at q0 of batch b, kv head kh,
+// and the kv tiles [kv_begin, kv_begin + n_tiles * BK) its masks leave live.
+// Items are numbered longest first: item w has q tile nq - 1 - w / (B KH).
+struct Work {
+  int b, kh, q0, kv_begin, n_tiles;
+};
+
+// The item of this block's pass k (snake order), or -1 past the last one.
+__device__ __forceinline__ int work_index(int k, int n_work) {
+  const int j = (k & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const long long w = (long long)k * gridDim.x + j;
+  return w < n_work ? (int)w : -1;
+}
+
+template <int BK>
+__device__ __forceinline__ Work work_item(const Params& p, int w) {
+  const int nq = (p.Sq + p.BQ - 1) / p.BQ, bh = w % (p.B * p.KH);
+  Work it;
+  it.b = bh / p.KH;
+  it.kh = bh % p.KH;
+  it.q0 = (nq - 1 - w / (p.B * p.KH)) * p.BQ;
+  int kv_end;
+  kv_range(p, it.q0, BK, it.kv_begin, kv_end);
+  it.n_tiles = kv_end > it.kv_begin ? (kv_end - it.kv_begin + BK - 1) / BK : 0;
+  return it;
+}
+
+// Fragment layout of a wgmma accumulator (64 x N f32, PTX ISA): thread t of
+// the warpgroup, in warp w = t / 32 with lane l, holds rows 16w + l/4 (h=0)
+// and 16w + l/4 + 8 (h=1) at columns 8j + 2(l%4) + {0, 1}: element
+// e = 4j + 2h + {0, 1}.  The A operand of wgmma from registers (64 x 16
+// bf16) has the same layout, so S's elements 8kk .. 8kk + 7 are P's A
+// fragment for keys 16kk .. 16kk + 15.
+//
+// Persistent: gridDim.x blocks (at most one per SM) walk the work items in
+// passes of gridDim.x, forwards in even passes and backwards in odd ones
+// (block j takes items j, 2 gridDim.x - 1 - j, 2 gridDim.x + j, ...), so
+// with items longest first every block gets a similar sum of kv tiles.
+// The kv ring's stage and phase run on across items, so the producer loads
+// the next item's q and first kv tiles while the consumers finish the
+// current one.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          __nv_bfloat16* __restrict__ o, const Params p) {
+  using T = Tile<D>;
+  constexpr int BK = T::BK, S = T::kStages, ON = T::ON;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* sK = sQ + T::kQBytes;
+  unsigned char* sV = sK + S * T::kTileBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + S * T::kTileBytes);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* k_full = q_empty + 1;
+  uint64_t* v_full = k_full + S;
+  uint64_t* k_empty = v_full + S;
+  uint64_t* v_empty = k_empty + S;
+
+  const int n_work = p.B * p.KH * ((p.Sq + p.BQ - 1) / p.BQ);
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 4 * kConsumers);       // lane 0 of each consumer warp
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 4 * kConsumers);
+      mbar_init(&v_empty[s], 4 * kConsumers);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == kConsumers) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers * 128) {
+      tma_prefetch_map(&tq);
+      tma_prefetch_map(&tk);
+      tma_prefetch_map(&tv);
+      int ring = 0, u = 0;   // kv tiles and work items loaded so far
+      for (int w; (w = work_index(u, n_work)) >= 0; ++u) {
+        const Work it = work_item<BK>(p, w);
+        if (u > 0) mbar_wait(q_empty, (u - 1) & 1);
+        mbar_arrive_expect_tx(q_full, T::kBlocks * p.G * p.BQ * 128);
+#pragma unroll
+        for (int c = 0; c < T::kBlocks; ++c)
+          tma_load_5d(sQ + c * kRows * 128, &tq, q_full, c * 64, 0, it.kh,
+                      it.q0, it.b);
+        for (int i = 0; i < it.n_tiles; ++i, ++ring) {
+          const int s = ring % S;
+          const uint32_t reuse = ((ring / S) - 1) & 1;
+          const int k0 = it.kv_begin + i * BK;
+          unsigned char* ks = sK + s * T::kTileBytes;
+          unsigned char* vs = sV + s * T::kTileBytes;
+          if (ring >= S) mbar_wait(&k_empty[s], reuse);
+          mbar_arrive_expect_tx(&k_full[s], T::kTileBytes);
+#pragma unroll
+          for (int c = 0; c < T::kBlocks; ++c)
+            tma_load_4d(ks + c * BK * 128, &tk, &k_full[s], c * 64, it.kh, k0,
+                        it.b);
+          if (ring >= S) mbar_wait(&v_empty[s], reuse);
+          mbar_arrive_expect_tx(&v_full[s], T::kTileBytes);
+#pragma unroll
+          for (int c = 0; c < T::kBlocks; ++c)
+            tma_load_4d(vs + c * BK * 128, &tv, &v_full[s], c * 64, it.kh, k0,
+                        it.b);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int rows = p.G * p.BQ;
+    const bool capped = p.softcap > 0.f;
+    const float in_scale = capped ? p.scale / p.softcap : 1.f;
+    const float mult = (capped ? p.softcap : p.scale) * kLog2e;
+    const uint32_t q_base = smem_u32(sQ) + wgi * 64 * 128;
+
+    float acc[D / ON][ON / 2];
+    float m[2], l[2];          // running max (t units), lane's part of l
+    int qpos[2];
+    int q_lo, q_hi, kv_begin;  // of the current work item
+
+    // S = q . k^T for ring slot r: A = q, B = k, both K-major
+    auto issue_qk = [&](int r, float (&sc)[BK / 2]) {
+      const uint32_t k_base = smem_u32(sK + (r % S) * T::kTileBytes);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;
+        Wgmma<BK, 0>::ss(
+            sc, desc_sw128(q_base + (kk / 4) * kRows * 128 + col, 16, 1024),
+            desc_sw128(k_base + (kk / 4) * BK * 128 + col, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P . V for ring slot r: A = P from registers, B = v (MN-major)
+    auto issue_pv = [&](int r, const uint32_t (&pa)[BK / 16][4]) {
+      const uint32_t v_base = smem_u32(sV + (r % S) * T::kTileBytes);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < D / ON; ++c)
+          Wgmma<ON, 1>::rs(
+              acc[c], pa[kk],
+              desc_sw128(v_base + c * (ON / 64) * BK * 128 + kk * 16 * 128,
+                         BK * 128, 1024),
+              1);
+      wgmma_commit();
+    };
+    // Online softmax of tile i's S (masks only on edge tiles): S becomes P
+    // = exp2(t * mult - m * mult) in place, l is rescaled and summed, corr
+    // is the factor that takes O to the new running max m (in t units).
+    auto softmax = [&](int i, float (&sc)[BK / 2], float (&corr)[2]) {
+      const int k0 = kv_begin + i * BK;
+      const bool edge = k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q_lo) ||
+                        (p.window > 0 && q_hi - k0 >= p.window);
+      float mx[2] = {m[0], m[1]};
+      if (edge && capped)
+        scores<BK, true, true>(sc, p, in_scale, k0, lane, qpos, mx);
+      else if (edge)
+        scores<BK, true, false>(sc, p, in_scale, k0, lane, qpos, mx);
+      else if (capped)
+        scores<BK, false, true>(sc, p, in_scale, k0, lane, qpos, mx);
+      else
+        scores<BK, false, false>(sc, p, in_scale, k0, lane, qpos, mx);
+      float neg_m[2], ls[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_use = mx[h] == -INFINITY ? 0.f : mx[h];
+        corr[h] = ex2_approx((m[h] - m_use) * mult);   // 0 while m is -inf
+        neg_m[h] = -m_use * mult;
+        m[h] = mx[h];
+        l[h] *= corr[h];
+      }
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int h = (e / 2) % 2;
+        sc[e] = ex2_approx(fmaf(sc[e], mult, neg_m[h]));
+        ls[h][e % 2] += sc[e];
+      }
+      l[0] += ls[0][0] + ls[0][1];
+      l[1] += ls[1][0] + ls[1][1];
+    };
+    auto to_bf16 = [&](const float (&sc)[BK / 2], uint32_t (&pa)[BK / 16][4]) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+    };
+    auto rescale = [&](const float (&corr)[2]) {
+#pragma unroll
+      for (int c = 0; c < D / ON; ++c)
+#pragma unroll
+        for (int e = 0; e < ON / 2; ++e) acc[c][e] *= corr[(e / 2) % 2];
+    };
+    auto arrive = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    auto parity = [](int r) { return (uint32_t)((r / S) & 1); };
+    // The two consumer warpgroups take turns to issue their products
+    // (named barriers 1 and 2), so one's softmax overlaps the other's
+    // products; warpgroup 0 goes first.
+    auto my_turn = [&]() { named_bar_sync(1 + wgi, 256); };
+    auto pass_turn = [&]() { named_bar_arrive(2 - wgi, 256); };
+    if (wgi == 1) pass_turn();
+
+    int ring = 0, u = 0;   // kv tiles and work items consumed so far
+    for (int w; (w = work_index(u, n_work)) >= 0; ++u) {
+      const Work it = work_item<BK>(p, w);
+      const int n = it.n_tiles;
+      bool valid[2];
+      size_t out_off[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wgi * 64 + warp * 16 + lane / 4 + 8 * h;
+        const int sl = r / p.G, g = r % p.G;
+        valid[h] = r < rows && it.q0 + sl < p.Sq;
+        qpos[h] = p.q_offset + it.q0 + sl;
+        out_off[h] = (((size_t)it.b * p.Sq + it.q0 + sl) * p.H +
+                      it.kh * p.G + g) * (size_t)D;
+        m[h] = -INFINITY;
+        l[h] = 0.f;
+      }
+      q_lo = p.q_offset + it.q0;
+      q_hi = p.q_offset + min(it.q0 + p.BQ, p.Sq) - 1;
+      kv_begin = it.kv_begin;
+#pragma unroll
+      for (int c = 0; c < D / ON; ++c)
+#pragma unroll
+        for (int e = 0; e < ON / 2; ++e) acc[c][e] = 0.f;
+
+      mbar_wait(q_full, u & 1);
+      uint32_t pa[BK / 16][4];   // P(i - 1), read by the product in flight
+      if (n == 0) arrive(q_empty);
+      float corr[2];   // takes O to the running max of the last softmax
+      if (n > 0) {     // tile 0: S and its softmax
+        float sc[BK / 2];
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) sc[e] = 0.f;
+        mbar_wait(&k_full[ring % S], parity(ring));
+        my_turn();
+        fence_regs(sc);
+        wgmma_fence();
+        issue_qk(ring, sc);
+        pass_turn();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        arrive(&k_empty[ring % S]);
+        if (n == 1) arrive(q_empty);
+        softmax(0, sc, corr);
+        to_bf16(sc, pa);
+      }
+      // Tile i: issue S(i), rescale O while it runs, issue P(i-1) . v(i-1);
+      // the softmax of S(i) runs while the second product is in flight.
+      for (int i = 1; i < n; ++i) {
+        const int r = ring + i;
+        float sc[BK / 2];
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) sc[e] = 0.f;
+        mbar_wait(&k_full[r % S], parity(r));
+        my_turn();
+        fence_regs(sc);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+        wgmma_fence();
+        issue_qk(r, sc);
+        rescale(corr);
+        mbar_wait(&v_full[(r - 1) % S], parity(r - 1));
+#pragma unroll
+        for (int c = 0; c < D / ON; ++c) fence_regs(acc[c]);
+        wgmma_fence();
+        issue_pv(r - 1, pa);
+        pass_turn();
+        wgmma_wait<1>();
+        fence_regs(sc);
+        arrive(&k_empty[r % S]);
+        if (i == n - 1) arrive(q_empty);   // the item's last use of q
+        softmax(i, sc, corr);
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < D / ON; ++c) fence_regs(acc[c]);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+        arrive(&v_empty[(r - 1) % S]);
+        to_bf16(sc, pa);
+      }
+      if (n > 0) {   // the last tile's P . V
+        const int r = ring + n - 1;
+        mbar_wait(&v_full[r % S], parity(r));
+        my_turn();
+        rescale(corr);
+#pragma unroll
+        for (int c = 0; c < D / ON; ++c) fence_regs(acc[c]);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+        wgmma_fence();
+        issue_pv(r, pa);
+        pass_turn();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int c = 0; c < D / ON; ++c) fence_regs(acc[c]);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+        arrive(&v_empty[r % S]);
+      }
+      ring += n;
+
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        if (!valid[h]) continue;
+        const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
+        __nv_bfloat16* out = o + out_off[h] + 2 * (lane % 4);
+#pragma unroll
+        for (int c = 0; c < D / ON; ++c)
+#pragma unroll
+          for (int j = 0; j < ON / 8; ++j) {
+            const int e = 4 * j + 2 * h;
+            *reinterpret_cast<__nv_bfloat162*>(out + c * ON + 8 * j) =
+                __floats2bfloat162_rn(acc[c][e] * inv, acc[c][e + 1] * inv);
+          }
+      }
+    }
+    if (wgi == 0) my_turn();   // warpgroup 1's last pass
+  }
+}
+
+}  // namespace wg
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 Params p, cudaStream_t stream) {
+  using T = wg::Tile<D>;
+  p.BQ = wg::kRows / p.G;
+  const int n_q_tiles = (p.Sq + p.BQ - 1) / p.BQ;
+  const uint64_t e = sizeof(__nv_bfloat16);
+  // q (B, Sq, H = KH x G, D) as 5-D (D, G, KH, Sq, B); box 64 x G x 1 x BQ
+  // x 1 lands as G * BQ rows of 128 bytes, row = position * G + head
+  const uint64_t qd[5] = {(uint64_t)D, (uint64_t)p.G, (uint64_t)p.KH,
+                          (uint64_t)p.Sq, (uint64_t)p.B};
+  const uint64_t qs[4] = {D * e, p.G * D * e, p.H * D * e,
+                          (uint64_t)p.Sq * p.H * D * e};
+  const uint32_t qb[5] = {64, (uint32_t)p.G, 1, (uint32_t)p.BQ, 1};
+  // k, v (B, Sk, KH, D) as 4-D (D, KH, Sk, B); box 64 x 1 x BK x 1
+  const uint64_t kd[4] = {(uint64_t)D, (uint64_t)p.KH, (uint64_t)p.Sk,
+                          (uint64_t)p.B};
+  const uint64_t ks[3] = {D * e, p.KH * D * e, (uint64_t)p.Sk * p.KH * D * e};
+  const uint32_t kb[4] = {64, 1, (uint32_t)T::BK, 1};
+  CUtensorMap tq, tk, tv;
+  int err = hopper::encode_tensor_map_bf16(&tq, q, 5, qd, qs, qb);
+  if (!err) err = hopper::encode_tensor_map_bf16(&tk, k, 4, kd, ks, kb);
+  if (!err) err = hopper::encode_tensor_map_bf16(&tv, v, 4, kd, ks, kb);
+  if (err) return err;
+  auto kernel = wg::flash_attention_fwd_wgmma<D>;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+  if (cerr != cudaSuccess) return (int)cerr;
+  int device, sms;
+  cerr = cudaGetDevice(&device);
+  if (cerr == cudaSuccess)
+    cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const long long n_work = (long long)p.B * p.KH * n_q_tiles;
+  if (n_work > (1ll << 31) - 1) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(n_work < sms ? n_work : sms);
+  kernel<<<grid, wg::kThreads, T::kSmem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), p);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, typename Kernel>
 int launch(Kernel kernel, int threads, size_t smem, const void* q,
-           const void* k, const void* v, void* o, const Params& p,
+           const void* k, const void* v, void* o, Params p,
            cudaStream_t stream) {
+  p.BQ = kRows / p.G;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -483,16 +950,53 @@ int launch(Kernel kernel, int threads, size_t smem, const void* q,
   return (int)cudaGetLastError();
 }
 
+// The kernel a (dtype, D) takes; ops.py states the same rule.
+enum Variant { kF32 = 0, kMmaSync = 1, kWgmma = 2 };
+
+int variant_of(int dtype, int D) {
+  if (dtype == 0) return kF32;
+  return D >= 64 ? kWgmma : kMmaSync;
+}
+
 template <int D>
 int launch_d(int dtype, const void* q, const void* k, const void* v, void* o,
              const Params& p, cudaStream_t stream) {
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(tc::flash_attention_fwd_tc<D>, tc::kThreads,
-                                 tc::smem_bytes<D>(), q, k, v, o, p, stream);
   if (dtype == 0)
     return launch<float>(cc::flash_attention_fwd_cc<D>, cc::kThreads,
                          cc::smem_bytes<D>(), q, k, v, o, p, stream);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if constexpr (D >= 64)
+    return launch_wgmma<D>(q, k, v, o, p, stream);
+  else
+    return launch<__nv_bfloat16>(tc::flash_attention_fwd_tc<D>, tc::kThreads,
+                                 tc::smem_bytes<D>(), q, k, v, o, p, stream);
+}
+
+template <int D>
+void plan_d(int dtype, int G, int* out) {
+  out[0] = variant_of(dtype, D);
+  if constexpr (D >= 64) {
+    if (out[0] == kWgmma) {
+      out[1] = wg::kRows;
+      out[2] = wg::kRows / G;
+      out[3] = wg::Tile<D>::BK;
+      out[4] = wg::Tile<D>::kStages;
+      out[5] = (int)wg::Tile<D>::kSmem;
+      return;
+    }
+  }
+  if (out[0] == kMmaSync) {
+    out[1] = kRows;
+    out[3] = tc::kBK;
+    out[4] = 1;
+    out[5] = (int)tc::smem_bytes<D>();
+  } else {
+    out[1] = kRows;
+    out[3] = cc::kBK;
+    out[4] = 1;
+    out[5] = (int)cc::smem_bytes<D>();
+  }
+  out[2] = out[1] / G;
 }
 
 }  // namespace
@@ -500,18 +1004,19 @@ int launch_d(int dtype, const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // q (B, Sq, H, D), k and v (B, Sk, KH, D), o (B, Sq, H, D), all contiguous,
-// 16-byte aligned and of one dtype (0: float32, 1: bfloat16).  Launches on
-// `stream`, does not synchronise, and returns the cudaError_t of the launch
-// (0 on success).
+// 16-byte aligned and of one dtype (0: float32, 1: bfloat16); Sk > 0.
+// Launches on `stream`, does not synchronise, and returns the cudaError_t
+// of the launch (0 on success).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int dtype, int B, int Sq, int Sk, int H, int KH, int D,
                         int causal, int window, float softcap, float scale,
                         int q_offset, void* stream) {
-  if (B <= 0 || Sq <= 0 || KH <= 0 || H % KH != 0 || H / KH > kRows)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KH <= 0 || H % KH != 0 ||
+      H / KH > kRows)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.B = B; p.Sq = Sq; p.Sk = Sk; p.H = H; p.KH = KH; p.G = H / KH;
-  p.BQ = kRows / p.G;
+  p.BQ = 0;   // set by the launcher: rows per block / G
   p.causal = causal; p.window = window; p.q_offset = q_offset;
   p.softcap = softcap; p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -521,6 +1026,23 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     case 64: return launch_d<64>(dtype, q, k, v, o, p, s);
     case 128: return launch_d<128>(dtype, q, k, v, o, p, s);
     case 256: return launch_d<256>(dtype, q, k, v, o, p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The tile plan of a launch: out[0] variant (0 f32, 1 mma.sync, 2 wgmma),
+// out[1] folded rows per block, out[2] BQ, out[3] BK, out[4] kv stages,
+// out[5] dynamic shared memory bytes.  Returns 0, or cudaErrorInvalidValue
+// for a D or G the kernels do not take.
+int flash_attention_fwd_plan(int dtype, int D, int G, int* out) {
+  if (G <= 0 || G > kRows || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 16: plan_d<16>(dtype, G, out); return 0;
+    case 32: plan_d<32>(dtype, G, out); return 0;
+    case 64: plan_d<64>(dtype, G, out); return 0;
+    case 128: plan_d<128>(dtype, G, out); return 0;
+    case 256: plan_d<256>(dtype, G, out); return 0;
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,9 +1,16 @@
 """Public flash-attention entry point with device dispatch.
 
 A CPU tensor goes to the plain PyTorch version (``ref``).  A CUDA tensor goes
-to the hand-written Hopper kernel (``csrc/flash_attention_fwd.cu``), or to
+to the hand-written Hopper kernels (``csrc/flash_attention_fwd.cu``), or to
 ``ref`` only when ``impl="ref"`` is passed explicitly.  Nothing falls back:
-a CUDA input the kernel does not take raises.
+a CUDA input the kernels do not take raises.
+
+Which kernel a launch takes is fixed by dtype and head dim (``variant``):
+bf16 with D in 64, 128, 256 runs the wgmma/TMA kernel, bf16 with D in 16,
+32 the mma.sync kernel (a 32- or 64-byte row is below TMA's 128-byte
+swizzle atom), f32 the CUDA-core kernel.  ``LAUNCHES["flash_attention"]``
+counts every launch, ``LAUNCHES["flash_attention.<variant>"]`` each
+variant's.  ``tile_plan`` mirrors the kernels' tile constants.
 """
 from __future__ import annotations
 
@@ -18,6 +25,33 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 HEAD_DIMS = (16, 32, 64, 128, 256)    # instantiated in the kernel
 MAX_GROUP = 64                        # q heads per kv head (rows per block)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_LIMIT = 232_448                  # dynamic shared memory of one block
+
+
+def variant(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes (dtype, head_dim); the C launcher's rule."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if head_dim >= 64 else "mma_sync"
+
+
+def tile_plan(dtype: torch.dtype, head_dim: int, group: int) -> dict:
+    """Rows per block, q positions per block (BQ), kv positions per stage
+    (BK), kv stages and dynamic shared memory of the kernel that takes
+    (dtype, head_dim) at ``group`` q heads per kv head."""
+    D, kind = head_dim, variant(dtype, head_dim)
+    if kind == "wgmma":          # q + stages x (k + v) + 1 KB alignment slack
+        rows, bk, stages = 128, 64 if D == 256 else 128, 2
+        smem = (1024 + rows * D * 2 + 2 * stages * bk * D * 2
+                + 8 * (2 + 4 * stages))
+    elif kind == "mma_sync":     # q, k, v tiles, rows padded by 8 bf16
+        rows, bk, stages = 64, 64, 1
+        smem = 2 * (rows + 2 * bk) * (D + 8)
+    else:                        # q, k, v padded by 4 floats, p tile
+        rows, bk, stages = 64, 32, 1
+        smem = 4 * (rows * (D + 4) + 2 * bk * (D + 4) + rows * (bk + 1))
+    return {"variant": kind, "rows": rows, "bq": rows // group, "bk": bk,
+            "stages": stages, "smem_bytes": smem}
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -84,6 +118,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     o = torch.empty_like(q)
     if B == 0 or Sq == 0:
         return o
+    if Sk == 0:          # no keys: every row fully masked, as in ref
+        return o.zero_()
+    kind = variant(q.dtype, D)
     scale = scale if scale is not None else D ** -0.5
     lib = _library()
     with torch.cuda.device(q.device):
@@ -96,6 +133,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         msg = lib.flash_attention_fwd_error_string(err).decode()
         raise RuntimeError(f"flash_attention_fwd launch failed: {msg} ({err})")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[f"flash_attention.{kind}"] += 1
     return o
 
 
@@ -111,3 +149,18 @@ def _library():
         lib.flash_attention_fwd_error_string.argtypes = [i32]
         lib.flash_attention_fwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_tile_plan(dtype: torch.dtype, head_dim: int, group: int) -> dict:
+    """``tile_plan`` as the built library states it (needs nvcc)."""
+    fn = _library().flash_attention_fwd_plan
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    err = fn(_DTYPES[dtype], head_dim, group, ctypes.cast(out, ctypes.c_void_p))
+    if err:
+        raise ValueError(f"no kernel takes {dtype}, D={head_dim}, G={group}")
+    names = ("variant", "rows", "bq", "bk", "stages", "smem_bytes")
+    plan = dict(zip(names, out))
+    plan["variant"] = ("f32", "mma_sync", "wgmma")[plan["variant"]]
+    return plan

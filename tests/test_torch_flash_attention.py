@@ -19,9 +19,15 @@ from repro.kernels.flash_attention.ref import attention_ref as jax_ref  # noqa: 
 from repro_torch.kernels import LAUNCHES, _build  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    HEAD_DIMS,
+    MAX_GROUP,
+    SMEM_LIMIT,
     check_inputs,
     flash_attention_cuda,
+    tile_plan,
+    variant,
 )
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 
 DTYPES = [("float32", 3e-5), ("bfloat16", 3e-2)]
 
@@ -122,8 +128,100 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         check_inputs(q, k, v)
 
 
-def test_build_path_is_content_addressed():
+def test_build_path_is_content_addressed(tmp_path, monkeypatch):
     path = _build.library_path("flash_attention_fwd")
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path("flash_attention_fwd")
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+    src = _build._KERNELS_DIR / _build.SOURCES["flash_attention_fwd"]
+    header = _build._KERNELS_DIR / "common" / "hopper.cuh"
+    assert header.resolve() in _build.source_files(src)
+    # a copy of the kernels' sources: touching the header moves the path
+    for rel in (_build.SOURCES["flash_attention_fwd"], "common/hopper.cuh"):
+        (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+        (tmp_path / rel).write_bytes((_build._KERNELS_DIR / rel).read_bytes())
+    monkeypatch.setattr(_build, "_KERNELS_DIR", tmp_path)
+    before = _build.library_path("flash_attention_fwd")
+    assert before.name == path.name
+    with open(tmp_path / "common" / "hopper.cuh", "a") as f:
+        f.write("// touched\n")
+    assert _build.library_path("flash_attention_fwd") != before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("G", [1, 2, 8, 10, 64])
+def test_tile_plan_fits_the_card(G, D, dtype):
+    assert G <= MAX_GROUP
+    plan = tile_plan(dtype, D, G)
+    want = ("f32" if dtype == torch.float32 else
+            "wgmma" if D >= 64 else "mma_sync")
+    assert plan["variant"] == variant(dtype, D) == want
+    assert plan["smem_bytes"] <= SMEM_LIMIT
+    assert 1 <= plan["bq"] and G * plan["bq"] <= plan["rows"]
+    if want == "wgmma":    # two consumer warpgroups of 64 rows, >= 2 stages
+        assert plan["rows"] == 128 and plan["stages"] >= 2
+        assert plan["bk"] % 64 == 0 and D % 64 == 0
+
+
+LOG2E = 1.4426950408889634
+
+
+def _emulate_wgmma_kernel(q, k, v, *, causal, window, softcap, scale, bk):
+    """The wgmma kernel's arithmetic in plain torch: per kv tile of ``bk``
+    keys, f32 scores of the bf16 inputs in log2 units (log2 e folded into
+    the scale, or into the softcap's output scale), online softmax with
+    exp2, p rounded to bf16 before p.v, f32 m, l and acc."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    qf = q.float().reshape(B, Sq, KH, G, D).permute(0, 2, 1, 3, 4)
+    qf = qf.reshape(B, KH, Sq * G, D)            # row = position * G + head
+    kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)
+    qpos = torch.arange(Sq).repeat_interleave(G)[:, None]
+    m = torch.full((B, KH, Sq * G, 1), float("-inf"))
+    l = torch.zeros((B, KH, Sq * G, 1))
+    acc = torch.zeros((B, KH, Sq * G, D))
+    for k0 in range(0, Sk, bk):
+        s = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
+        if softcap:
+            x = softcap * LOG2E * torch.tanh(s * (scale / softcap))
+        else:
+            x = s * (scale * LOG2E)
+        kp = torch.arange(k0, min(k0 + bk, Sk))[None, :]
+        ok = torch.ones_like(qpos - kp, dtype=torch.bool)
+        if causal:
+            ok &= kp <= qpos
+        if window:
+            ok &= qpos - kp < window
+        x = x.masked_fill(~ok, float("-inf"))
+        mx = torch.maximum(m, x.amax(-1, keepdim=True))
+        m_use = torch.where(mx == float("-inf"), torch.zeros_like(mx), mx)
+        corr = torch.exp2(m - m_use)
+        p = torch.exp2(x - m_use)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(torch.bfloat16).float() @ vf[:, :, k0:k0 + bk]
+        m = mx
+    out = torch.where(l > 0, acc / l.clamp_min(1e-30), torch.zeros_like(acc))
+    out = out.reshape(B, KH, Sq, G, D).permute(0, 2, 1, 3, 4)
+    return out.reshape(B, Sq, H, D).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("against", ["port_ref", "jax_oracle"])
+@pytest.mark.parametrize(
+    "H,KH,D,cap,scale,window",
+    [(4, 2, 256, 50.0, 1.0 / 16, 4096),       # gemma2-2b widths (G = 2)
+     (8, 1, 128, 0.0, 128 ** -0.5, 0)])       # qwen3-moe widths (G = 8)
+def test_wgmma_kernel_arithmetic_holds_bf16_tolerance(H, KH, D, cap, scale,
+                                                       window, against):
+    """p as one bf16 (no hi/lo split) stays inside the bf16 tolerance."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(11, 1, 256, 256, H, KH, D),
+                                       "bfloat16")
+    kw = dict(causal=True, window=window, softcap=cap, scale=scale)
+    got = _emulate_wgmma_kernel(tq, tk, tv,
+                                bk=tile_plan(torch.bfloat16, D, H // KH)["bk"],
+                                **kw)
+    if against == "port_ref":
+        _close(got, attention_ref(tq, tk, tv, **kw).float(), 3e-2)
+    else:
+        _close(got, jax_ref(jq, jk, jv, **kw), 3e-2)
