@@ -6,7 +6,9 @@
 Phases, one JSON line each (any failure raises and exits non-zero):
   build          compile every CUDA kernel from the sources in this checkout
                  (one nvcc per source, all started together) and report
-                 each kernel's registers, spills and shared memory (ptxas)
+                 each kernel's registers, spills and shared memory (ptxas;
+                 the flash kernels' dynamic shared memory as the library
+                 states it)
   kernel ...     hold each kernel (flash_attention, linear_scan,
                  selective_scan, gmm) against its plain PyTorch version on
                  the card at the main paths' shapes, and time kernel, plain
@@ -16,10 +18,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  behind a sleep kernel, so host launch overhead is not in
                  them.  Flash attention reports the kernel variant each case
                  took (wgmma, mma_sync, f32; its launch counter must show
-                 it), the tile plan the library states (held against
-                 ``ops.tile_plan``) and TFLOP/s; ``--baseline`` builds an
+                 it), TFLOP/s and the wrapper's host-inclusive time per
+                 call beside its device time; ``--baseline`` builds an
                  earlier version of ``flash_attention_fwd.cu`` (same C
-                 interface) and times it on the serve shapes in the same run
+                 interface) and times it on every case in the same run,
+                 with its error against the plain version
   serve <arch>   full-width gemma2-2b, recurrentgemma-2b, falcon-mamba-7b
                  and qwen3-moe-30b-a3b (bf16, random weights from seed 0;
                  qwen3 needs ~65 GB) through ``BatchedServer``: 8 requests,
@@ -71,6 +74,11 @@ KERNELS = {   # name: (source, the TPU kernel it replaces)
 # f32: summation order over up to 1024 keys plus tanhf/expf against torch.
 G2 = dict(H=8, KH=4, D=256, softcap=50.0, scale=1.0 / 16)
 RG = dict(H=10, KH=1, D=256, softcap=0.0, scale=1.0 / 16)   # G = 10 q heads
+# softcap_saturated: gemma2's widths with scale 2, so scale . q.k has a
+# standard deviation of 32 and most rows' maxima reach the cap (|tanh| of
+# 0.95 and more), where an error of the kernel's tanh weighs most in p.  d64 and
+# g64: the wgmma kernel's smallest head dim and largest group (64 q heads
+# per kv head, rows past the window's reach fully masked).
 FA_CASES = [
     dict(name="serve", B=4, Sq=1024, Sk=1024, causal=True, window=4096,
          q_offset=0, dtype="bfloat16", tol=3e-2, **G2),
@@ -94,10 +102,16 @@ FA_CASES = [
     dict(name="qwen3_serve", B=4, Sq=1024, Sk=1024, H=32, KH=4, D=128,
          causal=True, window=0, softcap=0.0, scale=128 ** -0.5, q_offset=0,
          dtype="bfloat16", tol=3e-2),
+    dict(name="softcap_saturated", B=2, Sq=512, Sk=512, causal=True,
+         window=4096, q_offset=0, dtype="bfloat16", tol=3e-2,
+         **{**G2, "scale": 2.0}),
+    dict(name="d64_ragged", B=2, Sq=300, Sk=333, H=6, KH=2, D=64,
+         causal=True, window=0, softcap=0.0, scale=None, q_offset=33,
+         dtype="bfloat16", tol=3e-2),
+    dict(name="g64", B=3, Sq=200, Sk=77, H=64, KH=1, D=128, causal=True,
+         window=50, softcap=0.0, scale=None, q_offset=0, dtype="bfloat16",
+         tol=3e-2),
 ]
-
-# cases timed also through the kernel given by --baseline: the serve shapes
-BASELINE_CASES = ("serve", "recurrentgemma_serve", "qwen3_serve")
 
 # Scan cases.  Tolerances: a float32 output at 1e-4 (the serial chain is the
 # same; FMA contraction and the order of C . h differ); a bf16 output at one
@@ -208,13 +222,12 @@ def phase_build():
     import torch
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.ops import kernel_tile_plan
+    from repro_torch.kernels.flash_attention.ops import kernel_smem_bytes
     t0 = time.perf_counter()
     info = _build.build()
     # dynamic shared memory per block (ptxas reports only static memory)
     smem = {f"flash_attention_fwd_wgmma<{D}>":
-            kernel_tile_plan(torch.bfloat16, D, 1)["smem_bytes"]
-            for D in (64, 128, 256)}
+            kernel_smem_bytes(torch.bfloat16, D) for D in (64, 128, 256)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: {"seconds": v["seconds"], "cached": v["cached"]}
                         for k, v in info.items()},
@@ -281,10 +294,7 @@ def phase_kernel_flash_attention(dev, baseline=None):
 
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
-    from repro_torch.kernels.flash_attention.ops import (
-        kernel_tile_plan,
-        tile_plan,
-    )
+    from repro_torch.kernels.flash_attention.ops import variant
     gen = torch.Generator(device=dev).manual_seed(0)
     old = _baseline_flash(baseline) if baseline else None
     results = {}
@@ -297,27 +307,27 @@ def phase_kernel_flash_attention(dev, baseline=None):
         kw = dict(causal=c["causal"], window=c["window"],
                   softcap=c["softcap"], scale=c["scale"],
                   q_offset=c["q_offset"])
-        plan = tile_plan(dt, D, H // KH)
-        lib_plan = kernel_tile_plan(dt, D, H // KH)
-        if lib_plan != plan:
-            raise AssertionError(f"flash_attention case {c['name']}: tile plan "
-                                 f"{plan} in ops.py, {lib_plan} in the kernel")
-        counter = f"flash_attention.{plan['variant']}"
+        kind = variant(dt, D)
+        counter = f"flash_attention.{kind}"
         before = LAUNCHES[counter]
         out = flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         if LAUNCHES[counter] != before + 1:
             raise AssertionError(f"flash_attention case {c['name']} did not "
-                                 f"launch the {plan['variant']} kernel")
+                                 f"launch the {kind} kernel")
         ref = attention_ref(q, k, v, **kw)
         err = float((out.float() - ref.float()).abs().max())
         finite = bool(torch.isfinite(out.float()).all())
+        baseline_err = (float((old(q, k, v, **kw).float() - ref.float())
+                              .abs().max()) if old else None)
         del ref
         big = Sq * Sk > 4_000_000
         ms = device_ms(lambda: flash_attention(q, k, v, **kw), 3 if big else 10)
+        host_ms = time_ms(lambda: flash_attention(q, k, v, **kw),
+                          3 if big else 10)
         plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), 2 if big else 5)
-        baseline_ms = (device_ms(lambda: old(q, k, v, **kw), 10)
-                       if old and c["name"] in BASELINE_CASES else None)
+        baseline_ms = (device_ms(lambda: old(q, k, v, **kw), 3 if big else 10)
+                       if old else None)
 
         # yardstick: one SDPA call, same q/k/v and masks, without softcap
         mask = _mask(c, dev)
@@ -347,10 +357,11 @@ def phase_kernel_flash_attention(dev, baseline=None):
                "shape": {n: c[n] for n in ("B", "Sq", "Sk", "H", "KH", "D")},
                "causal": c["causal"], "window": c["window"],
                "softcap": c["softcap"], "q_offset": c["q_offset"],
-               "dtype": c["dtype"], "variant": plan["variant"],
-               "tile_plan": plan, "max_abs_err": err, "tol": c["tol"],
-               "ok": ok, "ms": ms, "tflops": flops / ms / 1e9,
-               "baseline_ms": baseline_ms, "plain_ms": plain_ms,
+               "scale": c["scale"], "dtype": c["dtype"], "variant": kind,
+               "max_abs_err": err, "tol": c["tol"], "ok": ok, "ms": ms,
+               "host_ms": host_ms, "tflops": flops / ms / 1e9,
+               "baseline_ms": baseline_ms,
+               "baseline_max_abs_err": baseline_err, "plain_ms": plain_ms,
                "library_ms": library_ms,
                "library": "scaled_dot_product_attention, no softcap",
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
@@ -809,7 +820,8 @@ def main() -> int:
             "launches_by_path": launches[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
-            "bound_by": s["bound_by"], "library_ms": s["library_ms"]})
+            "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+            **({"host_ms": s["host_ms"]} if "host_ms" in s else {})})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t0})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -52,8 +52,11 @@
 //      softmax also overlaps the other's products.
 //    - Softmax.  f32 m, l and O; exp2 with log2 e folded into the scale
 //      (or into the softcap's output scale) inside one FMA; tanh is
-//      tanh.approx.f32; the masks run only on tiles that cross the causal
-//      diagonal, the window edge or Sk.
+//      1 - 2 / (2^y + 1) from ex2.approx and rcp.approx (absolute error
+//      below 1e-6; tanh.approx.f32's 2^-11 becomes a logit error of 0.025
+//      under a softcap of 50, which scores near the cap turn into output
+//      errors past the bf16 tolerance); the masks run only on tiles that
+//      cross the causal diagonal, the window edge or Sk.
 //    - Shared memory per block (1 KB alignment slack, q, 2 x (k + v),
 //      18 mbarriers):
 //        D = 256: BK 64:  1 + 64 + 2 x (32 + 32) KB = 197,712 bytes
@@ -80,6 +83,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 
@@ -88,6 +92,8 @@
 namespace {
 
 constexpr int kRows = 64;          // folded q rows per block of tc and cc
+constexpr size_t kSmemLimit = 232448;   // dynamic shared memory of a block
+constexpr int kMaxDevices = 64;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -524,10 +530,13 @@ struct Tile {
   static constexpr uint32_t kTileBytes = BK * D * 2;   // one k or v stage
   static constexpr size_t kSmem =
       1024 + kQBytes + 2 * size_t(kStages) * kTileBytes + 8 * (2 + 4 * kStages);
+  static_assert(D % 64 == 0 && BK % 64 == 0, "rows of whole 128-byte atoms");
+  static_assert(kSmem <= kSmemLimit, "q and the kv ring exceed a block");
 };
 
-// S (64 x BK, this thread's fragment) -> t = tanh(S * in_scale) when
-// kCap, else S, and -inf where kMask's masks hide the entry; the row maxima
+// S (64 x BK, this thread's fragment) -> t = tanh_ex2(S * in_scale) =
+// tanh(S * scale / softcap) when kCap (in_scale = 2 log2 e scale / softcap),
+// else S, and -inf where kMask's masks hide the entry; the row maxima
 // of t are folded into mx (two partial maxima per row for ILP).  The score
 // in log2 units is t * mult (mult = softcap * log2 e, or scale * log2 e),
 // which the exponent's FMA applies.
@@ -538,7 +547,7 @@ __device__ __forceinline__ void scores(float (&sc)[BK / 2], const Params& p,
   float mp[2][2] = {{mx[0], mx[0]}, {mx[1], mx[1]}};
 #pragma unroll
   for (int e = 0; e < BK / 2; ++e) {
-    float x = kCap ? tanh_approx(sc[e] * in_scale) : sc[e];
+    float x = kCap ? tanh_ex2(sc[e] * in_scale) : sc[e];
     const int h = (e / 2) % 2;
     if (kMask) {
       const int kp = k0 + 8 * (e / 4) + 2 * (lane % 4) + (e % 2);
@@ -674,7 +683,7 @@ flash_attention_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
     const int rows = p.G * p.BQ;
     const bool capped = p.softcap > 0.f;
-    const float in_scale = capped ? p.scale / p.softcap : 1.f;
+    const float in_scale = capped ? 2.f * kLog2e * p.scale / p.softcap : 1.f;
     const float mult = (capped ? p.softcap : p.scale) * kLog2e;
     const uint32_t q_base = smem_u32(sQ) + wgi * 64 * 128;
 
@@ -894,6 +903,11 @@ flash_attention_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 
 }  // namespace wg
 
+// G <= kRows q heads per kv head (checked at the C entry) fold into every
+// kernel's block: BQ = rows / G >= 1.
+static_assert(wg::kRows >= kRows && tc::kThreads / 32 * 16 == kRows,
+              "a block folds at least kRows rows");
+
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  Params p, cudaStream_t stream) {
@@ -919,14 +933,23 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (!err) err = hopper::encode_tensor_map_bf16(&tv, v, 4, kd, ks, kb);
   if (err) return err;
   auto kernel = wg::flash_attention_fwd_wgmma<D>;
-  cudaError_t cerr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+  // The shared-memory attribute is set, and the SM count read, once per
+  // device, so a launch costs the host only the three tensor maps.
+  static std::atomic<int> sms_of[kMaxDevices];   // 0: not yet prepared
+  int device;
+  cudaError_t cerr = cudaGetDevice(&device);
   if (cerr != cudaSuccess) return (int)cerr;
-  int device, sms;
-  cerr = cudaGetDevice(&device);
-  if (cerr == cudaSuccess)
-    cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (cerr != cudaSuccess) return (int)cerr;
+  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int sms = sms_of[device].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    cerr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+    if (cerr == cudaSuccess)
+      cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device);
+    if (cerr != cudaSuccess) return (int)cerr;
+    sms_of[device].store(sms, std::memory_order_relaxed);
+  }
   const long long n_work = (long long)p.B * p.KH * n_q_tiles;
   if (n_work > (1ll << 31) - 1) return (int)cudaErrorInvalidValue;
   const int grid = (int)(n_work < sms ? n_work : sms);
@@ -950,17 +973,11 @@ int launch(Kernel kernel, int threads, size_t smem, const void* q,
   return (int)cudaGetLastError();
 }
 
-// The kernel a (dtype, D) takes; ops.py states the same rule.
-enum Variant { kF32 = 0, kMmaSync = 1, kWgmma = 2 };
-
-int variant_of(int dtype, int D) {
-  if (dtype == 0) return kF32;
-  return D >= 64 ? kWgmma : kMmaSync;
-}
-
 template <int D>
 int launch_d(int dtype, const void* q, const void* k, const void* v, void* o,
              const Params& p, cudaStream_t stream) {
+  static_assert(cc::smem_bytes<D>() <= kSmemLimit &&
+                tc::smem_bytes<D>() <= kSmemLimit, "tiles exceed a block");
   if (dtype == 0)
     return launch<float>(cc::flash_attention_fwd_cc<D>, cc::kThreads,
                          cc::smem_bytes<D>(), q, k, v, o, p, stream);
@@ -972,31 +989,14 @@ int launch_d(int dtype, const void* q, const void* k, const void* v, void* o,
                                  tc::smem_bytes<D>(), q, k, v, o, p, stream);
 }
 
+// Dynamic shared memory of the kernel that takes (dtype, D).
 template <int D>
-void plan_d(int dtype, int G, int* out) {
-  out[0] = variant_of(dtype, D);
-  if constexpr (D >= 64) {
-    if (out[0] == kWgmma) {
-      out[1] = wg::kRows;
-      out[2] = wg::kRows / G;
-      out[3] = wg::Tile<D>::BK;
-      out[4] = wg::Tile<D>::kStages;
-      out[5] = (int)wg::Tile<D>::kSmem;
-      return;
-    }
-  }
-  if (out[0] == kMmaSync) {
-    out[1] = kRows;
-    out[3] = tc::kBK;
-    out[4] = 1;
-    out[5] = (int)tc::smem_bytes<D>();
-  } else {
-    out[1] = kRows;
-    out[3] = cc::kBK;
-    out[4] = 1;
-    out[5] = (int)cc::smem_bytes<D>();
-  }
-  out[2] = out[1] / G;
+int smem_d(int dtype) {
+  if (dtype == 0) return (int)cc::smem_bytes<D>();
+  if constexpr (D >= 64)
+    return (int)wg::Tile<D>::kSmem;
+  else
+    return (int)tc::smem_bytes<D>();
 }
 
 }  // namespace
@@ -1030,20 +1030,18 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   }
 }
 
-// The tile plan of a launch: out[0] variant (0 f32, 1 mma.sync, 2 wgmma),
-// out[1] folded rows per block, out[2] BQ, out[3] BK, out[4] kv stages,
-// out[5] dynamic shared memory bytes.  Returns 0, or cudaErrorInvalidValue
-// for a D or G the kernels do not take.
-int flash_attention_fwd_plan(int dtype, int D, int G, int* out) {
-  if (G <= 0 || G > kRows || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
+// Dynamic shared memory per block, in bytes, of the kernel that a launch
+// with (dtype, D) takes (ptxas reports only static shared memory), or -1
+// for a pair that no kernel takes.
+int flash_attention_fwd_smem_bytes(int dtype, int D) {
+  if (dtype != 0 && dtype != 1) return -1;
   switch (D) {
-    case 16: plan_d<16>(dtype, G, out); return 0;
-    case 32: plan_d<32>(dtype, G, out); return 0;
-    case 64: plan_d<64>(dtype, G, out); return 0;
-    case 128: plan_d<128>(dtype, G, out); return 0;
-    case 256: plan_d<256>(dtype, G, out); return 0;
-    default: return (int)cudaErrorInvalidValue;
+    case 16: return smem_d<16>(dtype);
+    case 32: return smem_d<32>(dtype);
+    case 64: return smem_d<64>(dtype);
+    case 128: return smem_d<128>(dtype);
+    case 256: return smem_d<256>(dtype);
+    default: return -1;
   }
 }
 

@@ -10,7 +10,7 @@ bf16 with D in 64, 128, 256 runs the wgmma/TMA kernel, bf16 with D in 16,
 32 the mma.sync kernel (a 32- or 64-byte row is below TMA's 128-byte
 swizzle atom), f32 the CUDA-core kernel.  ``LAUNCHES["flash_attention"]``
 counts every launch, ``LAUNCHES["flash_attention.<variant>"]`` each
-variant's.  ``tile_plan`` mirrors the kernels' tile constants.
+variant's.
 """
 from __future__ import annotations
 
@@ -25,7 +25,6 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 HEAD_DIMS = (16, 32, 64, 128, 256)    # instantiated in the kernel
 MAX_GROUP = 64                        # q heads per kv head (rows per block)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SMEM_LIMIT = 232_448                  # dynamic shared memory of one block
 
 
 def variant(dtype: torch.dtype, head_dim: int) -> str:
@@ -33,25 +32,6 @@ def variant(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.float32:
         return "f32"
     return "wgmma" if head_dim >= 64 else "mma_sync"
-
-
-def tile_plan(dtype: torch.dtype, head_dim: int, group: int) -> dict:
-    """Rows per block, q positions per block (BQ), kv positions per stage
-    (BK), kv stages and dynamic shared memory of the kernel that takes
-    (dtype, head_dim) at ``group`` q heads per kv head."""
-    D, kind = head_dim, variant(dtype, head_dim)
-    if kind == "wgmma":          # q + stages x (k + v) + 1 KB alignment slack
-        rows, bk, stages = 128, 64 if D == 256 else 128, 2
-        smem = (1024 + rows * D * 2 + 2 * stages * bk * D * 2
-                + 8 * (2 + 4 * stages))
-    elif kind == "mma_sync":     # q, k, v tiles, rows padded by 8 bf16
-        rows, bk, stages = 64, 64, 1
-        smem = 2 * (rows + 2 * bk) * (D + 8)
-    else:                        # q, k, v padded by 4 floats, p tile
-        rows, bk, stages = 64, 32, 1
-        smem = 4 * (rows * (D + 4) + 2 * bk * (D + 4) + rows * (bk + 1))
-    return {"variant": kind, "rows": rows, "bq": rows // group, "bk": bk,
-            "stages": stages, "smem_bytes": smem}
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -151,16 +131,13 @@ def _library():
     return lib
 
 
-def kernel_tile_plan(dtype: torch.dtype, head_dim: int, group: int) -> dict:
-    """``tile_plan`` as the built library states it (needs nvcc)."""
-    fn = _library().flash_attention_fwd_plan
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+def kernel_smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
+    """Dynamic shared memory per block of the kernel that takes (dtype,
+    head_dim), as the built library states it (needs nvcc)."""
+    fn = _library().flash_attention_fwd_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 6)()
-    err = fn(_DTYPES[dtype], head_dim, group, ctypes.cast(out, ctypes.c_void_p))
-    if err:
-        raise ValueError(f"no kernel takes {dtype}, D={head_dim}, G={group}")
-    names = ("variant", "rows", "bq", "bk", "stages", "smem_bytes")
-    plan = dict(zip(names, out))
-    plan["variant"] = ("f32", "mma_sync", "wgmma")[plan["variant"]]
-    return plan
+    out = fn(_DTYPES[dtype], head_dim)
+    if out < 0:
+        raise ValueError(f"no kernel takes {dtype}, D={head_dim}")
+    return out

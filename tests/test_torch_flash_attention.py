@@ -21,10 +21,8 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     HEAD_DIMS,
     MAX_GROUP,
-    SMEM_LIMIT,
     check_inputs,
     flash_attention_cuda,
-    tile_plan,
     variant,
 )
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -109,7 +107,8 @@ def test_cpu_tensors_take_the_plain_version():
         flash_attention(tq, tk, tv, impl="pallas")
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "dtype", "layout", "heads"])
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "layout", "heads",
+                                 "group"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     q = torch.zeros(1, 8, 4, 16)
     k = torch.zeros(1, 8, 2, 16)
@@ -122,8 +121,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         k = k.to(torch.bfloat16)
     elif bad == "layout":
         q = torch.zeros(1, 4, 8, 16).transpose(1, 2)
-    else:
+    elif bad == "heads":
         q = torch.zeros(1, 8, 3, 16)
+    else:              # more q heads per kv head than a block folds
+        q = torch.zeros(1, 8, 2 * (MAX_GROUP + 1), 16)
     with pytest.raises(ValueError):
         check_inputs(q, k, v)
 
@@ -151,30 +152,33 @@ def test_build_path_is_content_addressed(tmp_path, monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", HEAD_DIMS)
 @pytest.mark.parametrize("G", [1, 2, 8, 10, 64])
-def test_tile_plan_fits_the_card(G, D, dtype):
-    assert G <= MAX_GROUP
-    plan = tile_plan(dtype, D, G)
+def test_wrapper_takes_every_group_and_head_dim(G, D, dtype):
+    """Every (G, D, dtype) the kernels are built for passes the wrapper's
+    checks, and the variant rule names the kernel that takes it."""
+    KH = 2
+    q = torch.zeros(1, 3, G * KH, D, dtype=dtype)
+    k = torch.zeros(1, 5, KH, D, dtype=dtype)
+    check_inputs(q, k, k.clone())
     want = ("f32" if dtype == torch.float32 else
             "wgmma" if D >= 64 else "mma_sync")
-    assert plan["variant"] == variant(dtype, D) == want
-    assert plan["smem_bytes"] <= SMEM_LIMIT
-    assert 1 <= plan["bq"] and G * plan["bq"] <= plan["rows"]
-    if want == "wgmma":    # two consumer warpgroups of 64 rows, >= 2 stages
-        assert plan["rows"] == 128 and plan["stages"] >= 2
-        assert plan["bk"] % 64 == 0 and D % 64 == 0
+    assert variant(dtype, D) == want
 
 
 LOG2E = 1.4426950408889634
 
 
-def _emulate_wgmma_kernel(q, k, v, *, causal, window, softcap, scale, bk):
+def _emulate_wgmma_kernel(q, k, v, *, causal, window, softcap, scale, bk,
+                          tanh_err=0.0, seed=0):
     """The wgmma kernel's arithmetic in plain torch: per kv tile of ``bk``
     keys, f32 scores of the bf16 inputs in log2 units (log2 e folded into
     the scale, or into the softcap's output scale), online softmax with
-    exp2, p rounded to bf16 before p.v, f32 m, l and acc."""
+    exp2, p rounded to bf16 before p.v, f32 m, l and acc.  ``tanh_err``
+    adds an error of that size, of a random sign per score, to tanh."""
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     G = H // KH
+    scale = D ** -0.5 if scale is None else scale
+    gen = torch.Generator().manual_seed(seed)
     qf = q.float().reshape(B, Sq, KH, G, D).permute(0, 2, 1, 3, 4)
     qf = qf.reshape(B, KH, Sq * G, D)            # row = position * G + head
     kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)
@@ -185,7 +189,9 @@ def _emulate_wgmma_kernel(q, k, v, *, causal, window, softcap, scale, bk):
     for k0 in range(0, Sk, bk):
         s = qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
         if softcap:
-            x = softcap * LOG2E * torch.tanh(s * (scale / softcap))
+            t = torch.tanh(s * (scale / softcap))
+            sign = torch.randint(0, 2, t.shape, generator=gen) * 2 - 1
+            x = softcap * LOG2E * (t + tanh_err * sign)
         else:
             x = s * (scale * LOG2E)
         kp = torch.arange(k0, min(k0 + bk, Sk))[None, :]
@@ -207,20 +213,42 @@ def _emulate_wgmma_kernel(q, k, v, *, causal, window, softcap, scale, bk):
     return out.reshape(B, Sq, H, D).to(torch.bfloat16)
 
 
+# The wgmma kernel's tanh, 1 - 2 / (2^y + 1) from ex2.approx and rcp.approx,
+# is within 1e-6 of tanh; the emulation adds that much.  (An error of the
+# size of tanh.approx.f32's bound, about 2**-11, takes the softcap_saturated
+# case past the tolerance.)
+TANH_ERR = 1e-6
+
+
+def test_kernel_tanh_is_within_its_error_bound():
+    """tanh(y / (2 log2 e)) as the kernel forms it, in f32 with ex2 and rcp
+    off by their PTX bounds (2**-22, 2**-23) either way, against tanh."""
+    y = torch.linspace(-200.0, 200.0, 400_001, dtype=torch.float32)
+    want = torch.tanh(y.double() / (2 * LOG2E))
+    for s1 in (-1, 1):
+        for s2 in (-1, 1):
+            e = (torch.exp2(y.double()) * (1 + s1 * 2.0 ** -22)).float()
+            r = (1 / (e.double() + 1) * (1 + s2 * 2.0 ** -23)).float()
+            got = 1 - 2 * r
+            assert (got.double() - want).abs().max() < TANH_ERR
+
+
 @pytest.mark.parametrize("against", ["port_ref", "jax_oracle"])
 @pytest.mark.parametrize(
     "H,KH,D,cap,scale,window",
     [(4, 2, 256, 50.0, 1.0 / 16, 4096),       # gemma2-2b widths (G = 2)
-     (8, 1, 128, 0.0, 128 ** -0.5, 0)])       # qwen3-moe widths (G = 8)
+     (8, 1, 128, 0.0, 128 ** -0.5, 0),        # qwen3-moe widths (G = 8)
+     (4, 2, 256, 50.0, 2.0, 4096),            # scores past the softcap
+     (6, 2, 64, 0.0, None, 0)])               # the smallest wgmma head dim
 def test_wgmma_kernel_arithmetic_holds_bf16_tolerance(H, KH, D, cap, scale,
                                                        window, against):
-    """p as one bf16 (no hi/lo split) stays inside the bf16 tolerance."""
+    """p as one bf16 (no hi/lo split) and the kernel's tanh stay inside the
+    bf16 tolerance, in kv tiles of the kernel's BK at D (Tile<D>::BK)."""
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(11, 1, 256, 256, H, KH, D),
                                        "bfloat16")
     kw = dict(causal=True, window=window, softcap=cap, scale=scale)
-    got = _emulate_wgmma_kernel(tq, tk, tv,
-                                bk=tile_plan(torch.bfloat16, D, H // KH)["bk"],
-                                **kw)
+    got = _emulate_wgmma_kernel(tq, tk, tv, bk=64 if D == 256 else 128,
+                                tanh_err=TANH_ERR, **kw)
     if against == "port_ref":
         _close(got, attention_ref(tq, tk, tv, **kw).float(), 3e-2)
     else:
