@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py [--baseline OLD_flash_attention_fwd.cu]
+    python3 chip_smoke.py [--baseline NAME=OLD.cu ...]
 
 Phases, one JSON line each (any failure raises and exits non-zero):
   build          compile every CUDA kernel from the sources in this checkout
                  (one nvcc per source, all started together) and report
                  each kernel's registers, spills and shared memory (ptxas;
-                 the flash kernels' dynamic shared memory as the library
-                 states it)
+                 the flash and gmm wgmma kernels' dynamic shared memory as
+                 the library states it)
   kernel ...     hold each kernel (flash_attention, linear_scan,
                  selective_scan, gmm) against its plain PyTorch version on
                  the card at the main paths' shapes, and time kernel, plain
@@ -16,20 +16,24 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  computes the same function) and the card's bound.  Kernel
                  and library times are device times: the timed calls queue
                  behind a sleep kernel, so host launch overhead is not in
-                 them.  Flash attention reports the kernel variant each case
-                 took (wgmma, mma_sync, f32; its launch counter must show
-                 it), TFLOP/s and the wrapper's host-inclusive time per
-                 call beside its device time; ``--baseline`` builds an
-                 earlier version of ``flash_attention_fwd.cu`` (same C
-                 interface) and times it on every case in the same run,
-                 with its error against the plain version
+                 them.  Flash attention and gmm report the kernel variant
+                 each case took (wgmma, mma_sync, f32; the launch counter
+                 must show it, and for gmm the library's own rule must name
+                 it), flash also TFLOP/s; flash, selective_scan and gmm
+                 give the wrapper's host-inclusive time per call beside
+                 the device time.  ``--baseline NAME=PATH`` (NAME one of
+                 flash_attention, selective_scan, gmm; repeatable) builds
+                 an earlier version of that kernel's ``.cu`` (same C
+                 interface) and times it on every case of its phase in the
+                 same run, with its error against the plain version
   serve <arch>   full-width gemma2-2b, recurrentgemma-2b, falcon-mamba-7b
                  and qwen3-moe-30b-a3b (bf16, random weights from seed 0;
                  qwen3 needs ~65 GB) through ``BatchedServer``: 8 requests,
                  batch 4, prompt 1024, 16 new tokens; asserts the loop (wave
                  or continuous) and each kernel's launches per prefill and
                  per decode step (flash attention's all through the wgmma
-                 variant); then one prefill of the first wave with
+                 variant, gmm's through wgmma in prefill and mma_sync in
+                 decode); then one prefill of the first wave with
                  ``impl="ref"`` (the plain versions): prefill logits within a
                  stated tolerance, and greedy tokens decoded from its cache
                  by ``impl="ref"`` decode steps against the served ones
@@ -161,7 +165,8 @@ GMM_CASES = [
 
 # serve phases: arch, the loop it must run, kernel launches per prefill and
 # per decode step ("flash_attention.wgmma": the launches of flash attention's
-# wgmma kernel, which must be all of them)
+# wgmma kernel, which must be all of them; "gmm.wgmma" / "gmm.mma_sync":
+# gmm's launches through its prefill and decode kernels)
 SERVE = [
     ("gemma2-2b", "wave",
      {"flash_attention": 26, "flash_attention.wgmma": 26}, {}),
@@ -170,8 +175,9 @@ SERVE = [
      {}),
     ("falcon-mamba-7b", "continuous", {"selective_scan": 64}, {}),
     ("qwen3-moe-30b-a3b", "continuous",
-     {"flash_attention": 48, "flash_attention.wgmma": 48, "gmm": 144},
-     {"gmm": 144}),
+     {"flash_attention": 48, "flash_attention.wgmma": 48, "gmm": 144,
+      "gmm.wgmma": 144},
+     {"gmm": 144, "gmm.mma_sync": 144}),
 ]
 # Prefill logits, kernels against plain versions, bf16 through every layer:
 # the two round their outputs to bf16 at different elements, and the
@@ -223,11 +229,13 @@ def phase_build():
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.ops import kernel_smem_bytes
+    from repro_torch.kernels.moe_gmm.ops import kernel_smem_bytes as gmm_smem
     t0 = time.perf_counter()
     info = _build.build()
     # dynamic shared memory per block (ptxas reports only static memory)
     smem = {f"flash_attention_fwd_wgmma<{D}>":
             kernel_smem_bytes(torch.bfloat16, D) for D in (64, 128, 256)}
+    smem["gmm_wgmma"] = gmm_smem()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: {"seconds": v["seconds"], "cached": v["cached"]}
                         for k, v in info.items()},
@@ -244,8 +252,9 @@ def ptxas_report(log: str) -> dict:
             m = re.search(r"(flash_attention_fwd_(?:wgmma|tc|cc)|"
                           r"linear_scan_kernel|selective_scan_kernel|gmm_tc)"
                           r"I(?:Li)?(.+?)EE+v", entry[1])
+            plain = [k for k in ("gmm_cc", "gmm_wgmma") if k in entry[1]]
             name = (f"{m[1]}<{m[2]}>" if m else
-                    "gmm_cc" if "gmm_cc" in entry[1] else entry[1])
+                    plain[0] if plain else entry[1])
         elif name and ("registers" in line or "spill" in line
                        or "smem" in line):
             out[name] = (out.get(name, "") + " " +
@@ -265,26 +274,42 @@ def _mask(c, device):
     return m
 
 
-def _baseline_flash(path):
-    """``flash_attention_cuda`` on an earlier ``flash_attention_fwd.cu``
-    (same C interface), built here with the repo's nvcc flags."""
+# --baseline NAME: (library name, module of the wrapper, its CUDA entry)
+BASELINES = {
+    "flash_attention": ("flash_attention_fwd",
+                        "repro_torch.kernels.flash_attention.ops",
+                        "flash_attention_cuda"),
+    "selective_scan": ("selective_scan", "repro_torch.kernels.mamba.ops",
+                       "selective_scan_cuda"),
+    "gmm": ("gmm", "repro_torch.kernels.moe_gmm.ops", "gmm_cuda"),
+}
+
+
+def _baseline(name, path):
+    """The wrapper's CUDA entry for kernel ``name`` on an earlier ``.cu``
+    (same C interface), built here with the repo's nvcc flags; None without
+    a path."""
+    if path is None:
+        return None
     import ctypes
+    import importlib
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import ops
-    out = _build.BUILD_DIR / f"libflash_attention_fwd_baseline-{time.time_ns()}.so"
+    libname, module, entry = BASELINES[name]
+    out = _build.BUILD_DIR / f"lib{libname}_baseline-{time.time_ns()}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
                     str(path)], check=True, capture_output=True, timeout=600)
     lib = ctypes.CDLL(str(out))
-    mine = _build.load("flash_attention_fwd")
+    mine = _build.load(libname)
+    fn = getattr(importlib.import_module(module), entry)
 
-    def run(q, k, v, **kw):
-        _build._LOADED["flash_attention_fwd"] = lib
+    def run(*args, **kw):
+        _build._LOADED[libname] = lib
         try:
-            return ops.flash_attention_cuda(q, k, v, **kw)
+            return fn(*args, **kw)
         finally:
-            _build._LOADED["flash_attention_fwd"] = mine
+            _build._LOADED[libname] = mine
     return run
 
 
@@ -296,7 +321,7 @@ def phase_kernel_flash_attention(dev, baseline=None):
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
     from repro_torch.kernels.flash_attention.ops import variant
     gen = torch.Generator(device=dev).manual_seed(0)
-    old = _baseline_flash(baseline) if baseline else None
+    old = _baseline("flash_attention", baseline)
     results = {}
     for c in FA_CASES:
         dt = getattr(torch, c["dtype"])
@@ -380,28 +405,39 @@ def phase_kernel_flash_attention(dev, baseline=None):
     return results
 
 
-def _scan_check(name, case, kernel, plain, y_dtype, nbytes, flops, extra):
+def _scan_check(name, case, kernel, plain, y_dtype, nbytes, flops, extra,
+                old=None):
     """Run ``kernel`` and ``plain`` on the same inputs, compare (y, h_last),
-    time both and emit the row."""
+    time both (and ``old``, an earlier kernel, where given) and emit the
+    row."""
     import torch
-    y, h = kernel()
-    torch.cuda.synchronize()
+
+    def errors(fn):
+        y, h = fn()
+        torch.cuda.synchronize()
+        return (float((y.float() - y_ref.float()).abs().max()),
+                float((h - h_ref).abs().max()),
+                bool(torch.isfinite(y.float()).all()
+                     and torch.isfinite(h).all()))
     y_ref, h_ref = plain()
-    y_err = float((y.float() - y_ref.float()).abs().max())
-    h_err = float((h - h_ref).abs().max())
+    y_err, h_err, finite = errors(kernel)
     scale = max(1.0, float(y_ref.float().abs().max()))
     y_tol = 1e-4 if y_dtype == "float32" else 2.0 ** -7 * scale
-    finite = bool(torch.isfinite(y.float()).all() and torch.isfinite(h).all())
     ok = finite and y_err <= y_tol and h_err <= 1e-4
+    base_err = errors(old)[:2] if old else None
+    del y_ref, h_ref
     ms = device_ms(kernel, 20)
+    host_ms = time_ms(kernel, 20)
+    baseline_ms = device_ms(old, 20) if old else None
     plain_ms = time_ms(plain, 2)
     t_bytes = nbytes / PEAK_BYTES
     t_ops = flops / PEAK_FLOPS["float32"]
     row = {"phase": f"kernel {name}", "case": case["name"],
            "shape": {k: v for k, v in case.items() if k != "name"},
            "max_abs_err": y_err, "tol": y_tol, "h_last_err": h_err,
-           "h_last_tol": 1e-4, "ok": ok, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": None,
+           "h_last_tol": 1e-4, "ok": ok, "ms": ms, "host_ms": host_ms,
+           "baseline_ms": baseline_ms, "baseline_max_abs_err": base_err,
+           "plain_ms": plain_ms, "library_ms": None,
            "library": "none: no single PyTorch call computes the recurrence",
            "mbytes": nbytes / 1e6, "gflop": flops / 1e9,
            "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -437,11 +473,13 @@ def phase_kernel_linear_scan(dev):
     return results
 
 
-def phase_kernel_selective_scan(dev):
+def phase_kernel_selective_scan(dev, baseline=None):
     import torch
 
     from repro_torch.kernels.mamba import selective_scan, selective_scan_ref
+    from repro_torch.kernels.mamba.ops import variant
     gen = torch.Generator(device=dev).manual_seed(2)
+    old = _baseline("selective_scan", baseline)
     results = {}
     for c in SS_CASES:
         dt_ = getattr(torch, c["dtype"])
@@ -461,13 +499,15 @@ def phase_kernel_selective_scan(dev):
                   + 2 * B * T * n * Bm.element_size() + D.numel() * 4
                   + 2 * h0.numel() * 4)
         exps = B * T * d * n
-        extra = {"exponentials": exps, "exp_bound_ms": 1e3 * exps / PEAK_EXP,
+        extra = {"variant": variant(n), "exponentials": exps,
+                 "exp_bound_ms": 1e3 * exps / PEAK_EXP,
                  "bm_c": "column slices of one x_proj-shaped tensor, "
                          "read in place through their strides"}
         results[c["name"]] = _scan_check(
             "selective_scan", c, lambda: selective_scan(*args),
             lambda: selective_scan_ref(*args), c["dtype"], nbytes,
-            B * T * d * (7 * n + 3), extra)
+            B * T * d * (7 * n + 3), extra,
+            old=(lambda: old(*args)) if old else None)
         del x, dt, A, xdbc, Bm, Cc, D, h0, args
         torch.cuda.empty_cache()
     return results
@@ -484,11 +524,14 @@ def _gmm_sizes(c, gen, dev):
     return counts.clamp(max=c["C"])
 
 
-def phase_kernel_gmm(dev):
+def phase_kernel_gmm(dev, baseline=None):
     import torch
 
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.moe_gmm import gmm, gmm_ref
+    from repro_torch.kernels.moe_gmm.ops import kernel_variant, variant
     gen = torch.Generator(device=dev).manual_seed(3)
+    old = _baseline("gmm", baseline)
     results = {}
     for c in GMM_CASES:
         dt = getattr(torch, c["dtype"])
@@ -496,18 +539,34 @@ def phase_kernel_gmm(dev):
         x = torch.randn((E, C, D), generator=gen, device=dev).to(dt)
         w = (0.02 * torch.randn((E, D, F), generator=gen, device=dev)).to(dt)
         sizes = _gmm_sizes(c, gen, dev)
+        kind = variant(dt, E, C, D, F)
+        if kernel_variant(dt, E, C, D, F) != kind:
+            raise AssertionError(f"gmm case {c['name']}: the library's rule "
+                                 f"names {kernel_variant(dt, E, C, D, F)}, "
+                                 f"ops.variant {kind}")
+        before = LAUNCHES[f"gmm.{kind}"]
         out = gmm(x, w, sizes)
         torch.cuda.synchronize()
+        if LAUNCHES[f"gmm.{kind}"] != before + 1:
+            raise AssertionError(f"gmm case {c['name']} did not launch the "
+                                 f"{kind} kernel")
         ref = gmm_ref(x, w, sizes)
-        err = float((out.float() - ref.float()).abs().max())
         scale = max(1.0, float(ref.float().abs().max()))
         tol = 2.0 ** -7 * scale if c["dtype"] == "bfloat16" else 1e-4
         valid = torch.arange(C, device=dev)[None, :] < sizes[:, None]
-        padding_zero = bool((out[~valid] == 0).all())
-        finite = bool(torch.isfinite(out.float()).all())
+
+        def check(y):
+            return (float((y.float() - ref.float()).abs().max()),
+                    bool((y[~valid] == 0).all()),
+                    bool(torch.isfinite(y.float()).all()))
+        err, padding_zero, finite = check(out)
+        base_check = check(old(x, w, sizes)) if old else None
         del ref
         big = E * C * D > 10_000_000
         ms = device_ms(lambda: gmm(x, w, sizes), 10 if big else 50)
+        host_ms = time_ms(lambda: gmm(x, w, sizes), 10 if big else 50)
+        baseline_ms = (device_ms(lambda: old(x, w, sizes), 10 if big else 50)
+                       if old else None)
         plain_ms = time_ms(lambda: gmm_ref(x, w, sizes), 2 if big else 10)
         library_ms = device_ms(lambda: torch.bmm(x, w), 10 if big else 50)
 
@@ -522,9 +581,12 @@ def phase_kernel_gmm(dev):
         ok = finite and padding_zero and err <= tol
         row = {"phase": "kernel gmm", "case": c["name"],
                "shape": {n: c[n] for n in ("E", "C", "D", "F")},
-               "dtype": c["dtype"], "live_rows": live_rows,
+               "dtype": c["dtype"], "variant": kind, "live_rows": live_rows,
                "live_experts": live_experts, "max_abs_err": err, "tol": tol,
                "all_padding_zero": padding_zero, "ok": ok, "ms": ms,
+               "host_ms": host_ms, "baseline_ms": baseline_ms,
+               "baseline_max_abs_err": base_check and base_check[0],
+               "baseline_padding_zero": base_check and base_check[1],
                "plain_ms": plain_ms, "library_ms": library_ms,
                "library": "torch.bmm in x's dtype over every row and expert",
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
@@ -774,10 +836,19 @@ def _release():
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--baseline", type=Path, default=None,
-                    help="an earlier flash_attention_fwd.cu to time beside "
-                         "the kernel on the serve shapes")
+    ap.add_argument("--baseline", action="append", default=[],
+                    metavar="NAME=PATH",
+                    help="an earlier .cu of kernel NAME (flash_attention, "
+                         "selective_scan, gmm; same C interface) to time "
+                         "beside the kernel on its cases; repeatable")
     args = ap.parse_args()
+    baselines = {}
+    for spec in args.baseline:
+        name, sep, path = spec.partition("=")
+        if not sep or name not in BASELINES or not Path(path).is_file():
+            ap.error(f"--baseline {spec!r}: want NAME=PATH with NAME in "
+                     f"{sorted(BASELINES)} and PATH an existing file")
+        baselines[name] = Path(path)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -796,10 +867,11 @@ def main() -> int:
     phase_build()
     with torch.inference_mode():
         cases = {"flash_attention": phase_kernel_flash_attention(
-                     dev, args.baseline),
+                     dev, baselines.get("flash_attention")),
                  "linear_scan": phase_kernel_linear_scan(dev),
-                 "selective_scan": phase_kernel_selective_scan(dev),
-                 "gmm": phase_kernel_gmm(dev)}
+                 "selective_scan": phase_kernel_selective_scan(
+                     dev, baselines.get("selective_scan")),
+                 "gmm": phase_kernel_gmm(dev, baselines.get("gmm"))}
         _release()
         launches = {name: {} for name in KERNELS}
         for arch, loop, per_prefill, per_decode in SERVE:
@@ -821,7 +893,7 @@ def main() -> int:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
-            **({"host_ms": s["host_ms"]} if "host_ms" in s else {})})
+            **{k: s[k] for k in ("variant", "host_ms") if k in s}})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t0})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

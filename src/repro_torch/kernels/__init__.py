@@ -2,8 +2,8 @@
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made on a CUDA
 tensor (and nothing else), so a run can show that its main path went
-through the kernels; "flash_attention.<variant>" counts the launches of
-each of flash attention's kernels besides.  ``reset_launches`` sets every
+through the kernels; "flash_attention.<variant>" and "gmm.<variant>" count
+the launches of each of flash attention's and gmm's kernels besides.  ``reset_launches`` sets every
 count to 0.
 """
 from __future__ import annotations
@@ -13,7 +13,8 @@ from typing import Dict
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention.wgmma": 0,
                              "flash_attention.mma_sync": 0,
                              "flash_attention.f32": 0, "linear_scan": 0,
-                             "selective_scan": 0, "gmm": 0}
+                             "selective_scan": 0, "gmm": 0, "gmm.wgmma": 0,
+                             "gmm.mma_sync": 0, "gmm.f32": 0}
 
 
 def reset_launches() -> None:

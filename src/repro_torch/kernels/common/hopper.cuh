@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
-// mbarriers, named barriers, TMA tensor loads, shared-memory matrix
+// mbarriers, named barriers, TMA tensor loads, stmatrix, shared-memory matrix
 // descriptors for 128-byte-swizzled bf16 tiles, warpgroup MMA (wgmma)
 // wrappers and register reallocation (setmaxnreg).
 //
@@ -98,8 +98,19 @@ __device__ __forceinline__ void named_bar_arrive(int id, int threads) {
 
 // ---------------------------------------------------------------------- TMA
 
-// Tile of a 4-D / 5-D tensor map at coordinates c0 (innermost) .. into
-// shared memory; completion counts the box's bytes on `bar`.
+// Tile of a 3-D / 4-D / 5-D tensor map at coordinates c0 (innermost) ..
+// into shared memory; completion counts the box's bytes on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
@@ -126,6 +137,26 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// Four 8 x 8 b16 matrices from registers into shared memory: each thread
+// holds row lane / 4, columns 2 (lane % 4) + {0, 1} of matrix m in rm (the
+// fragment layout of an mma or wgmma accumulator's 8 x 8 block), and lanes
+// 8m .. 8m + 7 give the shared addresses of matrix m's rows 0 .. 7.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t r0,
+                                            uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+// Orders this thread's generic-proxy accesses to shared memory before
+// later async-proxy (TMA) accesses to it.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ----------------------------------------------------- register reallocation

@@ -6,9 +6,9 @@
 //     h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) B_t
 //     y_t = sum_n h_t * C_t + D * x_t
 //   with the (d, n) state kept on chip for the whole walk over T, and
-//   h_last = h_T.  All arithmetic in float32 (expf, not __expf).  Unlike the
-//   Pallas kernel it takes any channel count d (threads past the last
-//   channel only help stage shared memory) and any T.
+//   h_last = h_T.  All arithmetic in float32.  Unlike the Pallas kernel it
+//   takes any channel count d (threads past the last channel only help
+//   stage shared memory) and any T (with T * d < 2^31).
 //
 // Inputs as the serving path gives them: x and y in float32 or bfloat16
 // (template TX); Bm and C in float32 or bfloat16 (template TB), each a
@@ -21,20 +21,37 @@
 // dt and y; B, C and the states are small): 81 us at 3.35 TB/s.  It also
 // evaluates B*T*d*n = 5.4e8 exponentials; at 16 MUFU results per SM and
 // clock (132 SMs, 1.98 GHz) those alone take about 128 us, so the special
-// function unit, not memory, sets the lower limit.
+// function unit, not memory, sets the lower limit, and next to it the
+// instructions issued per state and step: with one MUFU in each, a
+// state-step can take no less than the MUFU's 8 cycles per warp.
 //
-// What the design does about it.  Each thread owns one (b, channel) pair
-// and keeps its n states and its row of A in registers (n is padded to a
-// power of two NP with A = 0 and B = C = 0, which keeps the padded states
-// at 0).  B_t and C_t are shared by every channel of a batch row, so a
-// block of 128 channels stages them for kTT = 64 steps at a time in shared
-// memory (as float32) and each thread reads them as broadcasts.  x and dt
-// are loaded kU = 8 steps ahead into registers (double buffering), so the
-// serial chain does not wait on device memory.  Steps past T read dt = 0,
-// x = 0 and B = 0, which leave the state as it is, and store nothing.  Every
-// load is unconditional (indices clamped into range) and a select follows
-// all of a batch's loads: a guarded load compiles to a branch, and a bf16
-// conversion inside it waits for the load, one memory latency per step.
+// What the design does about it.
+//  * Each thread owns one (b, channel) pair and keeps its n states and its
+//    row of A, prescaled once by log2 e, in registers (n is padded to a
+//    power of two NP with A = 0 and B = C = 0, which keeps the padded
+//    states at 0).  A state-step is one FMUL (dt * A log2 e), one
+//    ex2.approx (MUFU; relative error ~2^-22, where expf adds a range
+//    reduction of several FP32 instructions), one FMUL (dt x * B) and two
+//    FMAs (the state, then C . h in state order).
+//  * Up to 168 registers a thread (three blocks of 128 per SM), so the
+//    compiler can overlap one step's exponentials with the previous
+//    step's C . h chain; a batch's y values are stored after all of its
+//    steps.  (Splitting a channel's states over 2 or 4 threads, with
+//    shuffles to sum C . h, gave 2-4x the warps but more instructions per
+//    state-step, and measured slower on the H100; so did a polynomial
+//    2^x on the FMA pipe for 2-4 of the 16 states.)
+//  * B_t and C_t are shared by every channel of a batch row: a block of
+//    128 channels stages them for kTT = 64 steps at a time in shared memory
+//    (as float32) and each thread reads a step's values as float4
+//    broadcasts.
+//  * x and dt are loaded kU = 8 steps ahead into registers (double
+//    buffering), so the serial chain does not wait on device memory.
+//    Offsets inside a batch row are 32-bit (T * d < 2^31), one multiply
+//    and add a load.  Steps past T read dt = 0, x = 0 and B = 0, which
+//    leave the state as it is, and store nothing.  Every load is
+//    unconditional (indices clamped into range) and a select follows all
+//    of a batch's loads: a guarded load compiles to a branch, and a bf16
+//    conversion inside it waits for the load, one memory latency per step.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -46,11 +63,15 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "../../common/hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;  // channels per block
 constexpr int kTT = 64;        // time steps per shared-memory tile of B, C
 constexpr int kU = 8;          // time steps per register batch of x, dt
+constexpr int kMinBlocks = 3;  // resident blocks per SM (<= 168 registers)
+constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kTT % kU == 0, "a tile holds whole register batches");
 static_assert(kTT * 4 % kThreads == 0, "staging splits evenly for NP >= 4");
 
@@ -75,9 +96,9 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// x and dt of steps t0 .. t0 + kU - 1 of one channel (stride d between
-// steps; T >= 1); steps past T, and threads without a channel, read 0.  All
-// loads are issued before any select.
+// x and dt of steps t0 .. t0 + kU - 1 of one channel, from xp / dtp at its
+// row-0 element (stride d between steps; T >= 1); steps past T, and threads
+// without a channel, read 0.  All loads are issued before any select.
 template <typename TX>
 __device__ __forceinline__ void load_batch(const TX* __restrict__ xp,
                                            const float* __restrict__ dtp,
@@ -87,7 +108,7 @@ __device__ __forceinline__ void load_batch(const TX* __restrict__ xp,
   float dr[kU];
 #pragma unroll
   for (int u = 0; u < kU; ++u) {
-    const size_t off = (size_t)min(t0 + u, T_ - 1) * d;
+    const unsigned off = (unsigned)min(t0 + u, T_ - 1) * (unsigned)d;
     xr[u] = xp[off];
     dr[u] = dtp[off];
   }
@@ -99,8 +120,19 @@ __device__ __forceinline__ void load_batch(const TX* __restrict__ xp,
   }
 }
 
+// NP consecutive floats of a shared-memory row, as float4 loads.
+template <int NP>
+__device__ __forceinline__ void ld_row(const float* row, float (&v)[NP]) {
+#pragma unroll
+  for (int q = 0; q < NP / 4; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(row)[q];
+    v[4 * q] = f.x; v[4 * q + 1] = f.y; v[4 * q + 2] = f.z;
+    v[4 * q + 3] = f.w;
+  }
+}
+
 template <typename TX, typename TB, int NP>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 selective_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
                       const float* __restrict__ A, const TB* __restrict__ Bm,
                       const TB* __restrict__ Cm, const float* __restrict__ Dv,
@@ -108,6 +140,7 @@ selective_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
                       float* __restrict__ h_last, int T_, int d, int n,
                       long long sb_b, long long sb_t, long long sc_b,
                       long long sc_t) {
+  static_assert(NP % 4 == 0, "rows of whole float4s");
   __shared__ __align__(16) float sB[kTT][NP];
   __shared__ __align__(16) float sC[kTT][NP];
 
@@ -117,11 +150,11 @@ selective_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
   const int chl = live ? ch : 0;
 
   const size_t hbase = ((size_t)b * d + chl) * n;
-  float Ar[NP], h[NP];
+  float A2[NP], h[NP];
 #pragma unroll
   for (int i = 0; i < NP; ++i) {
     const bool ok = live && i < n;
-    Ar[i] = ok ? A[(size_t)chl * n + i] : 0.f;
+    A2[i] = ok ? A[(size_t)chl * n + i] * kLog2e : 0.f;
     h[i] = ok ? h0[hbase + i] : 0.f;
   }
   const float Dch = live ? Dv[chl] : 0.f;
@@ -159,21 +192,29 @@ selective_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
     for (int u0 = 0; u0 < kTT && t0 + u0 < T_; u0 += kU) {
       float xn[kU], dn[kU];
       load_batch(xp, dtp, t0 + u0 + kU, T_, d, live, xn, dn);
+      float yv[kU];   // C . h of each step, stored after the batch
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
         const int r = u0 + u;
-        const float dtv = dr[u], xv = xr[u];
-        const float dx = dtv * xv;
+        const float dtv = dr[u];
+        const float dx = dtv * xr[u];
+        float bb[NP], cc[NP];
+        ld_row<NP>(sB[r], bb);
+        ld_row<NP>(sC[r], cc);
         float acc = 0.f;
 #pragma unroll
         for (int i = 0; i < NP; ++i) {
-          const float da = expf(dtv * Ar[i]);
-          h[i] = fmaf(da, h[i], dx * sB[r][i]);
-          acc = fmaf(h[i], sC[r][i], acc);
+          const float da = hopper::ex2_approx(dtv * A2[i]);
+          h[i] = fmaf(da, h[i], dx * bb[i]);
+          acc = fmaf(h[i], cc[i], acc);
         }
-        const int t = t0 + r;
+        yv[u] = acc;
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int t = t0 + u0 + u;
         if (live && t < T_)
-          yp[(size_t)t * d] = from_f32<TX>(fmaf(Dch, xv, acc));
+          yp[(unsigned)t * (unsigned)d] = from_f32<TX>(fmaf(Dch, xr[u], yv[u]));
       }
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
@@ -225,15 +266,16 @@ extern "C" {
 // 1: bfloat16), dt float32; A (d, n), D (d,), h0 and h_last (B, d, n)
 // float32 and contiguous; Bm and C (B, T, n) of dtype bc_dtype with element
 // strides (sb_b, sb_t) and (sc_b, sc_t) and a contiguous last axis;
-// 1 <= n <= 16, T >= 1.  Launches on `stream`, does not synchronise, and
-// returns the cudaError_t of the launch (0 on success).
+// 1 <= n <= 16, T >= 1, T * d < 2^31.  Launches on `stream`, does not
+// synchronise, and returns the cudaError_t of the launch (0 on success).
 int selective_scan(const void* x, const void* dt, const void* A,
                    const void* Bm, const void* C, const void* D,
                    const void* h0, void* y, void* h_last, int x_dtype,
                    int bc_dtype, int B, int T, int d, int n, long long sb_b,
                    long long sb_t, long long sc_b, long long sc_t,
                    void* stream) {
-  if (B <= 0 || B > 65535 || d <= 0 || T < 1 || n < 1 || n > 16)
+  if (B <= 0 || B > 65535 || d <= 0 || T < 1 || n < 1 || n > 16 ||
+      (long long)T * d > (1ll << 31) - 1)
     return (int)cudaErrorInvalidValue;
   const Args a{x, dt, A, Bm, C, D, h0, y, h_last, B, T, d, n,
                sb_b, sb_t, sc_b, sc_t};

@@ -20,30 +20,54 @@
 // live experts' weights alone: ~90 MB, ~0.027 ms.  So the function is bound
 // by bytes, and most of all by the weights of the experts that hold tokens.
 //
-// What the design does about it.
-//  * One block per (expert, row tile, column tile).  A block whose first
-//    row is at or past its expert's size writes zeros and returns before it
-//    loads anything: a dead expert costs no weight bytes.  (The Pallas
-//    kernel's BlockSpecs copy each w block in whatever `pl.when` decides.)
-//    Row tiles are the fastest grid axis, so the blocks that share a w tile
-//    run together and find it in L2.
-//  * Inside a live tile, x rows past the size are zero-filled as they load
-//    (never read), and the store writes 0 for them: their output is exactly
-//    0, not small.
-//  * bf16: both operands go through shared memory by cp.async (16 bytes a
-//    thread, zero-filled past the ragged ends), three stages deep, and the
-//    product runs on the tensor cores with warp-level mma.sync (m16n8k16,
-//    f32 accumulate).  The A fragment is read from row-major x tiles, the B
-//    fragment by ldmatrix.trans from row-major (D, F) w tiles; rows are padded
-//    by 16 bytes, so fragment reads are free of bank conflicts.  A 64-row
-//    tile (4 warps of 32 x 64) serves prefill's C=384; a 16-row tile (4 warps
-//    of 16 x 32) serves decode's C=8.  Shapes whose rows are not a multiple
-//    of 16 bytes (D or F % 8 != 0) or whose pointers are not 16-byte aligned
-//    stage through plain loads instead of cp.async.
-//  * f32: CUDA-core FMAs in IEEE f32 (no TF32), 64 x 64 tiles, 4 x 4 outputs
-//    per thread.  It is the path of the f32 tests, not of serving.
-// Not done yet: wgmma, TMA and warp specialisation, and a grid that visits
-// only live tiles.
+// Three kernels; the launcher picks one by the rule of `variant_of` (the
+// Python wrapper's `ops.variant` states the same rule):
+//  * wgmma (bf16, C > 16, D % 8 == F % 8 == 0, D > 0, 16-byte aligned
+//    pointers, E <= 1024, C * F < 2^34): the prefill path.  Persistent and
+//    warp specialised: one block per SM, one TMA producer warpgroup and
+//    two consumer warpgroups.
+//    - Work items are (expert, group of 384 rows, 128 output columns), and
+//      only live ones: every block stages the E sizes in shared memory,
+//      prefix-sums the items per expert, and walks items blockIdx.x,
+//      blockIdx.x + gridDim.x, ... (a binary search finds each item's
+//      expert).  The items of one expert are adjacent, so the blocks that
+//      share its x rows run at the same time and find them in L2.
+//    - One item covers all the rows of its expert that hold tokens (C <=
+//      384, as at qwen3's prefill): the item's w slab (D x 128) crosses
+//      from device memory to the SMs once per call, and no byte of w is
+//      read for a dead expert.  Only the 64-row boxes of x that hold live
+//      rows are loaded, and only their products issued: a consumer
+//      warpgroup owns boxes 0, 2, 4 or 1, 3, 5 of the item and runs a K
+//      loop instantiated for 3, 2, 1 or 0 live boxes (no branch inside a
+//      loop of wgmmas).
+//    - x is a 3-D tensor map (D, C, E), K-major, and w a 3-D tensor map
+//      (F, D, E), MN-major, both with a 128-byte swizzle; a stage holds
+//      64 deep of up to 384 x rows and 128 w columns (64 KB), three
+//      stages deep, tracked by full and empty mbarriers.  Rows past C,
+//      depth past D and columns past F load as zeros (TMA's bounds).
+//    - Each live box is one wgmma m64n128k16 per 16 deep (f32 in
+//      registers, 192 a thread at most); one group of products stays in
+//      flight while the previous stage is released.
+//    - The epilogue rounds f32 to bf16 and writes the item's boxes: real
+//      values for rows < size, exact zeros for the rest of the box, by
+//      stmatrix into the item's last ring stage (released only after the
+//      epilogue) and from there as coalesced 16-byte stores.  Rows at or
+//      past the size rounded up to 64, and whole dead experts, are written
+//      as zeros by the producer warpgroup's three idle warps of every
+//      block while the consumers run (no loads).  No row is written twice.
+//  * mma_sync (bf16 that the wgmma kernel does not take; decode's C <= 16):
+//    one block per (expert, row tile, column tile); a tile past its
+//    expert's size writes zeros and returns before it loads anything.  x
+//    and w tiles go through shared memory by cp.async (16 bytes a thread,
+//    zero-filled past the ragged ends), three stages deep, into warp-level
+//    mma.sync (m16n8k16, f32 accumulate), the B fragment by
+//    ldmatrix.trans from row-major (D, F) w tiles.  A 16-row tile (4 warps
+//    of 16 x 32) serves decode's C = 8, a 64-row one (4 warps of 32 x 64)
+//    larger C.  Shapes whose rows are not a multiple of 16 bytes (D or
+//    F % 8 != 0) or whose pointers are not 16-byte aligned stage through
+//    plain loads instead of cp.async.
+//  * f32: CUDA-core FMAs in IEEE f32 (no TF32), 64 x 64 tiles, 4 x 4
+//    outputs per thread.  It is the path of the f32 tests, not of serving.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -52,8 +76,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
+
+#include "../../common/hopper.cuh"
 
 namespace {
 
@@ -361,6 +388,345 @@ gmm_cc(const float* __restrict__ x, const float* __restrict__ w,
 
 }  // namespace cc
 
+// ===================================================== bf16: wgmma and TMA
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kConsumers = 2;                      // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);   // + one producer warpgroup
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;   // 2 x 128 x 240 + 128 x 24 <= 65536
+constexpr int kMT = 3;               // 64-row boxes per consumer warpgroup
+constexpr int kBoxes = kMT * kConsumers;   // x boxes per item
+constexpr int kRM = 64 * kBoxes;           // rows per item (384)
+constexpr int kBN = 128;                   // output columns per item
+constexpr int kBK = 64;                    // depth per stage (128 bytes)
+constexpr int kStages = 3;
+constexpr int kMaxE = 1024;                // experts staged in shared memory
+constexpr uint32_t kBoxBytes = 64 * 128;   // 64 rows of 64 bf16
+constexpr uint32_t kXBytes = kBoxes * kBoxBytes;
+constexpr uint32_t kWBytes = (kBN / 64) * kBoxBytes;
+constexpr uint32_t kStageBytes = kXBytes + kWBytes;
+constexpr size_t kSmem = 1024 + size_t(kStages) * kStageBytes +
+                         8 * 2 * kStages +
+                         4 * (2 * kMaxE + 1);
+static_assert(kSmem <= 232448, "the ring exceeds a block's shared memory");
+static_assert(kXBytes % 1024 == 0 && kStageBytes % 1024 == 0,
+              "every box starts on a 1024-byte swizzle atom");
+
+// One live work item: expert e, its rows [m0, m0 + 64 boxes) of which the
+// first rows - m0 hold tokens, output columns [n0, n0 + kBN).
+struct Item {
+  int e, m0, n0, boxes, rows;
+};
+
+// Item w of the block-shared list: first[e] is the first item of expert e
+// (first[E] the count), rows[e] its live size.  An expert's items run over
+// column tiles, and within one over its groups of kRM rows.
+__device__ __forceinline__ Item item_of(int w, const int* first,
+                                        const int* rows, int E) {
+  int lo = 0, hi = E;   // first[lo] <= w < first[hi]
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (first[mid] <= w) lo = mid; else hi = mid;
+  }
+  Item it;
+  it.e = lo;
+  it.rows = rows[lo];
+  const int groups = (it.rows + kRM - 1) / kRM;
+  const int j = w - first[lo];
+  it.n0 = (j / groups) * kBN;
+  it.m0 = (j % groups) * kRM;
+  it.boxes = min(kBoxes, (it.rows - it.m0 + 63) / 64);
+  return it;
+}
+
+__device__ __forceinline__ void arrive(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// The K loop and epilogue of one item for a consumer warpgroup that owns
+// MT live boxes (its boxes are 2i + wgi, i < MT).  Ring slots ring0 ..
+// ring0 + KT - 1 hold the item's stages.
+template <int MT>
+__device__ __forceinline__ void consume(float (&acc)[kMT][64], const Item& it,
+                                        const Shape& s, int ring0, int KT,
+                                        unsigned char* ring, uint64_t* full,
+                                        uint64_t* empty, int wgi,
+                                        __nv_bfloat16* __restrict__ out) {
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[i][e] = 0.f;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int r = ring0 + kt, st = r % kStages;
+    mbar_wait(&full[st], (uint32_t)((r / kStages) & 1));
+    if constexpr (MT > 0) {
+      const uint32_t xb = smem_u32(ring + st * kStageBytes);
+      const uint32_t wb = xb + kXBytes;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) fence_regs(acc[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // w (MN-major): 16 deep = 16 rows of 128 bytes; the two 64-column
+        // blocks are 64 rows x 128 bytes apart
+        const uint64_t db = desc_sw128(wb + kk * 16 * 128, 64 * 128, 1024);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          Wgmma<kBN, 1>::ss(
+              acc[i],
+              desc_sw128(xb + (2 * i + wgi) * kBoxBytes + kk * 32, 16, 1024),
+              db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();   // step kt - 1's products are done: free its stage
+#pragma unroll
+      for (int i = 0; i < MT; ++i) fence_regs(acc[i]);
+      if (kt > 0) arrive(&empty[(r - 1) % kStages], lane);
+    } else {
+      arrive(&empty[st], lane);
+    }
+  }
+  if constexpr (MT > 0) {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < MT; ++i) fence_regs(acc[i]);
+
+    // Epilogue, staged through the item's last ring stage, which this
+    // warpgroup releases only afterwards: its own x boxes 2q + wgi (q < 3;
+    // the other warpgroup may still be reading its boxes and the w tile)
+    // are three free 64 x 64 bf16 slots, 1024-byte aligned.  The
+    // accumulator fragment (PTX ISA: rows 16 warp + lane / 4 (+ 8), columns
+    // 8j + 2 (lane % 4) + {0, 1}, elements 4j + 2h + {0, 1}) goes into a
+    // slot as bf16 by stmatrix, zeros for rows past the size; then each
+    // thread stores 16-byte chunks, 8 threads to a 128-byte row.  A slot's
+    // 16-byte chunks are XOR-swizzled by row % 8, so neither side has bank
+    // conflicts.  The 2 MT half tiles (64 columns each) go three at a time.
+    unsigned char* last = ring + ((ring0 + KT - 1) % kStages) * kStageBytes;
+    const auto slot = [&](int q) { return last + (2 * q + wgi) * kBoxBytes; };
+    const int mq = lane / 8;   // the matrix whose row address this lane gives
+    const int srow = 16 * warp + 8 * (mq & 1) + lane % 8;
+#pragma unroll
+    for (int h0 = 0; h0 < 2 * MT; h0 += kMT) {
+      if (h0 > 0) named_bar_sync(1 + wgi, 128);   // the slots are free again
+#pragma unroll
+      for (int q = 0; q < kMT && h0 + q < 2 * MT; ++q) {
+        const int i = (h0 + q) / 2, half = (h0 + q) % 2;
+        if (it.n0 + 64 * half >= s.F) continue;
+        const int row = it.m0 + (2 * i + wgi) * 64 + 16 * warp + lane / 4;
+        const bool live0 = row < it.rows, live1 = row + 8 < it.rows;
+        const uint32_t ob = smem_u32(slot(q));
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float* a0 = &acc[i][4 * (8 * half + 2 * jj)];
+          const float* a1 = a0 + 4;
+          const int chunk = 2 * jj + (mq >> 1);
+          stmatrix_x4(ob + srow * 128 + ((chunk ^ (srow & 7)) << 4),
+                      pack_bf16(live0 ? a0[0] : 0.f, live0 ? a0[1] : 0.f),
+                      pack_bf16(live1 ? a0[2] : 0.f, live1 ? a0[3] : 0.f),
+                      pack_bf16(live0 ? a1[0] : 0.f, live0 ? a1[1] : 0.f),
+                      pack_bf16(live1 ? a1[2] : 0.f, live1 ? a1[3] : 0.f));
+        }
+      }
+      named_bar_sync(1 + wgi, 128);   // the slots are written
+#pragma unroll
+      for (int q = 0; q < kMT && h0 + q < 2 * MT; ++q) {
+        const int i = (h0 + q) / 2, half = (h0 + q) % 2;
+        const int row0 = it.m0 + (2 * i + wgi) * 64, col0 = it.n0 + 64 * half;
+        const unsigned char* src = slot(q);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int idx = t + 128 * k, r = idx / 8, c = idx % 8;
+          const int row = row0 + r, col = col0 + 8 * c;
+          if (row < s.C && col < s.F)
+            *reinterpret_cast<uint4*>(out + ((size_t)it.e * s.C + row) * s.F +
+                                      col) =
+                *reinterpret_cast<const uint4*>(src + r * 128 +
+                                                ((c ^ (r & 7)) << 4));
+        }
+      }
+    }
+    // the stage goes back to the producer: this thread's reads of it are
+    // done, and the coming TMA writes are ordered after them
+    fence_proxy_async_shared();
+    arrive(&empty[(ring0 + KT - 1) % kStages], lane);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_wgmma(const __grid_constant__ CUtensorMap tx,
+          const __grid_constant__ CUtensorMap tw,
+          const int* __restrict__ sizes, __nv_bfloat16* __restrict__ out,
+          const Shape s) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  int* rows = reinterpret_cast<int*>(empty + kStages);   // [kMaxE]
+  int* first = rows + kMaxE;                              // [kMaxE + 1]
+
+  const int wgi = threadIdx.x / 128;
+  const int n_col = (s.F + kBN - 1) / kBN;
+  if (threadIdx.x < 32) {   // warp 0: sizes and the item prefix sum
+    const int lane = threadIdx.x;
+    int carry = 0;
+    for (int e0 = 0; e0 < s.E; e0 += 32) {
+      const int e = e0 + lane;
+      const int n = e < s.E ? live_size(sizes, e, s.C) : 0;
+      int v = (n + kRM - 1) / kRM * n_col;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += u;
+      }
+      if (e < s.E) {
+        rows[e] = n;
+        first[e + 1] = carry + v;
+      }
+      carry += __shfl_sync(0xffffffffu, v, 31);
+    }
+    if (lane == 0) {
+      first[0] = 0;
+#pragma unroll
+      for (int st = 0; st < kStages; ++st) {
+        mbar_init(&full[st], 1);
+        mbar_init(&empty[st], 4 * kConsumers);   // lane 0 of each warp
+      }
+      mbar_fence_init();
+    }
+  }
+  __syncthreads();
+  const int n_items = first[s.E];
+  const int KT = (s.D + kBK - 1) / kBK;
+
+  if (wgi == kConsumers) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= kConsumers * 128 + 32) {
+      // Warps 1 .. 3: zeros for rows at or past each expert's size rounded
+      // up to 64 (no item covers them), 16-byte stores spread over every
+      // block, while the consumers work through the items.
+      // (C * F / 8 < 2^31 by the variant rule)
+      const int zt = threadIdx.x - (kConsumers * 128 + 32);
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      const int stride = gridDim.x * 96;
+      for (int e = 0; e < s.E; ++e) {
+        const int z0 = min(s.C, (rows[e] + 63) / 64 * 64);
+        const int n = (s.C - z0) * (s.F / 8);
+        uint4* dst =
+            reinterpret_cast<uint4*>(out + ((size_t)e * s.C + z0) * s.F);
+        const int b = (int)((blockIdx.x + 37u * e) % gridDim.x);
+        for (int c = b * 96 + zt; c < n; c += stride) dst[c] = zero;
+      }
+    } else if (threadIdx.x == kConsumers * 128) {
+      tma_prefetch_map(&tx);
+      tma_prefetch_map(&tw);
+      int r = 0;   // stages loaded so far
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+        const Item it = item_of(w, first, rows, s.E);
+        // w boxes wholly past F are not loaded (their columns are never
+        // stored), so the stage waits only for the boxes issued
+        const int wboxes = min(kBN / 64, (s.F - it.n0 + 63) / 64);
+        const uint32_t bytes = (uint32_t)(it.boxes + wboxes) * kBoxBytes;
+        for (int kt = 0; kt < KT; ++kt, ++r) {
+          const int st = r % kStages, k0 = kt * kBK;
+          if (r >= kStages)
+            mbar_wait(&empty[st], (uint32_t)(((r / kStages) - 1) & 1));
+          mbar_arrive_expect_tx(&full[st], bytes);
+          unsigned char* xs = ring + st * kStageBytes;
+          for (int b = 0; b < it.boxes; ++b)
+            tma_load_3d(xs + b * kBoxBytes, &tx, &full[st], k0,
+                        it.m0 + 64 * b, it.e);
+          for (int c = 0; c < wboxes; ++c)
+            tma_load_3d(xs + kXBytes + c * kBoxBytes, &tw, &full[st],
+                        it.n0 + 64 * c, k0, it.e);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    float acc[kMT][64];
+    int r = 0;   // stages consumed so far
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x, r += KT) {
+      const Item it = item_of(w, first, rows, s.E);
+      const int mt = (it.boxes + 1 - wgi) / 2;   // this warpgroup's boxes
+      static_assert(kMT == 3, "one instantiation per count of live boxes");
+      if (mt == 3)
+        consume<3>(acc, it, s, r, KT, ring, full, empty, wgi, out);
+      else if (mt == 2)
+        consume<2>(acc, it, s, r, KT, ring, full, empty, wgi, out);
+      else if (mt == 1)
+        consume<1>(acc, it, s, r, KT, ring, full, empty, wgi, out);
+      else
+        consume<0>(acc, it, s, r, KT, ring, full, empty, wgi, out);
+    }
+  }
+}
+
+}  // namespace wg
+
+constexpr int kMaxDevices = 64;
+enum Variant { kF32 = 0, kMmaSync = 1, kWgmma = 2 };
+
+// The kernel that takes a launch (ops.variant states the same rule), or -1.
+// vec: the caller found D % 8 == F % 8 == 0 and x, w, out 16-byte aligned.
+int variant_of(int dtype, int E, int C, int D, int F, int vec) {
+  if (dtype == 0) return kF32;
+  if (dtype != 1) return -1;
+  if (vec && C > 16 && D > 0 && E <= wg::kMaxE &&
+      (long long)C * F < (1ll << 34))
+    return kWgmma;
+  return kMmaSync;
+}
+
+int launch_wgmma(const void* x, const void* w, const void* sizes, void* out,
+                 const Shape& s, cudaStream_t stream) {
+  const long long items = (long long)s.E * ((s.C + wg::kRM - 1) / wg::kRM) *
+                          ((s.F + wg::kBN - 1) / wg::kBN);
+  if (items > (1ll << 31) - 1) return (int)cudaErrorInvalidValue;
+  const uint64_t e = sizeof(__nv_bfloat16);
+  // x (E, C, D) as (D, C, E), box 64 deep x 64 rows; w (E, D, F) as
+  // (F, D, E), box 64 columns x 64 deep
+  const uint64_t xd[3] = {(uint64_t)s.D, (uint64_t)s.C, (uint64_t)s.E};
+  const uint64_t xs[2] = {s.D * e, (uint64_t)s.C * s.D * e};
+  const uint64_t wd[3] = {(uint64_t)s.F, (uint64_t)s.D, (uint64_t)s.E};
+  const uint64_t ws[2] = {s.F * e, (uint64_t)s.D * s.F * e};
+  const uint32_t box[3] = {64, 64, 1};
+  CUtensorMap tx, tw;
+  int err = hopper::encode_tensor_map_bf16(&tx, x, 3, xd, xs, box);
+  if (!err) err = hopper::encode_tensor_map_bf16(&tw, w, 3, wd, ws, box);
+  if (err) return err;
+  // The shared-memory attribute is set, and the SM count read, once per
+  // device, so a launch costs the host only the two tensor maps.
+  static std::atomic<int> sms_of[kMaxDevices];   // 0: not yet prepared
+  int device;
+  cudaError_t cerr = cudaGetDevice(&device);
+  if (cerr != cudaSuccess) return (int)cerr;
+  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int sms = sms_of[device].load(std::memory_order_relaxed);
+  if (sms == 0) {
+    cerr = cudaFuncSetAttribute(wg::gmm_wgmma,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)wg::kSmem);
+    if (cerr == cudaSuccess)
+      cerr = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    device);
+    if (cerr != cudaSuccess) return (int)cerr;
+    sms_of[device].store(sms, std::memory_order_relaxed);
+  }
+  wg::gmm_wgmma<<<sms, wg::kThreads, wg::kSmem, stream>>>(
+      tx, tw, static_cast<const int*>(sizes),
+      static_cast<__nv_bfloat16*>(out), s);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, typename Kernel>
 int launch(Kernel kernel, dim3 grid, int threads, const void* x,
            const void* w, const void* sizes, void* out, const Shape& s,
@@ -371,7 +737,7 @@ int launch(Kernel kernel, dim3 grid, int threads, const void* x,
   return (int)cudaGetLastError();
 }
 
-// Decode (C <= 16) takes one 16-row tile per expert; prefill 64-row tiles.
+// Decode (C <= 16) takes one 16-row tile per expert; larger C 64-row tiles.
 template <bool VEC>
 int launch_tc(const void* x, const void* w, const void* sizes, void* out,
               const Shape& s, cudaStream_t stream) {
@@ -386,33 +752,56 @@ int launch_tc(const void* x, const void* w, const void* sizes, void* out,
                                tc::kThreads, x, w, sizes, out, s, stream);
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // x (E, C, D), w (E, D, F), out (E, C, F), all contiguous and of one dtype
 // (0: float32, 1: bfloat16); sizes (E,) int32, on the device.  vec = 1
-// promises D % 8 == F % 8 == 0 and 16-byte aligned x, w and out (bf16
-// only).  Launches on `stream`, does not synchronise, and returns the
-// cudaError_t of the launch (0 on success).
+// states that D % 8 == F % 8 == 0 and x, w and out are 16-byte aligned
+// (checked here too).  Launches the kernel that `gmm_variant` names on
+// `stream`, does not synchronise, and returns the cudaError_t of the
+// launch (0 on success).
 int gmm(const void* x, const void* w, const void* sizes, void* out, int dtype,
         int E, int C, int D, int F, int vec, void* stream) {
   if (E <= 0 || C <= 0 || D < 0 || F <= 0 || E > 65535)
     return (int)cudaErrorInvalidValue;
+  if (vec && (D % 8 || F % 8 || !aligned16(x) || !aligned16(w) ||
+              !aligned16(out)))
+    return (int)cudaErrorInvalidValue;
   const Shape s{E, C, D, F};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return vec ? launch_tc<true>(x, w, sizes, out, s, st)
-               : launch_tc<false>(x, w, sizes, out, s, st);
-  if (dtype == 0) {
-    const int col_tiles = (F + cc::kBN - 1) / cc::kBN;
-    if (col_tiles > 65535) return (int)cudaErrorInvalidValue;
-    const dim3 grid((C + cc::kBM - 1) / cc::kBM, col_tiles, E);
-    return launch<float>(cc::gmm_cc, grid, cc::kThreads, x, w, sizes, out,
-                         s, st);
+  switch (variant_of(dtype, E, C, D, F, vec)) {
+    case kWgmma:
+      return launch_wgmma(x, w, sizes, out, s, st);
+    case kMmaSync:
+      return vec ? launch_tc<true>(x, w, sizes, out, s, st)
+                 : launch_tc<false>(x, w, sizes, out, s, st);
+    case kF32: {
+      const int col_tiles = (F + cc::kBN - 1) / cc::kBN;
+      if (col_tiles > 65535) return (int)cudaErrorInvalidValue;
+      const dim3 grid((C + cc::kBM - 1) / cc::kBM, col_tiles, E);
+      return launch<float>(cc::gmm_cc, grid, cc::kThreads, x, w, sizes, out,
+                           s, st);
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
 }
+
+// The kernel a launch with these arguments takes: 0 f32, 1 mma_sync,
+// 2 wgmma, -1 none.
+int gmm_variant(int dtype, int E, int C, int D, int F, int vec) {
+  return variant_of(dtype, E, C, D, F, vec);
+}
+
+// Dynamic shared memory per block of the wgmma kernel, in bytes (ptxas
+// reports only static shared memory).
+int gmm_wgmma_smem_bytes() { return (int)wg::kSmem; }
 
 const char* gmm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,11 +1,19 @@
 """Public MoE grouped-matmul entry point with device dispatch.
 
 A CPU tensor goes to the plain PyTorch version (``ref``).  A CUDA tensor goes
-to the hand-written Hopper kernel (``csrc/gmm.cu``), or to ``ref`` only when
+to the hand-written Hopper kernels (``csrc/gmm.cu``), or to ``ref`` only when
 ``impl="ref"`` is passed explicitly.  Nothing falls back: a CUDA input the
-kernel does not take raises.  Both follow ``repro.kernels.moe_gmm.ref``
+kernels do not take raises.  Both follow ``repro.kernels.moe_gmm.ref``
 (padding rows exactly 0), not the JAX package's ``xla`` branch, which
 computes them.
+
+Which kernel a launch takes is fixed by ``variant`` (the C launcher applies
+the same rule): bf16 with C > 16, D > 0, D % 8 == F % 8 == 0, 16-byte
+aligned x, w and out (TMA's stride and address rule), at most
+``MAX_WGMMA_EXPERTS`` experts and C * F < 2^34 runs the wgmma/TMA kernel
+(prefill); other bf16 inputs, decode's C <= 16 among them, the mma.sync
+kernel; f32 the CUDA-core kernel.  ``LAUNCHES["gmm"]`` counts every launch,
+``LAUNCHES["gmm.<variant>"]`` each variant's.
 """
 from __future__ import annotations
 
@@ -18,6 +26,20 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_WGMMA_EXPERTS = 1024   # the wgmma kernel stages the sizes on chip
+VARIANTS = ("f32", "mma_sync", "wgmma")   # the C library's numbering
+
+
+def variant(dtype: torch.dtype, E: int, C: int, D: int, F: int,
+            aligned: bool = True) -> str:
+    """The kernel that takes a launch; ``aligned``: x, w and out start on a
+    16-byte boundary."""
+    if dtype == torch.float32:
+        return "f32"
+    if (C > 16 and D > 0 and D % 8 == 0 and F % 8 == 0 and aligned
+            and E <= MAX_WGMMA_EXPERTS and C * F < 2 ** 34):
+        return "wgmma"
+    return "mma_sync"
 
 
 def gmm(x, w, group_sizes, *, impl: Optional[str] = None):
@@ -69,8 +91,9 @@ def gmm_cuda(x, w, group_sizes):
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    vec = int(D % 8 == 0 and F % 8 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, w, out)))
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, out))
+    vec = int(D % 8 == 0 and F % 8 == 0 and aligned)
+    kind = variant(x.dtype, E, C, D, F, aligned)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -81,6 +104,7 @@ def gmm_cuda(x, w, group_sizes):
         msg = lib.gmm_error_string(err).decode()
         raise RuntimeError(f"gmm launch failed: {msg} ({err})")
     LAUNCHES["gmm"] += 1
+    LAUNCHES[f"gmm.{kind}"] += 1
     return out
 
 
@@ -95,3 +119,25 @@ def _library():
         lib.gmm_error_string.argtypes = [i32]
         lib.gmm_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_variant(dtype: torch.dtype, E: int, C: int, D: int, F: int,
+                   aligned: bool = True) -> str:
+    """The variant the built library's launcher picks (needs nvcc)."""
+    fn = _library().gmm_variant
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    vec = int(D % 8 == 0 and F % 8 == 0 and aligned)
+    code = fn(_DTYPES[dtype], E, C, D, F, vec)
+    if code < 0:
+        raise ValueError(f"no gmm kernel takes {dtype}")
+    return VARIANTS[code]
+
+
+def kernel_smem_bytes() -> int:
+    """Dynamic shared memory per block of the wgmma kernel, as the built
+    library states it (needs nvcc)."""
+    fn = _library().gmm_wgmma_smem_bytes
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return fn()

@@ -30,7 +30,7 @@ B, S0, DECODE_STEPS = 4, 1024, 8
 _GROUPS = (("flash_attention", ("flash_attention_fwd",)),
            ("linear_scan", ("linear_scan_kernel",)),
            ("selective_scan", ("selective_scan_kernel",)),
-           ("gmm", ("gmm_tc", "gmm_cc")),
+           ("gmm", ("gmm_wgmma", "gmm_tc", "gmm_cc")),
            ("matmul", ("gemm", "gemv", "nvjet", "sm90", "cutlass", "xmma",
                        "cublas")),
            ("copy_cast", ("copy", "convert", "cast")))

@@ -30,7 +30,13 @@ from repro.models import layers as JL  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.kernels import LAUNCHES, _build  # noqa: E402
 from repro_torch.kernels.moe_gmm import gmm, gmm_ref  # noqa: E402
-from repro_torch.kernels.moe_gmm.ops import check_inputs, gmm_cuda  # noqa: E402
+from repro_torch.kernels.moe_gmm.ops import (  # noqa: E402
+    MAX_WGMMA_EXPERTS,
+    VARIANTS,
+    check_inputs,
+    gmm_cuda,
+    variant,
+)
 from repro_torch.models import layers as L  # noqa: E402
 
 ARCH = "qwen3-moe-30b-a3b"
@@ -129,6 +135,31 @@ def test_cpu_tensors_take_the_plain_version():
         gmm_cuda(x, w, sizes)
     with pytest.raises(ValueError):
         gmm(x, w, sizes, impl="xla")
+
+
+# (dtype, E, C, D, F, aligned) -> the kernel a CUDA launch takes.  The
+# wgmma/TMA kernel needs bf16, C > 16 (decode's C = 8 stays on mma.sync),
+# D > 0, 16-byte rows and pointers (TMA's stride and address rule), E
+# small enough to stage the sizes on chip and C F / 8 within 32 bits.
+@pytest.mark.parametrize("dtype,E,C,D,F,aligned,want", [
+    ("bfloat16", 128, 384, 2048, 768, True, "wgmma"),       # qwen3 wi / wg
+    ("bfloat16", 128, 384, 768, 2048, True, "wgmma"),       # qwen3 wo
+    ("bfloat16", 128, 8, 2048, 768, True, "mma_sync"),      # qwen3 decode
+    ("bfloat16", 6, 16, 136, 264, True, "mma_sync"),        # C = 16
+    ("bfloat16", 6, 17, 136, 264, True, "wgmma"),           # C = 17
+    ("bfloat16", 5, 100, 204, 296, True, "mma_sync"),       # D % 8 != 0
+    ("bfloat16", 5, 100, 200, 300, True, "mma_sync"),       # F % 8 != 0
+    ("bfloat16", 5, 100, 200, 296, False, "mma_sync"),      # unaligned
+    ("bfloat16", 5, 100, 0, 296, True, "mma_sync"),         # D = 0
+    ("bfloat16", MAX_WGMMA_EXPERTS, 64, 64, 64, True, "wgmma"),
+    ("bfloat16", MAX_WGMMA_EXPERTS + 1, 64, 64, 64, True, "mma_sync"),
+    ("bfloat16", 1, 2 ** 17, 8, 2 ** 17, True, "mma_sync"),  # C F >= 2^34
+    ("float32", 128, 384, 2048, 768, True, "f32"),
+    ("float32", 128, 8, 2048, 768, True, "f32"),
+])
+def test_gmm_variant_rule(dtype, E, C, D, F, aligned, want):
+    assert variant(getattr(torch, dtype), E, C, D, F, aligned) == want
+    assert want in VARIANTS and f"gmm.{want}" in LAUNCHES
 
 
 def test_gmm_build_is_registered():

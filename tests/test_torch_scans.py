@@ -23,6 +23,7 @@ from repro_torch.kernels import LAUNCHES, _build  # noqa: E402
 from repro_torch.kernels.mamba import selective_scan, selective_step  # noqa: E402
 from repro_torch.kernels.mamba.ops import check_inputs as mamba_check  # noqa: E402
 from repro_torch.kernels.mamba.ops import selective_scan_cuda  # noqa: E402
+from repro_torch.kernels.mamba.ops import variant as mamba_variant  # noqa: E402
 from repro_torch.kernels.rglru import linear_scan  # noqa: E402
 from repro_torch.kernels.rglru.ops import check_inputs as rglru_check  # noqa: E402
 from repro_torch.kernels.rglru.ops import linear_scan_cuda  # noqa: E402
@@ -149,6 +150,53 @@ def test_selective_scan_takes_column_slices():
     torch.testing.assert_close(h, h0, rtol=0, atol=0)
 
 
+def _emulate_kernel_scan(x, dt, A, Bm, C, D, h0):
+    """The CUDA kernel's arithmetic in float32 on the CPU: exp(dt A) as
+    exp2(dt * (A log2 e)) with A prescaled once; n padded to NP = 4, 8 or
+    16 states (A = B = C = 0 past n); C . h summed in state order; then
+    D x added.  (The kernel's FMAs round once where this rounds twice.)"""
+    n = A.shape[1]
+    pad = (0, int(mamba_variant(n)[2:]) - n)
+    f = torch.nn.functional
+    A2 = f.pad(A * np.float32(np.log2(np.e)), pad)
+    Bp, Cp, h = f.pad(Bm, pad), f.pad(C, pad), f.pad(h0, pad)
+    ys = []
+    for t in range(x.shape[1]):
+        dtt, xt = dt[:, t], x[:, t]
+        da = torch.exp2(dtt[..., None] * A2)
+        h = da * h + (dtt * xt)[..., None] * Bp[:, t, None, :]
+        prod = h * Cp[:, t, None, :]
+        acc = prod[..., 0]
+        for i in range(1, prod.shape[-1]):
+            acc = acc + prod[..., i]
+        ys.append(D * xt + acc)
+    return torch.stack(ys, 1), h[..., :n]
+
+
+@pytest.mark.parametrize("B,T,d,n", [(2, 32, 256, 8), (1, 64, 128, 16),
+                                     (2, 16, 512, 4), (2, 37, 100, 12),
+                                     (3, 1, 256, 16)])
+def test_selective_scan_kernel_arithmetic_matches_jax(B, T, d, n):
+    """The ex2 arithmetic of ``csrc/selective_scan.cu`` holds the JAX
+    oracle at the float32 tolerance on the shapes above."""
+    arrs = _mamba_inputs(7, B, T, d, n)
+    names = ("x", "dt", "A", "Bm", "C", "D", "h0")
+    j = {k: jnp.asarray(v, jnp.float32) for k, v in arrs.items()}
+    t = {k: torch.from_numpy(v).float() for k, v in arrs.items()}
+    yr, hr = jax_selective_scan(*(j[k] for k in names), impl="ref")
+    y, h = _emulate_kernel_scan(*(t[k] for k in names))
+    _close(y, yr, 1e-4)
+    _close(h, hr, 1e-4)
+
+
+@pytest.mark.parametrize("n,padded", [(1, 4), (4, 4), (5, 8), (12, 16),
+                                      (16, 16)])
+def test_selective_scan_variant(n, padded):
+    assert mamba_variant(n) == f"np{padded}"
+    with pytest.raises(ValueError):
+        mamba_variant(17)
+
+
 @pytest.mark.parametrize("B,d,n", [(2, 256, 16), (3, 100, 4)])
 def test_selective_step_matches_jax(B, d, n):
     arrs = _mamba_inputs(11, B, 1, d, n)
@@ -164,7 +212,7 @@ def test_selective_step_matches_jax(B, d, n):
 
 
 @pytest.mark.parametrize("bad", ["state", "dt_dtype", "bc_stride", "shape",
-                                 "layout", "bc_dtypes"])
+                                 "layout", "bc_dtypes", "row_size"])
 def test_selective_scan_rejects_what_the_kernel_does_not_take(bad):
     B, T, d, n = 2, 8, 32, 16
     a = dict(x=torch.zeros(B, T, d), dt=torch.zeros(B, T, d),
@@ -182,9 +230,12 @@ def test_selective_scan_rejects_what_the_kernel_does_not_take(bad):
         a["C"] = torch.zeros(B, T - 1, n)
     elif bad == "layout":
         a["x"] = torch.zeros(B, d, T).transpose(1, 2)
+    elif bad == "row_size":   # T * d = 2^31: past the kernel's 32-bit offsets
+        big = torch.zeros(1, 1, 1).expand(B, 2 ** 16, 2 ** 15)
+        a.update(x=big, dt=big)
     else:
         a["C"] = a["C"].to(torch.bfloat16)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="2\\^31" if bad == "row_size" else ""):
         mamba_check(**a)
 
 
