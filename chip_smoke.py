@@ -9,11 +9,18 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  each kernel's registers, spills and shared memory (ptxas;
                  the flash and gmm wgmma kernels' dynamic shared memory as
                  the library states it)
-  kernel ...     hold each kernel (flash_attention, linear_scan,
-                 selective_scan, gmm) against its plain PyTorch version on
-                 the card at the main paths' shapes, and time kernel, plain
-                 version, the nearest PyTorch library call (where one
-                 computes the same function) and the card's bound.  Kernel
+  kernel ...     hold each kernel (flash_attention, flash_attention_bwd,
+                 linear_scan, selective_scan, gmm) against its plain
+                 PyTorch version on the card at the main paths' shapes, and
+                 time kernel, plain version, the nearest PyTorch library
+                 call (where one computes the same function) and the card's
+                 bound.  Flash attention's cases include packed segment ids
+                 and check the forward's log-sum-exp; the backward's check
+                 dq, dk, dv (relative Frobenius distance and largest
+                 error, beside the plain gradient's rms; one case puts the
+                 scores at the softcap) and that two calls give
+                 bitwise-equal gradients, against SDPA's forward and
+                 backward.  Kernel
                  and library times are device times: the timed calls queue
                  behind a sleep kernel, so host launch overhead is not in
                  them.  Flash attention and gmm report the kernel variant
@@ -26,6 +33,15 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  an earlier version of that kernel's ``.cu`` (same C
                  interface) and times it on every case of its phase in the
                  same run, with its error against the plain version
+                 (cases without segment ids)
+  train gemma2-2b
+                 ``lm.train`` of full-width gemma2-2b (f32 master params
+                 and Adam moments, bf16 compute, remat, batch 4 of 1024
+                 tokens in 2 microbatches) for 3 steps, one task each, then
+                 ``lm.eval`` and ``lm.decode`` of the same member: step ms,
+                 tokens/s, peak memory, losses, flash launches per step
+                 (every one a hand kernel); then one microbatch's loss,
+                 grad norm and leaf grads against ``impl="ref"``
   serve <arch>   full-width gemma2-2b, recurrentgemma-2b, falcon-mamba-7b
                  and qwen3-moe-30b-a3b (bf16, random weights from seed 0;
                  qwen3 needs ~65 GB) through ``BatchedServer``: 8 requests,
@@ -47,6 +63,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -61,21 +78,32 @@ PEAK_BYTES = 3.35e12
 # special-function unit: 16 results per SM and clock, 132 SMs, 1.98 GHz boost
 PEAK_EXP = 16 * 132 * 1.98e9
 
-KERNELS = {   # name: (source, the TPU kernel it replaces)
+KERNELS = {   # name: (source, the TPU kernel it replaces, its case in the line)
     "flash_attention": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
-        "src/repro/kernels/flash_attention/pallas_kernel.py:100"),
+        "src/repro/kernels/flash_attention/pallas_kernel.py:100", "serve"),
+    # the gradient of that kernel, which the JAX package takes by XLA
+    # autodiff of its chunked path (flash_attention/xla.py:118-126)
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention/pallas_kernel.py:100",
+        "gemma2_train"),
     "linear_scan": ("src/repro_torch/kernels/rglru/csrc/linear_scan.cu",
-                    "src/repro/kernels/rglru/pallas_kernel.py:34"),
+                    "src/repro/kernels/rglru/pallas_kernel.py:34", "serve"),
     "selective_scan": ("src/repro_torch/kernels/mamba/csrc/selective_scan.cu",
-                       "src/repro/kernels/mamba/pallas_kernel.py:41"),
+                       "src/repro/kernels/mamba/pallas_kernel.py:41",
+                       "serve"),
     "gmm": ("src/repro_torch/kernels/moe_gmm/csrc/gmm.cu",
-            "src/repro/kernels/moe_gmm/pallas_kernel.py:45"),
+            "src/repro/kernels/moe_gmm/pallas_kernel.py:45", "serve"),
 }
 
 # name, B, Sq, Sk, H, KH, D, causal, window, softcap, scale, q_offset, dtype,
-# tolerance.  bf16: one rounding of an O(1) output (3e-2, as the CPU tests);
-# f32: summation order over up to 1024 keys plus tanhf/expf against torch.
+# tolerance, and "seg": the number of packed segments a row (sorted segment
+# ids, cut at random points; absent: no segment ids).  bf16: one rounding of
+# an O(1) output (3e-2, as the CPU tests); f32: summation order over up to
+# 1024 keys plus tanhf/expf against torch.  Every case also holds the
+# forward's log-sum-exp against attention_fwd_ref's (LSE_TOL; -inf rows
+# must match).
 G2 = dict(H=8, KH=4, D=256, softcap=50.0, scale=1.0 / 16)
 RG = dict(H=10, KH=1, D=256, softcap=0.0, scale=1.0 / 16)   # G = 10 q heads
 # softcap_saturated: gemma2's widths with scale 2, so scale . q.k has a
@@ -115,7 +143,80 @@ FA_CASES = [
     dict(name="g64", B=3, Sq=200, Sk=77, H=64, KH=1, D=128, causal=True,
          window=50, softcap=0.0, scale=None, q_offset=0, dtype="bfloat16",
          tol=3e-2),
+    dict(name="seg_gemma2_train", B=2, Sq=1024, Sk=1024, causal=True,
+         window=4096, q_offset=0, dtype="bfloat16", tol=3e-2, seg=4, **G2),
+    dict(name="seg_qwen3", B=2, Sq=1024, Sk=1024, H=32, KH=4, D=128,
+         causal=True, window=0, softcap=0.0, scale=128 ** -0.5, q_offset=0,
+         dtype="bfloat16", tol=3e-2, seg=3),
+    dict(name="seg_d64", B=2, Sq=300, Sk=300, H=6, KH=2, D=64, causal=True,
+         window=100, softcap=30.0, scale=None, q_offset=0, dtype="bfloat16",
+         tol=3e-2, seg=4),
+    dict(name="seg_f32", B=2, Sq=512, Sk=512, causal=True, window=4096,
+         q_offset=0, dtype="float32", tol=1e-4, seg=3, **G2),
 ]
+# lse: both sides form f32 scores of the same inputs; they differ by the
+# order of the dot's sums (~1e-6 relative of |s| <= 50) and the kernel's
+# tanh (1e-6 of the softcap, 5e-5) and ex2 (2^-22 relative).
+LSE_TOL = {"bfloat16": 1e-3, "float32": 1e-4}
+
+# Backward cases: the train shapes of the three attention models with
+# packed segment ids, gemma2's widths with scale 2 so that most scores sit
+# near the softcap (where 1 - t^2, the softcap's chain factor, is far from
+# 1: the other cases' |s| of ~1 against a cap of 50 leave it within 0.1%),
+# and the small head dims.
+FA_BWD_CASES = [
+    dict(name="gemma2_train", B=2, Sq=1024, Sk=1024, causal=True,
+         window=4096, q_offset=0, dtype="bfloat16", seg=4, **G2),
+    dict(name="softcap_saturated", B=2, Sq=512, Sk=512, causal=True,
+         window=4096, q_offset=0, dtype="bfloat16", seg=3,
+         **{**G2, "scale": 2.0}),
+    dict(name="recurrentgemma_train", B=2, Sq=1024, Sk=1024, causal=True,
+         window=2048, q_offset=0, dtype="bfloat16", seg=3, **RG),
+    dict(name="qwen3_train", B=2, Sq=1024, Sk=1024, H=32, KH=4, D=128,
+         causal=True, window=0, softcap=0.0, scale=128 ** -0.5, q_offset=0,
+         dtype="bfloat16", seg=3),
+    dict(name="d64_ragged", B=2, Sq=300, Sk=333, H=6, KH=2, D=64,
+         causal=True, window=0, softcap=0.0, scale=None, q_offset=33,
+         dtype="bfloat16", seg=0),
+    dict(name="d32_window", B=2, Sq=200, Sk=200, H=4, KH=2, D=32,
+         causal=True, window=50, softcap=30.0, scale=None, q_offset=0,
+         dtype="bfloat16", seg=3),
+    dict(name="d16_non_causal", B=2, Sq=100, Sk=100, H=4, KH=2, D=16,
+         causal=False, window=0, softcap=0.0, scale=None, q_offset=0,
+         dtype="bfloat16", seg=3),
+    dict(name="f32", B=2, Sq=256, Sk=256, causal=True, window=100,
+         q_offset=0, dtype="float32", seg=3, **G2),
+]
+# Backward tolerances, (relative, largest) for each of dq, dk, dv against
+# attention_bwd_ref: the relative Frobenius distance |a - r| / |r| and the
+# largest error over the largest gradient, max |a - r| / max |r|.  Most
+# elements of a gradient are far below its largest (the first rows of a
+# segment, where P is concentrated), so the relative distance holds the
+# bulk and the second bound holds single elements.  bf16: the kernel rounds
+# P and dS to bf16 for their products and its outputs to bf16, the plain
+# version neither; the outputs' rounding alone is ~2^-9 of each element, so
+# 1e-2, and two bf16 steps of the largest gradient, 2^-6.  f32: summation
+# order over up to 64 heads x 1024 positions, 1e-4 for both (the f32 case's
+# softcap factor differs from 1 by ~4e-4, so it holds that factor too).
+BWD_TOL = {"bfloat16": (1e-2, 2.0 ** -6), "float32": (1e-4, 1e-4)}
+
+
+def grad_check(a, r, dtype: str) -> dict:
+    """Gradient ``a`` against its plain version ``r`` under BWD_TOL[dtype]:
+    the measures, the bounds, r's rms and max, and ok."""
+    import torch
+    a, r = a.double(), r.double()
+    diff = a - r
+    r_norm, r_max = float(r.norm()), float(r.abs().max())
+    rel = float(diff.norm()) / r_norm if r_norm else float(diff.norm())
+    rel_tol, max_tol = BWD_TOL[dtype]
+    max_err = float(diff.abs().max())
+    return {"rel_err": rel, "rel_tol": rel_tol, "max_abs_err": max_err,
+            "max_abs_tol": max_tol * r_max,
+            "ref_rms": r_norm / r.numel() ** 0.5, "ref_max": r_max,
+            "ok": bool(torch.isfinite(a).all()) and rel <= rel_tol
+            and max_err <= max_tol * r_max}
+
 
 # Scan cases.  Tolerances: a float32 output at 1e-4 (the serial chain is the
 # same; FMA contraction and the order of C . h differ); a bf16 output at one
@@ -250,10 +351,13 @@ def ptxas_report(log: str) -> dict:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             m = re.search(r"(flash_attention_fwd_(?:wgmma|tc|cc)|"
+                          r"flash_attention_bwd_(?:dkdv_tc|dq_tc|dkdv_cc|"
+                          r"dq_cc|delta)|"
                           r"linear_scan_kernel|selective_scan_kernel|gmm_tc)"
                           r"I(?:Li)?(.+?)EE+v", entry[1])
             plain = [k for k in ("gmm_cc", "gmm_wgmma") if k in entry[1]]
-            name = (f"{m[1]}<{m[2]}>" if m else
+            args = re.sub(r"ELb([01])", r",\1", m[2]) if m else ""
+            name = (f"{m[1]}<{args}>" if m else
                     plain[0] if plain else entry[1])
         elif name and ("registers" in line or "spill" in line
                        or "smem" in line):
@@ -262,7 +366,8 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def _mask(c, device):
+def _mask(c, device, seg_q=None, seg_kv=None):
+    """The case's (Sq, Sk) mask, or (B, 1, Sq, Sk) with segment ids."""
     import torch
     qpos = c["q_offset"] + torch.arange(c["Sq"], device=device)[:, None]
     kpos = torch.arange(c["Sk"], device=device)[None, :]
@@ -271,14 +376,28 @@ def _mask(c, device):
         m &= kpos <= qpos
     if c["window"]:
         m &= qpos - kpos < c["window"]
+    if seg_q is not None:
+        m = m & (seg_q[:, None, :, None] == seg_kv[:, None, None, :])
     return m
 
 
-# --baseline NAME: (library name, module of the wrapper, its CUDA entry)
+def _segments(B, S, n, gen, device):
+    """(B, S) int32 sorted segment ids, n segments a row cut at random
+    points (None for n = 0)."""
+    import torch
+    if not n:
+        return None
+    cuts = torch.sort(torch.randint(1, S, (B, n - 1), generator=gen,
+                                    device=device), 1).values
+    pos = torch.arange(S, device=device)[None, :, None]
+    return (pos >= cuts[:, None, :]).sum(-1).to(torch.int32).contiguous()
+
+
+# --baseline NAME: (library name, module of the wrapper, its CUDA entry);
+# flash_attention's older sources are called through their own C entry
+# flash_attention_fwd (no segment ids, no lse), which every source has
 BASELINES = {
-    "flash_attention": ("flash_attention_fwd",
-                        "repro_torch.kernels.flash_attention.ops",
-                        "flash_attention_cuda"),
+    "flash_attention": ("flash_attention_fwd", None, None),
     "selective_scan": ("selective_scan", "repro_torch.kernels.mamba.ops",
                        "selective_scan_cuda"),
     "gmm": ("gmm", "repro_torch.kernels.moe_gmm.ops", "gmm_cuda"),
@@ -286,9 +405,9 @@ BASELINES = {
 
 
 def _baseline(name, path):
-    """The wrapper's CUDA entry for kernel ``name`` on an earlier ``.cu``
-    (same C interface), built here with the repo's nvcc flags; None without
-    a path."""
+    """A CUDA entry for kernel ``name`` on an earlier ``.cu`` (same C
+    interface), built here with the repo's nvcc flags; None without a
+    path."""
     if path is None:
         return None
     import ctypes
@@ -301,6 +420,8 @@ def _baseline(name, path):
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
                     str(path)], check=True, capture_output=True, timeout=600)
     lib = ctypes.CDLL(str(out))
+    if name == "flash_attention":
+        return _flash_baseline(lib)
     mine = _build.load(libname)
     fn = getattr(importlib.import_module(module), entry)
 
@@ -313,13 +434,43 @@ def _baseline(name, path):
     return run
 
 
+def _flash_baseline(lib):
+    """o = attention(q, k, v) through an older flash library's C entry
+    flash_attention_fwd(q, k, v, o, <ops.SCALARS>)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import _DTYPES, SCALARS
+    fn = lib.flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + SCALARS
+    fn.restype = ctypes.c_int
+
+    def run(q, k, v, *, causal, window, softcap, scale, q_offset, **_):
+        B, Sq, H, D = q.shape
+        o = torch.empty_like(q)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 _DTYPES[q.dtype], B, Sq, k.shape[1], H, k.shape[2], D,
+                 int(causal), window, softcap,
+                 scale if scale is not None else D ** -0.5, q_offset,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"baseline flash_attention_fwd failed ({err})")
+        return o
+    return run
+
+
 def phase_kernel_flash_attention(dev, baseline=None):
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
-    from repro_torch.kernels.flash_attention.ops import variant
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_cuda,
+        variant,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
     gen = torch.Generator(device=dev).manual_seed(0)
     old = _baseline("flash_attention", baseline)
     results = {}
@@ -329,9 +480,12 @@ def phase_kernel_flash_attention(dev, baseline=None):
         q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
         k = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
         v = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
+        seg_q = _segments(B, Sq, c.get("seg", 0), gen, dev)
+        seg_kv = seg_q if Sk == Sq else _segments(B, Sk, c.get("seg", 0),
+                                                  gen, dev)
         kw = dict(causal=c["causal"], window=c["window"],
                   softcap=c["softcap"], scale=c["scale"],
-                  q_offset=c["q_offset"])
+                  q_offset=c["q_offset"], seg_q=seg_q, seg_kv=seg_kv)
         kind = variant(dt, D)
         counter = f"flash_attention.{kind}"
         before = LAUNCHES[counter]
@@ -340,27 +494,36 @@ def phase_kernel_flash_attention(dev, baseline=None):
         if LAUNCHES[counter] != before + 1:
             raise AssertionError(f"flash_attention case {c['name']} did not "
                                  f"launch the {kind} kernel")
-        ref = attention_ref(q, k, v, **kw)
+        ref, lse_ref = attention_fwd_ref(q, k, v, **kw)
         err = float((out.float() - ref.float()).abs().max())
         finite = bool(torch.isfinite(out.float()).all())
-        baseline_err = (float((old(q, k, v, **kw).float() - ref.float())
-                              .abs().max()) if old else None)
-        del ref
+        out_l, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        live = torch.isfinite(lse_ref)
+        lse_err = (float((lse[live] - lse_ref[live]).abs().max())
+                   if live.any() else 0.0)
+        lse_inf_match = bool(torch.equal(torch.isfinite(lse), live))
+        out_l_same = bool(torch.equal(out_l, out))
+        old_c = old if seg_q is None else None   # an older C interface
+        baseline_err = (float((old_c(q, k, v, **kw).float() - ref.float())
+                              .abs().max()) if old_c else None)
+        del ref, lse_ref, out_l, lse
         big = Sq * Sk > 4_000_000
         ms = device_ms(lambda: flash_attention(q, k, v, **kw), 3 if big else 10)
         host_ms = time_ms(lambda: flash_attention(q, k, v, **kw),
                           3 if big else 10)
         plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw), 2 if big else 5)
-        baseline_ms = (device_ms(lambda: old(q, k, v, **kw), 3 if big else 10)
-                       if old else None)
+        baseline_ms = (device_ms(lambda: old_c(q, k, v, **kw),
+                                 3 if big else 10) if old_c else None)
 
         # yardstick: one SDPA call, same q/k/v and masks, without softcap
-        mask = _mask(c, dev)
+        mask = _mask(c, dev, seg_q, seg_kv)
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(H // KH, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(H // KH, dim=2).transpose(1, 2).contiguous()
         plain_causal = (c["causal"] and c["q_offset"] == 0 and Sq == Sk
-                        and (not c["window"] or c["window"] >= Sk))
+                        and (not c["window"] or c["window"] >= Sk)
+                        and seg_q is None)
         if plain_causal:
             def lib():
                 return F.scaled_dot_product_attention(
@@ -371,24 +534,33 @@ def phase_kernel_flash_attention(dev, baseline=None):
                     qt, kt, vt, attn_mask=mask, scale=c["scale"])
         library_ms = device_ms(lib, 3 if big else 10)
 
-        pairs = int(mask.sum())
-        flops = 4 * D * pairs * H * B
+        pairs = int(mask.sum()) * (1 if seg_q is not None else B)
+        flops = 4 * D * pairs * H
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        if seg_q is not None:
+            nbytes += 4 * (seg_q.numel() + seg_kv.numel())
         t_ops = flops / PEAK_FLOPS[c["dtype"]]
         t_bytes = nbytes / PEAK_BYTES
         bound_ms = 1e3 * max(t_ops, t_bytes)
-        ok = finite and err <= c["tol"]
+        ok = (finite and err <= c["tol"] and lse_inf_match and out_l_same
+              and lse_err <= LSE_TOL[c["dtype"]])
         row = {"phase": "kernel flash_attention", "case": c["name"],
                "shape": {n: c[n] for n in ("B", "Sq", "Sk", "H", "KH", "D")},
                "causal": c["causal"], "window": c["window"],
                "softcap": c["softcap"], "q_offset": c["q_offset"],
                "scale": c["scale"], "dtype": c["dtype"], "variant": kind,
-               "max_abs_err": err, "tol": c["tol"], "ok": ok, "ms": ms,
+               "segments": c.get("seg", 0),
+               "max_abs_err": err, "tol": c["tol"], "lse_max_abs_err": lse_err,
+               "lse_tol": LSE_TOL[c["dtype"]],
+               "lse_inf_rows_match": lse_inf_match,
+               "o_with_lse_equal": out_l_same, "ok": ok, "ms": ms,
                "host_ms": host_ms, "tflops": flops / ms / 1e9,
                "baseline_ms": baseline_ms,
                "baseline_max_abs_err": baseline_err, "plain_ms": plain_ms,
                "library_ms": library_ms,
-               "library": "scaled_dot_product_attention, no softcap",
+               "library": "scaled_dot_product_attention, no softcap"
+                          + (", segment mask as attn_mask" if seg_q is not None
+                             else ""),
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -397,12 +569,270 @@ def phase_kernel_flash_attention(dev, baseline=None):
         emit(row)
         if not ok:
             raise AssertionError(f"flash_attention case {c['name']}: "
-                                 f"max error {err} > {c['tol']} "
-                                 f"(finite={finite})")
+                                 f"max error {err} (tol {c['tol']}), lse "
+                                 f"error {lse_err}, -inf rows match "
+                                 f"{lse_inf_match}, o with lse equal "
+                                 f"{out_l_same}, finite={finite}")
         results[c["name"]] = row
         del q, k, v, out, qt, kt, vt, mask
         torch.cuda.empty_cache()
     return results
+
+
+def phase_kernel_flash_attention_bwd(dev):
+    """dq, dk, dv of the backward kernels against attention_bwd_ref on the
+    same q, k, v, do and the forward kernel's o and lse; bitwise equality
+    of two calls; device time against the bound and against SDPA's forward
+    and backward (causal, no softcap, no segments) at the same shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.flash_attention.ops import (
+        bwd_variant,
+        flash_attention_bwd_cuda,
+        flash_attention_cuda,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    gen = torch.Generator(device=dev).manual_seed(4)
+    results = {}
+    for c in FA_BWD_CASES:
+        dt = getattr(torch, c["dtype"])
+        B, Sq, Sk, H, KH, D = (c[k] for k in ("B", "Sq", "Sk", "H", "KH", "D"))
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
+        do = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
+        seg_q = _segments(B, Sq, c["seg"], gen, dev)
+        seg_kv = seg_q if Sk == Sq else _segments(B, Sk, c["seg"], gen, dev)
+        kw = dict(causal=c["causal"], window=c["window"],
+                  softcap=c["softcap"], scale=c["scale"],
+                  q_offset=c["q_offset"], seg_q=seg_q, seg_kv=seg_kv)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        kind = bwd_variant(dt)
+        before = LAUNCHES[f"flash_attention_bwd.{kind}"]
+        grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        if LAUNCHES[f"flash_attention_bwd.{kind}"] != before + 2:
+            raise AssertionError(f"flash_attention_bwd case {c['name']} did "
+                                 f"not launch the {kind} kernels")
+        bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
+        del again
+        refs = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        checks = {name: grad_check(a, r, c["dtype"])
+                  for name, a, r in zip(("dq", "dk", "dv"), grads, refs)}
+        del refs, grads
+        big = Sq * Sk * H * B > 20_000_000
+        ms = device_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                        **kw), 5 if big else 20)
+        host_ms = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse,
+                                                           do, **kw),
+                          5 if big else 20)
+        plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
+                                                     **kw), 2 if big else 5)
+
+        # yardstick: SDPA forward + backward at the same shape, causal, no
+        # softcap, no segments, kv heads repeated to H
+        with torch.enable_grad():
+            qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+            kt = (k.repeat_interleave(H // KH, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_(True))
+            vt = (v.repeat_interleave(H // KH, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_(True))
+            dot = do.transpose(1, 2).contiguous()
+
+            def lib():
+                out = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, scale=c["scale"])
+                return torch.autograd.grad(out, (qt, kt, vt), dot)
+            library_ms = device_ms(lib, 5 if big else 20)
+        del qt, kt, vt, dot
+
+        live = int(_mask(c, dev, seg_q, seg_kv).sum()) * (
+            1 if seg_q is not None else B)
+        flops = 5 * 2 * D * live * H        # s, dP, dv, dk, dq
+        nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
+                  + lse.numel() * 4)          # q o do dq, k v dk dv, lse
+        if seg_q is not None:
+            nbytes += 4 * (seg_q.numel() + seg_kv.numel())
+        t_ops = flops / PEAK_FLOPS[c["dtype"]]
+        t_bytes = nbytes / PEAK_BYTES
+        ok = bitwise and all(ch["ok"] for ch in checks.values())
+        row = {"phase": "kernel flash_attention_bwd", "case": c["name"],
+               "shape": {n: c[n] for n in ("B", "Sq", "Sk", "H", "KH", "D")},
+               "causal": c["causal"], "window": c["window"],
+               "softcap": c["softcap"], "q_offset": c["q_offset"],
+               "scale": c["scale"], "dtype": c["dtype"], "variant": kind,
+               "segments": c["seg"],
+               "max_abs_err": max(ch["max_abs_err"] for ch in checks.values()),
+               "checks": checks, "bitwise_equal_calls": bitwise,
+               "ok": ok, "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library": "scaled_dot_product_attention forward + backward, "
+                          "is_causal, no softcap, no segments, kv heads "
+                          "repeated",
+               "live_pairs": live, "gflop": flops / 1e9,
+               "mbytes": nbytes / 1e6, "tflops": flops / ms / 1e9,
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"flash_attention_bwd case {c['name']}: "
+                                 f"{checks}, bitwise {bitwise}")
+        results[c["name"]] = row
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return results
+
+
+# train phase: lm.train's arguments, flash launches per train step (26
+# layers; forward twice a microbatch under remat, backward once; 2
+# microbatches), and the tolerances of the kernel path against impl="ref"
+# on one microbatch.  Both paths compute in bf16 with f32 accumulation and
+# differ only inside attention (the kernels round P and dS to bf16 for their
+# products, the plain versions do not), each difference a relative 2^-9;
+# 26 layers of bf16 residual stream carry such differences on.  The loss, a
+# mean of 2048 f32 log-sum-exps of ~12.5, moves by far less than 0.01;
+# gradients (relative Frobenius distance) by a few bf16 steps, 0.05.
+TRAIN_STEPS = 3   # at profile_train.TRAIN, the shape that profile_train times
+TRAIN_LAUNCHES = {"flash_attention": 26 * 2 * 2,
+                  "flash_attention.wgmma": 26 * 2 * 2,
+                  "flash_attention_bwd": 26 * 2,
+                  "flash_attention_bwd.mma_sync": 26 * 2}
+TRAIN_LOSS_TOL = 0.01
+TRAIN_GRAD_RTOL = 0.05
+
+
+def phase_train(dev):
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.kernel_plugin import Kernel
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.profile_train import TRAIN
+    from repro_torch.optim.adamw import global_norm, tree_leaves
+    from repro_torch.plugins import lm
+    from repro_torch.train import compute_cast
+    from repro_torch.train.step import lm_loss
+
+    args = {"arch": TRAIN["arch"], "device": str(dev), "steps": 1,
+            "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+            "microbatches": TRAIN["microbatches"], "ensemble": "chip_smoke",
+            "member": 0}
+    torch.cuda.synchronize(dev)   # initialises CUDA when this phase is first
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    reset_launches()
+    for i in range(TRAIN_STEPS):
+        before = dict(LAUNCHES)
+        k = Kernel("lm.train")
+        k.arguments = dict(args)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = k.execute()
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t)
+        steps.append({"step": out["step"], "loss": out["loss"],
+                      "ms": step_ms,
+                      "tokens_per_s": TRAIN["batch"] * TRAIN["seq"]
+                      / (step_ms / 1e3),
+                      "launches": {n: LAUNCHES[n] - before[n]
+                                   for n in LAUNCHES
+                                   if LAUNCHES[n] != before[n]}})
+    launches = dict(LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    sid = (args["ensemble"], args["member"])
+    state = lm.STATE_STORE[sid]
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    state_gb = sum(t.numel() * t.element_size() for t in
+                   tree_leaves([state["params"], state["opt"]["m"],
+                                state["opt"]["v"]])) / 1e9
+
+    ev = Kernel("lm.eval")
+    ev.arguments = {n: args[n] for n in ("arch", "device", "batch", "seq",
+                                         "ensemble", "member")}
+    eval_out = ev.execute()
+    dec = Kernel("lm.decode")
+    dec.arguments = {n: args[n] for n in ("arch", "device", "ensemble",
+                                          "member")}
+    dec_out = dec.execute()
+    torch.cuda.synchronize()
+
+    # one microbatch, kernels against the plain versions, in turn
+    cfg = lm.resolve_cfg(args["arch"])
+    params = state["params"]
+    mb = SyntheticLM(cfg, ShapeSpec("train", "train", TRAIN["seq"],
+                                    TRAIN["batch"]), device=dev).batch_at(0)
+    mb = {n: t[:TRAIN["batch"] // TRAIN["microbatches"]]
+          for n, t in mb.items()}
+    layer0 = params["layers"][0]["attn"]
+    picked = {"embed": params["embed"]["tok"], **{
+        f"layer0/{w}": layer0[w] for w in ("wq", "wk", "wv", "wo")}}
+
+    def grads_of(impl):
+        leaves = list(tree_leaves(params))
+        for p in leaves:
+            p.requires_grad_(True)
+            p.grad = None
+        try:
+            loss, _, _ = lm_loss(cfg, compute_cast(cfg, params), mb, impl,
+                                 remat=True)
+            loss.backward()
+            with torch.no_grad():
+                norm = float(global_norm([p.grad for p in leaves]))
+                out = {n: t.grad.clone() for n, t in picked.items()}
+        finally:
+            for p in leaves:
+                p.grad = None
+                p.requires_grad_(False)
+        _release()
+        return float(loss), norm, out
+    loss_k, norm_k, g_k = grads_of(None)
+    loss_r, norm_r, g_r = grads_of("ref")
+    grad_rel = {n: float((g_k[n] - g_r[n]).norm() / g_r[n].norm())
+                for n in picked}
+    del g_k, g_r
+
+    losses = [s_["loss"] for s_ in steps]
+    per_step_ok = all(s_["launches"] == TRAIN_LAUNCHES for s_ in steps)
+    ok = (all(map(math.isfinite, losses)) and per_step_ok
+          and math.isfinite(eval_out["loss"])
+          and dec_out["params"] == f"member state at step {TRAIN_STEPS}"
+          and dec_out["served"] == 2
+          and abs(loss_k - loss_r) <= TRAIN_LOSS_TOL
+          and abs(norm_k - norm_r) <= TRAIN_GRAD_RTOL * norm_r
+          and all(r <= TRAIN_GRAD_RTOL for r in grad_rel.values()))
+    row = {"phase": f"train {TRAIN['arch']}", "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
+           "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "optstate_dtype": cfg.optstate_dtype, "remat": cfg.remat,
+           "params": n_params, "state_gb": state_gb, **TRAIN,
+           "steps": TRAIN_STEPS,
+           "train_tasks": "lm.train, one step a task",
+           "steps_run": steps, "losses": losses,
+           "step_ms_steady": sum(s_["ms"] for s_ in steps[1:])
+           / max(1, len(steps) - 1),
+           "launches": launches, "launches_per_step": TRAIN_LAUNCHES,
+           "peak_mem_gb": peak_gb, "eval": eval_out,
+           "decode": {n: dec_out[n] for n in ("served", "params", "tokens")},
+           "vs_ref": {"loss_kernels": loss_k, "loss_ref": loss_r,
+                      "loss_tol": TRAIN_LOSS_TOL, "grad_norm_kernels": norm_k,
+                      "grad_norm_ref": norm_r,
+                      "grad_rel_frobenius": grad_rel,
+                      "grad_rtol": TRAIN_GRAD_RTOL},
+           "ok": ok}
+    emit(row)
+    lm.STATE_STORE.clear()
+    lm._STEP_CACHE.clear()
+    del state, params, picked, layer0
+    _release()
+    if not ok:
+        raise AssertionError(f"train phase failed: {row}")
+    return row
 
 
 def _scan_check(name, case, kernel, plain, y_dtype, nbytes, flops, extra,
@@ -873,7 +1303,14 @@ def main() -> int:
                      dev, baselines.get("selective_scan")),
                  "gmm": phase_kernel_gmm(dev, baselines.get("gmm"))}
         _release()
-        launches = {name: {} for name in KERNELS}
+    cases["flash_attention_bwd"] = phase_kernel_flash_attention_bwd(dev)
+    _release()
+    launches = {name: {} for name in KERNELS}
+    row = phase_train(dev)
+    for name, n in row["launches"].items():
+        if n and name in launches:
+            launches[name][row["phase"]] = n
+    with torch.inference_mode():
         for arch, loop, per_prefill, per_decode in SERVE:
             row = phase_serve(dev, arch, loop, per_prefill, per_decode)
             for name, n in row["launches"].items():
@@ -884,11 +1321,15 @@ def main() -> int:
         phase_continuous(dev)
 
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
-        s = cases[name]["serve"]
+    for name, (source, replaces, case) in KERNELS.items():
+        s = cases[name][case]
+        if not launches[name]:
+            raise AssertionError(f"kernel {name} was not launched on its "
+                                 "main path")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": sum(launches[name].values()),
+            "replaces": replaces, "case": case,
+            "launches": sum(launches[name].values()),
             "launches_by_path": launches[name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],

@@ -1,5 +1,6 @@
-"""Model configs and the arch registry (own copy of ``repro.configs.base``
-without the JAX input-shape specs, which belong to a dry-run port)."""
+"""Model configs, the arch registry and the input-shape spec (own copy of
+``repro.configs.base`` without its table of dry-run shapes, ``SHAPES``,
+which belongs to a dry-run port)."""
 from __future__ import annotations
 
 import dataclasses
@@ -144,6 +145,14 @@ class ModelConfig:
             n += self.encoder_layers * (attn + mlp_params(self.d_ff))
             n += self.num_layers * attn              # cross attention
         return int(n)
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
 
 
 # --------------------------------------------------------------------------

@@ -26,6 +26,7 @@ BUILD_DIR = _KERNELS_DIR / "_build"
 # kernel library name -> its source, relative to this package
 SOURCES: Dict[str, str] = {
     "flash_attention_fwd": "flash_attention/csrc/flash_attention_fwd.cu",
+    "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "linear_scan": "rglru/csrc/linear_scan.cu",
     "selective_scan": "mamba/csrc/selective_scan.cu",
     "gmm": "moe_gmm/csrc/gmm.cu",

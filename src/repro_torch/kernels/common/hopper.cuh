@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // mbarriers, named barriers, TMA tensor loads, stmatrix, shared-memory matrix
 // descriptors for 128-byte-swizzled bf16 tiles, warpgroup MMA (wgmma)
-// wrappers and register reallocation (setmaxnreg).
+// wrappers and register reallocation (setmaxnreg); and the warp-level pieces
+// of the mma.sync kernels (cp.async, ldmatrix, mma.m16n8k16).
 //
 // Tile layout that the descriptors below describe.  A TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B and an inner box of 64 bf16 (128 bytes) writes
@@ -311,6 +312,51 @@ __device__ __forceinline__ float rcp_approx(float x) {
 // which a softcap of 50 turns into a logit error of 0.025.)
 __device__ __forceinline__ float tanh_ex2(float y) {
   return fmaf(-2.f, rcp_approx(ex2_approx(y) + 1.f), 1.f);
+}
+
+// ------------------------------------------------ warp-level mma.sync pieces
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* ptr) {
+  return *reinterpret_cast<const uint32_t*>(ptr);
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col).  Fragment
+// layout (PTX ISA), g = lane / 4, t = lane % 4: a holds rows g, g + 8 at
+// columns 2t, 2t + 1 (a[0], a[1]) and 2t + 8, 2t + 9 (a[2], a[3]); b holds
+// column g at rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1); c holds rows g
+// (c[0], c[1]) and g + 8 (c[2], c[3]) at columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_16816(float (&c)[4],
+                                          const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The b operand (16 k x 8 n) of mma_16816 from a row-major (k rows, n
+// contiguous) bf16 tile in shared memory: lanes 0 .. 15 give the addresses
+// of rows k0 .. k0 + 15 at the tile's column n0.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
+                                                  const __nv_bfloat16* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(b0), "=r"(b1)
+      : "r"(smem_u32(row)));
 }
 
 // ------------------------------------------------------------------- host

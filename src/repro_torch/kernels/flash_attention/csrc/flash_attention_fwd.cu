@@ -8,9 +8,13 @@
 //   softcap, the scale applied after the dot, GQA (H = G * KH), online
 //   softmax with f32 m, l and acc, fully masked rows giving 0 and fully
 //   masked kv tiles skipped.  Unlike the Pallas kernel it takes any
-//   sequence lengths: the ragged q and kv tails are masked here.  Segment
-//   ids are not taken (the wrapper raises on them, as the Pallas kernel
-//   does).
+//   sequence lengths (the ragged q and kv tails are masked here) and
+//   segment ids (int32 seg_q (B, Sq) and seg_kv (B, Sk), or null; an entry
+//   is live only where seg_q[b, i] == seg_kv[b, j]), which the Pallas
+//   kernel rejects: the spec is the XLA path and ref.  Given an lse
+//   pointer, every kernel also writes each row's natural-log log-sum-exp
+//   of its masked scores, f32 (B, H, Sq), -inf for a fully masked row: the
+//   backward (flash_attention_bwd.cu) recomputes P = exp(s - lse) from it.
 //
 // What bounds it on an H100.  The function needs 4*D flops per unmasked
 // (q, k) pair and q head, and moves q, k, v and o once.  At the serve
@@ -84,6 +88,7 @@
 #include <cuda_runtime.h>
 
 #include <atomic>
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 
@@ -101,6 +106,9 @@ struct Params {
   int B, Sq, Sk, H, KH, G, BQ;
   int causal, window, q_offset;
   float softcap, scale;
+  const int* seg_q;    // (B, Sq) or null: no segment mask
+  const int* seg_kv;   // (B, Sk), null with seg_q
+  float* lse;          // (B, H, Sq) or null: not written
 };
 // The kv range [begin, end) that can hold a live entry for some row of the
 // q tile starting at q0, with begin rounded down to a multiple of `tile`.
@@ -113,11 +121,12 @@ __device__ __forceinline__ void kv_range(const Params& p, int q0, int tile,
   begin = (begin / tile) * tile;
 }
 
-// Scaled, softcapped score, or kNegInf where the masks hide (qpos, kp).
+// Scaled, softcapped score, or kNegInf where the masks hide (qpos, kp);
+// seg_ok: the segment ids of the two match (true without segment ids).
 __device__ __forceinline__ float masked_score(const Params& p, float dot,
-                                              bool q_valid, int qpos,
-                                              int kp) {
-  bool ok = q_valid && kp < p.Sk;
+                                              bool q_valid, int qpos, int kp,
+                                              bool seg_ok) {
+  bool ok = q_valid && seg_ok && kp < p.Sk;
   if (p.causal) ok = ok && kp <= qpos;
   if (p.window > 0) ok = ok && (qpos - kp < p.window);
   float x = dot * p.scale;
@@ -132,6 +141,29 @@ __device__ __forceinline__ size_t q_offset_of(const Params& p, int b, int kh,
          (size_t)D;
 }
 
+// Index of (b, head h, position i) in the (B, H, Sq) lse.
+__device__ __forceinline__ size_t lse_index(const Params& p, int b, int h,
+                                            int i) {
+  return ((size_t)b * p.H + h) * p.Sq + i;
+}
+
+// Segment id of q position i (clamped into the sequence) of batch b, or 0
+// without segment ids.
+__device__ __forceinline__ int seg_of_q(const Params& p, int b, int i) {
+  return p.seg_q ? p.seg_q[(size_t)b * p.Sq + min(i, p.Sq - 1)] : 0;
+}
+
+// kv tile [k0, k0 + tile) -> sseg[0 .. tile): its segment ids (0 past Sk),
+// by threads tid of nthreads; nothing without segment ids.
+__device__ __forceinline__ void stage_kv_segments(const Params& p, int b,
+                                                  int k0, int tile,
+                                                  int* sseg, int tid,
+                                                  int nthreads) {
+  if (!p.seg_kv) return;
+  for (int c = tid; c < tile; c += nthreads)
+    sseg[c] = k0 + c < p.Sk ? p.seg_kv[(size_t)b * p.Sk + k0 + c] : 0;
+}
+
 // ================================= bf16, D = 16 and 32: warp-level mma.sync
 
 namespace tc {
@@ -144,61 +176,24 @@ constexpr size_t smem_bytes() {    // q, k, v tiles, rows padded by 8 bf16
   return sizeof(__nv_bfloat16) * size_t(kRows + 2 * kBK) * (D + 8);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) . b (16x8 bf16, col)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The B operand (16 keys x 8 dims) of p.v from row-major v in shared memory.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const __nv_bfloat16* row) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(b0), "=r"(b1)
-      : "r"(smem_addr(row)));
-}
+using hopper::cp_async16;
+using hopper::cp_async_wait_all;
+using hopper::ld_u32;
+using hopper::ldmatrix_x2_trans;
+using hopper::pack_bf16;
 
 // Fragment layout of mma.m16n8k16 (PTX ISA): with g = lane / 4 and
 // t = lane % 4, a thread holds rows g and g + 8 of the 16 x 8 result at
 // columns 2t and 2t + 1 (c[0], c[1] for row g; c[2], c[3] for row g + 8).
-template <int D>
+// kExt: segment ids and lse compiled in (as in the wgmma kernel).
+template <int D, bool kExt>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_fwd_tc(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
                        __nv_bfloat16* __restrict__ o, Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int sSeg[kBK];                  // the kv tile's segment ids
   constexpr int RS = D + 8;                  // padded row stride, elements
   constexpr int RC = D / 8;                  // 16-byte chunks per row
   constexpr int NT = kBK / 8;                // score tiles of 8 keys
@@ -221,13 +216,14 @@ flash_attention_fwd_tc(const __nv_bfloat16* __restrict__ q,
                valid);
   }
 
-  int row[2], qpos[2];
+  int row[2], qpos[2], sq[2];
   bool valid[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     row[h] = warp * 16 + g + 8 * h;
     qpos[h] = p.q_offset + q0 + row[h] % p.BQ;
     valid[h] = row[h] < rows && q0 + row[h] % p.BQ < p.Sq;
+    sq[h] = kExt ? seg_of_q(p, b, q0 + row[h] % p.BQ) : 0;
   }
   float acc[DT][4];
 #pragma unroll
@@ -245,6 +241,7 @@ flash_attention_fwd_tc(const __nv_bfloat16* __restrict__ q,
       cp_async16(sK + c * RS + ch * 8, ok ? k + off : k, ok);
       cp_async16(sV + c * RS + ch * 8, ok ? v + off : v, ok);
     }
+    if (kExt) stage_kv_segments(p, b, k0, kBK, sSeg, tid, kThreads);
     cp_async_wait_all();
     __syncthreads();
 
@@ -260,7 +257,7 @@ flash_attention_fwd_tc(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const __nv_bfloat16* kb = sK + (n * 8 + g) * RS + kk + 2 * t;
-        mma(s[n], a, ld_u32(kb), ld_u32(kb + 8));
+        hopper::mma_16816(s[n], a, ld_u32(kb), ld_u32(kb + 8));
       }
     }
 
@@ -270,8 +267,9 @@ flash_attention_fwd_tc(const __nv_bfloat16* __restrict__ q,
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int h = e / 2, kp = k0 + n * 8 + 2 * t + (e % 2);
-        s[n][e] = masked_score(p, s[n][e], valid[h], qpos[h], kp);
+        const int h = e / 2, c = n * 8 + 2 * t + (e % 2);
+        s[n][e] = masked_score(p, s[n][e], valid[h], qpos[h], k0 + c,
+                               !kExt || !p.seg_q || sSeg[c] == sq[h]);
         mx[h] = fmaxf(mx[h], s[n][e]);
       }
     float corr[2];
@@ -310,18 +308,18 @@ flash_attention_fwd_tc(const __nv_bfloat16* __restrict__ q,
       uint32_t hi[4], lo[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        hi[i] = pack(pv[2 * i], pv[2 * i + 1]);
+        hi[i] = pack_bf16(pv[2 * i], pv[2 * i + 1]);
         const float2 hf = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(&hi[i]));
-        lo[i] = pack(pv[2 * i] - hf.x, pv[2 * i + 1] - hf.y);
+        lo[i] = pack_bf16(pv[2 * i] - hf.x, pv[2 * i + 1] - hf.y);
       }
       const __nv_bfloat16* vrow = sV + (kk * 16 + lane % 16) * RS;
 #pragma unroll
       for (int j = 0; j < DT; ++j) {
         uint32_t b0, b1;
         ldmatrix_x2_trans(b0, b1, vrow + j * 8);
-        mma(acc[j], hi, b0, b1);
-        mma(acc[j], lo, b0, b1);
+        hopper::mma_16816(acc[j], hi, b0, b1);
+        hopper::mma_16816(acc[j], lo, b0, b1);
       }
     }
   }
@@ -332,6 +330,9 @@ flash_attention_fwd_tc(const __nv_bfloat16* __restrict__ q,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     if (!valid[h]) continue;
+    if (kExt && p.lse && t == 0)
+      p.lse[lse_index(p, b, kh * p.G + row[h] / p.BQ, q0 + row[h] % p.BQ)] =
+          l[h] > 0.f ? m[h] + logf(l[h]) : -INFINITY;
     const float denom = fmaxf(l[h], 1e-30f);
     __nv_bfloat16* out = o + q_offset_of(p, b, kh, q0, row[h], D) + 2 * t;
 #pragma unroll
@@ -364,13 +365,14 @@ constexpr size_t smem_bytes() {
 // (c = lane + 4 i) and the head dim of the accumulator in 4-wide chunks
 // (d = 4 (lane + 4 j) + 0..3).  Shared-memory rows are padded to D + 4
 // floats, so every 16-byte read is aligned and the 8 rows (or 4 columns) a
-// warp reads at once fall in distinct banks.
-template <int D>
+// warp reads at once fall in distinct banks.  kExt as in the tc kernel.
+template <int D, bool kExt>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_fwd_cc(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        Params p) {
   extern __shared__ __align__(16) float smem[];
+  __shared__ int sSeg[kBK];                    // the kv tile's segment ids
   constexpr int DP = D + 4;
   constexpr int DC = D / (4 * kLanesPerRow);   // 4-wide chunks per lane
   constexpr int SP = kBK + 1;
@@ -399,6 +401,7 @@ flash_attention_fwd_cc(const float* __restrict__ q, const float* __restrict__ k,
   const int r = tid / kLanesPerRow, lane = tid % kLanesPerRow;
   const bool q_valid = r < rows && q0 + r % p.BQ < p.Sq;
   const int qpos = p.q_offset + q0 + r % p.BQ;
+  const int sq = kExt ? seg_of_q(p, b, q0 + r % p.BQ) : 0;
 
   float4 acc[DC];
 #pragma unroll
@@ -432,6 +435,7 @@ flash_attention_fwd_cc(const float* __restrict__ q, const float* __restrict__ k,
         *reinterpret_cast<float4*>(&sV[at]) = vraw[it];
       }
     }
+    if (kExt) stage_kv_segments(p, b, k0, kBK, sSeg, tid, kThreads);
     __syncthreads();
 
     float s[kColsPerLane];
@@ -454,8 +458,9 @@ flash_attention_fwd_cc(const float* __restrict__ q, const float* __restrict__ k,
     float mloc = kNegInf;
 #pragma unroll
     for (int i = 0; i < kColsPerLane; ++i) {
-      s[i] = masked_score(p, s[i], q_valid, qpos,
-                          k0 + lane + kLanesPerRow * i);
+      const int c = lane + kLanesPerRow * i;
+      s[i] = masked_score(p, s[i], q_valid, qpos, k0 + c,
+                          !kExt || !p.seg_q || sSeg[c] == sq);
       mloc = fmaxf(mloc, s[i]);
     }
     // the 4 lanes of a row are neighbouring lanes of one warp
@@ -495,6 +500,9 @@ flash_attention_fwd_cc(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   if (q_valid) {
+    if (kExt && p.lse && lane == 0)
+      p.lse[lse_index(p, b, kh * p.G + r / p.BQ, q0 + r % p.BQ)] =
+          l > 0.f ? m + logf(l) : -INFINITY;
     const float denom = fmaxf(l, 1e-30f);
     float* out = o + q_offset_of(p, b, kh, q0, r, D);
 #pragma unroll
@@ -536,14 +544,17 @@ struct Tile {
 
 // S (64 x BK, this thread's fragment) -> t = tanh_ex2(S * in_scale) =
 // tanh(S * scale / softcap) when kCap (in_scale = 2 log2 e scale / softcap),
-// else S, and -inf where kMask's masks hide the entry; the row maxima
+// else S, and -inf where kMask's masks hide the entry (segk: batch b's
+// seg_kv, or null; sq: the thread's two rows' segment ids); the row maxima
 // of t are folded into mx (two partial maxima per row for ILP).  The score
 // in log2 units is t * mult (mult = softcap * log2 e, or scale * log2 e),
 // which the exponent's FMA applies.
 template <int BK, bool kMask, bool kCap>
 __device__ __forceinline__ void scores(float (&sc)[BK / 2], const Params& p,
                                        float in_scale, int k0, int lane,
-                                       const int (&qpos)[2], float (&mx)[2]) {
+                                       const int (&qpos)[2],
+                                       const int* segk, const int (&sq)[2],
+                                       float (&mx)[2]) {
   float mp[2][2] = {{mx[0], mx[0]}, {mx[1], mx[1]}};
 #pragma unroll
   for (int e = 0; e < BK / 2; ++e) {
@@ -554,6 +565,7 @@ __device__ __forceinline__ void scores(float (&sc)[BK / 2], const Params& p,
       bool ok = kp < p.Sk;
       if (p.causal) ok = ok && kp <= qpos[h];
       if (p.window > 0) ok = ok && qpos[h] - kp < p.window;
+      if (segk) ok = ok && segk[kp] == sq[h];
       x = ok ? x : -INFINITY;
     }
     sc[e] = x;
@@ -604,7 +616,12 @@ __device__ __forceinline__ Work work_item(const Params& p, int w) {
 // The kv ring's stage and phase run on across items, so the producer loads
 // the next item's q and first kv tiles while the consumers finish the
 // current one.
-template <int D>
+//
+// kExt: the kernel reads segment ids and writes lse where Params holds them
+// (training).  Without it neither is compiled in, so the serving path runs
+// the code it ran before either existed (a branch between a wgmma's issue
+// and its wait costs even when not taken).
+template <int D, bool kExt>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -689,8 +706,9 @@ flash_attention_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 
     float acc[D / ON][ON / 2];
     float m[2], l[2];          // running max (t units), lane's part of l
-    int qpos[2];
+    int qpos[2], sq[2];        // the thread's rows' positions, segment ids
     int q_lo, q_hi, kv_begin;  // of the current work item
+    const int* segk = nullptr;   // the item's batch row of seg_kv
 
     // S = q . k^T for ring slot r: A = q, B = k, both K-major
     auto issue_qk = [&](int r, float (&sc)[BK / 2]) {
@@ -718,22 +736,44 @@ flash_attention_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
               1);
       wgmma_commit();
     };
+    // Whether tile i needs the segment mask in this warp: some kv segment
+    // id of the tile differs from one of the warp's rows' (a warp-wide min
+    // and max of the tile's ids; false without segment ids).  Called before
+    // a wgmma wait, so its loads overlap the product in flight.
+    auto seg_edge = [&](int i) -> bool {
+      if (!kExt || !segk) return false;
+      const int k0 = kv_begin + i * BK;
+      int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+      for (int j = lane; j < BK; j += 32) {
+        const int kp = min(k0 + j, p.Sk - 1);
+        lo = min(lo, segk[kp]);
+        hi = max(hi, segk[kp]);
+      }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+      return __any_sync(0xffffffffu, lo != hi || sq[0] != lo || sq[1] != lo);
+    };
     // Online softmax of tile i's S (masks only on edge tiles): S becomes P
     // = exp2(t * mult - m * mult) in place, l is rescaled and summed, corr
     // is the factor that takes O to the new running max m (in t units).
-    auto softmax = [&](int i, float (&sc)[BK / 2], float (&corr)[2]) {
+    auto softmax = [&](int i, float (&sc)[BK / 2], float (&corr)[2],
+                       bool seg_mask) {
       const int k0 = kv_begin + i * BK;
-      const bool edge = k0 + BK > p.Sk || (p.causal && k0 + BK - 1 > q_lo) ||
+      const bool edge = seg_mask || k0 + BK > p.Sk ||
+                        (p.causal && k0 + BK - 1 > q_lo) ||
                         (p.window > 0 && q_hi - k0 >= p.window);
+      const int* sk = seg_mask ? segk : nullptr;
       float mx[2] = {m[0], m[1]};
       if (edge && capped)
-        scores<BK, true, true>(sc, p, in_scale, k0, lane, qpos, mx);
+        scores<BK, true, true>(sc, p, in_scale, k0, lane, qpos, sk, sq, mx);
       else if (edge)
-        scores<BK, true, false>(sc, p, in_scale, k0, lane, qpos, mx);
+        scores<BK, true, false>(sc, p, in_scale, k0, lane, qpos, sk, sq, mx);
       else if (capped)
-        scores<BK, false, true>(sc, p, in_scale, k0, lane, qpos, mx);
+        scores<BK, false, true>(sc, p, in_scale, k0, lane, qpos, sk, sq, mx);
       else
-        scores<BK, false, false>(sc, p, in_scale, k0, lane, qpos, mx);
+        scores<BK, false, false>(sc, p, in_scale, k0, lane, qpos, sk, sq,
+                                 mx);
       float neg_m[2], ls[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -791,6 +831,7 @@ flash_attention_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         const int sl = r / p.G, g = r % p.G;
         valid[h] = r < rows && it.q0 + sl < p.Sq;
         qpos[h] = p.q_offset + it.q0 + sl;
+        sq[h] = kExt ? seg_of_q(p, it.b, it.q0 + sl) : 0;
         out_off[h] = (((size_t)it.b * p.Sq + it.q0 + sl) * p.H +
                       it.kh * p.G + g) * (size_t)D;
         m[h] = -INFINITY;
@@ -799,6 +840,7 @@ flash_attention_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       q_lo = p.q_offset + it.q0;
       q_hi = p.q_offset + min(it.q0 + p.BQ, p.Sq) - 1;
       kv_begin = it.kv_begin;
+      if (kExt && p.seg_kv) segk = p.seg_kv + (size_t)it.b * p.Sk;
 #pragma unroll
       for (int c = 0; c < D / ON; ++c)
 #pragma unroll
@@ -818,11 +860,12 @@ flash_attention_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
         issue_qk(ring, sc);
         pass_turn();
+        const bool seg_mask = seg_edge(0);
         wgmma_wait<0>();
         fence_regs(sc);
         arrive(&k_empty[ring % S]);
         if (n == 1) arrive(q_empty);
-        softmax(0, sc, corr);
+        softmax(0, sc, corr, seg_mask);
         to_bf16(sc, pa);
       }
       // Tile i: issue S(i), rescale O while it runs, issue P(i-1) . v(i-1);
@@ -846,11 +889,12 @@ flash_attention_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
         issue_pv(r - 1, pa);
         pass_turn();
+        const bool seg_mask = seg_edge(i);
         wgmma_wait<1>();
         fence_regs(sc);
         arrive(&k_empty[r % S]);
         if (i == n - 1) arrive(q_empty);   // the item's last use of q
-        softmax(i, sc, corr);
+        softmax(i, sc, corr, seg_mask);
         wgmma_wait<0>();
 #pragma unroll
         for (int c = 0; c < D / ON; ++c) fence_regs(acc[c]);
@@ -885,6 +929,14 @@ flash_attention_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
         if (!valid[h]) continue;
+        if (kExt && p.lse && lane % 4 == 0) {
+          // ln sum 2^(t mult) = (m mult + log2 l) ln 2
+          const int r = wgi * 64 + warp * 16 + lane / 4 + 8 * h;
+          p.lse[lse_index(p, it.b, it.kh * p.G + r % p.G,
+                          it.q0 + r / p.G)] =
+              l[h] > 0.f ? (m[h] * mult + log2f(l[h])) * 0.6931471805599453f
+                         : -INFINITY;
+        }
         const float inv = l[h] > 0.f ? 1.f / l[h] : 0.f;
         __nv_bfloat16* out = o + out_off[h] + 2 * (lane % 4);
 #pragma unroll
@@ -908,7 +960,7 @@ flash_attention_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 static_assert(wg::kRows >= kRows && tc::kThreads / 32 * 16 == kRows,
               "a block folds at least kRows rows");
 
-template <int D>
+template <int D, bool kExt>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  Params p, cudaStream_t stream) {
   using T = wg::Tile<D>;
@@ -932,7 +984,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (!err) err = hopper::encode_tensor_map_bf16(&tk, k, 4, kd, ks, kb);
   if (!err) err = hopper::encode_tensor_map_bf16(&tv, v, 4, kd, ks, kb);
   if (err) return err;
-  auto kernel = wg::flash_attention_fwd_wgmma<D>;
+  auto kernel = wg::flash_attention_fwd_wgmma<D, kExt>;
   // The shared-memory attribute is set, and the SM count read, once per
   // device, so a launch costs the host only the three tensor maps.
   static std::atomic<int> sms_of[kMaxDevices];   // 0: not yet prepared
@@ -978,15 +1030,21 @@ int launch_d(int dtype, const void* q, const void* k, const void* v, void* o,
              const Params& p, cudaStream_t stream) {
   static_assert(cc::smem_bytes<D>() <= kSmemLimit &&
                 tc::smem_bytes<D>() <= kSmemLimit, "tiles exceed a block");
+  const bool ext = p.seg_q || p.lse;
   if (dtype == 0)
-    return launch<float>(cc::flash_attention_fwd_cc<D>, cc::kThreads,
-                         cc::smem_bytes<D>(), q, k, v, o, p, stream);
+    return launch<float>(ext ? cc::flash_attention_fwd_cc<D, true>
+                             : cc::flash_attention_fwd_cc<D, false>,
+                         cc::kThreads, cc::smem_bytes<D>(), q, k, v, o, p,
+                         stream);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if constexpr (D >= 64)
-    return launch_wgmma<D>(q, k, v, o, p, stream);
+    return ext ? launch_wgmma<D, true>(q, k, v, o, p, stream)
+               : launch_wgmma<D, false>(q, k, v, o, p, stream);
   else
-    return launch<__nv_bfloat16>(tc::flash_attention_fwd_tc<D>, tc::kThreads,
-                                 tc::smem_bytes<D>(), q, k, v, o, p, stream);
+    return launch<__nv_bfloat16>(ext ? tc::flash_attention_fwd_tc<D, true>
+                                     : tc::flash_attention_fwd_tc<D, false>,
+                                 tc::kThreads, tc::smem_bytes<D>(), q, k, v,
+                                 o, p, stream);
 }
 
 // Dynamic shared memory of the kernel that takes (dtype, D).
@@ -1005,20 +1063,24 @@ extern "C" {
 
 // q (B, Sq, H, D), k and v (B, Sk, KH, D), o (B, Sq, H, D), all contiguous,
 // 16-byte aligned and of one dtype (0: float32, 1: bfloat16); Sk > 0.
-// Launches on `stream`, does not synchronise, and returns the cudaError_t
-// of the launch (0 on success).
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                        int dtype, int B, int Sq, int Sk, int H, int KH, int D,
-                        int causal, int window, float softcap, float scale,
-                        int q_offset, void* stream) {
+// seg_q (B, Sq) and seg_kv (B, Sk) int32, both or neither (null); lse
+// (B, H, Sq) f32 or null.  Launches on `stream`, does not synchronise, and
+// returns the cudaError_t of the launch (0 on success).
+int flash_attention_fwd_seg(const void* q, const void* k, const void* v,
+                            void* o, const int* seg_q, const int* seg_kv,
+                            float* lse, int dtype, int B, int Sq, int Sk,
+                            int H, int KH, int D, int causal, int window,
+                            float softcap, float scale, int q_offset,
+                            void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KH <= 0 || H % KH != 0 ||
-      H / KH > kRows)
+      H / KH > kRows || (seg_q == nullptr) != (seg_kv == nullptr))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.B = B; p.Sq = Sq; p.Sk = Sk; p.H = H; p.KH = KH; p.G = H / KH;
   p.BQ = 0;   // set by the launcher: rows per block / G
   p.causal = causal; p.window = window; p.q_offset = q_offset;
   p.softcap = softcap; p.scale = scale;
+  p.seg_q = seg_q; p.seg_kv = seg_kv; p.lse = lse;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch_d<16>(dtype, q, k, v, o, p, s);
@@ -1028,6 +1090,18 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     case 256: return launch_d<256>(dtype, q, k, v, o, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The same without segment ids or lse: the entry that earlier sources of
+// this kernel have too, so that one caller can time them all (chip_smoke.py
+// --baseline).
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                        int dtype, int B, int Sq, int Sk, int H, int KH, int D,
+                        int causal, int window, float softcap, float scale,
+                        int q_offset, void* stream) {
+  return flash_attention_fwd_seg(q, k, v, o, nullptr, nullptr, nullptr, dtype,
+                                 B, Sq, Sk, H, KH, D, causal, window, softcap,
+                                 scale, q_offset, stream);
 }
 
 // Dynamic shared memory per block, in bytes, of the kernel that a launch

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, grad_required
 from repro_torch.kernels.mamba.ref import selective_scan_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -42,6 +42,10 @@ def selective_scan(x, dt, A, Bm, C, D, h0, *, impl: Optional[str] = None):
         raise ValueError(f"unknown selective-scan impl {impl!r}")
     if impl == "ref" or x.device.type == "cpu":
         return selective_scan_ref(x, dt, A, Bm, C, D, h0)
+    if grad_required(x, dt, A, Bm, C, D, h0):
+        raise NotImplementedError(
+            "selective_scan has no backward kernel yet (ROADMAP B4): training "
+            "through it on CUDA waits for it; impl='ref' differentiates")
     return selective_scan_cuda(x, dt, A, Bm, C, D, h0)
 
 

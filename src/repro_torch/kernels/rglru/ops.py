@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, grad_required
 from repro_torch.kernels.rglru.ref import linear_scan_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -28,6 +28,10 @@ def linear_scan(x, a, h0, *, impl: Optional[str] = None):
         raise ValueError(f"unknown linear-scan impl {impl!r}")
     if impl == "ref" or x.device.type == "cpu":
         return linear_scan_ref(x, a, h0)
+    if grad_required(x, a, h0):
+        raise NotImplementedError(
+            "linear_scan has no backward kernel yet (ROADMAP B3): training "
+            "through it on CUDA waits for it; impl='ref' differentiates")
     return linear_scan_cuda(x, a, h0)
 
 

@@ -1,4 +1,5 @@
-"""Map parameters and caches between the JAX package's layout and the port's.
+"""Map parameters, train states and caches between the JAX package's layout
+and the port's.
 
 The JAX package keys every leaf by its ``/``-joined tree path (as its
 checkpointer does, ``repro/checkpoint/checkpoint.py``) and stacks the layers
@@ -103,4 +104,30 @@ def params_to_numpy(params, cfg: ModelConfig) -> Flat:
                 flat[f"tail/block_{i - G * period}/{rest}"] = _to_numpy(t)
     for key, arrs in stacks.items():
         flat[key] = np.stack(arrs)
+    return flat
+
+
+def train_state_from_numpy(flat: Flat, cfg: ModelConfig, device="cpu"):
+    """A JAX train state's flat key paths (``params/...``, ``opt/m/...``,
+    ``opt/v/...``, ``opt/count``, ``step``) -> the port's train state."""
+    def sub(prefix):
+        return {k[len(prefix):]: v for k, v in flat.items()
+                if k.startswith(prefix)}
+    return {"params": params_from_numpy(sub("params/"), cfg, device),
+            "opt": {"m": params_from_numpy(sub("opt/m/"), cfg, device),
+                    "v": params_from_numpy(sub("opt/v/"), cfg, device),
+                    "count": _to_tensor(flat["opt/count"], device)},
+            "step": _to_tensor(flat["step"], device)}
+
+
+def train_state_to_numpy(state, cfg: ModelConfig) -> Flat:
+    """The port's train state -> the JAX package's flat key paths."""
+    flat: Flat = {}
+    for prefix, tree in (("params/", state["params"]),
+                         ("opt/m/", state["opt"]["m"]),
+                         ("opt/v/", state["opt"]["v"])):
+        flat.update({prefix + k: v
+                     for k, v in params_to_numpy(tree, cfg).items()})
+    flat["opt/count"] = _to_numpy(state["opt"]["count"])
+    flat["step"] = _to_numpy(state["step"])
     return flat

@@ -16,6 +16,7 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -214,7 +215,7 @@ def lm_logits(cfg: ModelConfig, params: Params, h):
 
 def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
             seg_ids=None, cache_len: Optional[int] = None,
-            impl: Optional[str] = None):
+            impl: Optional[str] = None, remat: bool = False):
     """Returns dict with h (B,S,D final-normed), aux (scalar), cache (or None).
 
     ``cache_len``: when set, collect a decode cache (prefill mode); caches
@@ -222,7 +223,12 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     ``impl``: passed to every kernel wrapper on the path
     (``flash_attention``, ``linear_scan``, ``selective_scan``, ``gmm``):
     None (the tensors' device decides) or "ref" (the plain versions).
+    ``remat``: recompute each block in the backward pass instead of keeping
+    its activations (``torch.utils.checkpoint``, non-reentrant), as the JAX
+    package's ``remat="full"`` saves nothing inside a block.
     """
+    if remat and cache_len is not None:
+        raise ValueError("remat is for training; prefill collects a cache")
     _check_ported(cfg)
     B, S = tokens.shape
     if positions is None:
@@ -232,9 +238,21 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     cache: Cache = []
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, bp in enumerate(params["layers"]):
-        h, a, c = forward_block(cfg, bp, h, cfg.layer_kind(i),
-                                positions=positions, seg_ids=seg_ids,
-                                cache_len=cache_len, impl=impl)
+        kind = cfg.layer_kind(i)
+        if remat:
+            def block(hh, bp=bp, kind=kind):
+                out, a, _ = forward_block(cfg, bp, hh, kind,
+                                          positions=positions,
+                                          seg_ids=seg_ids, cache_len=None,
+                                          impl=impl)
+                return out, torch.as_tensor(a, dtype=torch.float32,
+                                            device=out.device)
+            h, a = checkpoint(block, h, use_reentrant=False)
+            c = None
+        else:
+            h, a, c = forward_block(cfg, bp, h, kind, positions=positions,
+                                    seg_ids=seg_ids, cache_len=cache_len,
+                                    impl=impl)
         aux = aux + a
         cache.append(c)
     h = L.apply_norm(cfg, params["final_norm"], h)

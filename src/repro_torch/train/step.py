@@ -1,0 +1,178 @@
+"""Train state and train/eval steps, as ``repro.train.step``: remat,
+gradient-accumulation microbatching, global-norm clipping, AdamW, LR
+schedules.
+
+The state is ``{"params", "opt": {"m", "v", "count"}, "step"}`` with the
+port's parameter layout (``models.convert.train_state_from_numpy`` carries
+a JAX state across).  A train step updates it in place and returns it:
+gradients accumulate into the master params' ``.grad`` (f32 for f32
+masters, the JAX package's ``zeros + g_1 + g_2 ...``), are divided by the
+microbatch count, clipped, and applied by AdamW; the params require grad
+only inside the step, and their ``.grad`` is dropped at its end.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import _layout, forward, init_params
+from repro_torch.optim.adamw import (
+    adamw_init,
+    adamw_update,
+    clip_by_global_norm,
+    tree_leaves,
+    tree_map,
+)
+from repro_torch.optim.schedules import make_schedule
+from repro_torch.train.losses import chunked_softmax_xent
+
+TrainState = Dict[str, Any]
+
+
+@dataclass(frozen=True)
+class TrainHyper:
+    base_lr: float = 3e-4
+    warmup: int = 100
+    total_steps: int = 10_000
+    schedule: str = "cosine"
+    wd: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    clip: float = 1.0
+    aux_weight: float = 0.01
+
+
+def make_train_state(cfg: ModelConfig, gen: torch.Generator) -> TrainState:
+    """Random params from ``gen`` (on its device), zero moments, step 0."""
+    params = init_params(cfg, gen)
+    return {"params": params,
+            "opt": adamw_init(params, cfg.optstate_dtype),
+            "step": torch.zeros((), dtype=torch.int32, device=gen.device)}
+
+
+def _cast_leaf(path, p):
+    if "moe" in path:
+        return p
+    if p.dim() >= 2 and p.numel() > 1_000_000 and p.dtype == torch.float32:
+        return p.to(torch.bfloat16)
+    return p
+
+
+def compute_cast(cfg: ModelConfig, params):
+    """Cast large matmul weights to the compute dtype once per step, as the
+    JAX package does (there: on their sharded storage): leaves of 2 or more
+    dims, over 1M elements and f32, not under a ``moe`` subtree.  Small and
+    1-D leaves (norms, gates, A_log, dt_bias) stay in master precision.
+    The cast is differentiable: gradients reach the f32 masters."""
+    if cfg.dtype != "bfloat16":
+        return params
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
+        return _cast_leaf(path, tree)
+    return walk(params, ())
+
+
+def decay_mask(cfg: ModelConfig, params):
+    """Which leaves AdamW decays: those of 2 or more dims in the JAX
+    package's layout, where each layer of a scanned group is stacked into a
+    ``(G, ...)`` leaf.  So a scanned layer's norm scales (1-D here, (G, d)
+    there) decay, as in the reference; the tail layers' do not."""
+    period, G, _ = _layout(cfg)
+    out = {k: tree_map(lambda p: p.dim() >= 2, v) for k, v in params.items()
+           if k != "layers"}
+    out["layers"] = [tree_map(lambda p, e=int(i < G * period): p.dim() + e
+                              >= 2, layer)
+                     for i, layer in enumerate(params["layers"])]
+    return out
+
+
+def _remat(cfg: ModelConfig) -> bool:
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs) is not ported; no "
+            "config uses it")
+    return cfg.remat != "none"
+
+
+def lm_loss(cfg: ModelConfig, params, batch, impl: Optional[str] = None,
+            remat: bool = False):
+    """(mean nll, token count, aux loss) of one batch: the forward pass and
+    the chunked LM-head loss, differentiable in ``params``."""
+    out = forward(cfg, params, batch["tokens"], seg_ids=batch.get("seg_ids"),
+                  impl=impl, remat=remat)
+    loss, ntok = chunked_softmax_xent(cfg, params, out["h"], batch["labels"])
+    return loss, ntok, out["aux"]
+
+
+def build_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(),
+                     impl: Optional[str] = None):
+    """``train_step(state, batch) -> (state, metrics)``; ``impl`` goes to
+    every kernel wrapper of the forward and backward passes (None or
+    "ref")."""
+    sched = make_schedule(hyper.schedule, base_lr=hyper.base_lr,
+                          warmup=hyper.warmup, total_steps=hyper.total_steps)
+    remat = _remat(cfg)
+
+    def train_step(state: TrainState, batch) -> tuple:
+        params = state["params"]
+        leaves = list(tree_leaves(params))
+        nmb = cfg.microbatches
+        B = batch["tokens"].shape[0]
+        if B % nmb:
+            raise ValueError(f"batch {B} does not split into {nmb} "
+                             "microbatches")
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+        aux_sum = torch.zeros_like(loss_sum)
+        for p in leaves:
+            p.grad = None
+            p.requires_grad_(True)
+        try:
+            for i in range(nmb):
+                mb = {k: v[i * B // nmb:(i + 1) * B // nmb]
+                      for k, v in batch.items()}
+                loss, _, aux = lm_loss(cfg, compute_cast(cfg, params), mb,
+                                       impl, remat)
+                total = loss + hyper.aux_weight * aux
+                total.backward()
+                loss_sum += total.detach()
+                aux_sum += aux.detach()
+            grads = tree_map(lambda p: p.grad if p.grad is not None
+                             else torch.zeros_like(p), params)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        with torch.no_grad():
+            if nmb > 1:
+                for g in tree_leaves(grads):
+                    g.div_(nmb)
+            grads, gnorm = clip_by_global_norm(grads, hyper.clip)
+            lr = sched(state["step"])
+            adamw_update(grads, state["opt"], params, lr=lr, b1=hyper.b1,
+                         b2=hyper.b2, wd=hyper.wd,
+                         decay=decay_mask(cfg, params))
+        for p in leaves:
+            p.grad = None
+        state["step"] = state["step"] + 1
+        metrics = {"loss": loss_sum / nmb, "aux": aux_sum / nmb,
+                   "grad_norm": gnorm, "lr": lr}
+        return state, metrics
+
+    return train_step
+
+
+def build_eval_step(cfg: ModelConfig, impl: Optional[str] = None):
+    """``eval_step(params, batch) -> {"loss", "ntok"}``, no gradients, the
+    master params as they are (no ``compute_cast``), as the JAX package."""
+    @torch.no_grad()
+    def eval_step(params, batch):
+        loss, ntok, _ = lm_loss(cfg, params, batch, impl)
+        return {"loss": loss, "ntok": ntok}
+    return eval_step
