@@ -20,7 +20,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  error, beside the plain gradient's rms; one case puts the
                  scores at the softcap) and that two calls give
                  bitwise-equal gradients, against SDPA's forward and
-                 backward.  Kernel
+                 backward; the backward's reported case is the train step's
+                 own (one segment of all-zero ids, as SyntheticLM gives).
+                 Kernel
                  and library times are device times: the timed calls queue
                  behind a sleep kernel, so host launch overhead is not in
                  them.  Flash attention and gmm report the kernel variant
@@ -29,11 +31,20 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  it), flash also TFLOP/s; flash, selective_scan and gmm
                  give the wrapper's host-inclusive time per call beside
                  the device time.  ``--baseline NAME=PATH`` (NAME one of
-                 flash_attention, selective_scan, gmm; repeatable) builds
-                 an earlier version of that kernel's ``.cu`` (same C
-                 interface) and times it on every case of its phase in the
-                 same run, with its error against the plain version
-                 (cases without segment ids)
+                 flash_attention, flash_attention_bwd, selective_scan,
+                 gmm; repeatable) builds an earlier version of that
+                 kernel's ``.cu`` (same C entry) and times it on every
+                 case of its phase in the same run, with its error against
+                 the plain version (flash_attention: cases without segment
+                 ids, through the older entry flash_attention_fwd;
+                 flash_attention_bwd: every case, through the entry
+                 flash_attention_bwd; it also runs the wgmma backward at
+                 more shapes than its launcher keeps plans for, and the
+                 first shape again, bitwise, after its plan was evicted).
+                 The selective_scan phase includes a
+                 case with T * d > 2^32 (64-bit offsets in a batch row):
+                 its last 256 steps must equal, bitwise, a run on them
+                 alone from the state the first T - 256 steps leave
   train gemma2-2b
                  ``lm.train`` of full-width gemma2-2b (f32 master params
                  and Adam moments, bf16 compute, remat, batch 4 of 1024
@@ -83,11 +94,12 @@ KERNELS = {   # name: (source, the TPU kernel it replaces, its case in the line)
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention_fwd.cu",
         "src/repro/kernels/flash_attention/pallas_kernel.py:100", "serve"),
     # the gradient of that kernel, which the JAX package takes by XLA
-    # autodiff of its chunked path (flash_attention/xla.py:118-126)
+    # autodiff of its chunked path (flash_attention/xla.py:118-126); its
+    # case is the train step's own problem
     "flash_attention_bwd": (
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
         "src/repro/kernels/flash_attention/pallas_kernel.py:100",
-        "gemma2_train"),
+        "gemma2_step"),
     "linear_scan": ("src/repro_torch/kernels/rglru/csrc/linear_scan.cu",
                     "src/repro/kernels/rglru/pallas_kernel.py:34", "serve"),
     "selective_scan": ("src/repro_torch/kernels/mamba/csrc/selective_scan.cu",
@@ -159,12 +171,16 @@ FA_CASES = [
 # tanh (1e-6 of the softcap, 5e-5) and ex2 (2^-22 relative).
 LSE_TOL = {"bfloat16": 1e-3, "float32": 1e-4}
 
-# Backward cases: the train shapes of the three attention models with
-# packed segment ids, gemma2's widths with scale 2 so that most scores sit
-# near the softcap (where 1 - t^2, the softcap's chain factor, is far from
-# 1: the other cases' |s| of ~1 against a cap of 50 leave it within 0.1%),
-# and the small head dims.
+# Backward cases: the train step's own problem (gemma2_step: one segment,
+# all-zero ids, as SyntheticLM gives them), the train shapes of the three
+# attention models with packed segment ids, gemma2's widths with scale 2 so
+# that most scores sit near the softcap (where 1 - t^2, the softcap's chain
+# factor, is far from 1: the other cases' |s| of ~1 against a cap of 50
+# leave it within 0.1%), recurrentgemma's local window shorter than the
+# sequence, and the small head dims.
 FA_BWD_CASES = [
+    dict(name="gemma2_step", B=2, Sq=1024, Sk=1024, causal=True,
+         window=4096, q_offset=0, dtype="bfloat16", seg=1, **G2),
     dict(name="gemma2_train", B=2, Sq=1024, Sk=1024, causal=True,
          window=4096, q_offset=0, dtype="bfloat16", seg=4, **G2),
     dict(name="softcap_saturated", B=2, Sq=512, Sk=512, causal=True,
@@ -175,6 +191,8 @@ FA_BWD_CASES = [
     dict(name="qwen3_train", B=2, Sq=1024, Sk=1024, H=32, KH=4, D=128,
          causal=True, window=0, softcap=0.0, scale=128 ** -0.5, q_offset=0,
          dtype="bfloat16", seg=3),
+    dict(name="window_lt_seq", B=1, Sq=2048, Sk=2048, causal=True,
+         window=512, q_offset=0, dtype="bfloat16", seg=2, **RG),
     dict(name="d64_ragged", B=2, Sq=300, Sk=333, H=6, KH=2, D=64,
          causal=True, window=0, softcap=0.0, scale=None, q_offset=33,
          dtype="bfloat16", seg=0),
@@ -237,6 +255,11 @@ SS_CASES = [   # the serve shape of falcon-mamba-7b: x, Bm, C bf16, Bm and C
     dict(name="f32", B=2, T=512, d=1024, n=16, dtype="float32"),
 ]
 DT_RANK = 256
+# A batch row past 2^32 elements (falcon-mamba's d, T = 2^32 / d + 256:
+# 8.6 GB of x and of y, 17.2 GB of dt): the kernel's 64-bit row offsets,
+# where 32-bit unsigned ones would wrap for the last 256 steps
+SS_LONG = dict(name="long_row", B=1, T=2 ** 32 // 8192 + 256, d=8192, n=16,
+               dtype="bfloat16", tail=256)
 
 # Grouped-matmul cases, x (E, C, D) @ w (E, D, F) with per-expert sizes.
 # "route": (T, k), the sizes of T tokens each sent to k distinct experts
@@ -329,13 +352,18 @@ def phase_build():
     import torch
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention.ops import kernel_smem_bytes
+    from repro_torch.kernels.flash_attention.ops import (
+        kernel_bwd_smem_bytes,
+        kernel_smem_bytes,
+    )
     from repro_torch.kernels.moe_gmm.ops import kernel_smem_bytes as gmm_smem
     t0 = time.perf_counter()
     info = _build.build()
     # dynamic shared memory per block (ptxas reports only static memory)
     smem = {f"flash_attention_fwd_wgmma<{D}>":
             kernel_smem_bytes(torch.bfloat16, D) for D in (64, 128, 256)}
+    smem.update({f"flash_attention_bwd_wgmma<{D}>": kernel_bwd_smem_bytes(D)
+                 for D in (64, 128, 256)})
     smem["gmm_wgmma"] = gmm_smem()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: {"seconds": v["seconds"], "cached": v["cached"]}
@@ -352,15 +380,17 @@ def ptxas_report(log: str) -> dict:
         if entry:
             m = re.search(r"(flash_attention_fwd_(?:wgmma|tc|cc)|"
                           r"flash_attention_bwd_(?:dkdv_tc|dq_tc|dkdv_cc|"
-                          r"dq_cc|delta)|"
+                          r"dq_cc|delta|wgmma)|"
                           r"linear_scan_kernel|selective_scan_kernel|gmm_tc)"
                           r"I(?:Li)?(.+?)EE+v", entry[1])
-            plain = [k for k in ("gmm_cc", "gmm_wgmma") if k in entry[1]]
+            plain = [k for k in ("gmm_cc", "gmm_wgmma",
+                                 "flash_attention_bwd_reduce")
+                     if k in entry[1]]
             args = re.sub(r"ELb([01])", r",\1", m[2]) if m else ""
             name = (f"{m[1]}<{args}>" if m else
                     plain[0] if plain else entry[1])
         elif name and ("registers" in line or "spill" in line
-                       or "smem" in line):
+                       or "smem" in line or "Performance Loss" in line):
             out[name] = (out.get(name, "") + " " +
                          line.split(":", 1)[-1].strip()).strip()
     return out
@@ -394,10 +424,13 @@ def _segments(B, S, n, gen, device):
 
 
 # --baseline NAME: (library name, module of the wrapper, its CUDA entry);
-# flash_attention's older sources are called through their own C entry
-# flash_attention_fwd (no segment ids, no lse), which every source has
+# flash attention's older forward sources are called through the C entry
+# that every one has, flash_attention_fwd (no segment ids, no lse)
 BASELINES = {
     "flash_attention": ("flash_attention_fwd", None, None),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            "repro_torch.kernels.flash_attention.ops",
+                            "flash_attention_bwd_cuda"),
     "selective_scan": ("selective_scan", "repro_torch.kernels.mamba.ops",
                        "selective_scan_cuda"),
     "gmm": ("gmm", "repro_torch.kernels.moe_gmm.ops", "gmm_cuda"),
@@ -579,11 +612,12 @@ def phase_kernel_flash_attention(dev, baseline=None):
     return results
 
 
-def phase_kernel_flash_attention_bwd(dev):
+def phase_kernel_flash_attention_bwd(dev, baseline=None):
     """dq, dk, dv of the backward kernels against attention_bwd_ref on the
     same q, k, v, do and the forward kernel's o and lse; bitwise equality
     of two calls; device time against the bound and against SDPA's forward
-    and backward (causal, no softcap, no segments) at the same shape."""
+    and backward (causal, no softcap, no segments) at the same shape; an
+    older source's time and checks where ``baseline`` names one."""
     import torch
     import torch.nn.functional as F
 
@@ -595,6 +629,7 @@ def phase_kernel_flash_attention_bwd(dev):
     )
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     gen = torch.Generator(device=dev).manual_seed(4)
+    old = _baseline("flash_attention_bwd", baseline)
     results = {}
     for c in FA_BWD_CASES:
         dt = getattr(torch, c["dtype"])
@@ -609,7 +644,7 @@ def phase_kernel_flash_attention_bwd(dev):
                   softcap=c["softcap"], scale=c["scale"],
                   q_offset=c["q_offset"], seg_q=seg_q, seg_kv=seg_kv)
         o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-        kind = bwd_variant(dt)
+        kind = bwd_variant(dt, D)
         before = LAUNCHES[f"flash_attention_bwd.{kind}"]
         grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
         again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
@@ -622,6 +657,10 @@ def phase_kernel_flash_attention_bwd(dev):
         refs = attention_bwd_ref(q, k, v, o, lse, do, **kw)
         checks = {name: grad_check(a, r, c["dtype"])
                   for name, a, r in zip(("dq", "dk", "dv"), grads, refs)}
+        base_checks = ({name: grad_check(a, r, c["dtype"]) for name, a, r in
+                        zip(("dq", "dk", "dv"),
+                            old(q, k, v, o, lse, do, **kw), refs)}
+                       if old else None)
         del refs, grads
         big = Sq * Sk * H * B > 20_000_000
         ms = device_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
@@ -631,6 +670,8 @@ def phase_kernel_flash_attention_bwd(dev):
                           5 if big else 20)
         plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
                                                      **kw), 2 if big else 5)
+        baseline_ms = (device_ms(lambda: old(q, k, v, o, lse, do, **kw),
+                                 5 if big else 20) if old else None)
 
         # yardstick: SDPA forward + backward at the same shape, causal, no
         # softcap, no segments, kv heads repeated to H
@@ -668,12 +709,14 @@ def phase_kernel_flash_attention_bwd(dev):
                "max_abs_err": max(ch["max_abs_err"] for ch in checks.values()),
                "checks": checks, "bitwise_equal_calls": bitwise,
                "ok": ok, "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+               "baseline_ms": baseline_ms, "baseline_checks": base_checks,
                "library_ms": library_ms,
                "library": "scaled_dot_product_attention forward + backward, "
                           "is_causal, no softcap, no segments, kv heads "
                           "repeated",
                "live_pairs": live, "gflop": flops / 1e9,
                "mbytes": nbytes / 1e6, "tflops": flops / ms / 1e9,
+               "baseline_tflops": baseline_ms and flops / baseline_ms / 1e9,
                "bound_ms": 1e3 * max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         emit(row)
@@ -683,7 +726,54 @@ def phase_kernel_flash_attention_bwd(dev):
         results[c["name"]] = row
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
+    results["plan_eviction"] = _bwd_plan_eviction(dev, gen)
     return results
+
+
+# Launch shapes of the plan-eviction check: more than the wgmma backward's
+# launcher keeps plans for (kMaxPlans = 32 in flash_attention_bwd.cu)
+PLAN_SHAPES = 40
+
+
+def _bwd_plan_eviction(dev, gen):
+    """The wgmma backward at PLAN_SHAPES small shapes (B=1, S = 64 + 8 i,
+    H=2, KH=1, D=64, causal), each against the plain version; then the
+    first shape again, after its plan was evicted and is rebuilt: its
+    gradients must equal the first call's bitwise."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_bwd_cuda,
+        flash_attention_cuda,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    kw = dict(causal=True, window=0, softcap=0.0, scale=0.125, q_offset=0)
+    first, worst, ok = None, 0.0, True
+    for i in range(PLAN_SHAPES):
+        S = 64 + 8 * i
+        q, do = (torch.randn((1, S, 2, 64), generator=gen, device=dev)
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((1, S, 1, 64), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        args = (q, k, v, o, lse, do)
+        grads = flash_attention_bwd_cuda(*args, **kw)
+        for a, r in zip(grads, attention_bwd_ref(*args, **kw)):
+            ch = grad_check(a, r, "bfloat16")
+            ok = ok and ch["ok"]
+            worst = max(worst, ch["rel_err"])
+        if first is None:
+            first = (args, grads)
+    again = flash_attention_bwd_cuda(*first[0], **kw)
+    bitwise = all(torch.equal(a, b) for a, b in zip(again, first[1]))
+    row = {"phase": "kernel flash_attention_bwd", "case": "plan_eviction",
+           "shapes": PLAN_SHAPES, "worst_rel_err": worst,
+           "rel_tol": BWD_TOL["bfloat16"][0],
+           "bitwise_after_eviction": bitwise, "ok": ok and bitwise}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"flash_attention_bwd plan eviction: {row}")
+    return row
 
 
 # train phase: lm.train's arguments, flash launches per train step (26
@@ -699,7 +789,7 @@ TRAIN_STEPS = 3   # at profile_train.TRAIN, the shape that profile_train times
 TRAIN_LAUNCHES = {"flash_attention": 26 * 2 * 2,
                   "flash_attention.wgmma": 26 * 2 * 2,
                   "flash_attention_bwd": 26 * 2,
-                  "flash_attention_bwd.mma_sync": 26 * 2}
+                  "flash_attention_bwd.wgmma": 26 * 2}
 TRAIN_LOSS_TOL = 0.01
 TRAIN_GRAD_RTOL = 0.05
 
@@ -940,7 +1030,71 @@ def phase_kernel_selective_scan(dev, baseline=None):
             old=(lambda: old(*args)) if old else None)
         del x, dt, A, xdbc, Bm, Cc, D, h0, args
         torch.cuda.empty_cache()
+    results[SS_LONG["name"]] = _selective_scan_long_row(dev, gen)
     return results
+
+
+def _selective_scan_long_row(dev, gen):
+    """selective_scan on a batch row of T * d > 2^32 elements: the last
+    ``tail`` steps of the whole run must equal, bitwise, a run on those steps
+    alone from the state that a run on the first T - tail steps leaves (a
+    run of at least 2^32 elements too); that tail run is held against the
+    plain version.  x and dt are made in place, with no f32 copy of x and
+    no temporaries of dt's size."""
+    import torch
+
+    from repro_torch.kernels.mamba import selective_scan, selective_scan_ref
+    c = SS_LONG
+    B, T, d, n, tail = c["B"], c["T"], c["d"], c["n"], c["tail"]
+    T0 = T - tail
+    x = torch.randn((B, T, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    dt = torch.rand((B, T, d), generator=gen, device=dev).mul_(0.099).add_(
+        1e-3)
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device=dev)[None].repeat(
+        d, 1)
+    xdbc = torch.randn((B, T, DT_RANK + 2 * n), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    Bm, Cc = xdbc[..., DT_RANK:DT_RANK + n], xdbc[..., DT_RANK + n:]
+    D = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+    h0 = torch.randn((B, d, n), generator=gen, device=dev)
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    y, h_last = selective_scan(x, dt, A, Bm, Cc, D, h0)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    y_tail = y[:, T0:].clone()
+    del y
+    y_head, h_head = selective_scan(x[:, :T0], dt[:, :T0], A, Bm[:, :T0],
+                                    Cc[:, :T0], D, h0)
+    del y_head
+    tail_args = (x[:, T0:].contiguous(), dt[:, T0:].contiguous(), A,
+                 Bm[:, T0:], Cc[:, T0:], D, h_head)
+    del x, dt
+    torch.cuda.empty_cache()
+    y_t, h_t = selective_scan(*tail_args)
+    y_r, h_r = selective_scan_ref(*tail_args)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(y_t, y_tail) and torch.equal(h_t, h_last))
+    y_err = float((y_t.float() - y_r.float()).abs().max())
+    h_err = float((h_t - h_r).abs().max())
+    y_tol = 2.0 ** -7 * max(1.0, float(y_r.float().abs().max()))
+    ok = (bitwise and y_err <= y_tol and h_err <= 1e-4
+          and bool(torch.isfinite(y_t.float()).all()))
+    row = {"phase": "kernel selective_scan", "case": c["name"],
+           "shape": {k: c[k] for k in ("B", "T", "d", "n")},
+           "row_elements": T * d, "dtype": c["dtype"],
+           "tail_bitwise_equal": bitwise, "tail_max_abs_err": y_err,
+           "tol": y_tol, "tail_h_last_err": h_err, "h_last_tol": 1e-4,
+           "ok": ok, "ms": ms}
+    emit(row)
+    del tail_args, y_t, h_t, y_r, h_r, y_tail, h_last, h_head, xdbc, Bm, Cc
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"selective_scan long row: {row}")
+    return row
 
 
 def _gmm_sizes(c, gen, dev):
@@ -1269,8 +1423,9 @@ def main() -> int:
     ap.add_argument("--baseline", action="append", default=[],
                     metavar="NAME=PATH",
                     help="an earlier .cu of kernel NAME (flash_attention, "
-                         "selective_scan, gmm; same C interface) to time "
-                         "beside the kernel on its cases; repeatable")
+                         "flash_attention_bwd, selective_scan, gmm; same C "
+                         "entry) to time beside the kernel on its cases; "
+                         "repeatable")
     args = ap.parse_args()
     baselines = {}
     for spec in args.baseline:
@@ -1303,7 +1458,8 @@ def main() -> int:
                      dev, baselines.get("selective_scan")),
                  "gmm": phase_kernel_gmm(dev, baselines.get("gmm"))}
         _release()
-    cases["flash_attention_bwd"] = phase_kernel_flash_attention_bwd(dev)
+    cases["flash_attention_bwd"] = phase_kernel_flash_attention_bwd(
+        dev, baselines.get("flash_attention_bwd"))
     _release()
     launches = {name: {} for name in KERNELS}
     row = phase_train(dev)

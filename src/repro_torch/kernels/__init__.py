@@ -16,6 +16,7 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention.wgmma": 0,
                              "flash_attention.mma_sync": 0,
                              "flash_attention.f32": 0,
                              "flash_attention_bwd": 0,
+                             "flash_attention_bwd.wgmma": 0,
                              "flash_attention_bwd.mma_sync": 0,
                              "flash_attention_bwd.f32": 0, "linear_scan": 0,
                              "selective_scan": 0, "gmm": 0, "gmm.wgmma": 0,

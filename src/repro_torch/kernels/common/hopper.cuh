@@ -215,6 +215,8 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
 #define HOPPER_F16(i) HOPPER_F4(i), HOPPER_F4(i + 4), HOPPER_F4(i + 8), \
                       HOPPER_F4(i + 12)
 #define HOPPER_F32(i) HOPPER_F16(i), HOPPER_F16(i + 16)
+#define HOPPER_D16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define HOPPER_D32                                                          \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -233,6 +235,19 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
 // MN-major (16 rows of N contiguous outputs).  scale_d = 0 overwrites d.
 template <int N, int TB>
 struct Wgmma;
+
+template <int TB>
+struct Wgmma<32, TB> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " HOPPER_D16
+        ", %16, %17, p, 1, 1, 0, %19;\n}\n"
+        : HOPPER_F16(0)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+  }
+};
 
 template <int TB>
 struct Wgmma<64, TB> {
@@ -285,6 +300,7 @@ struct Wgmma<128, TB> {
 #undef HOPPER_F4
 #undef HOPPER_F16
 #undef HOPPER_F32
+#undef HOPPER_D16
 #undef HOPPER_D32
 #undef HOPPER_D64
 

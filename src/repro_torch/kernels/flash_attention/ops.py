@@ -18,9 +18,12 @@ bf16 with D in 64, 128, 256 runs the wgmma/TMA kernel, bf16 with D in 16,
 32 the mma.sync kernel (a 32- or 64-byte row is below TMA's 128-byte
 swizzle atom), f32 the CUDA-core kernel.  ``LAUNCHES["flash_attention"]``
 counts every launch, ``LAUNCHES["flash_attention.<variant>"]`` each
-variant's.  The backward takes mma.sync for bf16 and CUDA cores for f32
-at every head dim (``bwd_variant``); ``LAUNCHES["flash_attention_bwd"]``
-and ``LAUNCHES["flash_attention_bwd.<variant>"]`` count its calls.
+variant's.  The backward follows the same rule (``bwd_variant``): bf16
+with D in 64, 128, 256 runs the persistent wgmma/TMA kernel (dK/dV and dQ
+items in one launch, dealt by a schedule that the C launcher builds and
+keeps per shape), bf16 with D in 16, 32 the mma.sync kernels, f32 the
+CUDA-core kernels; ``LAUNCHES["flash_attention_bwd"]`` and
+``LAUNCHES["flash_attention_bwd.<variant>"]`` count its calls.
 """
 from __future__ import annotations
 
@@ -48,9 +51,7 @@ def variant(dtype: torch.dtype, head_dim: int) -> str:
     return "wgmma" if head_dim >= 64 else "mma_sync"
 
 
-def bwd_variant(dtype: torch.dtype) -> str:
-    """The backward kernels that take ``dtype``."""
-    return "f32" if dtype == torch.float32 else "mma_sync"
+bwd_variant = variant   # the backward kernels follow the forward's rule
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -235,7 +236,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
         msg = lib.flash_attention_bwd_error_string(err).decode()
         raise RuntimeError(f"flash_attention_bwd launch failed: {msg} ({err})")
     LAUNCHES["flash_attention_bwd"] += 1
-    LAUNCHES[f"flash_attention_bwd.{bwd_variant(q.dtype)}"] += 1
+    LAUNCHES[f"flash_attention_bwd.{bwd_variant(q.dtype, D)}"] += 1
     return dq, dk, dv
 
 
@@ -274,4 +275,17 @@ def kernel_smem_bytes(dtype: torch.dtype, head_dim: int) -> int:
     out = fn(_DTYPES[dtype], head_dim)
     if out < 0:
         raise ValueError(f"no kernel takes {dtype}, D={head_dim}")
+    return out
+
+
+def kernel_bwd_smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory per block of the wgmma backward kernel at
+    ``head_dim`` (64, 128 or 256), as the built library states it (needs
+    nvcc)."""
+    fn = _library("flash_attention_bwd").flash_attention_bwd_smem_bytes
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    out = fn(head_dim)
+    if out < 0:
+        raise ValueError(f"no wgmma backward kernel takes D={head_dim}")
     return out

@@ -8,7 +8,7 @@
 //   with the (d, n) state kept on chip for the whole walk over T, and
 //   h_last = h_T.  All arithmetic in float32.  Unlike the Pallas kernel it
 //   takes any channel count d (threads past the last channel only help
-//   stage shared memory) and any T (with T * d < 2^31).
+//   stage shared memory) and any T.
 //
 // Inputs as the serving path gives them: x and y in float32 or bfloat16
 // (template TX); Bm and C in float32 or bfloat16 (template TB), each a
@@ -46,12 +46,14 @@
 //    broadcasts.
 //  * x and dt are loaded kU = 8 steps ahead into registers (double
 //    buffering), so the serial chain does not wait on device memory.
-//    Offsets inside a batch row are 32-bit (T * d < 2^31), one multiply
-//    and add a load.  Steps past T read dt = 0, x = 0 and B = 0, which
-//    leave the state as it is, and store nothing.  Every load is
-//    unconditional (indices clamped into range) and a select follows all
-//    of a batch's loads: a guarded load compiles to a branch, and a bf16
-//    conversion inside it waits for the load, one memory latency per step.
+//    Offsets inside a batch row are 32-bit where T * d < 2^31 (one
+//    multiply and add a load: the serving shapes) and 64-bit beyond (a
+//    template argument chosen at launch).  Steps past T read dt = 0,
+//    x = 0 and B = 0, which leave the state as it is, and store nothing.
+//    Every load is unconditional (indices clamped into range) and a select
+//    follows all of a batch's loads: a guarded load compiles to a branch,
+//    and a bf16 conversion inside it waits for the load, one memory
+//    latency per step.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -99,7 +101,9 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 // x and dt of steps t0 .. t0 + kU - 1 of one channel, from xp / dtp at its
 // row-0 element (stride d between steps; T >= 1); steps past T, and threads
 // without a channel, read 0.  All loads are issued before any select.
-template <typename TX>
+// Off: the type of an offset inside a batch row (uint32_t where T * d <
+// 2^31, else uint64_t).
+template <typename Off, typename TX>
 __device__ __forceinline__ void load_batch(const TX* __restrict__ xp,
                                            const float* __restrict__ dtp,
                                            int t0, int T_, int d, bool live,
@@ -108,7 +112,7 @@ __device__ __forceinline__ void load_batch(const TX* __restrict__ xp,
   float dr[kU];
 #pragma unroll
   for (int u = 0; u < kU; ++u) {
-    const unsigned off = (unsigned)min(t0 + u, T_ - 1) * (unsigned)d;
+    const Off off = (Off)min(t0 + u, T_ - 1) * (Off)d;
     xr[u] = xp[off];
     dr[u] = dtp[off];
   }
@@ -131,7 +135,7 @@ __device__ __forceinline__ void ld_row(const float* row, float (&v)[NP]) {
   }
 }
 
-template <typename TX, typename TB, int NP>
+template <typename TX, typename TB, int NP, typename Off>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 selective_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
                       const float* __restrict__ A, const TB* __restrict__ Bm,
@@ -167,7 +171,7 @@ selective_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
   const TB* Cp = Cm + b * sc_b;
 
   float xr[kU], dr[kU];
-  load_batch(xp, dtp, 0, T_, d, live, xr, dr);
+  load_batch<Off>(xp, dtp, 0, T_, d, live, xr, dr);
   for (int t0 = 0; t0 < T_; t0 += kTT) {
     // this thread's kS elements of the (kTT, NP) tiles of B and C
     constexpr int kS = kTT * NP / kThreads;
@@ -191,7 +195,7 @@ selective_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
 
     for (int u0 = 0; u0 < kTT && t0 + u0 < T_; u0 += kU) {
       float xn[kU], dn[kU];
-      load_batch(xp, dtp, t0 + u0 + kU, T_, d, live, xn, dn);
+      load_batch<Off>(xp, dtp, t0 + u0 + kU, T_, d, live, xn, dn);
       float yv[kU];   // C . h of each step, stored after the batch
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
@@ -214,7 +218,7 @@ selective_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
       for (int u = 0; u < kU; ++u) {
         const int t = t0 + u0 + u;
         if (live && t < T_)
-          yp[(unsigned)t * (unsigned)d] = from_f32<TX>(fmaf(Dch, xr[u], yv[u]));
+          yp[(Off)t * (Off)d] = from_f32<TX>(fmaf(Dch, xr[u], yv[u]));
       }
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
@@ -230,10 +234,10 @@ selective_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename TX, typename TB, int NP>
+template <typename TX, typename TB, int NP, typename Off>
 int launch(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.d + kThreads - 1) / kThreads, a.B);
-  selective_scan_kernel<TX, TB, NP><<<grid, kThreads, 0, stream>>>(
+  selective_scan_kernel<TX, TB, NP, Off><<<grid, kThreads, 0, stream>>>(
       static_cast<const TX*>(a.x), static_cast<const float*>(a.dt),
       static_cast<const float*>(a.A), static_cast<const TB*>(a.Bm),
       static_cast<const TB*>(a.C), static_cast<const float*>(a.D),
@@ -243,11 +247,18 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename TX, typename TB, int NP>
+int launch_off(const Args& a, cudaStream_t stream) {
+  if ((long long)a.T * a.d < (1ll << 31))
+    return launch<TX, TB, NP, uint32_t>(a, stream);
+  return launch<TX, TB, NP, uint64_t>(a, stream);
+}
+
 template <typename TX, typename TB>
 int launch_np(const Args& a, cudaStream_t stream) {
-  if (a.n <= 4) return launch<TX, TB, 4>(a, stream);
-  if (a.n <= 8) return launch<TX, TB, 8>(a, stream);
-  if (a.n <= 16) return launch<TX, TB, 16>(a, stream);
+  if (a.n <= 4) return launch_off<TX, TB, 4>(a, stream);
+  if (a.n <= 8) return launch_off<TX, TB, 8>(a, stream);
+  if (a.n <= 16) return launch_off<TX, TB, 16>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -266,7 +277,7 @@ extern "C" {
 // 1: bfloat16), dt float32; A (d, n), D (d,), h0 and h_last (B, d, n)
 // float32 and contiguous; Bm and C (B, T, n) of dtype bc_dtype with element
 // strides (sb_b, sb_t) and (sc_b, sc_t) and a contiguous last axis;
-// 1 <= n <= 16, T >= 1, T * d < 2^31.  Launches on `stream`, does not
+// 1 <= n <= 16, T >= 1.  Launches on `stream`, does not
 // synchronise, and returns the cudaError_t of the launch (0 on success).
 int selective_scan(const void* x, const void* dt, const void* A,
                    const void* Bm, const void* C, const void* D,
@@ -274,8 +285,7 @@ int selective_scan(const void* x, const void* dt, const void* A,
                    int bc_dtype, int B, int T, int d, int n, long long sb_b,
                    long long sb_t, long long sc_b, long long sc_t,
                    void* stream) {
-  if (B <= 0 || B > 65535 || d <= 0 || T < 1 || n < 1 || n > 16 ||
-      (long long)T * d > (1ll << 31) - 1)
+  if (B <= 0 || B > 65535 || d <= 0 || T < 1 || n < 1 || n > 16)
     return (int)cudaErrorInvalidValue;
   const Args a{x, dt, A, Bm, C, D, h0, y, h_last, B, T, d, n,
                sb_b, sb_t, sc_b, sc_t};

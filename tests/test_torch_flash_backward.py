@@ -194,16 +194,44 @@ def test_no_grad_skips_the_function():
 LOG2E = 1.4426950408889634
 
 
+TILE = 64   # the wgmma backward's tile: 64 kv positions or folded q rows
+
+
+def _dkdv_tiles(tk, Sq, BQ, causal, window):
+    """The folded q tiles (first, count) that kv tile tk's dK/dV item
+    streams (flash_attention_bwd.cu, ``dkdv_tiles``; q_offset 0)."""
+    k0 = TILE * tk
+    lo = k0 if causal else 0
+    hi = min(Sq, k0 + TILE - 1 + window) if window > 0 else Sq
+    return (lo // BQ, (hi - 1) // BQ - lo // BQ + 1) if lo < hi else (0, 0)
+
+
+def _dq_tiles(tq, BQ, Sq, Sk, causal, window):
+    """The kv tiles (first, count) that folded q tile tq's dQ item streams
+    (``dq_tiles``; q_offset 0)."""
+    q0 = tq * BQ
+    end = min(Sk, min(q0 + BQ, Sq)) if causal else Sk
+    begin = max(0, q0 - window + 1) if window > 0 else 0
+    return ((begin // TILE, (end - 1) // TILE - begin // TILE + 1)
+            if begin < end else (0, 0))
+
+
 def _emulate_bwd_kernel(q, k, v, o, lse, do, *, causal, window, softcap,
-                        scale, chain_factor=True):
-    """The mma.sync backward kernel's arithmetic in plain torch: f32 scores
-    of the bf16 inputs, P = exp2((s - lse) log2 e), Delta from the bf16 o
-    and do, P and dS rounded to bf16 for their products, f32 sums, outputs
-    rounded to bf16.  ``chain_factor=False`` leaves out the softcap's
+                        scale, chain_factor=True, nchunk=1):
+    """The wgmma backward kernel's arithmetic in plain torch: f32 scores of
+    the bf16 inputs, P = exp2((s - lse) log2 e), Delta from the bf16 o and
+    do, P and dS rounded to bf16 for their products, outputs rounded to
+    bf16.  The sums run in the kernel's order: the G q heads of a kv head
+    are folded into one operand (row = position * G + head, tiles of
+    64 // G positions); dk and dv add the live folded q tiles of each
+    64-position kv tile in f32, within each of ``nchunk`` contiguous chunks,
+    and then the chunks' partials in chunk order; dq adds the live kv tiles
+    of each folded q tile.  ``chain_factor=False`` leaves out the softcap's
     1 - t^2, a fault the card's check must catch."""
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     G = H // KH
+    BQ = TILE // G
     qf = q.float().reshape(B, Sq, KH, G, D)
     dof = do.float().reshape(B, Sq, KH, G, D)
     raw = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
@@ -227,10 +255,48 @@ def _emulate_bwd_kernel(q, k, v, o, lse, do, *, causal, window, softcap,
     delta = delta.permute(0, 2, 3, 1)[..., None]
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, v.float())
     ds = p * (dp - delta) * chain
-    pb, dsb = p.bfloat16().float(), ds.bfloat16().float()
-    dq = torch.einsum("bhgqk,bkhd->bqhgd", dsb, k.float()).reshape(B, Sq, H, D)
-    dk = torch.einsum("bhgqk,bqhgd->bkhd", dsb, qf)
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", pb, dof)
+
+    def fold(a):   # (B, KH, G, Sq, X) or (B, Sq, KH, G, X) -> (B, KH, Sq G, X)
+        if a.shape[1] == KH:
+            a = a.permute(0, 1, 3, 2, 4)
+        else:
+            a = a.permute(0, 2, 1, 3, 4)
+        return a.reshape(B, KH, Sq * G, a.shape[-1])
+    pb, dsb = fold(p.bfloat16().float()), fold(ds.bfloat16().float())
+    qfold, dofold = fold(qf), fold(dof)
+    dk = torch.zeros(B, Sk, KH, D)
+    dv = torch.zeros(B, Sk, KH, D)
+    for tk in range((Sk + TILE - 1) // TILE):
+        kv = slice(TILE * tk, min(TILE * (tk + 1), Sk))
+        first, n = _dkdv_tiles(tk, Sq, BQ, causal, window)
+        sums_k, sums_v = [], []
+        for c in range(nchunk):
+            ak = torch.zeros(B, KH, kv.stop - kv.start, D)
+            av = torch.zeros_like(ak)
+            for tq in range(first + n * c // nchunk,
+                            first + n * (c + 1) // nchunk):
+                rows = slice(tq * BQ * G, min((tq + 1) * BQ, Sq) * G)
+                ak = ak + dsb[:, :, rows, kv].transpose(2, 3) @ qfold[:, :, rows]
+                av = av + pb[:, :, rows, kv].transpose(2, 3) @ dofold[:, :, rows]
+            sums_k.append(ak)
+            sums_v.append(av)
+        for sums, out in ((sums_k, dk), (sums_v, dv)):
+            total = sums[0]
+            for part in sums[1:]:
+                total = total + part
+            out[:, kv] = total.permute(0, 2, 1, 3)
+    dqf = torch.zeros(B, KH, Sq * G, D)
+    kt = k.float().permute(0, 2, 1, 3)                      # (B, KH, Sk, D)
+    for tq in range((Sq + BQ - 1) // BQ):
+        rows = slice(tq * BQ * G, min((tq + 1) * BQ, Sq) * G)
+        first, n = _dq_tiles(tq, BQ, Sq, Sk, causal, window)
+        acc = torch.zeros(B, KH, rows.stop - rows.start, D)
+        for tk in range(first, first + n):
+            kv = slice(TILE * tk, min(TILE * (tk + 1), Sk))
+            acc = acc + dsb[:, :, rows, kv] @ kt[:, :, kv]
+        dqf[:, :, rows] = acc
+    dq = dqf.reshape(B, KH, Sq, G, D).permute(0, 2, 1, 3, 4).reshape(
+        B, Sq, H, D)
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
 
 
@@ -258,18 +324,22 @@ def _emulated_and_jax(H, KH, D, cap, scale, window, **emulate):
     (4, 2, 256, 50.0, 2.0, 0),           # scores at the softcap
     (8, 1, 128, 0.0, 128 ** -0.5, 0),    # G = 8
     (4, 2, 64, 30.0, None, 40),
+    (10, 1, 256, 0.0, 1.0 / 16, 0),      # G = 10: recurrentgemma's grouping
 ])
 def test_bwd_kernel_arithmetic_holds_bf16_tolerance(H, KH, D, cap, scale,
                                                     window):
-    """P and dS as one bf16 each for their products pass the backward
-    phase's bf16 check of chip_smoke.py (``grad_check``: relative Frobenius
-    distance and largest error) against jax.grad of the JAX oracle on the
-    same bf16 inputs."""
+    """P and dS as one bf16 each for their products, summed in the wgmma
+    kernel's order (folded heads; dk and dv whole and cut into 3 chunks),
+    pass the backward phase's bf16 check of chip_smoke.py (``grad_check``:
+    relative Frobenius distance and largest error) against jax.grad of the
+    JAX oracle on the same bf16 inputs."""
     grad_check = _chip_smoke().grad_check
-    got, want = _emulated_and_jax(H, KH, D, cap, scale, window)
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        check = grad_check(a, b, "bfloat16")
-        assert check["ok"], (name, check)
+    for nchunk in (1, 3):
+        got, want = _emulated_and_jax(H, KH, D, cap, scale, window,
+                                      nchunk=nchunk)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            check = grad_check(a, b, "bfloat16")
+            assert check["ok"], (nchunk, name, check)
 
 
 def test_bwd_check_catches_a_dropped_softcap_factor():
@@ -304,8 +374,10 @@ def test_backward_cuda_entry_needs_cuda_and_variants():
     lse = torch.zeros(1, 2, 8)
     with pytest.raises(ValueError, match="needs CUDA"):
         flash_attention_bwd_cuda(q, k, k, q, lse, q)
-    assert bwd_variant(torch.bfloat16) == "mma_sync"
-    assert bwd_variant(torch.float32) == "f32"
+    for D, want in ((16, "mma_sync"), (32, "mma_sync"), (64, "wgmma"),
+                    (128, "wgmma"), (256, "wgmma")):
+        assert bwd_variant(torch.bfloat16, D) == want
+        assert bwd_variant(torch.float32, D) == "f32"
     assert _build.SOURCES["flash_attention_bwd"].endswith(
         "flash_attention_bwd.cu")
     src = _build._KERNELS_DIR / _build.SOURCES["flash_attention_bwd"]
