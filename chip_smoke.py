@@ -53,6 +53,18 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  tokens/s, peak memory, losses, flash launches per step
                  (every one a hand kernel); then one microbatch's loss,
                  grad norm and leaf grads against ``impl="ref"``
+  ensemble       replica exchange (4 members, 2 cycles) and a
+                 simulation-analysis loop (2 members, 2 iterations, then
+                 ``lm.eval``) of full-width gemma2-2b members cut to 4
+                 layers, through the port's pilot (``repro_torch.core``)
+                 on a ``cuda.h100`` resource with 2 slots: two members
+                 train at once on the card, one ``lm.train`` step of batch
+                 2 of 1024 tokens a task, the exchange on the host.  Per
+                 app: the TTC decomposition, utilization, losses,
+                 temperatures (replayed on the host from the losses),
+                 tokens/s over the TTC, peak memory, and flash launches
+                 (exactly the per-step counts times the steps, all wgmma);
+                 member 0's first task run again alone gives its loss
   serve <arch>   full-width gemma2-2b, recurrentgemma-2b, falcon-mamba-7b
                  and qwen3-moe-30b-a3b (bf16, random weights from seed 0;
                  qwen3 needs ~65 GB) through ``BatchedServer``: 8 requests,
@@ -925,6 +937,262 @@ def phase_train(dev):
     return row
 
 
+# ensemble phase: RE and SAL apps of full-width gemma2-2b members cut to 4
+# layers (two local/global pairs; a full-depth member holds 31.4 GB of
+# state, so four would not fit), run by the port's pilot with two member
+# tasks at once on the card.  One lm.train step of a member at one
+# microbatch launches the flash forward twice a layer (remat recomputes it
+# in the backward) and the backward once; lm.eval launches the forward once
+# a layer.  The peak is reckoned as the members' f32 params and Adam
+# moments (12 bytes a parameter) plus ENS_STEP_GB for each step in flight.
+ENSEMBLE = dict(base="gemma2-2b", arch="gemma2-2b-L4", layers=4, replicas=4,
+                cycles=2, sal_sims=2, sal_iters=2, cores=2, batch=2,
+                seq=1024, microbatches=1, seed=0)
+ENS_TRAIN_LAUNCHES = {"flash_attention": 4 * 2, "flash_attention.wgmma": 4 * 2,
+                      "flash_attention_bwd": 4,
+                      "flash_attention_bwd.wgmma": 4}
+ENS_EVAL_LAUNCHES = {"flash_attention": 4, "flash_attention.wgmma": 4}
+SAL_MAX_ITERS = 5   # the loop's own rule stops it after sal_iters
+ENS_STEP_GB = 15.0
+ENS_PEAK_LIMIT_GB = 76.0
+ENS_RERUN_RTOL = 1e-3
+
+
+def _ensemble_cfg():
+    """``ENSEMBLE["arch"]``: the full-width base config at ``layers``
+    layers, registered once."""
+    from repro_torch.configs import get_config, register
+    try:
+        return get_config(ENSEMBLE["arch"])
+    except KeyError:
+        return register(get_config(ENSEMBLE["base"]).replace(
+            name=ENSEMBLE["arch"], num_layers=ENSEMBLE["layers"]))
+
+
+def _expected_launches(train_steps, evals):
+    out = {}
+    for per, n in ((ENS_TRAIN_LAUNCHES, train_steps),
+                   (ENS_EVAL_LAUNCHES, evals)):
+        for name, k in per.items():
+            out[name] = out.get(name, 0) + k * n
+    return out
+
+
+def _run_app(dev, app, ensemble):
+    """Run ``app`` on a ``cuda.`` pilot with ``ENSEMBLE["cores"]`` slots
+    from all-zero launch counts and peak; return (profile, launches, peak
+    GB), raising with the journal's errors if a task failed or was retried.
+    The member states of ``ensemble`` stay in ``lm.STATE_STORE``."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import SingleClusterEnvironment
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    with tempfile.TemporaryDirectory() as tmp:
+        cl = SingleClusterEnvironment(resource="cuda.h100",
+                                      cores=ENSEMBLE["cores"],
+                                      database_url=tmp, database_name=ensemble)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        cl.allocate()
+        try:
+            prof = cl.run(app)
+        finally:
+            cl.deallocate()
+        torch.cuda.synchronize(dev)
+        launches = {n: c for n, c in LAUNCHES.items() if c}
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        if prof.n_failed or prof.n_retries:
+            with open(cl.journal_path) as f:
+                errors = [json.loads(line).get("error") for line in f]
+            raise AssertionError(
+                f"ensemble {ensemble}: {prof.n_failed} failed, "
+                f"{prof.n_retries} retried: {[e for e in errors if e]}")
+    return prof, launches, peak_gb
+
+
+def _ttc(prof):
+    """The paper's TTC decomposition and the run's counts."""
+    return {"ttc": prof.ttc, "t_exec": prof.t_exec, "t_data": prof.t_data,
+            "t_enmd_overhead": prof.t_enmd_overhead,
+            "t_core_overhead": prof.t_core_overhead,
+            "t_pattern_overhead": prof.t_pattern_overhead,
+            "t_rts_overhead": prof.t_rts_overhead,
+            "utilization": prof.utilization, "n_tasks": prof.n_tasks,
+            "n_failed": prof.n_failed, "n_retries": prof.n_retries}
+
+
+def _drop_members(ensemble):
+    from repro_torch.plugins import lm
+    for sid in [s for s in lm.STATE_STORE if s[0] == ensemble]:
+        del lm.STATE_STORE[sid]
+    _release()
+
+
+def phase_ensemble(dev):
+    """RE and SAL ensembles of ``ENSEMBLE["arch"]`` members through the
+    port's front end (``repro_torch.core``), two tasks at once on the card;
+    one JSON line per app.  Raises unless every task succeeded with a finite
+    loss, the swaps kept the temperature multiset and replay from the
+    recorded losses, every attention call went through the hand kernels
+    (exact launch counts, taken under concurrency), member 0's first task
+    run again alone gives its loss, and the peak stays under the limit."""
+    import torch
+
+    from repro_torch.core import (
+        Kernel,
+        ReplicaExchange,
+        SimulationAnalysisLoop,
+    )
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.plugins import lm
+    from repro_torch.plugins.re_exchange import metropolis_swaps
+
+    cfg = _ensemble_cfg()
+    E = ENSEMBLE
+    train = {"arch": cfg.name, "device": str(dev), "steps": 1,
+             "batch": E["batch"], "seq": E["seq"],
+             "microbatches": E["microbatches"], "seed": E["seed"]}
+    tokens = E["batch"] * E["seq"]
+    state_gb = 12 * cfg.param_count() / 1e9
+    predicted = {"state_gb_per_member": state_gb,
+                 "peak_gb": E["replicas"] * state_gb
+                 + E["cores"] * ENS_STEP_GB}
+    emit({"phase": "ensemble", "predicted": predicted, "config": E})
+
+    class PBT(ReplicaExchange):
+        def __init__(self):
+            super().__init__(E["cycles"], E["replicas"])
+            self.temps = [3e-4 * 1.5 ** i for i in range(E["replicas"])]
+            self.temp_history = [list(self.temps)]
+
+        def prepare_replica_for_md(self, r):
+            k = Kernel("lm.train")
+            k.arguments = {**train, "member": r.id, "ensemble": "ens_re",
+                           "lr": self.temps[r.id]}
+            return k
+
+        def prepare_exchange(self, replicas):
+            k = Kernel("re.exchange")     # the host swap: no "device"
+            k.arguments = {"replicas": len(replicas),
+                           "cycle": replicas[0].cycle, "temps": self.temps,
+                           "ensemble": "ens_re", "seed": E["seed"]}
+            return k
+
+        def apply_exchange(self, result, replicas):
+            self.temps = result["temps"]
+            self.temp_history.append(list(self.temps))
+
+    class TrainUntil(SimulationAnalysisLoop):
+        def simulation_stage(self, it, i):
+            k = Kernel("lm.train")
+            k.arguments = {**train, "member": i, "ensemble": "ens_sal"}
+            return k
+
+        def analysis_stage(self, it, j):
+            k = Kernel("lm.eval")
+            k.arguments = {n: train[n] for n in ("arch", "device", "batch",
+                                                 "seq")}
+            k.arguments.update(member=j, ensemble="ens_sal")
+            return k
+
+        def should_continue(self, it, results):   # as tests/test_system.py
+            return results[0]["loss"] > 1.0 and it < E["sal_iters"] - 1
+
+    path_launches = {}
+
+    def report(row):
+        emit(row)
+        for name, n in row["launches"].items():
+            path_launches[name] = path_launches.get(name, 0) + n
+        return row
+
+    # ---- replica exchange
+    app = PBT()
+    prof, launches, peak_gb = _run_app(dev, app, "ens_re")
+    members = [lm.STATE_STORE[("ens_re", i)] for i in range(E["replicas"])]
+    n_params = sum(p.numel() for p in tree_leaves(members[0]["params"]))
+    held_gb = sum(t.numel() * t.element_size() for m in members
+                  for t in tree_leaves([m["params"], m["opt"]["m"],
+                                        m["opt"]["v"]])) / 1e9
+    del members
+    _drop_members("ens_re")
+    steps = E["replicas"] * E["cycles"]
+    xs = [prof.results[f"exchange_{c}"] for c in range(E["cycles"])]
+    losses = [x["losses"] for x in xs]
+    replay = [list(app.temp_history[0])]
+    for c, x in enumerate(xs):
+        new, _ = metropolis_swaps(x["losses"], replay[-1], c, E["seed"])
+        replay.append([float(t) for t in new])
+    # member 0's first task again, alone, from the same seed
+    k = Kernel("lm.train")
+    k.arguments = {**train, "member": 0, "ensemble": "ens_rerun",
+                   "lr": app.temp_history[0][0]}
+    rerun = k.execute()["loss"]
+    torch.cuda.synchronize(dev)
+    _drop_members("ens_rerun")
+    first = losses[0][0]
+    want = _expected_launches(steps, 0)
+    ok = (all(math.isfinite(v) for c in losses for v in c)
+          and all(sorted(t) == sorted(app.temp_history[0])
+                  for t in app.temp_history)
+          and replay == app.temp_history and launches == want
+          and abs(rerun - first) <= ENS_RERUN_RTOL * abs(first)
+          and peak_gb <= ENS_PEAK_LIMIT_GB)
+    re_row = report({"phase": "ensemble", "app": "replica_exchange",
+                     "arch": cfg.name, "layers": cfg.num_layers,
+                     "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+                     "params": n_params, "members": E["replicas"],
+                     "cycles": E["cycles"], "cores": E["cores"],
+                     "batch": E["batch"], "seq": E["seq"], **_ttc(prof),
+                     "train_steps": steps,
+                     "tokens_per_s": steps * tokens / prof.ttc,
+                     "losses": losses, "temps": app.temp_history,
+                     "temps_replayed": replay,
+                     "accepted": [x["accepted"] for x in xs],
+                     "states_gb": held_gb, "peak_mem_gb": peak_gb,
+                     "predicted_peak_gb": predicted["peak_gb"],
+                     "peak_limit_gb": ENS_PEAK_LIMIT_GB,
+                     "launches": launches, "launches_expected": want,
+                     "rerun_alone": {"loss": rerun, "in_ensemble": first,
+                                     "rel_diff": abs(rerun - first) / abs(first),
+                                     "rtol": ENS_RERUN_RTOL,
+                                     "bitwise_equal": rerun == first},
+                     "ok": ok})
+    # ---- simulation-analysis loop
+    prof, launches, peak_gb = _run_app(dev, TrainUntil(
+        SAL_MAX_ITERS, E["sal_sims"], 1), "ens_sal")
+    _drop_members("ens_sal")
+    iters = sum(1 for c in range(SAL_MAX_ITERS)
+                if f"analysis_{c}" in prof.results)
+    steps = iters * E["sal_sims"]
+    sim_losses = [[prof.results["tasks"][f"iter{it:04d}.sim{i:05d}"]["loss"]
+                   for i in range(E["sal_sims"])] for it in range(iters)]
+    eval_losses = [[r["loss"] for r in prof.results[f"analysis_{it}"]]
+                   for it in range(iters)]
+    want = _expected_launches(steps, iters)
+    sal_ok = (iters == E["sal_iters"]
+              and all(math.isfinite(v) for c in sim_losses + eval_losses
+                      for v in c)
+              and launches == want and peak_gb <= ENS_PEAK_LIMIT_GB)
+    sal_row = report({"phase": "ensemble", "app": "simulation_analysis_loop",
+                      "arch": cfg.name, "layers": cfg.num_layers,
+                      "members": E["sal_sims"], "iterations": iters,
+                      "cores": E["cores"], "batch": E["batch"], "seq": E["seq"],
+                      **_ttc(prof), "train_steps": steps,
+                      "tokens_per_s": steps * tokens / prof.ttc,
+                      "train_losses": sim_losses, "eval_losses": eval_losses,
+                      "peak_mem_gb": peak_gb, "launches": launches,
+                      "launches_expected": want, "ok": sal_ok})
+    lm._STEP_CACHE.clear()
+    _release()
+    if not (ok and sal_ok):
+        raise AssertionError(f"ensemble phase failed: {[re_row, sal_row]}")
+    return path_launches
+
+
 def _scan_check(name, case, kernel, plain, y_dtype, nbytes, flops, extra,
                 old=None):
     """Run ``kernel`` and ``plain`` on the same inputs, compare (y, h_last),
@@ -1466,6 +1734,9 @@ def main() -> int:
     for name, n in row["launches"].items():
         if n and name in launches:
             launches[name][row["phase"]] = n
+    for name, n in phase_ensemble(dev).items():
+        if name in launches:
+            launches[name]["ensemble"] = n
     with torch.inference_mode():
         for arch, loop, per_prefill, per_decode in SERVE:
             row = phase_serve(dev, arch, loop, per_prefill, per_decode)

@@ -3,12 +3,15 @@
 
 A kernel plugin names a computational tool + its environment and data
 movement, independent of the pattern it runs in.  Plugins register under
-dotted names ("lm.decode", ...).
+dotted names (the paper's "md.namd", "md.re_exchange" become e.g.
+"lm.train", "re.exchange", "misc.mkfile", "misc.ccount").
 
 Interface (paper listing 2):
-    k = Kernel(name="lm.decode")
-    k.arguments = {"arch": "gemma2-2b", "device": "cuda"}
-    k.execute()
+    k = Kernel(name="misc.ccount")
+    k.arguments = {"bytes": 1 << 20}
+    k.upload_input_data = [...]
+    k.download_output_data = [...]
+    k.cores = 1
 """
 from __future__ import annotations
 
@@ -43,6 +46,14 @@ def kernel_names() -> List[str]:
     return sorted(_KERNEL_REGISTRY)
 
 
+def kernel_registered(name: str) -> bool:
+    """True when a plugin registered under ``name`` — the static check
+    behind diagnostic E107 (repro_torch.analysis), usable without constructing
+    a Kernel (which raises KeyError on miss)."""
+    _ensure_plugins()
+    return name in _KERNEL_REGISTRY
+
+
 def _ensure_plugins():
     import repro_torch.plugins  # noqa: F401  (registers the port's plugins)
 
@@ -60,12 +71,30 @@ class Kernel:
         self.arguments: Dict[str, Any] = {}
         self.upload_input_data: List[Any] = []
         self.download_output_data: List[Any] = []
+        self.cores: int = 1
+        self.uses_mpi: bool = False      # multi-chip (submesh-wide) task
+        self.sim_duration: Optional[float] = None   # DES-mode duration
+        # declared result size: lets the staging layer (repro_torch.staging)
+        # model this kernel's output traffic in DES mode, where no real
+        # payload exists to measure
+        self.output_nbytes: Optional[int] = None
+        # declared result type: lets the static validator (repro_torch.analysis)
+        # check this kernel's puts against a typed Channel's dtype BEFORE
+        # the run (diagnostic E101); runtime puts are still checked live
+        self.output_dtype: Optional[type] = None
         self.timings = {"data_in": 0.0, "data_out": 0.0, "exec": 0.0}
 
+    # ------------------------------------------------------------ execute
     def execute(self, ctx: Optional[Dict[str, Any]] = None) -> Any:
-        """Run the kernel: stage data in, execute, stage data out.  When a
-        staging layer manages the run (``ctx["staging_managed"]``) the
-        upload/download phases are skipped here."""
+        """Run the kernel: stage data in, execute, stage data out.
+
+        When a staging layer manages the run (``ctx["staging_managed"]``,
+        set by the PST AppManager on a pilot built with
+        ``staging=StagingLayer(...)``), the upload/download phases are
+        skipped here: inputs were content-address-staged and dereferenced
+        to the task's pod between ``pop_ready`` and launch (arriving as
+        ``ctx["staged_inputs"]``), and ``stage_out`` callables run —
+        charged to ``t_data`` — after completion."""
         ctx = dict(ctx or {})
         managed = bool(ctx.get("staging_managed"))
         t0 = time.perf_counter()

@@ -4,10 +4,13 @@
 tensor (and nothing else), so a run can show that its main path went
 through the kernels; "flash_attention.<variant>", "flash_attention_bwd.
 <variant>" and "gmm.<variant>" count the launches of each of their
-kernels besides.  ``reset_launches`` sets every count to 0.
+kernels besides.  Wrappers count through ``count_launch``, under a lock, so
+tasks that launch from several threads at once lose no count.
+``reset_launches`` sets every count to 0.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict
 
 import torch
@@ -23,9 +26,20 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention.wgmma": 0,
                              "gmm.mma_sync": 0, "gmm.f32": 0}
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(*names: str) -> None:
+    """Add one to the count of each of ``names``: one kernel launch."""
+    with _LAUNCH_LOCK:
+        for name in names:
+            LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def grad_required(*tensors) -> bool:

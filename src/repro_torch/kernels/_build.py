@@ -6,7 +6,10 @@ into its own shared library under ``kernels/_build/`` (listed in
 headers it includes (``common/hopper.cuh``) and the compiler flags, so an
 edited source or header is rebuilt and an unchanged one is loaded as it
 is.  ``build`` starts one ``nvcc`` per missing library, all at once, and
-waits for them together.
+waits for them together.  ``build`` and ``load`` hold one lock, so threads
+of one process (the pilot's task threads) that need a library at once
+build it once and share one handle; each build writes a temporary file
+named for its process and thread before it takes the library's name.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
@@ -36,6 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()   # build and load, and _LOADED
 
 
 def nvcc_path() -> str:
@@ -90,7 +95,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     Returns ``{name: {"seconds", "cached", "ptxas"}}``; ``ptxas`` holds the
     compiler's register and shared-memory report.  Raises on a failed build.
     """
-    names = list(SOURCES if names is None else names)
+    with _LOCK:
+        return _build_missing(list(SOURCES if names is None else names))
+
+
+def _build_missing(names: List[str]) -> Dict[str, dict]:
     info: Dict[str, dict] = {}
     procs = {}
     t0 = time.perf_counter()
@@ -100,7 +109,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             info[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(_KERNELS_DIR / SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -122,9 +131,10 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if missing."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LOADED[name] = lib
-    return lib
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LOADED[name] = lib
+        return lib

@@ -32,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, grad_required
+from repro_torch.kernels import count_launch, grad_required
 from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_ref,
     attention_fwd_ref,
@@ -190,8 +190,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
     if err:
         msg = lib.flash_attention_fwd_error_string(err).decode()
         raise RuntimeError(f"flash_attention_fwd launch failed: {msg} ({err})")
-    LAUNCHES["flash_attention"] += 1
-    LAUNCHES[f"flash_attention.{kind}"] += 1
+    count_launch("flash_attention", f"flash_attention.{kind}")
     return (o, lse) if return_lse else o
 
 
@@ -235,8 +234,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     if err:
         msg = lib.flash_attention_bwd_error_string(err).decode()
         raise RuntimeError(f"flash_attention_bwd launch failed: {msg} ({err})")
-    LAUNCHES["flash_attention_bwd"] += 1
-    LAUNCHES[f"flash_attention_bwd.{bwd_variant(q.dtype, D)}"] += 1
+    count_launch("flash_attention_bwd",
+                 f"flash_attention_bwd.{bwd_variant(q.dtype, D)}")
     return dq, dk, dv
 
 
@@ -257,12 +256,12 @@ def _library(name: str):
     lib = _build.load(name)
     entry, n_ptrs = _ENTRY[name]
     fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + SCALARS
+    if fn.argtypes is None:   # typed last: a thread that sees it sees all
         fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + SCALARS
     return lib
 
 

@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, grad_required
+from repro_torch.kernels import count_launch, grad_required
 from repro_torch.kernels.mamba.ref import selective_scan_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -126,7 +126,7 @@ def selective_scan_cuda(x, dt, A, Bm, C, D, h0):
     if err:
         msg = lib.selective_scan_error_string(err).decode()
         raise RuntimeError(f"selective_scan launch failed: {msg} ({err})")
-    LAUNCHES["selective_scan"] += 1
+    count_launch("selective_scan")
     return y, h_last
 
 
@@ -134,10 +134,10 @@ def _library():
     from repro_torch.kernels import _build
     lib = _build.load("selective_scan")
     fn = lib.selective_scan
-    if fn.argtypes is None:
+    if fn.argtypes is None:   # typed last: a thread that sees it sees all
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr] * 9 + [i32] * 6 + [i64] * 4 + [ptr]
         fn.restype = i32
         lib.selective_scan_error_string.argtypes = [i32]
         lib.selective_scan_error_string.restype = ctypes.c_char_p
+        fn.argtypes = [ptr] * 9 + [i32] * 6 + [i64] * 4 + [ptr]
     return lib

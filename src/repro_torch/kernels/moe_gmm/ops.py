@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, grad_required
+from repro_torch.kernels import count_launch, grad_required
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -107,8 +107,7 @@ def gmm_cuda(x, w, group_sizes):
     if err:
         msg = lib.gmm_error_string(err).decode()
         raise RuntimeError(f"gmm launch failed: {msg} ({err})")
-    LAUNCHES["gmm"] += 1
-    LAUNCHES[f"gmm.{kind}"] += 1
+    count_launch("gmm", f"gmm.{kind}")
     return out
 
 
@@ -116,12 +115,12 @@ def _library():
     from repro_torch.kernels import _build
     lib = _build.load("gmm")
     fn = lib.gmm
-    if fn.argtypes is None:
+    if fn.argtypes is None:   # typed last: a thread that sees it sees all
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
         fn.restype = i32
         lib.gmm_error_string.argtypes = [i32]
         lib.gmm_error_string.restype = ctypes.c_char_p
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
     return lib
 
 

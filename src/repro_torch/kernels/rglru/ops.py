@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, grad_required
+from repro_torch.kernels import count_launch, grad_required
 from repro_torch.kernels.rglru.ref import linear_scan_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -76,7 +76,7 @@ def linear_scan_cuda(x, a, h0):
     if err:
         msg = lib.linear_scan_error_string(err).decode()
         raise RuntimeError(f"linear_scan launch failed: {msg} ({err})")
-    LAUNCHES["linear_scan"] += 1
+    count_launch("linear_scan")
     return y, h_last
 
 
@@ -84,10 +84,10 @@ def _library():
     from repro_torch.kernels import _build
     lib = _build.load("linear_scan")
     fn = lib.linear_scan
-    if fn.argtypes is None:
+    if fn.argtypes is None:   # typed last: a thread that sees it sees all
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         fn.restype = i32
         lib.linear_scan_error_string.argtypes = [i32]
         lib.linear_scan_error_string.restype = ctypes.c_char_p
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
     return lib

@@ -10,10 +10,14 @@ member's trained params when it has a state, and seed-0 params otherwise.
 They run every ported arch (gemma2-2b, recurrentgemma-2b, falcon-mamba-7b,
 qwen3-moe-30b-a3b, serve-tiny, and the ``reduced:<arch>`` forms); training
 the scan and MoE archs on CUDA waits for their backward kernels.
-``lm.checkpoint`` is not ported yet.
+``lm.checkpoint`` is not ported yet (ROADMAP A3): a pattern that names it
+fails validation with E107.  The pilot runs tasks on threads of their own,
+so the step cache is filled under a lock; two tasks of one member never run
+at once in a pattern.
 """
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -34,6 +38,7 @@ from repro_torch.train import (
 # live member states (the "staging area"); keyed by (ensemble_id, member_id)
 STATE_STORE: Dict[Tuple[str, int], Any] = {}
 _STEP_CACHE: Dict[Tuple, Any] = {}
+_STEP_LOCK = threading.Lock()
 
 
 def resolve_cfg(name: str):
@@ -44,12 +49,13 @@ def resolve_cfg(name: str):
 
 def _steps(cfg, kind: str, hyper: TrainHyper = TrainHyper()):
     key = (cfg, kind, hyper)
-    if key not in _STEP_CACHE:
-        if kind == "train":
-            _STEP_CACHE[key] = build_train_step(cfg, hyper=hyper)
-        else:
-            _STEP_CACHE[key] = build_eval_step(cfg)
-    return _STEP_CACHE[key]
+    with _STEP_LOCK:
+        if key not in _STEP_CACHE:
+            if kind == "train":
+                _STEP_CACHE[key] = build_train_step(cfg, hyper=hyper)
+            else:
+                _STEP_CACHE[key] = build_eval_step(cfg)
+        return _STEP_CACHE[key]
 
 
 def _shape(args, cfg) -> ShapeSpec:
