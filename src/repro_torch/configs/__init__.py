@@ -1,4 +1,7 @@
-"""Arch registry: importing this package registers the ported architectures."""
+"""Arch registry: importing this package registers the ported architectures
+(gemma2-2b, gemma3-4b, minicpm-2b, nemotron-4-15b, recurrentgemma-2b,
+falcon-mamba-7b, qwen3-moe-30b-a3b and ``serve-tiny``); ``configs.toy``
+holds the paper's toy workload (not a model)."""
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
     get_config,
@@ -10,12 +13,16 @@ from repro_torch.configs.base import (  # noqa: F401
 from repro_torch.configs import (  # noqa: F401
     falcon_mamba_7b,
     gemma2_2b,
+    gemma3_4b,
+    minicpm_2b,
+    nemotron_4_15b,
     qwen3_moe_30b_a3b,
     recurrentgemma_2b,
+    toy,
 )
 
 # The small dense model the serving plugins decode with when no arch is
-# given (``repro/plugins/serve.py::_serve_cfg``): all-global attention, so
+# given (``plugins/serve.py::_serve_cfg``): all-global attention, so
 # ``BatchedServer`` runs its continuous-batching loop on it.
 SERVE_TINY = register(ModelConfig(
     name="serve-tiny", family="dense", num_layers=2, d_model=32, num_heads=2,

@@ -22,19 +22,13 @@ Flat = Dict[str, np.ndarray]
 
 
 def _to_tensor(arr, device) -> torch.Tensor:
+    if isinstance(arr, torch.Tensor):    # a restored checkpoint's leaf
+        return arr.to(device=device, copy=True)
     arr = np.array(arr)      # an own, writable copy: the port updates caches
     if arr.dtype.name == "bfloat16":    # numpy extension dtype of JAX arrays
         return torch.from_numpy(arr.view(np.int16)).view(
             torch.bfloat16).to(device)
     return torch.from_numpy(arr).to(device)
-
-
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    """bfloat16 comes back as float32 (exact: every bf16 value is an f32)."""
-    t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.numpy()
 
 
 def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
@@ -87,29 +81,30 @@ def params_from_numpy(flat: Flat, cfg: ModelConfig, device="cpu"):
     return params
 
 
-def params_to_numpy(params, cfg: ModelConfig) -> Flat:
-    """The port's params -> the JAX package's flat key paths (restacked)."""
+def params_to_flat(params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The port's params -> the JAX package's flat key paths (restacked),
+    as host tensors in their own dtypes (what a checkpoint writes)."""
     period, G, _ = _layout(cfg)
-    flat: Flat = {k: _to_numpy(v) for k, v in
-                  _flatten({k: v for k, v in params.items()
-                            if k != "layers"}).items()}
-    stacks: Dict[str, List[np.ndarray]] = {}
+    flat = {k: v.detach().cpu() for k, v in
+            _flatten({k: v for k, v in params.items()
+                      if k != "layers"}).items()}
+    stacks: Dict[str, List[torch.Tensor]] = {}
     for i, layer in enumerate(params["layers"]):
         for rest, t in _flatten(layer).items():
             if i < G * period:
-                g, s = divmod(i, period)
-                stacks.setdefault(f"blocks/sub_{s}/{rest}", []).append(
-                    _to_numpy(t))
+                stacks.setdefault(f"blocks/sub_{i % period}/{rest}",
+                                  []).append(t.detach().cpu())
             else:
-                flat[f"tail/block_{i - G * period}/{rest}"] = _to_numpy(t)
-    for key, arrs in stacks.items():
-        flat[key] = np.stack(arrs)
+                flat[f"tail/block_{i - G * period}/{rest}"] = t.detach().cpu()
+    for key, ts in stacks.items():
+        flat[key] = torch.stack(ts)
     return flat
 
 
 def train_state_from_numpy(flat: Flat, cfg: ModelConfig, device="cpu"):
     """A JAX train state's flat key paths (``params/...``, ``opt/m/...``,
-    ``opt/v/...``, ``opt/count``, ``step``) -> the port's train state."""
+    ``opt/v/...``, ``opt/count``, ``step``) -> the port's train state.
+    The leaves may be numpy arrays or tensors (a restored checkpoint)."""
     def sub(prefix):
         return {k[len(prefix):]: v for k, v in flat.items()
                 if k.startswith(prefix)}
@@ -120,14 +115,15 @@ def train_state_from_numpy(flat: Flat, cfg: ModelConfig, device="cpu"):
             "step": _to_tensor(flat["step"], device)}
 
 
-def train_state_to_numpy(state, cfg: ModelConfig) -> Flat:
-    """The port's train state -> the JAX package's flat key paths."""
-    flat: Flat = {}
+def train_state_to_flat(state, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The port's train state -> the JAX package's flat key paths, as host
+    tensors in their own dtypes."""
+    flat: Dict[str, torch.Tensor] = {}
     for prefix, tree in (("params/", state["params"]),
                          ("opt/m/", state["opt"]["m"]),
                          ("opt/v/", state["opt"]["v"])):
         flat.update({prefix + k: v
-                     for k, v in params_to_numpy(tree, cfg).items()})
-    flat["opt/count"] = _to_numpy(state["opt"]["count"])
-    flat["step"] = _to_numpy(state["step"])
+                     for k, v in params_to_flat(tree, cfg).items()})
+    flat["opt/count"] = state["opt"]["count"].detach().cpu()
+    flat["step"] = state["step"].detach().cpu()
     return flat

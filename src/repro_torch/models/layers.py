@@ -246,9 +246,13 @@ def attn_decode(cfg: ModelConfig, p: Params, x, cache: Params, positions,
     else:
         rows = torch.arange(B, device=x.device)
         pos = positions.long()
-        kc.index_put_((rows, pos), k[:, 0])
-        vc.index_put_((rows, pos), v[:, 0])
         S = kc.shape[1]
+        # a row past the cache's end (an emptied slot of the continuous
+        # loop, still stepped) writes its last entry, as the JAX package's
+        # dynamic_update_slice clamps its start
+        at = pos.clamp(max=S - 1)
+        kc.index_put_((rows, at), k[:, 0])
+        vc.index_put_((rows, at), v[:, 0])
         mask = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
         new_cache = {"k": kc, "v": vc}
     out = _decode_attention(cfg, q, kc, vc, mask)

@@ -48,6 +48,7 @@ class Request:
     out_tokens: List[int] = field(default_factory=list)
     submitted_at: float = 0.0
     done_at: float = 0.0
+    sla: str = "throughput"          # serving SLA class (serving.sla)
 
 
 def _merge_rows(old, new, mask):

@@ -33,13 +33,20 @@ from repro_torch.models import decode_step, forward, init_params, lm_logits  # n
 from repro_torch.models.convert import (  # noqa: E402
     layers_from_numpy,
     params_from_numpy,
-    params_to_numpy,
+    params_to_flat,
 )
 
 DENSE_ARCHS = ["gemma2-2b", "gemma3-4b", "minicpm-2b", "nemotron-4-15b"]
 SCAN_ARCHS = ["recurrentgemma-2b", "falcon-mamba-7b"]
 MOE_ARCHS = ["qwen3-moe-30b-a3b"]
 ATOL = 1e-4
+
+
+def to_numpy(flat):
+    """A ``convert.*_to_flat`` result as numpy; bfloat16 comes back as
+    float32 (exact: every bf16 value is an f32)."""
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+            for k, v in flat.items()}
 
 
 def port_cfg(jcfg) -> ModelConfig:
@@ -74,9 +81,9 @@ def test_init_params_match_jax_layout(arch):
     want = {k: (v.shape, str(v.dtype)) for k, v in
             _flatten(jax.eval_shape(lambda: jax_init_params(
                 jcfg, jax.random.PRNGKey(0)))).items()}
-    mine = params_to_numpy(
+    mine = to_numpy(params_to_flat(
         init_params(port_cfg(jcfg), torch.Generator().manual_seed(0)),
-        port_cfg(jcfg))
+        port_cfg(jcfg)))
     assert {k: (v.shape, str(v.dtype)) for k, v in mine.items()} == want
 
 
@@ -149,14 +156,14 @@ def test_prefill_decode_matches_forward(arch):
 
 def test_params_roundtrip_exact():
     _, _, cfg, params, flat = _setup("gemma2-2b")
-    back = params_to_numpy(params, cfg)
+    back = to_numpy(params_to_flat(params, cfg))
     assert set(back) == set(flat)
     for key, arr in flat.items():
         assert back[key].dtype == arr.dtype
         np.testing.assert_array_equal(back[key], arr)
     # bfloat16 leaves keep their values (returned as float32)
     bf = {k: np.asarray(jnp.asarray(v, jnp.bfloat16)) for k, v in flat.items()}
-    back = params_to_numpy(params_from_numpy(bf, cfg), cfg)
+    back = to_numpy(params_to_flat(params_from_numpy(bf, cfg), cfg))
     for key, arr in bf.items():
         np.testing.assert_array_equal(back[key], arr.astype(np.float32))
 
@@ -281,7 +288,7 @@ def test_scan_params_carry_layout_and_float32_leaves(arch):
             f32.add(key.rsplit("/", 1)[-1])
     assert f32 == ({"a_param"} if arch == "recurrentgemma-2b"
                    else {"A_log", "D", "dt_bias"})
-    back = params_to_numpy(params_from_numpy(flat, cfg), cfg)
+    back = to_numpy(params_to_flat(params_from_numpy(flat, cfg), cfg))
     assert set(back) == set(flat)
     for key, arr in flat.items():
         np.testing.assert_array_equal(back[key], arr.astype(np.float32))
@@ -356,7 +363,7 @@ def test_moe_params_roundtrip_exact(arch):
                                           ref["moe"][key].shape), key
         assert layer["moe"]["router"].dtype == torch.float32
         assert layer["moe"]["wi"].dtype == torch.bfloat16
-    back = params_to_numpy(params, cfg)
+    back = to_numpy(params_to_flat(params, cfg))
     assert set(back) == set(flat)
     for key, arr in flat.items():
         np.testing.assert_array_equal(back[key], arr.astype(np.float32))

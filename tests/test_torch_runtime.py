@@ -12,7 +12,7 @@ import subprocess
 import sys
 import threading
 from pathlib import Path
-from types import SimpleNamespace
+from types import ModuleType, SimpleNamespace
 
 import pytest
 
@@ -23,7 +23,7 @@ PACKAGES = ("repro", "repro_torch")
 def _pkg(name):
     mod = lambda sub: importlib.import_module(f"{name}.{sub}")
     return SimpleNamespace(
-        core=mod("core"), executor=mod("runtime.executor"),
+        name=name, core=mod("core"), executor=mod("runtime.executor"),
         journal=mod("runtime.journal"), faults=mod("runtime.faults"),
         states=mod("runtime.states"), staging=mod("staging"),
         analysis=mod("analysis"), diagnostics=mod("analysis.diagnostics"))
@@ -378,10 +378,69 @@ def sc_diagnostics(m, tmp):
     return out
 
 
+def serve_ensemble_example(pkg: str) -> ModuleType:
+    """``examples/serve_ensemble.py`` as a module on package ``pkg`` (for
+    the port its ``from repro.`` imports read ``from repro_torch.``), so
+    both packages run the example's own ``build``."""
+    path = ROOT / "examples" / "serve_ensemble.py"
+    src = path.read_text()
+    if pkg == "repro_torch":
+        src = src.replace("from repro.", "from repro_torch.")
+    mod = ModuleType(f"serve_ensemble_{pkg}")
+    exec(compile(src, str(path), "exec"), mod.__dict__)
+    return mod
+
+
+def _serve_ensemble_run(m, ex, mode, journal=None):
+    """The example's ``main``: its pilot (``preempt=True``, a staging
+    layer), its app and its assertions; returns (profile, channels)."""
+    staging = m.staging.StagingLayer(
+        locality=m.staging.LocalityMap(ex.SLOTS, slots_per_pod=2),
+        threshold_bytes=1 << 10)
+    rt = m.executor.PilotRuntime(slots=ex.SLOTS, mode=mode, staging=staging,
+                                 preempt=True, journal=journal)
+    am = m.core.AppManager(rt)
+    pipes, channels, metrics = ex.build(mode)
+    if mode == "real" and m.name == "repro_torch":
+        for p in pipes:          # the port's entry points default to cuda
+            for st in p.stages:
+                for sp in st.tasks:
+                    if sp.kernel.name == "serve.decode":
+                        sp.kernel.arguments["device"] = "cpu"
+    prof = am.run(pipes, validate="error")
+    metrics.install(am, prof)
+    s = prof.results["serving"]
+    assert prof.n_failed == 0
+    assert all(info["state"] == "done"
+               for info in prof.results["pipelines"].values())
+    assert sum(c["n"] for c in s["classes"].values()) == \
+        ex.MODEL.total_requests(ex.WINDOWS)
+    for ch in channels.values():
+        assert ch.peak_unconsumed_bytes <= ex.CAPACITY_BYTES
+        assert ch.n_unconsumed() == 0
+    return prof, channels
+
+
+def sc_serve_ensemble_sim(m, tmp):
+    """``examples/serve_ensemble.py --sim``: two SLA classes of traffic
+    windows through byte-metered Channels, co-tenant with a training bag on
+    a preemptive pilot; latency windows evict their way in."""
+    ex = serve_ensemble_example(m.name)
+    prof, channels = _serve_ensemble_run(
+        m, ex, "sim", m.journal.Journal(str(tmp / "j.jsonl")))
+    assert prof.n_preempted >= 1
+    return {**_profile(prof), "n_preempted": prof.n_preempted,
+            "serving": prof.results["serving"],
+            "pipelines": prof.results["pipelines"],
+            "peaks": {n: ch.peak_unconsumed_bytes
+                      for n, ch in channels.items()},
+            "journal": _journal_order(tmp / "j.jsonl")}
+
+
 SCENARIOS = {f.__name__[3:]: f for f in (
     sc_charcount, sc_pipeline_sim, sc_bag_sim, sc_re_sim, sc_sal_sim,
     sc_adaptive_pst, sc_channel, sc_staged, sc_fail_retries,
-    sc_journal_restart, sc_diagnostics)}
+    sc_journal_restart, sc_diagnostics, sc_serve_ensemble_sim)}
 
 _REFERENCE = {}
 
@@ -406,18 +465,34 @@ def test_front_end_matches_reference(scenario, pkg, tmp_path,
 
 # ------------------------------------------------------------ port only
 
-def test_unported_plugins_fail_validation_with_e107():
-    """``lm.checkpoint``, ``serve.source`` and ``serve.decode`` wait for
-    ROADMAP A3: in the port a pattern that names them is refused with the
-    reference's own E107, before any task launches."""
-    from repro_torch.analysis import DiagnosticError, validate_app
-    from repro_torch.core import AppManager, PipelineSpec, Stage, TaskSpec
-    from repro_torch.runtime.executor import PilotRuntime
+def test_serving_and_checkpoint_plugins_validate_without_e107():
+    """``lm.checkpoint``, ``serve.source`` and ``serve.decode`` are
+    registered in the port: a pattern that names them validates clean of
+    E107, as it does on the JAX package."""
+    from repro_torch.analysis import validate_app
+    from repro_torch.core import PipelineSpec, Stage, TaskSpec
+    from repro_torch.core.kernel_plugin import kernel_registered
     for kname in ("lm.checkpoint", "serve.source", "serve.decode"):
+        assert kernel_registered(kname)
         app = PipelineSpec([Stage([TaskSpec(kname)], name="s0")], name="p")
-        assert "E107" in validate_app([app]).codes()
-        with pytest.raises(DiagnosticError, match="E107"):
-            AppManager(PilotRuntime(slots=1, mode="sim")).run(app)
+        assert "E107" not in validate_app([app]).codes()
+
+
+def test_serve_ensemble_example_real_mode_on_serve_tiny():
+    """The example's app in real mode on the port: every serve window
+    decodes on ``serve-tiny`` (CPU) with its full token count, the
+    example's assertions hold."""
+    m = _pkg("repro_torch")
+    ex = serve_ensemble_example(m.name)
+    prof, _ = _serve_ensemble_run(m, ex, "real")
+    tasks = prof.results["tasks"]
+    for k in range(ex.WINDOWS):
+        for sla in ("latency", "throughput"):
+            reqs = ex.MODEL.requests(k, sla)
+            if reqs:
+                out = tasks[f"serve.{sla}.w{k:05d}"]
+                assert out["served"] == len(reqs)
+                assert out["tokens"] == sum(r.max_new_tokens for r in reqs)
 
 
 def test_topology_waits_for_a9():
@@ -445,11 +520,14 @@ def test_kernel_attributes_match_reference():
     a, b = ref.Kernel("synthetic.noop"), port.Kernel("synthetic.noop")
     assert sorted(vars(a)) == sorted(vars(b))
     assert port.kernel_registered("lm.train")
-    assert not port.kernel_registered("lm.checkpoint")
-    assert set(port.kernel_names()) == {
-        "lm.decode", "lm.eval", "lm.train", "misc.ccount", "misc.mkfile",
-        "re.exchange", "synthetic.echo", "synthetic.fail", "synthetic.flops",
-        "synthetic.noop", "synthetic.sleep"}
+    assert port.kernel_registered("lm.checkpoint")
+    names = {"lm.checkpoint", "lm.decode", "lm.eval", "lm.train",
+             "misc.ccount", "misc.mkfile", "re.exchange", "serve.decode",
+             "serve.source", "synthetic.echo", "synthetic.fail",
+             "synthetic.flops", "synthetic.noop", "synthetic.sleep"}
+    assert set(port.kernel_names()) == names
+    # the reference's registry also holds kernels its own tests register
+    assert names <= set(ref.kernel_names())
 
 
 def test_public_names_match_reference():

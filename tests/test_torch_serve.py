@@ -164,8 +164,12 @@ def test_submit_guard_and_clock():
         srv.submit([Request(rid=9, prompt=np.zeros(4, int),
                             max_new_tokens=99)])
     ok = Request(rid=1, prompt=np.zeros(4, int), max_new_tokens=2)
-    srv.submit([ok])
-    assert ok.submitted_at == 0.0 and len(srv.queue) == 1
+    assert ok.sla == "throughput"       # the reference's default class
+    lat = Request(rid=2, prompt=np.zeros(4, int), max_new_tokens=2,
+                  sla="latency")
+    srv.submit([ok, lat])
+    assert ok.submitted_at == 0.0 and lat.submitted_at == 1.0
+    assert [r.sla for r in srv.queue] == ["throughput", "latency"]
 
 
 def test_lm_decode_task_serves_on_cpu():

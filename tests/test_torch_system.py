@@ -8,6 +8,8 @@ with ``train_state_from_numpy``): per-cycle member losses within
 """
 import importlib.util
 import math
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -258,3 +260,87 @@ def test_chip_smoke_ensemble_phase_rehearsal(monkeypatch):
         "flash_attention_bwd": 4 * steps,
         "flash_attention_bwd.wgmma": 4 * steps}
     assert not [s for s in tlm.STATE_STORE if s[0].startswith("ens_")]
+
+
+def _zombie_app(core, kp, lm_mod, ensemble, extra, monkeypatch):
+    """A preemptive real-mode pilot of 2 slots: ``lm.train`` (one step,
+    throughput) runs beside a task that waits for the step to start; then
+    a latency task needing both slots evicts the train attempt.  Its
+    thread runs on as a zombie and writes the member's state while the
+    latency task waits for that write; the retry trains after it.  Test
+    kernels are registered for the run; the first train step waits until
+    the eviction has happened, so the interleaving is forced."""
+    started, evicted = threading.Event(), threading.Event()
+    real_steps = lm_mod._steps
+
+    def gated_steps(cfg, kind, *a, **kw):
+        step = real_steps(cfg, kind, *a, **kw)
+
+        def run(state, batch):
+            started.set()
+            assert evicted.wait(60), "the train attempt was never evicted"
+            return step(state, batch)
+        return run
+    monkeypatch.setattr(lm_mod, "_steps", gated_steps)
+
+    def wait_started(args, ctx):
+        assert started.wait(60)
+        return {}
+
+    def evict(args, ctx):
+        evicted.set()
+        deadline = time.time() + 60
+        while lm_mod.STATE_STORE.get((ensemble, 0)) is None:
+            assert time.time() < deadline, "the zombie never wrote"
+            time.sleep(0.01)
+        return {"step_seen": int(lm_mod.STATE_STORE[(ensemble, 0)]["step"])}
+    for name, fn in (("test.wait_started", wait_started),
+                     ("test.evict", evict)):
+        monkeypatch.setitem(kp._KERNEL_REGISTRY, name,
+                            kp.KernelDef(name, fn))
+    train = core.Kernel("lm.train")
+    train.arguments = {"arch": ARCH, "steps": 1, "member": 0,
+                       "ensemble": ensemble, "batch": 2, "seq": 32, **extra}
+    latency = core.Kernel("test.evict")
+    latency.cores = 2
+    return [core.PipelineSpec([core.Stage(
+                [core.TaskSpec(train, name="train.m0", sla="throughput")],
+                name="train")], name="train"),
+            core.PipelineSpec([
+                core.Stage([core.TaskSpec(core.Kernel("test.wait_started"),
+                                          name="gate", sla="throughput")],
+                           name="gate"),
+                core.Stage([core.TaskSpec(latency, name="latency",
+                                          sla="latency")], name="latency")],
+                name="serve")]
+
+
+@pytest.mark.parametrize("pkg", ["repro", "repro_torch"])
+def test_preempted_train_attempt_runs_on_as_a_zombie(pkg, monkeypatch):
+    """ROADMAP C5, in both packages: an ``lm.train`` task evicted by a
+    latency task is retried, but its evicted attempt cannot be stopped:
+    it trains on and writes the member's state, and the retry trains from
+    that state, so a one-step task leaves the member at step 2."""
+    import importlib
+    core = importlib.import_module(f"{pkg}.core")
+    kp = importlib.import_module(f"{pkg}.core.kernel_plugin")
+    lm_mod = importlib.import_module(f"{pkg}.plugins.lm")
+    executor = importlib.import_module(f"{pkg}.runtime.executor")
+    ensemble = f"zombie_{pkg}"
+    pipes = _zombie_app(core, kp, lm_mod, ensemble, _extra(core),
+                        monkeypatch)
+    am = core.AppManager(executor.PilotRuntime(slots=2, mode="real",
+                                               preempt=True))
+    try:
+        prof = am.run(pipes)
+        for th in list(am.session._zombie_threads):
+            th.join(60)
+        step = int(np.asarray(lm_mod.STATE_STORE[(ensemble, 0)]["step"]))
+    finally:
+        _release(lm_mod.STATE_STORE, ensemble)
+    tasks = am.session.graph.tasks
+    assert prof.n_failed == 0 and prof.n_preempted == 1
+    assert tasks["train.m0"].attempts == 2
+    assert prof.results["tasks"]["latency"] == {"step_seen": 1}
+    assert prof.results["tasks"]["train.m0"]["step"] == 2
+    assert step == 2

@@ -40,7 +40,7 @@ from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.models import forward, init_params  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     train_state_from_numpy,
-    train_state_to_numpy,
+    train_state_to_flat,
 )
 from repro_torch.optim import (  # noqa: E402
     adamw_init,
@@ -71,6 +71,13 @@ def _full_f32_matmuls():
     torch.set_float32_matmul_precision("highest")
     yield
     torch.set_float32_matmul_precision(prev)
+
+
+def to_numpy(flat):
+    """A ``convert.*_to_flat`` result as numpy; bfloat16 comes back as
+    float32 (exact: every bf16 value is an f32)."""
+    return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+            for k, v in flat.items()}
 
 
 def port_cfg(jcfg) -> ModelConfig:
@@ -262,7 +269,8 @@ def _jax_state(arch, microbatches):
 def test_train_state_round_trips():
     jcfg, _, flat = _jax_state("recurrentgemma-2b", 1)
     cfg = port_cfg(jcfg)
-    back = train_state_to_numpy(train_state_from_numpy(flat, cfg), cfg)
+    back = to_numpy(train_state_to_flat(train_state_from_numpy(flat, cfg),
+                                        cfg))
     assert set(back) == set(flat)
     for k, v in flat.items():
         np.testing.assert_array_equal(back[k], v)
@@ -288,7 +296,7 @@ def test_one_train_step_matches_jax(arch):
         np.testing.assert_allclose(float(m[key]), float(jm[key]),
                                    rtol=STEP_RTOL, atol=1e-7, err_msg=key)
     want = {k: np.asarray(v, np.float32) for k, v in _flatten(jstate).items()}
-    got = train_state_to_numpy(state, cfg)
+    got = to_numpy(train_state_to_flat(state, cfg))
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], atol=STEP_ATOL,
