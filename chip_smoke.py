@@ -10,7 +10,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  the flash and gmm wgmma kernels' dynamic shared memory as
                  the library states it)
   kernel ...     hold each kernel (flash_attention, flash_attention_bwd,
-                 linear_scan, selective_scan, gmm) against its plain
+                 linear_scan, selective_scan, gmm, linear_scan_bwd,
+                 selective_scan_bwd) against its plain
                  PyTorch version on the card at the main paths' shapes, and
                  time kernel, plain version, the nearest PyTorch library
                  call (where one computes the same function) and the card's
@@ -44,7 +45,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  The selective_scan phase includes a
                  case with T * d > 2^32 (64-bit offsets in a batch row):
                  its last 256 steps must equal, bitwise, a run on them
-                 alone from the state the first T - 256 steps leave
+                 alone from the state the first T - 256 steps leave.  The
+                 scans' backward phases hold their gradients by the flash
+                 backward's measures with bitwise repeats;
+                 selective_scan_bwd's includes a batch row of T * d >=
+                 2^31, whose last 256 steps' gradients must equal, bitwise,
+                 a backward of those steps alone
   train gemma2-2b
                  ``lm.train`` of full-width gemma2-2b (f32 master params
                  and Adam moments, bf16 compute, remat, batch 4 of 1024
@@ -52,7 +58,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  ``lm.eval`` and ``lm.decode`` of the same member: step ms,
                  tokens/s, peak memory, losses, flash launches per step
                  (every one a hand kernel); then one microbatch's loss,
-                 grad norm and leaf grads against ``impl="ref"``
+                 grad norm and leaf grads against ``impl="ref"`` (on the
+                 eval's batch, which no step saw)
+  train recurrentgemma-2b, train falcon-mamba-7b-L24
+                 the same for the scan archs (full-width recurrentgemma-2b;
+                 falcon-mamba-7b cut to 24 layers, one microbatch), 2
+                 steps and lm.eval: exact launches of the scans' forward,
+                 recompute and backward kernels and of flash
   ensemble       replica exchange (4 members, 2 cycles) and a
                  simulation-analysis loop (2 members, 2 iterations, then
                  ``lm.eval``) of full-width gemma2-2b members cut to 4
@@ -65,6 +77,15 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  tokens/s over the TTC, peak memory, and flash launches
                  (exactly the per-step counts times the steps, all wgmma);
                  member 0's first task run again alone gives its loss
+  fused          a FusedEnsemble of 4 full-width gemma2-2b members cut
+                 to 2 layers (one vmapped train step for all a cycle, the
+                 swap on the device), 2 cycles of batch 1 of 1024 tokens:
+                 per cycle the losses, temperatures, accepted pairs and
+                 seconds until the metrics return and until the device is
+                 idle; the flash launches of a cycle are one member's, the
+                 swaps replay on the host, the peak; then the same members
+                 in task mode (RE on a 2-slot pilot: TTC and dispatch per
+                 cycle) and one re.exchange task on the card
   serve_ensemble examples/serve_ensemble.py's co-tenant application in
                  real mode (its traffic, Channels and staging layer; 4 of
                  its 8 windows): serve windows of two SLA classes decoded
@@ -86,9 +107,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  per decode step (flash attention's all through the wgmma
                  variant, gmm's through wgmma in prefill and mma_sync in
                  decode); then one prefill of the first wave with
-                 ``impl="ref"`` (the plain versions): prefill logits within a
-                 stated tolerance, and greedy tokens decoded from its cache
-                 by ``impl="ref"`` decode steps against the served ones
+                 ``impl="ref"`` (the plain versions): every position's final
+                 hidden states within the arch's limit (relative Frobenius
+                 distance), each off-by-one control above it, the last
+                 position's logits within a stated tolerance, and greedy
+                 tokens decoded from its cache by ``impl="ref"`` decode
+                 steps against the served ones
   task           ``Kernel("lm.decode")`` on gemma2-2b on the card
   continuous     the continuous-batching loop on ``serve-tiny`` on the card
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -133,6 +157,15 @@ KERNELS = {   # name: (source, the TPU kernel it replaces, its case in the line)
                        "serve"),
     "gmm": ("src/repro_torch/kernels/moe_gmm/csrc/gmm.cu",
             "src/repro/kernels/moe_gmm/pallas_kernel.py:45", "serve"),
+    # the scans' gradients, which the JAX package takes by XLA autodiff of
+    # its scans (rglru/xla.py, mamba/xla.py:19-51); their cases are the
+    # train phases' shapes
+    "linear_scan_bwd": ("src/repro_torch/kernels/rglru/csrc/linear_scan_bwd.cu",
+                        "src/repro/kernels/rglru/pallas_kernel.py:34",
+                        "train"),
+    "selective_scan_bwd": (
+        "src/repro_torch/kernels/mamba/csrc/selective_scan_bwd.cu",
+        "src/repro/kernels/mamba/pallas_kernel.py:41", "train"),
 }
 
 # name, B, Sq, Sk, H, KH, D, causal, window, softcap, scale, q_offset, dtype,
@@ -335,6 +368,8 @@ GMM_CASES = [
          dtype="float32"),
 ]
 
+# serve phases: batch, prompt length, new tokens a request, requests
+SERVE_SHAPE = dict(batch=4, prompt=1024, new=16, requests=8)
 # serve phases: arch, the loop it must run, kernel launches per prefill and
 # per decode step ("flash_attention.wgmma": the launches of flash attention's
 # wgmma kernel, which must be all of them; "gmm.wgmma" / "gmm.mma_sync":
@@ -357,20 +392,42 @@ SERVE = [
     ("nemotron-4-15b", "continuous",
      {"flash_attention": 32, "flash_attention.wgmma": 32}, {}),
 ]
-# Prefill logits, kernels against plain versions, bf16 through every layer:
-# the two round their outputs to bf16 at different elements, and the
-# residual stream carries that on (measured 0.058 to 0.218 on the seven
-# models, against largest logits of 4.4 to 39.6).  Each serve phase also
-# reports a control, not held to a limit: the distance of the kernels'
-# prefill with one off-by-one fault put in (LOGIT_CONTROL: the sequence
-# mixer whose per-position inputs are read one position late) from the
-# plain versions' logits.  The logits are the last position's only, where
-# a random-weight model's mixers weigh little, so the control says how
-# much of a mixer fault this check can see; the kernel phases hold every
-# output element at these shapes.
+# Prefill, kernels against plain versions, bf16 through every layer.  Two
+# checks.  (1) The final hidden states of every position of the first
+# wave's prompts, h (B, S, d_model) before the LM head: their relative
+# Frobenius distance from the plain versions' must stay under the arch's
+# PREFILL_H_LIMIT, and each control must read above it.  A control is the
+# same prefill with one off-by-one fault put in (LOGIT_CONTROL: the model's
+# calls of that kernel wrapper read their per-position inputs one position
+# late); every kernel of the arch's prefill that LOGIT_CONTROL names gets
+# one.  Each limit lies between the arch's sound reading and its smallest
+# control reading (PERF.md).  (2) As before, the last position's
+# logits within LOGIT_TOL (measured 0.058 to 0.218 on the seven models,
+# against largest logits of 4.4 to 39.6), reported beside each control's
+# distance there; that check alone let an off-by-one in recurrentgemma-2b's
+# attention through (0.057).
 LOGIT_TOL = 0.25
 LOGIT_CONTROL = {"flash_attention": (1, 2),        # k, v
+                 "linear_scan": (0, 1),            # x, a
                  "selective_scan": (0, 1, 3, 4)}   # x, dt, B, C
+# Each limit near the geometric mean of the arch's sound reading and its
+# smallest control reading on an H100 (sound / control, deterministic
+# from call to call): gemma2-2b 0.0187 / 0.378, recurrentgemma-2b 0.0115 /
+# 0.0132 (linear_scan; flash 0.0217), falcon-mamba-7b 0.0146 / 1.121,
+# qwen3-moe 0.0153 / 0.339, gemma3-4b 0.0208 / 0.388, minicpm-2b 0.0402 /
+# 0.509, nemotron-4-15b 0.0256 / 0.188.  recurrentgemma-2b's linear_scan
+# control is 15% above its sound reading: an RG-LRU state decays slowly,
+# so h read a step late is close to h.
+PREFILL_H_LIMIT = {"gemma2-2b": 0.08, "recurrentgemma-2b": 0.0123,
+                   "falcon-mamba-7b": 0.13, "qwen3-moe-30b-a3b": 0.07,
+                   "gemma3-4b": 0.09, "minicpm-2b": 0.14,
+                   "nemotron-4-15b": 0.07}
+
+
+def rel_fro(a, r) -> float:
+    """||a - r||_F / ||r||_F, in float64."""
+    a, r = a.double(), r.double()
+    return float((a - r).norm() / r.norm())
 
 
 def emit(obj) -> None:
@@ -842,25 +899,80 @@ def _bwd_plan_eviction(dev, gen):
     return row
 
 
-# train phase: lm.train's arguments, flash launches per train step (26
-# layers; forward twice a microbatch under remat, backward once; 2
-# microbatches), and the tolerances of the kernel path against impl="ref"
-# on one microbatch.  Both paths compute in bf16 with f32 accumulation and
-# differ only inside attention (the kernels round P and dS to bf16 for their
-# products, the plain versions do not), each difference a relative 2^-9;
-# 26 layers of bf16 residual stream carry such differences on.  The loss, a
-# mean of 2048 f32 log-sum-exps of ~12.5, moves by far less than 0.01;
-# gradients (relative Frobenius distance) by a few bf16 steps, 0.05.
-TRAIN_STEPS = 3   # at profile_train.TRAIN, the shape that profile_train times
-TRAIN_LAUNCHES = {"flash_attention": 26 * 2 * 2,
-                  "flash_attention.wgmma": 26 * 2 * 2,
-                  "flash_attention_bwd": 26 * 2,
-                  "flash_attention_bwd.wgmma": 26 * 2}
+# train phases: lm.train's arguments, kernel launches per train step, and
+# the tolerances of the kernel path against impl="ref" on one microbatch.
+# Under remat every forward kernel runs twice a microbatch (the forward and
+# its recompute) and every backward kernel once.  Both paths compute in
+# bf16 with f32 accumulation and differ only inside the kernels (flash
+# rounds P and dS to bf16 for its products; the scans' outputs are rounded
+# at other elements), each difference a relative 2^-9 that the bf16
+# residual stream carries on.  The loss, a mean of f32 log-sum-exps of
+# ~11-12.5, moves by far less than 0.01; gradients (relative Frobenius
+# distance) by a few bf16 steps, 0.05.
 TRAIN_LOSS_TOL = 0.01
 TRAIN_GRAD_RTOL = 0.05
 
 
-def phase_train(dev):
+_FAMILIES = {"flash": ("flash_attention", "flash_attention_bwd"),
+             "rec": ("linear_scan", "linear_scan_bwd"),
+             "mamba": ("selective_scan", "selective_scan_bwd")}
+
+
+def _launches(**per):
+    """Launch counts of a train step: per[family] = (layers, microbatches);
+    the forward kernel twice a layer and microbatch (remat), the backward
+    once; flash's all through its wgmma kernels."""
+    out = {}
+    for family, (layers, mb) in per.items():
+        fwd, bwd = _FAMILIES[family]
+        out[fwd] = 2 * layers * mb
+        out[bwd] = layers * mb
+        if family == "flash":
+            out[f"{fwd}.wgmma"] = out[fwd]
+            out[f"{bwd}.wgmma"] = out[bwd]
+    return out
+
+
+# full-width falcon-mamba-7b cut in depth (7.27B params at 18 B a param,
+# 131 GB, would not fit): FALCON_LAYERS of 64 layers, registered by the
+# script (PERF.md has the reckoning)
+FALCON_LAYERS = 24
+TRAIN_PHASES = [
+    # gemma2-2b at profile_train.TRAIN (batch 4 x 1024 in 2 microbatches),
+    # the shape that profile_train times; then lm.eval and lm.decode
+    dict(arch="gemma2-2b", steps=3, decode=True,
+         launches=_launches(flash=(26, 2)), mixer="attn",
+         picked=("wq", "wk", "wv", "wo")),
+    # recurrentgemma-2b at the same shape: 18 RG-LRU layers, 8 local
+    # attention layers (MQA, window 2048)
+    dict(arch="recurrentgemma-2b", steps=2, decode=False,
+         launches=_launches(flash=(8, 2), rec=(18, 2)), mixer="rec",
+         picked=("wx", "wy", "wa", "a_param", "wo")),
+    # falcon-mamba-7b-L<FALCON_LAYERS>, its config's microbatches=1
+    dict(arch=f"falcon-mamba-7b-L{FALCON_LAYERS}", base="falcon-mamba-7b",
+         layers=FALCON_LAYERS, steps=2, decode=False, microbatches=1,
+         launches=_launches(mamba=(FALCON_LAYERS, 1)), mixer="mamba",
+         picked=("in_proj", "x_proj", "dt_proj", "A_log", "D", "out_proj")),
+]
+
+
+def _cut_cfg(name, base, layers):
+    """Config ``name``: the full-width ``base`` config at ``layers``
+    layers, registered once."""
+    from repro_torch.configs import get_config, register
+    try:
+        return get_config(name)
+    except KeyError:
+        return register(get_config(base).replace(name=name,
+                                                 num_layers=layers))
+
+
+def phase_train(dev, spec=TRAIN_PHASES[0]):
+    """``spec["steps"]`` lm.train tasks of one step each at
+    profile_train.TRAIN's batch and sequence (``spec`` may set its own
+    microbatches), exact kernel launches a step, ``lm.eval`` (and
+    ``lm.decode`` where ``spec["decode"]``), then one microbatch's loss,
+    grad norm and the layer-0 mixer's leaf grads against ``impl="ref"``."""
     import torch
 
     from repro_torch.configs.base import ShapeSpec
@@ -873,15 +985,24 @@ def phase_train(dev):
     from repro_torch.train import compute_cast
     from repro_torch.train.step import lm_loss
 
-    args = {"arch": TRAIN["arch"], "device": str(dev), "steps": 1,
+    if "base" in spec:
+        _cut_cfg(spec["arch"], spec["base"], spec["layers"])
+    mbs = spec.get("microbatches", TRAIN["microbatches"])
+    args = {"arch": spec["arch"], "device": str(dev), "steps": 1,
             "batch": TRAIN["batch"], "seq": TRAIN["seq"],
-            "microbatches": TRAIN["microbatches"], "ensemble": "chip_smoke",
-            "member": 0}
+            "microbatches": mbs, "ensemble": "chip_smoke", "member": 0}
+    steps_n, want_step = spec["steps"], spec["launches"]
+    cfg = lm.resolve_cfg(args["arch"])
+    state_gb = 16 * cfg.param_count() / 1e9
+    emit({"phase": f"train {spec['arch']}",
+          "predicted": {"params": cfg.param_count(),
+                        "state_gb": state_gb,
+                        "with_bf16_cast_gb": 18 * cfg.param_count() / 1e9}})
     torch.cuda.synchronize(dev)   # initialises CUDA when this phase is first
     torch.cuda.reset_peak_memory_stats(dev)
     steps = []
     reset_launches()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps_n):
         before = dict(LAUNCHES)
         k = Kernel("lm.train")
         k.arguments = dict(args)
@@ -897,35 +1018,40 @@ def phase_train(dev):
                       "launches": {n: LAUNCHES[n] - before[n]
                                    for n in LAUNCHES
                                    if LAUNCHES[n] != before[n]}})
-    launches = dict(LAUNCHES)
+    train_launches = dict(LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     sid = (args["ensemble"], args["member"])
     state = lm.STATE_STORE[sid]
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-    state_gb = sum(t.numel() * t.element_size() for t in
-                   tree_leaves([state["params"], state["opt"]["m"],
-                                state["opt"]["v"]])) / 1e9
+    held_gb = sum(t.numel() * t.element_size() for t in
+                  tree_leaves([state["params"], state["opt"]["m"],
+                               state["opt"]["v"]])) / 1e9
 
     ev = Kernel("lm.eval")
     ev.arguments = {n: args[n] for n in ("arch", "device", "batch", "seq",
                                          "ensemble", "member")}
     eval_out = ev.execute()
-    dec = Kernel("lm.decode")
-    dec.arguments = {n: args[n] for n in ("arch", "device", "ensemble",
-                                          "member")}
-    dec_out = dec.execute()
+    dec_out = None
+    if spec["decode"]:
+        dec = Kernel("lm.decode")
+        dec.arguments = {n: args[n] for n in ("arch", "device", "ensemble",
+                                              "member")}
+        dec_out = dec.execute()
     torch.cuda.synchronize()
+    launches = {n: c for n, c in LAUNCHES.items() if c}
 
-    # one microbatch, kernels against the plain versions, in turn
-    cfg = lm.resolve_cfg(args["arch"])
+    # one microbatch, kernels against the plain versions, in turn, of the
+    # eval's batch (data seed 1): the steps trained on seed 0's batches 0
+    # and 1, and after two steps falcon-mamba-7b-L24's loss on its batch 0
+    # read 1.1e-6, with a grad norm of 2e-4 (H100 80GB HBM3)
     params = state["params"]
     mb = SyntheticLM(cfg, ShapeSpec("train", "train", TRAIN["seq"],
-                                    TRAIN["batch"]), device=dev).batch_at(0)
-    mb = {n: t[:TRAIN["batch"] // TRAIN["microbatches"]]
-          for n, t in mb.items()}
-    layer0 = params["layers"][0]["attn"]
+                                    TRAIN["batch"]), seed=1,
+                     device=dev).batch_at(0)
+    mb = {n: t[:TRAIN["batch"] // mbs] for n, t in mb.items()}
+    layer0 = params["layers"][0][spec["mixer"]]
     picked = {"embed": params["embed"]["tok"], **{
-        f"layer0/{w}": layer0[w] for w in ("wq", "wk", "wv", "wo")}}
+        f"layer0/{w}": layer0[w] for w in spec["picked"]}}
 
     def grads_of(impl):
         leaves = list(tree_leaves(params))
@@ -952,30 +1078,39 @@ def phase_train(dev):
     del g_k, g_r
 
     losses = [s_["loss"] for s_ in steps]
-    per_step_ok = all(s_["launches"] == TRAIN_LAUNCHES for s_ in steps)
-    ok = (all(map(math.isfinite, losses)) and per_step_ok
+    per_step_ok = all(s_["launches"] == want_step for s_ in steps)
+    decode_ok = dec_out is None or (
+        dec_out["params"] == f"member state at step {steps_n}"
+        and dec_out["served"] == 2)
+    ok = (all(map(math.isfinite, losses)) and per_step_ok and decode_ok
           and math.isfinite(eval_out["loss"])
-          and dec_out["params"] == f"member state at step {TRAIN_STEPS}"
-          and dec_out["served"] == 2
           and abs(loss_k - loss_r) <= TRAIN_LOSS_TOL
           and abs(norm_k - norm_r) <= TRAIN_GRAD_RTOL * norm_r
-          and all(r <= TRAIN_GRAD_RTOL for r in grad_rel.values()))
-    row = {"phase": f"train {TRAIN['arch']}", "arch": cfg.name,
+          and all(r <= TRAIN_GRAD_RTOL for r in grad_rel.values())
+          and peak_gb <= ENS_PEAK_LIMIT_GB)
+    row = {"phase": f"train {spec['arch']}", "arch": cfg.name,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
            "head_dim": cfg.head_dim, "vocab": cfg.vocab_size,
+           "lru_width": cfg.lru_width, "d_inner": cfg.d_inner,
+           "ssm_state": cfg.ssm_state,
            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
            "optstate_dtype": cfg.optstate_dtype, "remat": cfg.remat,
-           "params": n_params, "state_gb": state_gb, **TRAIN,
-           "steps": TRAIN_STEPS,
+           "params": n_params, "state_gb": held_gb,
+           "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+           "microbatches": mbs, "steps": steps_n,
            "train_tasks": "lm.train, one step a task",
            "steps_run": steps, "losses": losses,
            "step_ms_steady": sum(s_["ms"] for s_ in steps[1:])
            / max(1, len(steps) - 1),
-           "launches": launches, "launches_per_step": TRAIN_LAUNCHES,
-           "peak_mem_gb": peak_gb, "eval": eval_out,
-           "decode": {n: dec_out[n] for n in ("served", "params", "tokens")},
-           "vs_ref": {"loss_kernels": loss_k, "loss_ref": loss_r,
+           "launches": launches, "train_launches": train_launches,
+           "launches_per_step": want_step,
+           "peak_mem_gb": peak_gb, "peak_limit_gb": ENS_PEAK_LIMIT_GB,
+           "eval": eval_out,
+           "decode": dec_out and {n: dec_out[n]
+                                  for n in ("served", "params", "tokens")},
+           "vs_ref": {"microbatch": TRAIN["batch"] // mbs,
+                      "loss_kernels": loss_k, "loss_ref": loss_r,
                       "loss_tol": TRAIN_LOSS_TOL, "grad_norm_kernels": norm_k,
                       "grad_norm_ref": norm_r,
                       "grad_rel_frobenius": grad_rel,
@@ -1003,9 +1138,8 @@ def phase_train(dev):
 ENSEMBLE = dict(base="gemma2-2b", arch="gemma2-2b-L4", layers=4, replicas=4,
                 cycles=2, sal_sims=2, sal_iters=2, cores=2, batch=2,
                 seq=1024, microbatches=1, seed=0)
-ENS_TRAIN_LAUNCHES = {"flash_attention": 4 * 2, "flash_attention.wgmma": 4 * 2,
-                      "flash_attention_bwd": 4,
-                      "flash_attention_bwd.wgmma": 4}
+ENS_TRAIN_LAUNCHES = _launches(flash=(ENSEMBLE["layers"],
+                                      ENSEMBLE["microbatches"]))
 ENS_EVAL_LAUNCHES = {"flash_attention": 4, "flash_attention.wgmma": 4}
 SAL_MAX_ITERS = 5   # the loop's own rule stops it after sal_iters
 ENS_STEP_GB = 15.0
@@ -1016,12 +1150,7 @@ ENS_RERUN_RTOL = 1e-3
 def _ensemble_cfg():
     """``ENSEMBLE["arch"]``: the full-width base config at ``layers``
     layers, registered once."""
-    from repro_torch.configs import get_config, register
-    try:
-        return get_config(ENSEMBLE["arch"])
-    except KeyError:
-        return register(get_config(ENSEMBLE["base"]).replace(
-            name=ENSEMBLE["arch"], num_layers=ENSEMBLE["layers"]))
+    return _cut_cfg(ENSEMBLE["arch"], ENSEMBLE["base"], ENSEMBLE["layers"])
 
 
 def _expected_launches(train_steps, evals):
@@ -1068,6 +1197,38 @@ def _run_app(dev, app, ensemble):
     return prof, launches, peak_gb
 
 
+def _re_app(replicas, cycles, train, ensemble, seed, temps):
+    """The RE pattern of tests/test_system.py: ``replicas`` members trained
+    by ``lm.train`` tasks with ``train``'s arguments at their temperatures
+    (learning rates, from ``temps``), and the host exchange after each
+    cycle; ``temp_history`` records the temperatures."""
+    from repro_torch.core import Kernel, ReplicaExchange
+
+    class PBT(ReplicaExchange):
+        def __init__(self):
+            super().__init__(cycles, replicas)
+            self.temps = list(temps)
+            self.temp_history = [list(self.temps)]
+
+        def prepare_replica_for_md(self, r):
+            k = Kernel("lm.train")
+            k.arguments = {**train, "member": r.id, "ensemble": ensemble,
+                           "lr": self.temps[r.id]}
+            return k
+
+        def prepare_exchange(self, replicas_):
+            k = Kernel("re.exchange")     # the host swap: no "device"
+            k.arguments = {"replicas": len(replicas_),
+                           "cycle": replicas_[0].cycle, "temps": self.temps,
+                           "ensemble": ensemble, "seed": seed}
+            return k
+
+        def apply_exchange(self, result, replicas_):
+            self.temps = result["temps"]
+            self.temp_history.append(list(self.temps))
+    return PBT()
+
+
 def _ttc(prof):
     """The paper's TTC decomposition and the run's counts."""
     return {"ttc": prof.ttc, "t_exec": prof.t_exec, "t_data": prof.t_data,
@@ -1097,11 +1258,7 @@ def phase_ensemble(dev):
     run again alone gives its loss, and the peak stays under the limit."""
     import torch
 
-    from repro_torch.core import (
-        Kernel,
-        ReplicaExchange,
-        SimulationAnalysisLoop,
-    )
+    from repro_torch.core import Kernel, SimulationAnalysisLoop
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.plugins import lm
     from repro_torch.plugins.re_exchange import metropolis_swaps
@@ -1117,29 +1274,6 @@ def phase_ensemble(dev):
                  "peak_gb": E["replicas"] * state_gb
                  + E["cores"] * ENS_STEP_GB}
     emit({"phase": "ensemble", "predicted": predicted, "config": E})
-
-    class PBT(ReplicaExchange):
-        def __init__(self):
-            super().__init__(E["cycles"], E["replicas"])
-            self.temps = [3e-4 * 1.5 ** i for i in range(E["replicas"])]
-            self.temp_history = [list(self.temps)]
-
-        def prepare_replica_for_md(self, r):
-            k = Kernel("lm.train")
-            k.arguments = {**train, "member": r.id, "ensemble": "ens_re",
-                           "lr": self.temps[r.id]}
-            return k
-
-        def prepare_exchange(self, replicas):
-            k = Kernel("re.exchange")     # the host swap: no "device"
-            k.arguments = {"replicas": len(replicas),
-                           "cycle": replicas[0].cycle, "temps": self.temps,
-                           "ensemble": "ens_re", "seed": E["seed"]}
-            return k
-
-        def apply_exchange(self, result, replicas):
-            self.temps = result["temps"]
-            self.temp_history.append(list(self.temps))
 
     class TrainUntil(SimulationAnalysisLoop):
         def simulation_stage(self, it, i):
@@ -1166,7 +1300,8 @@ def phase_ensemble(dev):
         return row
 
     # ---- replica exchange
-    app = PBT()
+    app = _re_app(E["replicas"], E["cycles"], train, "ens_re", E["seed"],
+                  [3e-4 * 1.5 ** i for i in range(E["replicas"])])
     prof, launches, peak_gb = _run_app(dev, app, "ens_re")
     members = [lm.STATE_STORE[("ens_re", i)] for i in range(E["replicas"])]
     n_params = sum(p.numel() for p in tree_leaves(members[0]["params"]))
@@ -1247,6 +1382,174 @@ def phase_ensemble(dev):
     if not (ok and sal_ok):
         raise AssertionError(f"ensemble phase failed: {[re_row, sal_row]}")
     return path_launches
+
+
+# fused phase: a FusedEnsemble of FUSED["members"] full-width gemma2-2b
+# members cut to FUSED["layers"] layers (core/ensemble.py: members stacked on
+# a leading axis, one vmapped train step for all, the exchange on the
+# device), FUSED["cycles"] cycles of FUSED["steps"] step at batch 1 of 1024
+# tokens, as tests/test_system.py's RE pattern has 4 members; then the same
+# members and config in task mode (the RE pattern on a 2-slot cuda.h100
+# pilot, as the ensemble phase runs it), then one re.exchange task with
+# device="cuda".  The flash launches of a fused step are one member's
+# (two forward, one backward a layer): the vmap rule folds the members into
+# the kernel's batch.  4 members at 4 layers (gemma2-2b-L4, reckoned 69.5
+# GB) peaked at 76.7 GB on the H100, over the 76 GB limit, so the depth is
+# cut to 2 layers (one local, one global).  The peak is reckoned
+# (PERF.md) at the loss's backward: the
+# members' f32 params and Adam moments (12 bytes a parameter), the tied
+# LM head's f32 gradient (V x d_model, 4 bytes, a member) and four
+# logits-sized f32 temporaries of a member's loss chunk (1024 x V); at the
+# end of the backward: every gradient (16 bytes a parameter in all) and the
+# embedding gather's dense gradient, one more V x d_model a member.
+FUSED = dict(base="gemma2-2b", arch="gemma2-2b-L2", layers=2, members=4,
+             cycles=2, steps=1, batch=1, seq=1024, seed=0)
+
+
+def _fused_reckoning(cfg):
+    F = FUSED
+    n, P = F["members"], cfg.param_count()
+    head = 4 * cfg.vocab_size * cfg.d_model * n / 1e9
+    logits = 4 * F["batch"] * F["seq"] * cfg.vocab_size * n / 1e9
+    at_loss = 12 * P * n / 1e9 + head + 4 * logits
+    at_end = 16 * P * n / 1e9 + head
+    return {"params": P, "state_and_grads_gb": 16 * P * n / 1e9,
+            "head_grad_gb": head, "logits_gb": logits,
+            "at_loss_backward_gb": at_loss, "at_end_of_backward_gb": at_end,
+            "peak_gb": max(at_loss, at_end)}
+
+
+def phase_fused(dev):
+    """FusedEnsemble through ``_build_cycle`` (the reference benchmark's
+    entry, benchmarks/fused_dispatch.py): per cycle the losses,
+    temperatures, accepted pairs, the seconds until the cycle returns its
+    metrics to the host and until the device is idle, the launches;
+    asserts one member's flash launches a step, the temperature multiset,
+    the swaps replayed on the host from the losses and uniforms, finite
+    losses and the peak.  Then task mode and re.exchange on the device."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import FusedEnsemble, Kernel
+    from repro_torch.core.ensemble import (
+        _stack_steps,
+        draw_uniforms,
+        metropolis_swap_device,
+    )
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.plugins.re_exchange import exchange_uniforms
+
+    F = FUSED
+    cfg = _cut_cfg(F["arch"], F["base"], F["layers"])
+    n = F["members"]
+    predicted = _fused_reckoning(cfg)
+    emit({"phase": "fused", "predicted": predicted, "config": F})
+    want = _launches(flash=(F["layers"], F["steps"]))   # one member's
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fe = FusedEnsemble(cfg, n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(F["seed"])
+    t = time.perf_counter()
+    ens = fe.init(gen)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t
+    temps0 = ens["temps"].cpu()
+    shape = ShapeSpec("fused", "train", F["seq"], F["batch"])
+    cyc = fe._build_cycle(F["steps"], shape)
+    data = [SyntheticLM(cfg, shape, seed=i, device=dev) for i in range(n)]
+    cycles, ok = [], True
+    for c in range(F["cycles"]):
+        batches = {k: torch.stack([_stack_steps(d, c * F["steps"],
+                                                F["steps"])[k] for d in data])
+                   for k in ("tokens", "labels")}
+        u = draw_uniforms(n, gen)
+        u_host, temps_before = u.cpu(), ens["temps"].cpu()
+        torch.cuda.synchronize(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        ens, m = cyc(ens, batches, u)
+        return_s = time.perf_counter() - t0
+        torch.cuda.synchronize(dev)
+        total_s = time.perf_counter() - t0
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        new_t, n_acc = metropolis_swap_device(
+            torch.from_numpy(m["losses"]), temps_before, c, u_host)
+        replayed = (np.array_equal(new_t.numpy(), m["temps"])
+                    and int(n_acc) == m["accepted"])
+        kept = sorted(m["temps"].tolist()) == sorted(temps0.tolist())
+        finite = bool(np.isfinite(m["losses"]).all())
+        ok = ok and replayed and kept and finite and launches == want
+        cycles.append({"cycle": c, "losses": m["losses"].tolist(),
+                       "temps": m["temps"].tolist(),
+                       "accepted": m["accepted"], "uniforms": u_host.tolist(),
+                       "return_s": return_s, "total_s": total_s,
+                       "launches": launches, "swaps_replayed": replayed,
+                       "temps_multiset_kept": kept, "finite": finite})
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    steps = ens["members"]["step"].tolist()
+    ok = ok and steps == [F["cycles"] * F["steps"]] * n \
+        and peak_gb <= ENS_PEAK_LIMIT_GB
+    last = cycles[-1]
+    del ens, fe, batches, data
+    _release()
+
+    # the same members and config in task mode, on a 2-slot pilot
+    train = {"arch": cfg.name, "device": str(dev), "steps": F["steps"],
+             "batch": F["batch"], "seq": F["seq"], "microbatches": 1,
+             "seed": F["seed"]}
+    app = _re_app(n, F["cycles"], train, "fused_task", F["seed"],
+                  temps0.tolist())
+    prof, task_launches, task_peak_gb = _run_app(dev, app, "fused_task")
+    _drop_members("fused_task")
+    task_want = {k: v * n * F["cycles"] for k, v in want.items()}
+    task = {**_ttc(prof), "ttc_per_cycle": prof.ttc / F["cycles"],
+            "dispatch_per_cycle": (prof.t_rts_overhead
+                                   + prof.t_pattern_overhead) / F["cycles"],
+            "temps": app.temp_history, "launches": task_launches,
+            "launches_expected": task_want, "peak_mem_gb": task_peak_gb}
+    ok = ok and task_launches == task_want
+
+    # one re.exchange task on the device, from the fused run's last cycle
+    k = Kernel("re.exchange")
+    k.arguments = {"replicas": n, "cycle": F["cycles"],
+                   "temps": last["temps"], "losses": last["losses"],
+                   "device": str(dev), "seed": F["seed"]}
+    x = k.execute()
+    u = exchange_uniforms(n, F["seed"], F["cycles"], dev)
+    new_t, n_acc = metropolis_swap_device(
+        torch.tensor(last["losses"], dtype=torch.float32, device=dev),
+        torch.tensor(last["temps"], dtype=torch.float32, device=dev),
+        F["cycles"], u)
+    x_same = (np.array_equal(np.float32(x["temps"]), new_t.cpu().numpy())
+              and len(x["accepted"]) == int(n_acc))
+    ok = ok and x_same
+    row = {"phase": "fused", "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": cfg.param_count(), "members": n,
+           "cycles": F["cycles"], "steps_per_cycle": F["steps"],
+           "batch": F["batch"], "seq": F["seq"], "init_s": init_s,
+           "fused_cycles": cycles, "launches_per_cycle_expected": want,
+           "peak_mem_gb": peak_gb, "predicted_peak_gb": predicted["peak_gb"],
+           "peak_limit_gb": ENS_PEAK_LIMIT_GB, "member_steps": steps,
+           "task_mode": task,
+           "per_cycle": {"fused_return_s": [c_["return_s"] for c_ in cycles],
+                         "fused_total_s": [c_["total_s"] for c_ in cycles],
+                         "task_ttc_s": task["ttc_per_cycle"],
+                         "task_dispatch_s": task["dispatch_per_cycle"]},
+           "exchange_on_device": {"result": x, "same_as_swap": x_same,
+                                  "uniforms": u.cpu().tolist()},
+           "ok": ok}
+    emit(row)
+    _release()
+    if not ok:
+        raise AssertionError(f"fused phase failed: {row}")
+    path = dict(task_launches)
+    for c_ in cycles:
+        for name, v in c_["launches"].items():
+            path[name] = path.get(name, 0) + v
+    return path
 
 
 # serve_ensemble phase: examples/serve_ensemble.py's application in real
@@ -1784,6 +2087,256 @@ def _selective_scan_long_row(dev, gen):
     return row
 
 
+# Scan backward cases: the train shapes of recurrentgemma-2b (a microbatch
+# of 2 of 1024 tokens, lru_width 2560; x_eff and a f32, as the model gives
+# them) and falcon-mamba-7b (batch 4 of 1024, d_inner 8192, n 16; x, Bm, C
+# bf16 with Bm and C column slices of one x_proj output), a bf16 case and a
+# ragged one each.  The gradients are held by the flash backward's measures
+# (grad_check; BWD_TOL of the gradient's dtype): float32 gradients are the
+# same reverse sums in another order (dA, dD over B * T, dBm and dC over d
+# channels), bf16 ones are rounded once at the end.
+LS_BWD_CASES = [
+    dict(name="train", B=2, T=1024, C=2560, dtype="float32"),
+    dict(name="bf16", B=2, T=1024, C=2560, dtype="bfloat16"),
+    dict(name="ragged", B=3, T=1000, C=1000, dtype="float32"),
+]
+SS_BWD_CASES = [
+    dict(name="train", B=4, T=1024, d=8192, n=16, dtype="bfloat16"),
+    dict(name="f32", B=2, T=512, d=1024, n=16, dtype="float32"),
+    dict(name="ragged", B=2, T=1000, d=1000, n=12, dtype="bfloat16"),
+]
+# past T * d >= 2^31 at B = 1 (the backward's 64-bit row offsets): its last
+# 256 steps' gradients must equal, bitwise, a run on those steps alone from
+# the state the forward kept before them; that run is held against the
+# plain version
+SS_BWD_LONG = dict(name="long_row", B=1, T=2 ** 31 // 8192 + 256, d=8192,
+                   n=16, dtype="bfloat16", tail=256)
+
+
+def _bwd_row(name, c, grads, again, refs, names, dtypes, nbytes, flops,
+             kernel, plain, extra):
+    """Check ``grads`` against ``refs`` and ``again`` bitwise, time
+    ``kernel`` and ``plain``, emit and return the row."""
+    import torch
+    checks = {n: grad_check(g, r, dt) for n, g, r, dt in
+              zip(names, grads, refs, dtypes)}
+    bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
+    ms = device_ms(kernel, 10)
+    host_ms = time_ms(kernel, 10)
+    plain_ms = time_ms(plain, 1)
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = flops / PEAK_FLOPS["float32"]
+    ok = bitwise and all(ch["ok"] for ch in checks.values())
+    row = {"phase": f"kernel {name}", "case": c["name"],
+           "shape": {k: v for k, v in c.items() if k not in ("name",
+                                                             "dtype")},
+           "dtype": c["dtype"],
+           "max_abs_err": max(ch["max_abs_err"] for ch in checks.values()),
+           "checks": checks, "bitwise_equal_calls": bitwise, "ok": ok,
+           "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+           "library_ms": None,
+           "library": "none: no single PyTorch call computes the gradient "
+                      "of the recurrence",
+           "mbytes": nbytes / 1e6, "gflop": flops / 1e9,
+           "bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes", **extra}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"{name} case {c['name']}: {checks}, bitwise "
+                             f"{bitwise}")
+    return row
+
+
+def phase_kernel_linear_scan_bwd(dev):
+    """dx, da, dh0 of the reverse-scan kernel against linear_scan_bwd_ref
+    on the same inputs, the forward kernel's y and random output
+    gradients; bitwise repeats; device time against the bound."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.rglru import linear_scan_bwd_ref
+    from repro_torch.kernels.rglru.ops import (
+        linear_scan_bwd_cuda,
+        linear_scan_cuda,
+    )
+    gen = torch.Generator(device=dev).manual_seed(5)
+    results = {}
+    for c in LS_BWD_CASES:
+        dt = getattr(torch, c["dtype"])
+        B, T, C = c["B"], c["T"], c["C"]
+        x = torch.randn((B, T, C), generator=gen, device=dev).to(dt)
+        a = (0.5 + 0.49 * torch.rand((B, T, C), generator=gen,
+                                     device=dev)).to(dt)
+        h0 = torch.randn((B, C), generator=gen, device=dev)
+        dy = torch.randn((B, T, C), generator=gen, device=dev).to(dt)
+        dh = torch.randn((B, C), generator=gen, device=dev)
+        y, _ = linear_scan_cuda(x, a, h0)
+        args = (x, a, h0, y, dy, dh)
+        before = LAUNCHES["linear_scan_bwd"]
+        grads = linear_scan_bwd_cuda(*args)
+        again = linear_scan_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        if LAUNCHES["linear_scan_bwd"] != before + 2:
+            raise AssertionError("linear_scan_bwd did not count its launches")
+        refs = linear_scan_bwd_ref(x, a, h0, dy, dh)
+        esz = x.element_size()
+        # reads a, dy and h_{t-1} (y, or x to recompute it), writes dx, da;
+        # h0 and dh_last read, dh0 written
+        nbytes = 5 * x.numel() * esz + 3 * h0.numel() * 4
+        flops = (3 if c["dtype"] == "float32" else 5) * x.numel()
+        results[c["name"]] = _bwd_row(
+            "linear_scan_bwd", c, grads, again, refs, ("dx", "da", "dh0"),
+            (c["dtype"], c["dtype"], "float32"), nbytes, flops,
+            lambda: linear_scan_bwd_cuda(*args),
+            lambda: linear_scan_bwd_ref(x, a, h0, dy, dh), {})
+        del x, a, h0, dy, dh, y, args, grads, again, refs
+        torch.cuda.empty_cache()
+    return results
+
+
+def _ss_inputs(c, gen, dev, T=None):
+    """x, dt, A, Bm, C, D, h0 of a selective-scan case (Bm and C column
+    slices of one x_proj-shaped tensor), made in place."""
+    import torch
+    dt_ = getattr(torch, c["dtype"])
+    B, d, n = c["B"], c["d"], c["n"]
+    T = T or c["T"]
+    x = torch.randn((B, T, d), generator=gen, device=dev, dtype=dt_)
+    dt = torch.rand((B, T, d), generator=gen, device=dev).mul_(0.099).add_(
+        1e-3)
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device=dev)[None].repeat(
+        d, 1)
+    xdbc = torch.randn((B, T, DT_RANK + 2 * n), generator=gen, device=dev,
+                       dtype=dt_)
+    Bm, Cc = xdbc[..., DT_RANK:DT_RANK + n], xdbc[..., DT_RANK + n:]
+    D = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+    h0 = torch.randn((B, d, n), generator=gen, device=dev)
+    return x, dt, A, Bm, Cc, D, h0
+
+
+SS_GRADS = ("dx", "ddt", "dA", "dBm", "dC", "dD", "dh0")
+
+
+def phase_kernel_selective_scan_bwd(dev):
+    """The seven gradients of the selective-scan backward kernel against
+    selective_scan_bwd_ref on the same inputs (the forward kernel's
+    checkpoints) and random output gradients; bitwise repeats; device time
+    against the bound and the special-function floor; then the long row."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.mamba import selective_scan_bwd_ref
+    from repro_torch.kernels.mamba.ops import (
+        selective_scan_bwd_cuda,
+        selective_scan_cuda,
+        variant,
+    )
+    gen = torch.Generator(device=dev).manual_seed(6)
+    results = {}
+    for c in SS_BWD_CASES:
+        args = _ss_inputs(c, gen, dev)
+        x = args[0]
+        B, T, d, n = c["B"], c["T"], c["d"], c["n"]
+        dy = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+        dh = torch.randn(args[6].shape, generator=gen, device=dev)
+        _, _, ckpt = selective_scan_cuda(*args, checkpoints=True)
+        before = LAUNCHES["selective_scan_bwd"]
+        grads = selective_scan_bwd_cuda(*args, ckpt, dy, dh)
+        again = selective_scan_bwd_cuda(*args, ckpt, dy, dh)
+        torch.cuda.synchronize()
+        if LAUNCHES["selective_scan_bwd"] != before + 2:
+            raise AssertionError("selective_scan_bwd did not count its "
+                                 "launches")
+        refs = selective_scan_bwd_ref(*args, dy, dh)
+        esz = x.element_size()
+        bc = B * T * n * args[3].element_size()
+        # inputs x, dt, A, Bm, C, D, h0, dy, dh_last read once; outputs dx,
+        # ddt, dA, dBm, dC, dD, dh0 written once (the checkpoints and the
+        # partial sums are the design's, not the function's)
+        nbytes = (2 * x.numel() * esz + 2 * x.numel() * 4 + 4 * bc
+                  + 4 * (2 * d * n + 2 * d) + 4 * 4 * B * d * n)
+        exps = 2 * B * T * d * n        # the recompute's and the reverse's
+        flops = B * T * d * (22 * n + 10)
+        dtypes = (c["dtype"], "float32", "float32", c["dtype"], c["dtype"],
+                  "float32", "float32")
+        results[c["name"]] = _bwd_row(
+            "selective_scan_bwd", c, grads, again, refs, SS_GRADS, dtypes,
+            nbytes, flops,
+            lambda: selective_scan_bwd_cuda(*args, ckpt, dy, dh),
+            lambda: selective_scan_bwd_ref(*args, dy, dh),
+            {"variant": variant(n), "exponentials": exps,
+             "exp_bound_ms": 1e3 * exps / PEAK_EXP,
+             "checkpoint_mbytes": ckpt.numel() * 4 / 1e6})
+        del args, x, dy, dh, ckpt, grads, again, refs
+        torch.cuda.empty_cache()
+    results[SS_BWD_LONG["name"]] = _selective_scan_bwd_long_row(dev, gen)
+    return results
+
+
+def _selective_scan_bwd_long_row(dev, gen):
+    """The backward on a batch row of T * d >= 2^31 elements: the gradients
+    of the last ``tail`` steps (dx, ddt, dBm, dC) must equal, bitwise, a
+    backward of those steps alone from the state the forward kept before
+    them, with the same output gradients; that tail run is held against
+    the plain version."""
+    import torch
+
+    from repro_torch.kernels.mamba import selective_scan_bwd_ref
+    from repro_torch.kernels.mamba.ops import (
+        CKPT_STEPS,
+        selective_scan_bwd_cuda,
+        selective_scan_cuda,
+    )
+    c = SS_BWD_LONG
+    T, tail = c["T"], c["tail"]
+    T0 = T - tail
+    args = _ss_inputs(c, gen, dev)
+    x = args[0]
+    dy = torch.randn(x.shape, generator=gen, device=dev, dtype=x.dtype)
+    dh = torch.randn(args[6].shape, generator=gen, device=dev)
+    y, _, ckpt = selective_scan_cuda(*args, checkpoints=True)
+    del y
+    h_T0 = ckpt[:, T0 // CKPT_STEPS].contiguous()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    full = selective_scan_bwd_cuda(*args, ckpt, dy, dh)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    full_tail = [g[:, T0:].clone() for g in (full[0], full[1], full[3],
+                                             full[4])]
+    del full, ckpt
+    x_, dt_, A, Bm, Cc, D, _ = args
+    tail_args = (x_[:, T0:].contiguous(), dt_[:, T0:].contiguous(), A,
+                 Bm[:, T0:], Cc[:, T0:], D, h_T0)
+    dy_t = dy[:, T0:].contiguous()
+    del args, x, x_, dt_, dy
+    torch.cuda.empty_cache()
+    _, _, ck_t = selective_scan_cuda(*tail_args, checkpoints=True)
+    got = selective_scan_bwd_cuda(*tail_args, ck_t, dy_t, dh)
+    refs = selective_scan_bwd_ref(*tail_args, dy_t, dh)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip((got[0], got[1], got[3], got[4]), full_tail))
+    dtypes = (c["dtype"], "float32", "float32", c["dtype"], c["dtype"],
+              "float32", "float32")
+    checks = {n: grad_check(g, r, dt) for n, g, r, dt in
+              zip(SS_GRADS, got, refs, dtypes)}
+    ok = bitwise and all(ch["ok"] for ch in checks.values())
+    row = {"phase": "kernel selective_scan_bwd", "case": c["name"],
+           "shape": {k: c[k] for k in ("B", "T", "d", "n")},
+           "row_elements": T * c["d"], "dtype": c["dtype"],
+           "tail_bitwise_equal": bitwise, "tail_checks": checks, "ok": ok,
+           "ms": ms}
+    emit(row)
+    del tail_args, dy_t, ck_t, got, refs, full_tail, h_T0, dh
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"selective_scan_bwd long row: {row}")
+    return row
+
+
 def _gmm_sizes(c, gen, dev):
     import torch
     if "sizes" in c:
@@ -1929,7 +2482,8 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.models import init_params
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.transformer import lm_logits
     from repro_torch.serve import (
         BatchedServer,
         build_prefill_step,
@@ -1937,7 +2491,8 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
     )
 
     cfg = get_config(arch).replace(param_dtype="bfloat16")
-    B, S0, NEW, NREQ = 4, 1024, 16, 8
+    B, S0, NEW, NREQ = (SERVE_SHAPE[k] for k in ("batch", "prompt", "new",
+                                                 "requests"))
     max_len = S0 + NEW + 1
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
@@ -1983,29 +2538,49 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
                                   for t in tokens.values()):
         raise AssertionError(f"bad serve output: {tokens}")
 
-    # one prefill of the first wave, kernels against plain versions
+    # one prefill of the first wave, kernels against plain versions: the
+    # prefill step's own two lines (forward, then the last position's
+    # logits), keeping every position's final hidden states
     wave = torch.stack([torch.as_tensor(r.prompt) for r in
                         _requests(cfg, B, S0, NEW)]).to(dev)
+
+    def prefill(impl=None, cache=True):
+        out = forward(cfg, params, wave, cache_len=max_len if cache else None,
+                      impl=impl)
+        return ({"logits": lm_logits(cfg, params, out["h"][:, -1:]),
+                 "cache": out["cache"]}, out["h"])
     with torch.inference_mode():
         pre_k = build_prefill_step(cfg, cache_len=max_len)
-        pre_r = build_prefill_step(cfg, cache_len=max_len, impl="ref")
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out_r = pre_r(params, {"tokens": wave})
+        out_r, h_r = prefill("ref")
         torch.cuda.synchronize()
         prefill_ref_ms = 1e3 * (time.perf_counter() - t)
         lr = out_r["logits"]
         ref_tokens = _greedy(build_serve_step(cfg, impl="ref"), params,
                              out_r, S0, NEW, dev)
         del out_r
-        lk = pre_k(params, {"tokens": wave})["logits"]
+        out_k, h_k = prefill()
+        lk = out_k["logits"]
+        del out_k
         logit_err = float((lk - lr).abs().max())
-        control = next(n for n in LOGIT_CONTROL if n in per_prefill)
-        with _off_by_one(control):
-            lc = pre_k(params, {"tokens": wave})["logits"]
-        control_err = float((lc - lr).abs().max())
-        del lc
-        finite = bool(torch.isfinite(lk).all())
+        h_rel = rel_fro(h_k, h_r)
+        h_err = float((h_k.float() - h_r.float()).abs().max())
+        finite = bool(torch.isfinite(lk).all()
+                      and torch.isfinite(h_k.float()).all())
+        del h_k
+        controls = {}
+        for control in (n for n in LOGIT_CONTROL if n in per_prefill):
+            with _off_by_one(control):
+                out_c, h_c = prefill(cache=False)
+            controls[control] = {
+                "inputs_delayed": LOGIT_CONTROL[control],
+                "h_rel_frobenius": rel_fro(h_c, h_r),
+                "last_logit_max_abs_err":
+                    float((out_c["logits"] - lr).abs().max())}
+            del out_c, h_c
+        h_ref_max = float(h_r.float().abs().max())
+        del h_r
         top2 = lk[:, 0].topk(2, dim=-1).values
         argmax_same = float((lk[:, 0].argmax(-1) == lr[:, 0].argmax(-1))
                             .float().mean())
@@ -2024,6 +2599,7 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
             state["pos"] += 1
         decode_ms = time_ms(step, NEW - 2)
     tol = LOGIT_TOL
+    limit = PREFILL_H_LIMIT[arch]
     row = {"phase": f"serve {arch}", "arch": cfg.name, "dtype": cfg.dtype,
            "param_dtype": cfg.param_dtype, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
@@ -2043,12 +2619,17 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
            "wall_s": wall, "tokens_per_s": ntok / wall,
            "prefill_ms": prefill_ms, "prefill_ref_ms": prefill_ref_ms,
            "decode_step_ms": decode_ms,
+           "prefill_h_rel_frobenius": h_rel, "prefill_h_limit": limit,
+           "prefill_h_max_abs_err": h_err, "prefill_h_ref_max_abs": h_ref_max,
+           "prefill_h_compared": "final hidden states of every position of "
+                                 "the first wave, kernels against "
+                                 "impl='ref'",
+           "controls": controls,
+           "controls_compared": "the kernels' prefill with the named "
+                                "wrapper's arguments delayed one position, "
+                                "against impl='ref'",
            "prefill_logit_max_abs_err": logit_err, "logit_tol": tol,
            "prefill_logit_ref_max_abs": float(lr.abs().max()),
-           "prefill_logit_control_err": control_err,
-           "prefill_logit_control": f"{control} with its arguments "
-                                    f"{LOGIT_CONTROL[control]} delayed one "
-                                    "position, kernels, against impl='ref'",
            "greedy_token_agreement": same / (B * NEW),
            "prefill_argmax_agreement": argmax_same,
            "prefill_top2_gap_min": float((top2[:, 0] - top2[:, 1]).min()),
@@ -2058,9 +2639,15 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
                               "prefill's cache",
            "peak_mem_gb": peak_gb}
     emit(row)
-    if not finite or logit_err > tol:
-        raise AssertionError(f"{arch} prefill logits: kernels vs ref "
-                             f"{logit_err} > {tol} (finite={finite})")
+    if not finite or logit_err > tol or h_rel > limit:
+        raise AssertionError(f"{arch} prefill: hidden states {h_rel} "
+                             f"(limit {limit}), last logits {logit_err} "
+                             f"(tol {tol}), finite={finite}")
+    blind = [n for n, c in controls.items() if c["h_rel_frobenius"] <= limit]
+    if not controls or blind:
+        raise AssertionError(f"{arch} prefill: the controls {blind or 'none'}"
+                             f" do not read above the limit {limit}: "
+                             f"{controls}")
     return row
 
 
@@ -2180,19 +2767,25 @@ def main() -> int:
                  "linear_scan": phase_kernel_linear_scan(dev),
                  "selective_scan": phase_kernel_selective_scan(
                      dev, baselines.get("selective_scan")),
-                 "gmm": phase_kernel_gmm(dev, baselines.get("gmm"))}
+                 "gmm": phase_kernel_gmm(dev, baselines.get("gmm")),
+                 "linear_scan_bwd": phase_kernel_linear_scan_bwd(dev),
+                 "selective_scan_bwd": phase_kernel_selective_scan_bwd(dev)}
         _release()
     cases["flash_attention_bwd"] = phase_kernel_flash_attention_bwd(
         dev, baselines.get("flash_attention_bwd"))
     _release()
     launches = {name: {} for name in KERNELS}
-    row = phase_train(dev)
-    for name, n in row["launches"].items():
-        if n and name in launches:
-            launches[name][row["phase"]] = n
+    for spec in TRAIN_PHASES:
+        row = phase_train(dev, spec)
+        for name, n in row["launches"].items():
+            if name in launches:
+                launches[name][row["phase"]] = n
     for name, n in phase_ensemble(dev).items():
         if name in launches:
             launches[name]["ensemble"] = n
+    for name, n in phase_fused(dev).items():
+        if name in launches:
+            launches[name]["fused"] = n
     for name, n in phase_serve_ensemble(dev).items():
         if name in launches:
             launches[name]["serve_ensemble"] = n

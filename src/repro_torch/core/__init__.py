@@ -1,6 +1,6 @@
-"""Ensemble toolkit public API (own copy of ``repro.core``: the same names,
-except ``FusedEnsemble``, whose member steps are vmapped JAX and wait for
-ROADMAP A4).
+"""Ensemble toolkit public API (own copy of ``repro.core``: the same names).
+``FusedEnsemble`` runs a homogeneous replica-exchange population as one
+vmapped program on one device (``core/ensemble.py``).
 
 Two API generations live here:
 
@@ -51,6 +51,7 @@ legacy hook API                       PST equivalent
 ``SingleClusterEnvironment.run(p)``   ``AppManager(pilot).run(pipelines)``
 ====================================  =====================================
 """
+from repro_torch.core.ensemble import FusedEnsemble  # noqa: F401
 from repro_torch.core.execution_plugin import (  # noqa: F401
     BaseExecutionPlugin,
     get_plugin,

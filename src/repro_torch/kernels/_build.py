@@ -32,7 +32,9 @@ SOURCES: Dict[str, str] = {
     "flash_attention_fwd": "flash_attention/csrc/flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention/csrc/flash_attention_bwd.cu",
     "linear_scan": "rglru/csrc/linear_scan.cu",
+    "linear_scan_bwd": "rglru/csrc/linear_scan_bwd.cu",
     "selective_scan": "mamba/csrc/selective_scan.cu",
+    "selective_scan_bwd": "mamba/csrc/selective_scan_bwd.cu",
     "gmm": "moe_gmm/csrc/gmm.cu",
 }
 

@@ -7,11 +7,14 @@ when ``impl="ref"`` is passed explicitly.  Nothing falls back: a CUDA input
 the kernels do not take raises.
 
 When autograd records the call (grad mode on, q, k or v requiring grad),
-``flash_attention`` runs through ``FlashAttention``, an
-``autograd.Function`` that saves q, k, v, o and the forward's log-sum-exp
-and takes dq, dk, dv from the backward kernels (on the CPU, or with
-``impl="ref"``: from ``attention_fwd_ref`` and ``attention_bwd_ref``, the
-same formula).  Otherwise the forward runs alone, without lse.
+or q, k, v come wrapped by ``torch.func.vmap``, ``flash_attention`` runs
+through ``FlashAttention``, an ``autograd.Function`` that saves q, k, v, o
+and the forward's log-sum-exp and takes dq, dk, dv from the backward
+kernels (on the CPU, or with ``impl="ref"``: from ``attention_fwd_ref`` and
+``attention_bwd_ref``, the same formula).  Otherwise the forward runs
+alone, without lse.  Its ``vmap`` rule folds the member axis into the
+kernels' batch, (N, B, S, H, D) -> (N * B, S, H, D), segment ids likewise:
+one launch for all members, forward and backward.
 
 Which kernel a launch takes is fixed by dtype and head dim (``variant``):
 bf16 with D in 64, 128, 256 runs the wgmma/TMA kernel, bf16 with D in 16,
@@ -32,7 +35,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import count_launch, grad_required
+from repro_torch.kernels import (
+    count_launch,
+    fold_members,
+    grad_required,
+    transformed,
+    unfold_members,
+)
 from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_ref,
     attention_fwd_ref,
@@ -64,39 +73,56 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``impl``: None (the tensor's device decides) or "ref".
     """
     kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
-              q_offset=q_offset, seg_q=seg_q, seg_kv=seg_kv)
+              q_offset=q_offset)
     if impl not in (None, "ref"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if (seg_q is None) != (seg_kv is None):
         raise ValueError("pass both seg_q and seg_kv, or neither")
-    if grad_required(q, k, v):
-        return FlashAttention.apply(q, k, v, impl, kw)
-    if impl == "ref" or q.device.type == "cpu":
-        return attention_ref(q, k, v, **kw)
-    return flash_attention_cuda(q, k, v, **kw)
+    plain = impl == "ref" or q.device.type == "cpu"
+    if grad_required(q, k, v) or transformed(q, k, v, seg_q, seg_kv):
+        return FlashAttention.apply(q, k, v, seg_q, seg_kv, plain, kw)[0]
+    if plain:
+        return attention_ref(q, k, v, seg_q=seg_q, seg_kv=seg_kv, **kw)
+    return flash_attention_cuda(q, k, v, seg_q=seg_q, seg_kv=seg_kv, **kw)
 
 
 class FlashAttention(torch.autograd.Function):
-    """o = attention(q, k, v); saves q, k, v, o and lse for the backward.
-    ``kw``: the masks' arguments of ``flash_attention``."""
+    """(o, lse) = attention(q, k, v); saves q, k, v, o and lse for the
+    backward.  ``plain``: the plain versions instead of the kernels;
+    ``kw``: the masks' scalar arguments of ``flash_attention``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, impl, kw):
-        plain = impl == "ref" or q.device.type == "cpu"
+    def forward(q, k, v, seg_q, seg_kv, plain, kw):
         if plain:
-            o, lse = attention_fwd_ref(q, k, v, **kw)
-        else:
-            o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.plain, ctx.kw = plain, kw
-        return o
+            return attention_fwd_ref(q, k, v, seg_q=seg_q, seg_kv=seg_kv,
+                                     **kw)
+        return flash_attention_cuda(q, k, v, seg_q=seg_q, seg_kv=seg_kv,
+                                    return_lse=True, **kw)
 
     @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+    def setup_context(ctx, inputs, output):
+        q, k, v, seg_q, seg_kv, plain, kw = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse, seg_q, seg_kv)
+        ctx.plain, ctx.kw = plain, kw
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse, seg_q, seg_kv = ctx.saved_tensors
         bwd = attention_bwd_ref if ctx.plain else flash_attention_bwd_cuda
-        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), **ctx.kw)
-        return dq, dk, dv, None, None
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), seg_q=seg_q,
+                         seg_kv=seg_kv, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, seg_q, seg_kv, plain, kw):
+        """Fold the member axis into the batch: one launch for all."""
+        n = info.batch_size
+        o, lse = FlashAttention.apply(
+            *(fold_members(t, d, n) for t, d in
+              zip((q, k, v, seg_q, seg_kv), in_dims[:5])), plain, kw)
+        return (unfold_members(o, n), unfold_members(lse, n)), (0, 0)
 
 
 def _check_segments(seg_q, seg_kv, B, Sq, Sk) -> None:

@@ -54,6 +54,12 @@
 //    follows all of a batch's loads: a guarded load compiles to a branch,
 //    and a bf16 conversion inside it waits for the load, one memory
 //    latency per step.
+//  * For the backward (selective_scan_bwd.cu), the entry selective_scan_ckpt
+//    also writes the states before every ck-th step (ck = 16, a multiple of
+//    kU) to ckpt (B, ceil(T / ck), d, n); the backward recomputes the
+//    states between them with the same arithmetic.  The write is compiled
+//    only into the instantiations that take it (template kCk), so the
+//    serving instantiations are the kernel as it was.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -80,7 +86,8 @@ static_assert(kTT * 4 % kThreads == 0, "staging splits evenly for NP >= 4");
 struct Args {
   const void *x, *dt, *A, *Bm, *C, *D, *h0;
   void *y, *h_last;
-  int B, T, d, n;
+  float* ckpt;                        // null: no checkpoints
+  int B, T, d, n, ck;
   long long sb_b, sb_t, sc_b, sc_t;   // element strides of Bm and C
 };
 
@@ -135,13 +142,14 @@ __device__ __forceinline__ void ld_row(const float* row, float (&v)[NP]) {
   }
 }
 
-template <typename TX, typename TB, int NP, typename Off>
+template <typename TX, typename TB, int NP, typename Off, bool kCk>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 selective_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
                       const float* __restrict__ A, const TB* __restrict__ Bm,
                       const TB* __restrict__ Cm, const float* __restrict__ Dv,
                       const float* __restrict__ h0, TX* __restrict__ y,
-                      float* __restrict__ h_last, int T_, int d, int n,
+                      float* __restrict__ h_last,
+                      float* __restrict__ ckpt, int T_, int d, int n, int ck,
                       long long sb_b, long long sb_t, long long sc_b,
                       long long sc_t) {
   static_assert(NP % 4 == 0, "rows of whole float4s");
@@ -194,6 +202,13 @@ selective_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
     __syncthreads();
 
     for (int u0 = 0; u0 < kTT && t0 + u0 < T_; u0 += kU) {
+      if (kCk && live && (t0 + u0) % ck == 0) {
+        const int nck = (T_ + ck - 1) / ck;
+        float* cp = ckpt + (((size_t)b * nck + (t0 + u0) / ck) * d + chl) * n;
+#pragma unroll
+        for (int i = 0; i < NP; ++i)
+          if (i < n) cp[i] = h[i];
+      }
       float xn[kU], dn[kU];
       load_batch<Off>(xp, dtp, t0 + u0 + kU, T_, d, live, xn, dn);
       float yv[kU];   // C . h of each step, stored after the batch
@@ -234,31 +249,37 @@ selective_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
   }
 }
 
-template <typename TX, typename TB, int NP, typename Off>
+template <typename TX, typename TB, int NP, typename Off, bool kCk>
 int launch(const Args& a, cudaStream_t stream) {
   const dim3 grid((a.d + kThreads - 1) / kThreads, a.B);
-  selective_scan_kernel<TX, TB, NP, Off><<<grid, kThreads, 0, stream>>>(
+  selective_scan_kernel<TX, TB, NP, Off, kCk><<<grid, kThreads, 0, stream>>>(
       static_cast<const TX*>(a.x), static_cast<const float*>(a.dt),
       static_cast<const float*>(a.A), static_cast<const TB*>(a.Bm),
       static_cast<const TB*>(a.C), static_cast<const float*>(a.D),
       static_cast<const float*>(a.h0), static_cast<TX*>(a.y),
-      static_cast<float*>(a.h_last), a.T, a.d, a.n, a.sb_b, a.sb_t, a.sc_b,
-      a.sc_t);
+      static_cast<float*>(a.h_last), a.ckpt, a.T, a.d, a.n, a.ck, a.sb_b,
+      a.sb_t, a.sc_b, a.sc_t);
   return (int)cudaGetLastError();
 }
 
-template <typename TX, typename TB, int NP>
+template <typename TX, typename TB, int NP, bool kCk>
 int launch_off(const Args& a, cudaStream_t stream) {
   if ((long long)a.T * a.d < (1ll << 31))
-    return launch<TX, TB, NP, uint32_t>(a, stream);
-  return launch<TX, TB, NP, uint64_t>(a, stream);
+    return launch<TX, TB, NP, uint32_t, kCk>(a, stream);
+  return launch<TX, TB, NP, uint64_t, kCk>(a, stream);
+}
+
+template <typename TX, typename TB, int NP>
+int launch_ck(const Args& a, cudaStream_t stream) {
+  if (a.ckpt != nullptr) return launch_off<TX, TB, NP, true>(a, stream);
+  return launch_off<TX, TB, NP, false>(a, stream);
 }
 
 template <typename TX, typename TB>
 int launch_np(const Args& a, cudaStream_t stream) {
-  if (a.n <= 4) return launch_off<TX, TB, 4>(a, stream);
-  if (a.n <= 8) return launch_off<TX, TB, 8>(a, stream);
-  if (a.n <= 16) return launch_off<TX, TB, 16>(a, stream);
+  if (a.n <= 4) return launch_ck<TX, TB, 4>(a, stream);
+  if (a.n <= 8) return launch_ck<TX, TB, 8>(a, stream);
+  if (a.n <= 16) return launch_ck<TX, TB, 16>(a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -279,20 +300,35 @@ extern "C" {
 // strides (sb_b, sb_t) and (sc_b, sc_t) and a contiguous last axis;
 // 1 <= n <= 16, T >= 1.  Launches on `stream`, does not
 // synchronise, and returns the cudaError_t of the launch (0 on success).
+// selective_scan_ckpt also writes the states before steps 0, ck, 2 ck, ...
+// to ckpt (B, ceil(T / ck), d, n) float32 contiguous (null: none); ck is a
+// positive multiple of 8.  selective_scan writes none.
+int selective_scan_ckpt(const void* x, const void* dt, const void* A,
+                        const void* Bm, const void* C, const void* D,
+                        const void* h0, void* y, void* h_last, void* ckpt,
+                        int x_dtype, int bc_dtype, int B, int T, int d, int n,
+                        int ck, long long sb_b, long long sb_t,
+                        long long sc_b, long long sc_t, void* stream) {
+  if (B <= 0 || B > 65535 || d <= 0 || T < 1 || n < 1 || n > 16 || ck <= 0 ||
+      ck % kU)
+    return (int)cudaErrorInvalidValue;
+  const Args a{x, dt, A, Bm, C, D, h0, y, h_last, static_cast<float*>(ckpt),
+               B, T, d, n, ck, sb_b, sb_t, sc_b, sc_t};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0) return launch_bc<float>(bc_dtype, a, s);
+  if (x_dtype == 1) return launch_bc<__nv_bfloat16>(bc_dtype, a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 int selective_scan(const void* x, const void* dt, const void* A,
                    const void* Bm, const void* C, const void* D,
                    const void* h0, void* y, void* h_last, int x_dtype,
                    int bc_dtype, int B, int T, int d, int n, long long sb_b,
                    long long sb_t, long long sc_b, long long sc_t,
                    void* stream) {
-  if (B <= 0 || B > 65535 || d <= 0 || T < 1 || n < 1 || n > 16)
-    return (int)cudaErrorInvalidValue;
-  const Args a{x, dt, A, Bm, C, D, h0, y, h_last, B, T, d, n,
-               sb_b, sb_t, sc_b, sc_t};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0) return launch_bc<float>(bc_dtype, a, s);
-  if (x_dtype == 1) return launch_bc<__nv_bfloat16>(bc_dtype, a, s);
-  return (int)cudaErrorInvalidValue;
+  return selective_scan_ckpt(x, dt, A, Bm, C, D, h0, y, h_last, nullptr,
+                             x_dtype, bc_dtype, B, T, d, n, kU, sb_b, sb_t,
+                             sc_b, sc_t, stream);
 }
 
 const char* selective_scan_error_string(int err) {

@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import count_launch, grad_required
+from repro_torch.kernels import count_launch, grad_required, transformed
 from repro_torch.kernels.moe_gmm.ref import gmm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,10 +52,11 @@ def gmm(x, w, group_sizes, *, impl: Optional[str] = None):
         raise ValueError(f"unknown moe impl {impl!r}")
     if impl == "ref" or x.device.type == "cpu":
         return gmm_ref(x, w, group_sizes)
-    if grad_required(x, w):
+    if grad_required(x, w) or transformed(x, w, group_sizes):
         raise NotImplementedError(
-            "gmm has no backward kernel yet (ROADMAP B2): training through "
-            "it on CUDA waits for it; impl='ref' differentiates")
+            "gmm has no backward kernel and no vmap rule yet (ROADMAP B2): "
+            "training through it on CUDA, or vmapping it, waits for them; "
+            "impl='ref' differentiates")
     return gmm_cuda(x, w, group_sizes)
 
 

@@ -1,9 +1,18 @@
-"""Public RG-LRU linear-scan entry point with device dispatch.
+"""Public RG-LRU linear-scan entry point with device dispatch, and its
+gradient.
 
 A CPU tensor goes to the plain PyTorch version (``ref``).  A CUDA tensor goes
 to the hand-written Hopper kernel (``csrc/linear_scan.cu``), or to ``ref``
 only when ``impl="ref"`` is passed explicitly.  Nothing falls back: a CUDA
 input the kernel does not take raises.
+
+When autograd records the call (or the inputs come wrapped by
+``torch.func.vmap``) ``linear_scan`` runs through ``LinearScan``, an
+``autograd.Function`` whose backward is the reverse-scan kernel
+(``csrc/linear_scan_bwd.cu``; ``linear_scan_bwd_ref`` on the CPU or with
+``impl="ref"``).  ``LAUNCHES["linear_scan_bwd"]`` counts its launches.  Its
+``vmap`` rule folds the member axis into the batch (the scan has no
+weights): one launch for all members.
 """
 from __future__ import annotations
 
@@ -12,8 +21,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import count_launch, grad_required
-from repro_torch.kernels.rglru.ref import linear_scan_ref
+from repro_torch.kernels import (
+    count_launch,
+    fold_members,
+    grad_required,
+    transformed,
+    unfold_members,
+)
+from repro_torch.kernels.rglru.ref import linear_scan_bwd_ref, linear_scan_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -26,13 +41,49 @@ def linear_scan(x, a, h0, *, impl: Optional[str] = None):
     """
     if impl not in (None, "ref"):
         raise ValueError(f"unknown linear-scan impl {impl!r}")
-    if impl == "ref" or x.device.type == "cpu":
+    plain = impl == "ref" or x.device.type == "cpu"
+    if grad_required(x, a, h0) or transformed(x, a, h0):
+        return LinearScan.apply(x, a, h0, plain)
+    if plain:
         return linear_scan_ref(x, a, h0)
-    if grad_required(x, a, h0):
-        raise NotImplementedError(
-            "linear_scan has no backward kernel yet (ROADMAP B3): training "
-            "through it on CUDA waits for it; impl='ref' differentiates")
     return linear_scan_cuda(x, a, h0)
+
+
+class LinearScan(torch.autograd.Function):
+    """(y, h_last) = linear_scan(x, a, h0); saves x, a, h0 and y.  The
+    backward kernel reads h_{t-1} from y for float32 inputs and recomputes
+    the states in float32 for bfloat16 ones.  ``plain``: the plain
+    versions instead of the kernels."""
+
+    @staticmethod
+    def forward(x, a, h0, plain):
+        if plain:
+            return linear_scan_ref(x, a, h0)
+        return linear_scan_cuda(x, a, h0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, a, h0, plain = inputs
+        ctx.save_for_backward(x, a, h0, output[0])
+        ctx.plain = plain
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, a, h0, y = ctx.saved_tensors
+        if ctx.plain:
+            dx, da, dh0 = linear_scan_bwd_ref(x, a, h0, dy, dh_last)
+        else:
+            dx, da, dh0 = linear_scan_bwd_cuda(x, a, h0, y, dy.contiguous(),
+                                               dh_last.contiguous())
+        return dx, da, dh0, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, a, h0, plain):
+        """Fold the member axis into the batch: one launch for all."""
+        n = info.batch_size
+        y, h = LinearScan.apply(*(fold_members(t, d, n) for t, d in
+                                  zip((x, a, h0), in_dims[:3])), plain)
+        return (unfold_members(y, n), unfold_members(h, n)), (0, 0)
 
 
 def check_inputs(x, a, h0) -> None:
@@ -80,14 +131,65 @@ def linear_scan_cuda(x, a, h0):
     return y, h_last
 
 
-def _library():
+def linear_scan_bwd_cuda(x, a, h0, y, dy, dh_last):
+    """Launch the reverse-scan kernel on ``torch.cuda.current_stream()``:
+    (dx, da, dh0) from the forward's inputs, its output y and the output
+    gradients dy (x's dtype) and dh_last (float32)."""
+    for name, t in (("x", x), ("a", a), ("h0", h0), ("y", y), ("dy", dy),
+                    ("dh_last", dh_last)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}; the kernel needs CUDA")
+        if t.device != x.device:
+            raise ValueError("all inputs must be on one device")
+    check_inputs(x, a, h0)
+    for name, t, dtype in (("y", y, x.dtype), ("dy", dy, x.dtype),
+                           ("dh_last", dh_last, torch.float32)):
+        want = h0.shape if name == "dh_last" else x.shape
+        if t.shape != want or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {tuple(want)} "
+                             f"{dtype}, got {tuple(t.shape)} {t.dtype}")
+    B, T, C = x.shape
+    dx, da = torch.empty_like(x), torch.empty_like(a)
+    if B * C == 0 or T == 0:
+        return dx, da, dh_last.clone()
+    dh0 = torch.empty_like(h0)
+    # bf16 outputs are rounded: the kernel's first pass writes the f32
+    # states here, and the reverse pass reads h_{t-1} from them
+    hs = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
+          if x.dtype != torch.float32 else None)
+    lib = _library("linear_scan_bwd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.linear_scan_bwd(
+            x.data_ptr(), a.data_ptr(), h0.data_ptr(), y.data_ptr(),
+            dy.data_ptr(), dh_last.data_ptr(),
+            None if hs is None else hs.data_ptr(), dx.data_ptr(),
+            da.data_ptr(), dh0.data_ptr(), _DTYPES[x.dtype], B, T, C, stream)
+    if err:
+        msg = lib.linear_scan_bwd_error_string(err).decode()
+        raise RuntimeError(f"linear_scan_bwd launch failed: {msg} ({err})")
+    count_launch("linear_scan_bwd")
+    return dx, da, dh0
+
+
+_ARGTYPES = {   # library: its launch entry's pointer and int arguments
+    "linear_scan": (5, 4),         # x a h0 y h_last; dtype B T C
+    "linear_scan_bwd": (10, 4),    # x a h0 y dy dh_last hs dx da dh0; ...
+}
+
+
+def _library(name: str = "linear_scan"):
+    """The loaded library ``name`` (linear_scan or linear_scan_bwd), its C
+    entries typed."""
     from repro_torch.kernels import _build
-    lib = _build.load("linear_scan")
-    fn = lib.linear_scan
+    lib = _build.load(name)
+    fn = getattr(lib, name)
     if fn.argtypes is None:   # typed last: a thread that sees it sees all
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [i32]
+        err.restype = ctypes.c_char_p
         fn.restype = i32
-        lib.linear_scan_error_string.argtypes = [i32]
-        lib.linear_scan_error_string.restype = ctypes.c_char_p
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        n_ptr, n_int = _ARGTYPES[name]
+        fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
     return lib

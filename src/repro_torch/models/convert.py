@@ -127,3 +127,53 @@ def train_state_to_flat(state, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     flat["opt/count"] = state["opt"]["count"].detach().cpu()
     flat["step"] = state["step"].detach().cpu()
     return flat
+
+
+def ensemble_state_from_numpy(flat: Flat, cfg: ModelConfig, device="cpu"):
+    """A JAX ``FusedEnsemble`` state's flat key paths (``members/...``: a
+    train state's leaves, each with a leading member axis; ``temps``;
+    ``cycle``) -> the port's: members stacked on a leading axis of every
+    leaf (``core.ensemble.FusedEnsemble``'s layout)."""
+    members = {k[len("members/"):]: v for k, v in flat.items()
+               if k.startswith("members/")}
+    n = len(next(iter(members.values())))
+    states = [train_state_from_numpy({k: v[i] for k, v in members.items()},
+                                     cfg, "cpu") for i in range(n)]
+    return {"members": _stack(states, device),
+            "temps": _to_tensor(flat["temps"], device),
+            "cycle": _to_tensor(flat["cycle"], device)}
+
+
+def ensemble_state_to_flat(state, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The port's ensemble state -> the JAX package's flat key paths, as
+    host tensors in their own dtypes (each member leaf (N, ...))."""
+    members = state["members"]
+    n = members["step"].shape[0]
+    per = [train_state_to_flat({"params": _index(members["params"], i),
+                                "opt": {"m": _index(members["opt"]["m"], i),
+                                        "v": _index(members["opt"]["v"], i),
+                                        "count": members["opt"]["count"][i]},
+                                "step": members["step"][i]}, cfg)
+           for i in range(n)]
+    flat = {f"members/{k}": torch.stack([p[k] for p in per]) for k in per[0]}
+    flat["temps"] = state["temps"].detach().cpu()
+    flat["cycle"] = state["cycle"].detach().cpu()
+    return flat
+
+
+def _stack(trees, device):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees], device) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack([t[i] for t in trees], device)
+                           for i in range(len(first)))
+    return torch.stack(trees).to(device)
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_index(v, i) for v in tree)
+    return tree[i]

@@ -16,11 +16,11 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
+from repro_torch.models.remat import remat as _remat
 
 Params = Dict[str, Any]
 Cache = List[Params]
@@ -224,8 +224,8 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     (``flash_attention``, ``linear_scan``, ``selective_scan``, ``gmm``):
     None (the tensors' device decides) or "ref" (the plain versions).
     ``remat``: recompute each block in the backward pass instead of keeping
-    its activations (``torch.utils.checkpoint``, non-reentrant), as the JAX
-    package's ``remat="full"`` saves nothing inside a block.
+    its activations (``models.remat``, which ``torch.func.vmap`` reaches),
+    as the JAX package's ``remat="full"`` saves nothing inside a block.
     """
     if remat and cache_len is not None:
         raise ValueError("remat is for training; prefill collects a cache")
@@ -240,14 +240,14 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     for i, bp in enumerate(params["layers"]):
         kind = cfg.layer_kind(i)
         if remat:
-            def block(hh, bp=bp, kind=kind):
+            def block(hh, bp, positions, seg_ids, kind=kind):
                 out, a, _ = forward_block(cfg, bp, hh, kind,
                                           positions=positions,
                                           seg_ids=seg_ids, cache_len=None,
                                           impl=impl)
                 return out, torch.as_tensor(a, dtype=torch.float32,
                                             device=out.device)
-            h, a = checkpoint(block, h, use_reentrant=False)
+            h, a = _remat(block, h, bp, positions, seg_ids)
             c = None
         else:
             h, a, c = forward_block(cfg, bp, h, kind, positions=positions,

@@ -5,12 +5,15 @@ kernel gathers member losses and proposes even/odd neighbor swaps with a
 Metropolis criterion — the standard parallel-tempering move applied to the
 hyperparameter dimension (population-based training, RE-style).
 
-Placement: the swap runs on the host (numpy), as the JAX package's
-default path does.  Its on-device path (``args["device"]`` set: the swap
-computed by ``metropolis_swap_device`` on the task's submesh) waits for
-ROADMAP A4 and raises.  ``device`` here means "swap on the device"; it is
-not the torch device that the port's ``lm.*`` kernels take, so do not pass
-it to this kernel.
+Placement: by default the swap runs on the host (numpy).  With
+``args["device"]`` set, the swap decision is computed by
+``metropolis_swap_device`` on a torch device: a string names it ("cpu",
+"cuda", "cuda:0"), and ``True`` means the port's default device
+(``flags.resolve_device(None)``, cuda; it raises without one).  The
+uniforms come from a ``torch.Generator`` on that device seeded from
+(seed, cycle); the decision comes back to the host, which applies it to the
+float64 temperatures.  A mesh-aware pilot's ``ctx["submesh"]`` (the JAX
+package places the swap on it) is not ported: ROADMAP A9.
 
 Staging: under a ``repro_torch.staging`` pilot the member traffic arrives staged
 instead of passed by value — bulk member fields (trajectories, states) are
@@ -52,12 +55,43 @@ def metropolis_swaps(losses, temps, cycle: int, seed: int = 0):
     return temps, accepted
 
 
-def _device_swaps(losses, temps, cycle: int, seed: int, submesh):
-    """On-device swap on the exchange task's granted submesh: waits for the
-    port of ``metropolis_swap_device`` (ROADMAP A4)."""
-    raise NotImplementedError(
-        "re.exchange on the device (args['device']) is not ported yet: "
-        "ROADMAP A4; leave 'device' unset for the host swap")
+def exchange_uniforms(n: int, seed: int, cycle: int, device):
+    """The (n,) uniforms of the on-device swap of ``cycle``: drawn on torch
+    ``device`` by a generator seeded from (seed, cycle)."""
+    import torch
+
+    from repro_torch.core.ensemble import draw_uniforms
+    gen = torch.Generator(device=device).manual_seed(
+        int(np.random.SeedSequence((seed, cycle)).generate_state(1)[0]))
+    return draw_uniforms(n, gen)
+
+
+def _device_swaps(losses, temps, cycle: int, seed: int, device):
+    """The swap decided on torch ``device`` (True: the default device) by
+    ``metropolis_swap_device`` on ``exchange_uniforms``."""
+    import torch
+
+    from repro_torch.core.ensemble import metropolis_swap_device
+    from repro_torch.flags import resolve_device
+
+    dev = resolve_device(None if device is True else device)
+    old32 = np.asarray(temps, dtype=np.float32)
+    new_t, _ = metropolis_swap_device(
+        torch.tensor(np.asarray(losses, np.float32), device=dev),
+        torch.tensor(old32, device=dev), cycle,
+        exchange_uniforms(len(old32), seed, cycle, dev))
+    new32 = new_t.cpu().numpy()
+    # the device decides; the swap is applied host-side in float64 so
+    # temperatures stay exact across cycles (swap detection must compare in
+    # float32 — comparing against the float64 originals would flag every
+    # non-representable temperature as swapped)
+    new_temps = np.asarray(temps, dtype=np.float64).copy()
+    accepted = []
+    for i in range(cycle % 2, len(new_temps) - 1, 2):
+        if new32[i] != old32[i] or new32[i + 1] != old32[i + 1]:
+            new_temps[i], new_temps[i + 1] = new_temps[i + 1], new_temps[i]
+            accepted.append((i, i + 1))
+    return new_temps, accepted
 
 
 @register_kernel("re.exchange",
@@ -99,9 +133,12 @@ def re_exchange(args, ctx):
         if losses[i] is None:
             losses[i] = float("nan")
     if args.get("device"):
+        if ctx.get("submesh") is not None:
+            raise NotImplementedError(
+                "re.exchange on a granted submesh: mesh-aware pilots are "
+                "not ported (ROADMAP A9)")
         new_temps, accepted = _device_swaps(
-            losses, temps, cycle, int(args.get("seed", 0)),
-            ctx.get("submesh"))
+            losses, temps, cycle, int(args.get("seed", 0)), args["device"])
     else:
         new_temps, accepted = metropolis_swaps(losses, temps, cycle,
                                                int(args.get("seed", 0)))

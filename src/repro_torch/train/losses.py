@@ -3,7 +3,7 @@
 
 The (B, S, V) logits are never held whole: each sequence chunk's f32 logits
 are computed from the final hidden states, reduced at once, and recomputed
-in the backward pass (``torch.utils.checkpoint``, as the JAX package
+in the backward pass (``models.remat``, as the JAX package
 ``jax.checkpoint``s its chunk body).
 """
 from __future__ import annotations
@@ -11,9 +11,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
-
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.remat import remat
 
 
 def _head_weight(cfg: ModelConfig, params):
@@ -48,7 +47,7 @@ def chunked_softmax_xent(cfg: ModelConfig, params, h, labels
         args = (h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], wf, transpose,
                 cfg.final_softcap)
         if torch.is_grad_enabled():
-            nll, n = checkpoint(_chunk_nll, *args, use_reentrant=False)
+            nll, n = remat(_chunk_nll, *args)
         else:
             nll, n = _chunk_nll(*args)
         tot = tot + nll

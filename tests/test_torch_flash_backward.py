@@ -387,9 +387,10 @@ def test_backward_cuda_entry_needs_cuda_and_variants():
 
 
 def test_grad_required_predicate():
-    """The check the scan and gmm wrappers make before a CUDA launch: they
-    raise NotImplementedError (no backward kernel yet) exactly when this
-    holds; CPU tensors take the differentiable plain versions."""
+    """The check the wrappers make before a call: where it holds, flash
+    attention and the two scans go through their ``autograd.Function``s
+    (backward kernels on CUDA, plain backwards on the CPU), and gmm, which
+    has no backward kernel yet (ROADMAP B2), raises on a CUDA input."""
     x = torch.zeros(2, 3)
     w = torch.zeros(2, 3, requires_grad=True)
     assert not grad_required(x, None, 3)
@@ -402,8 +403,9 @@ def test_grad_required_predicate():
 
 
 def test_scan_and_gmm_wrappers_differentiate_on_cpu():
-    """On the CPU the three wrappers run their plain versions, which carry
-    gradients (so the reduced scan and MoE archs train there)."""
+    """On the CPU the three wrappers carry gradients (so the reduced scan
+    and MoE archs train there): the scans through their Functions' plain
+    backwards, gmm through its plain version's autograd."""
     rng = np.random.default_rng(10)
     x = torch.from_numpy(rng.standard_normal((2, 5, 3)).astype(
         np.float32)).requires_grad_(True)

@@ -228,3 +228,92 @@ def test_port_imports_no_jax_and_no_reference_package():
     for f in files:
         hits = banned.findall(f.read_text())
         assert not hits, f"{f.relative_to(ROOT)} imports {hits}"
+
+
+# ------------------------------------------------ chip_smoke rehearsal
+
+SERVE_ARCHS = ["gemma2-2b", "recurrentgemma-2b", "falcon-mamba-7b",
+               "qwen3-moe-30b-a3b", "gemma3-4b", "minicpm-2b",
+               "nemotron-4-15b"]
+# the rehearsal's limit on the relative distance of the final hidden states:
+# plain against plain is exactly 0 on the CPU, and the weakest control at
+# these widths (recurrentgemma-2b's linear_scan) reads ~4e-4
+CPU_H_LIMIT = 1e-4
+_MIXER_KIND = {"flash_attention": ("global", "local"), "gmm": ("global",
+                                                               "local"),
+               "linear_scan": ("rec",), "selective_scan": ("mamba",)}
+
+
+def _per_layer(counts, full, cfg):
+    """A SERVE entry's launches per call for ``full``, rescaled to
+    ``cfg``'s layers of each wrapper's kind."""
+    def layers(c, name):
+        kinds = _MIXER_KIND[name.split(".")[0]]
+        return sum(c.layer_kind(i) in kinds for i in range(c.num_layers))
+    return {k: v * layers(cfg, k) // layers(full, k)
+            for k, v in counts.items()}
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_chip_smoke_serve_phase_rehearsal(arch, monkeypatch):
+    """``chip_smoke.py``'s ``serve <arch>`` phase on the CPU at reduced
+    widths (bf16 compute, head_dim 64 so that the counted variants are the
+    card's) and 64-token prompts: the wrappers the model calls are counted
+    as kernel launches (not under ``impl="ref"``).  The CPU's "kernels" are
+    the plain versions, so the sound reading is exactly 0, and the limit is
+    ``CPU_H_LIMIT`` (the card's, ``PREFILL_H_LIMIT``, sit above the card's
+    bf16 differences, which the CPU does not have; at these widths a
+    mixer's share of the residual stream is small).  The phase's own checks
+    pass, and each off-by-one control (``LOGIT_CONTROL``: linear_scan's
+    too) reads above the limit."""
+    import importlib.util
+
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.configs import reduced
+    from repro_torch.kernels import count_launch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.moe_gmm import ops as gops
+    from repro_torch.models import layers, transformer
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    full = get_config(arch)
+    cfg = reduced(full).replace(name=arch, dtype="bfloat16", head_dim=64)
+    monkeypatch.setitem(cfg_base._REGISTRY, arch, cfg)
+    variants = {
+        "flash_attention": lambda q, *_: fops.variant(q.dtype, q.shape[-1]),
+        "gmm": lambda x, w, *_: gops.variant(x.dtype, x.shape[0], x.shape[1],
+                                             x.shape[2], w.shape[2])}
+
+    def counted(fn, name):
+        def run(*a, impl=None, **kw):
+            if impl is None:
+                var = variants.get(name)
+                count_launch(name, *([f"{name}.{var(*a)}"] if var else []))
+            return fn(*a, impl=impl, **kw)
+        return run
+    for mod in (layers, transformer):
+        for name in _MIXER_KIND:
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, counted(getattr(mod, name),
+                                                       name))
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda fn, iters, warmup=1: (fn(), 0.0)[1])
+    monkeypatch.setitem(chip_smoke.SERVE_SHAPE, "prompt", 64)
+    monkeypatch.setitem(chip_smoke.PREFILL_H_LIMIT, arch, CPU_H_LIMIT)
+    _, loop, per_prefill, per_decode = next(
+        e for e in chip_smoke.SERVE if e[0] == arch)
+    row = chip_smoke.phase_serve(torch.device("cpu"), arch, loop,
+                                 _per_layer(per_prefill, full, cfg),
+                                 _per_layer(per_decode, full, cfg))
+    limit = CPU_H_LIMIT
+    assert row["prefill_h_rel_frobenius"] == 0.0
+    assert set(row["controls"]) == {n for n in chip_smoke.LOGIT_CONTROL
+                                    if n in per_prefill}
+    assert all(c["h_rel_frobenius"] > limit
+               for c in row["controls"].values()), row["controls"]
