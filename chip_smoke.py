@@ -33,7 +33,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  give the wrapper's host-inclusive time per call beside
                  the device time.  ``--baseline NAME=PATH`` (NAME one of
                  flash_attention, flash_attention_bwd, selective_scan,
-                 gmm; repeatable) builds an earlier version of that
+                 gmm, linear_scan_bwd, selective_scan_bwd; repeatable)
+                 builds an earlier version of that
                  kernel's ``.cu`` (same C entry) and times it on every
                  case of its phase in the same run, with its error against
                  the plain version (flash_attention: cases without segment
@@ -477,6 +478,9 @@ def phase_build():
         kernel_bwd_smem_bytes,
         kernel_smem_bytes,
     )
+    from repro_torch.kernels.mamba.ops import (
+        kernel_bwd_smem_bytes as ss_bwd_smem,
+    )
     from repro_torch.kernels.moe_gmm.ops import kernel_smem_bytes as gmm_smem
     t0 = time.perf_counter()
     info = _build.build()
@@ -486,6 +490,7 @@ def phase_build():
     smem.update({f"flash_attention_bwd_wgmma<{D}>": kernel_bwd_smem_bytes(D)
                  for D in (64, 128, 256)})
     smem["gmm_wgmma"] = gmm_smem()
+    smem["selective_scan_bwd_kernel"] = ss_bwd_smem()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: {"seconds": v["seconds"], "cached": v["cached"]}
                         for k, v in info.items()},
@@ -544,31 +549,43 @@ def _segments(B, S, n, gen, device):
     return (pos >= cuts[:, None, :]).sum(-1).to(torch.int32).contiguous()
 
 
-# --baseline NAME: (library name, module of the wrapper, its CUDA entry);
-# flash attention's older forward sources are called through the C entry
-# that every one has, flash_attention_fwd (no segment ids, no lse)
+# --baseline NAME: (library name, module of the wrapper, its CUDA entry,
+# the wrapper's module constants set while the older source runs); flash
+# attention's older forward sources are called through the C entry that
+# every one has, flash_attention_fwd (no segment ids, no lse).  The
+# selective-scan backward's earlier source (commit 2eb802b) has the same C
+# entry but summed dBm and dC over blocks of 64 channels and read
+# checkpoints of 16 steps: its scratch is allocated for 64 and its
+# checkpoints are written every 16.
 BASELINES = {
-    "flash_attention": ("flash_attention_fwd", None, None),
+    "flash_attention": ("flash_attention_fwd", None, None, {}),
     "flash_attention_bwd": ("flash_attention_bwd",
                             "repro_torch.kernels.flash_attention.ops",
-                            "flash_attention_bwd_cuda"),
+                            "flash_attention_bwd_cuda", {}),
     "selective_scan": ("selective_scan", "repro_torch.kernels.mamba.ops",
-                       "selective_scan_cuda"),
-    "gmm": ("gmm", "repro_torch.kernels.moe_gmm.ops", "gmm_cuda"),
+                       "selective_scan_cuda", {}),
+    "gmm": ("gmm", "repro_torch.kernels.moe_gmm.ops", "gmm_cuda", {}),
+    "linear_scan_bwd": ("linear_scan_bwd", "repro_torch.kernels.rglru.ops",
+                        "linear_scan_bwd_cuda", {}),
+    "selective_scan_bwd": ("selective_scan_bwd",
+                           "repro_torch.kernels.mamba.ops",
+                           "selective_scan_bwd_cuda",
+                           {"BWD_CHANNELS": 64, "CKPT_STEPS": 16}),
 }
 
 
 def _baseline(name, path):
     """A CUDA entry for kernel ``name`` on an earlier ``.cu`` (same C
     interface), built here with the repo's nvcc flags; None without a
-    path."""
+    path.  Its ``patched()`` sets the wrapper module's constants that the
+    earlier source needs (``BASELINES``) for other calls too."""
     if path is None:
         return None
     import ctypes
     import importlib
 
     from repro_torch.kernels import _build
-    libname, module, entry = BASELINES[name]
+    libname, module, entry, consts = BASELINES[name]
     out = _build.BUILD_DIR / f"lib{libname}_baseline-{time.time_ns()}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
@@ -577,14 +594,28 @@ def _baseline(name, path):
     if name == "flash_attention":
         return _flash_baseline(lib)
     mine = _build.load(libname)
-    fn = getattr(importlib.import_module(module), entry)
+    mod = importlib.import_module(module)
+    fn = getattr(mod, entry)
+
+    @contextlib.contextmanager
+    def patched():
+        own = {k: getattr(mod, k) for k in consts}
+        for k, v in consts.items():
+            setattr(mod, k, v)
+        try:
+            yield
+        finally:
+            for k, v in own.items():
+                setattr(mod, k, v)
 
     def run(*args, **kw):
         _build._LOADED[libname] = lib
         try:
-            return fn(*args, **kw)
+            with patched():
+                return fn(*args, **kw)
         finally:
             _build._LOADED[libname] = mine
+    run.patched = patched
     return run
 
 
@@ -2114,14 +2145,18 @@ SS_BWD_LONG = dict(name="long_row", B=1, T=2 ** 31 // 8192 + 256, d=8192,
 
 
 def _bwd_row(name, c, grads, again, refs, names, dtypes, nbytes, flops,
-             kernel, plain, extra):
+             kernel, plain, extra, old=None):
     """Check ``grads`` against ``refs`` and ``again`` bitwise, time
-    ``kernel`` and ``plain``, emit and return the row."""
+    ``kernel`` and ``plain`` (and ``old``, an earlier kernel on the same
+    inputs, where given, with its checks), emit and return the row."""
     import torch
     checks = {n: grad_check(g, r, dt) for n, g, r, dt in
               zip(names, grads, refs, dtypes)}
     bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
+    base_checks = ({n: grad_check(g, r, dt) for n, g, r, dt in
+                    zip(names, old(), refs, dtypes)} if old else None)
     ms = device_ms(kernel, 10)
+    baseline_ms = device_ms(old, 10) if old else None
     host_ms = time_ms(kernel, 10)
     plain_ms = time_ms(plain, 1)
     t_bytes = nbytes / PEAK_BYTES
@@ -2133,7 +2168,8 @@ def _bwd_row(name, c, grads, again, refs, names, dtypes, nbytes, flops,
            "dtype": c["dtype"],
            "max_abs_err": max(ch["max_abs_err"] for ch in checks.values()),
            "checks": checks, "bitwise_equal_calls": bitwise, "ok": ok,
-           "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+           "ms": ms, "host_ms": host_ms, "baseline_ms": baseline_ms,
+           "baseline_checks": base_checks, "plain_ms": plain_ms,
            "library_ms": None,
            "library": "none: no single PyTorch call computes the gradient "
                       "of the recurrence",
@@ -2147,10 +2183,11 @@ def _bwd_row(name, c, grads, again, refs, names, dtypes, nbytes, flops,
     return row
 
 
-def phase_kernel_linear_scan_bwd(dev):
+def phase_kernel_linear_scan_bwd(dev, baseline=None):
     """dx, da, dh0 of the reverse-scan kernel against linear_scan_bwd_ref
     on the same inputs, the forward kernel's y and random output
-    gradients; bitwise repeats; device time against the bound."""
+    gradients; bitwise repeats; device time against the bound (and an
+    older source's time and checks where ``baseline`` names one)."""
     import torch
 
     from repro_torch.kernels import LAUNCHES
@@ -2160,6 +2197,7 @@ def phase_kernel_linear_scan_bwd(dev):
         linear_scan_cuda,
     )
     gen = torch.Generator(device=dev).manual_seed(5)
+    old = _baseline("linear_scan_bwd", baseline)
     results = {}
     for c in LS_BWD_CASES:
         dt = getattr(torch, c["dtype"])
@@ -2188,10 +2226,21 @@ def phase_kernel_linear_scan_bwd(dev):
             "linear_scan_bwd", c, grads, again, refs, ("dx", "da", "dh0"),
             (c["dtype"], c["dtype"], "float32"), nbytes, flops,
             lambda: linear_scan_bwd_cuda(*args),
-            lambda: linear_scan_bwd_ref(x, a, h0, dy, dh), {})
+            lambda: linear_scan_bwd_ref(x, a, h0, dy, dh),
+            {"blocks": -(-B * C // 32)},
+            old=(lambda: old(*args)) if old else None)
         del x, a, h0, dy, dh, y, args, grads, again, refs
         torch.cuda.empty_cache()
     return results
+
+
+def _patched_ms(old, fn):
+    """Device ms of ``fn`` with ``old``'s constants set (None without
+    ``old``)."""
+    if not old:
+        return None
+    with old.patched():
+        return device_ms(fn, 10)
 
 
 def _ss_inputs(c, gen, dev, T=None):
@@ -2217,21 +2266,25 @@ def _ss_inputs(c, gen, dev, T=None):
 SS_GRADS = ("dx", "ddt", "dA", "dBm", "dC", "dD", "dh0")
 
 
-def phase_kernel_selective_scan_bwd(dev):
+def phase_kernel_selective_scan_bwd(dev, baseline=None):
     """The seven gradients of the selective-scan backward kernel against
     selective_scan_bwd_ref on the same inputs (the forward kernel's
     checkpoints) and random output gradients; bitwise repeats; device time
-    against the bound and the special-function floor; then the long row."""
+    against the bound and the special-function floor (and an older
+    source's time and checks where ``baseline`` names one); then the long
+    row."""
     import torch
 
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.mamba import selective_scan_bwd_ref
     from repro_torch.kernels.mamba.ops import (
+        BWD_CHANNELS,
+        BWD_STATES,
         selective_scan_bwd_cuda,
         selective_scan_cuda,
-        variant,
     )
     gen = torch.Generator(device=dev).manual_seed(6)
+    old = _baseline("selective_scan_bwd", baseline)
     results = {}
     for c in SS_BWD_CASES:
         args = _ss_inputs(c, gen, dev)
@@ -2240,6 +2293,10 @@ def phase_kernel_selective_scan_bwd(dev):
         dy = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
         dh = torch.randn(args[6].shape, generator=gen, device=dev)
         _, _, ckpt = selective_scan_cuda(*args, checkpoints=True)
+        ck_old = None
+        if old:     # the earlier kernel's checkpoints, at its interval
+            with old.patched():
+                _, _, ck_old = selective_scan_cuda(*args, checkpoints=True)
         before = LAUNCHES["selective_scan_bwd"]
         grads = selective_scan_bwd_cuda(*args, ckpt, dy, dh)
         again = selective_scan_bwd_cuda(*args, ckpt, dy, dh)
@@ -2255,7 +2312,11 @@ def phase_kernel_selective_scan_bwd(dev):
         # partial sums are the design's, not the function's)
         nbytes = (2 * x.numel() * esz + 2 * x.numel() * 4 + 4 * bc
                   + 4 * (2 * d * n + 2 * d) + 4 * 4 * B * d * n)
-        exps = 2 * B * T * d * n        # the recompute's and the reverse's
+        # the function's exponentials, the recompute's and the reverse's
+        # (the floor every row is held to), and those the kernel evaluates:
+        # each of the recompute's once, over n padded to BWD_STATES
+        exps = 2 * B * T * d * n
+        design_exps = B * T * d * BWD_STATES
         flops = B * T * d * (22 * n + 10)
         dtypes = (c["dtype"], "float32", "float32", c["dtype"], c["dtype"],
                   "float32", "float32")
@@ -2264,10 +2325,22 @@ def phase_kernel_selective_scan_bwd(dev):
             nbytes, flops,
             lambda: selective_scan_bwd_cuda(*args, ckpt, dy, dh),
             lambda: selective_scan_bwd_ref(*args, dy, dh),
-            {"variant": variant(n), "exponentials": exps,
+            {"variant": f"np{BWD_STATES}", "exponentials": exps,
              "exp_bound_ms": 1e3 * exps / PEAK_EXP,
-             "checkpoint_mbytes": ckpt.numel() * 4 / 1e6})
-        del args, x, dy, dh, ckpt, grads, again, refs
+             "design_exponentials": design_exps,
+             "design_exp_bound_ms": 1e3 * design_exps / PEAK_EXP,
+             "blocks": B * -(-d // BWD_CHANNELS),
+             "part_bc_mbytes": B * -(-d // BWD_CHANNELS) * T * 2 * BWD_STATES
+             * 4 / 1e6,
+             "checkpoint_mbytes": ckpt.numel() * 4 / 1e6,
+             # the forward that writes the checkpoints, at this kernel's
+             # interval and (with --baseline) the earlier kernel's
+             "forward_ckpt_ms": device_ms(
+                 lambda: selective_scan_cuda(*args, checkpoints=True), 10),
+             "baseline_forward_ckpt_ms": _patched_ms(
+                 old, lambda: selective_scan_cuda(*args, checkpoints=True))},
+            old=(lambda: old(*args, ck_old, dy, dh)) if old else None)
+        del args, x, dy, dh, ckpt, ck_old, grads, again, refs
         torch.cuda.empty_cache()
     results[SS_BWD_LONG["name"]] = _selective_scan_bwd_long_row(dev, gen)
     return results
@@ -2734,7 +2807,8 @@ def main() -> int:
     ap.add_argument("--baseline", action="append", default=[],
                     metavar="NAME=PATH",
                     help="an earlier .cu of kernel NAME (flash_attention, "
-                         "flash_attention_bwd, selective_scan, gmm; same C "
+                         "flash_attention_bwd, selective_scan, gmm, "
+                         "linear_scan_bwd, selective_scan_bwd; same C "
                          "entry) to time beside the kernel on its cases; "
                          "repeatable")
     args = ap.parse_args()
@@ -2768,8 +2842,10 @@ def main() -> int:
                  "selective_scan": phase_kernel_selective_scan(
                      dev, baselines.get("selective_scan")),
                  "gmm": phase_kernel_gmm(dev, baselines.get("gmm")),
-                 "linear_scan_bwd": phase_kernel_linear_scan_bwd(dev),
-                 "selective_scan_bwd": phase_kernel_selective_scan_bwd(dev)}
+                 "linear_scan_bwd": phase_kernel_linear_scan_bwd(
+                     dev, baselines.get("linear_scan_bwd")),
+                 "selective_scan_bwd": phase_kernel_selective_scan_bwd(
+                     dev, baselines.get("selective_scan_bwd"))}
         _release()
     cases["flash_attention_bwd"] = phase_kernel_flash_attention_bwd(
         dev, baselines.get("flash_attention_bwd"))

@@ -46,15 +46,15 @@ def _member(tree, i: int):
 
 
 def _member_losses(cfg: ModelConfig, params, batch):
-    """(loss + 0.01 aux, loss) of every member, (N,) each: the reference's
-    ``_member_train_step`` loss under ``vmap`` (no segment ids, remat as
-    the config says, no compute cast)."""
+    """The (N,) losses of every member, cross-entropy + 0.01 aux: the
+    value of the reference's ``_member_train_step`` loss under ``vmap``
+    (no segment ids, remat as the config says, no compute cast)."""
     remat = cfg.remat != "none"
 
     def one(p, tokens, labels):
         out = forward(cfg, p, tokens, remat=remat)
         loss, _ = chunked_softmax_xent(cfg, p, out["h"], labels)
-        return loss + AUX_WEIGHT * out["aux"], loss
+        return loss + AUX_WEIGHT * out["aux"]
     return torch.func.vmap(one)(params, batch["tokens"], batch["labels"])
 
 
@@ -63,15 +63,16 @@ def _fused_train_step(cfg: ModelConfig, members, batch, lr) -> torch.Tensor:
     backward pass of the summed losses (members share nothing), then each
     member's global-norm clip at 1.0 and AdamW at its own ``lr`` (a view of
     the (N,) temperatures) with the reference's other defaults.  Returns the
-    (N,) losses."""
+    (N,) losses that were differentiated, cross-entropy + 0.01 aux (dense
+    archs have aux = 0), as the reference's ``_member_train_step``."""
     params = members["params"]
     leaves = list(tree_leaves(params))
     for p in leaves:
         p.grad = None
         p.requires_grad_(True)
     try:
-        total, loss = _member_losses(cfg, params, batch)
-        total.sum().backward()
+        losses = _member_losses(cfg, params, batch)
+        losses.sum().backward()
     finally:
         for p in leaves:
             p.requires_grad_(False)
@@ -79,7 +80,7 @@ def _fused_train_step(cfg: ModelConfig, members, batch, lr) -> torch.Tensor:
                      else torch.zeros_like(p), params)
     opt = members["opt"]
     with torch.no_grad():
-        for i in range(loss.shape[0]):
+        for i in range(losses.shape[0]):
             p_i = _member(params, i)
             g_i, _ = clip_by_global_norm(_member(grads, i), CLIP)
             opt_i = {"m": _member(opt["m"], i), "v": _member(opt["v"], i),
@@ -90,7 +91,7 @@ def _fused_train_step(cfg: ModelConfig, members, batch, lr) -> torch.Tensor:
         members["step"] += 1
     for p in leaves:
         p.grad = None
-    return loss.detach()
+    return losses.detach()
 
 
 def metropolis_swap_device(losses, temps, cycle, u):
@@ -175,7 +176,8 @@ class FusedEnsemble:
         ``batches`` {"tokens", "labels"} of (N, steps, B, S) int32, ``u``
         the (N,) uniforms of the swap.  The state is updated in place; the
         metrics ``{"losses", "accepted", "temps"}`` are on the host (the
-        losses of each member's last step)."""
+        losses of each member's last step, cross-entropy + 0.01 aux: the
+        swap's energies)."""
         cfg = self.cfg
 
         def cycle(ens_state, batches, u):

@@ -55,11 +55,13 @@
 //    and a bf16 conversion inside it waits for the load, one memory
 //    latency per step.
 //  * For the backward (selective_scan_bwd.cu), the entry selective_scan_ckpt
-//    also writes the states before every ck-th step (ck = 16, a multiple of
-//    kU) to ckpt (B, ceil(T / ck), d, n); the backward recomputes the
-//    states between them with the same arithmetic.  The write is compiled
-//    only into the instantiations that take it (template kCk), so the
-//    serving instantiations are the kernel as it was.
+//    also writes the states before every ck-th step (ck = 8, a multiple of
+//    kU) to ckpt (B, ceil(T / ck), d, n), as float4s where n % 4 == 0 (a
+//    warp's scalar stores, 64 bytes apart, took twice the rest of the
+//    forward at ck = 8 on an H100); the backward recomputes the states
+//    between them with the same arithmetic.  The write is compiled only into the
+//    instantiations that take it (template kCk), so the serving
+//    instantiations are the kernel as it was.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -205,9 +207,17 @@ selective_scan_kernel(const TX* __restrict__ x, const float* __restrict__ dt,
       if (kCk && live && (t0 + u0) % ck == 0) {
         const int nck = (T_ + ck - 1) / ck;
         float* cp = ckpt + (((size_t)b * nck + (t0 + u0) / ck) * d + chl) * n;
+        if (n % 4 == 0) {   // rows of whole float4s: 16-byte stores
 #pragma unroll
-        for (int i = 0; i < NP; ++i)
-          if (i < n) cp[i] = h[i];
+          for (int i = 0; i < NP; i += 4)
+            if (i < n)
+              *reinterpret_cast<float4*>(cp + i) =
+                  make_float4(h[i], h[i + 1], h[i + 2], h[i + 3]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < NP; ++i)
+            if (i < n) cp[i] = h[i];
+        }
       }
       float xn[kU], dn[kU];
       load_batch<Off>(xp, dtp, t0 + u0 + kU, T_, d, live, xn, dn);

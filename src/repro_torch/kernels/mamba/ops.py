@@ -41,9 +41,11 @@ from repro_torch.kernels.mamba.ref import (
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 16          # the kernel keeps n <= 16 states per thread
-CKPT_STEPS = 16         # steps between the states the forward keeps for
+CKPT_STEPS = 8          # steps between the states the forward keeps for
                         # the backward (kK in selective_scan_bwd.cu)
-BWD_CHANNELS = 64       # channels per block of the backward kernel
+BWD_CHANNELS = 128      # channels per block of the backward kernel
+BWD_STATES = 16         # the backward kernel pads n to 16 states (4 lanes
+                        # of 4 a channel)
 
 
 def variant(n: int) -> str:
@@ -52,11 +54,6 @@ def variant(n: int) -> str:
     if not 1 <= n <= MAX_STATE:
         raise ValueError(f"state size {n}; the kernel takes 1..{MAX_STATE}")
     return f"np{4 if n <= 4 else 8 if n <= 8 else 16}"
-
-
-def _np(n: int) -> int:
-    """n padded as the kernels pad it (``variant``)."""
-    return int(variant(n)[2:])
 
 
 def selective_scan(x, dt, A, Bm, C, D, h0, *, impl: Optional[str] = None):
@@ -246,8 +243,8 @@ def selective_scan_bwd_cuda(x, dt, A, Bm, C, D, h0, ckpt, dy, dh_last):
                 dh_last.clone())
     nblk = -(-d // BWD_CHANNELS)
     # per-block partial sums of dBm and dC over its channels, and per-row
-    # ones of dA and dD over T: summed in a fixed order by the last kernel
-    part_bc = torch.empty((B, nblk, T, 2 * _np(n)), dtype=torch.float32,
+    # ones of dA and dD over T: summed in a fixed order by the last kernels
+    part_bc = torch.empty((B, nblk, T, 2 * BWD_STATES), dtype=torch.float32,
                           device=x.device)
     part_ad = torch.empty((B, d, n + 1), dtype=torch.float32, device=x.device)
     lib = _library("selective_scan_bwd")
@@ -266,6 +263,14 @@ def selective_scan_bwd_cuda(x, dt, A, Bm, C, D, h0, ckpt, dy, dh_last):
         raise RuntimeError(f"selective_scan_bwd launch failed: {msg} ({err})")
     count_launch("selective_scan_bwd")
     return dx, ddt, dA, dBm, dC, dD, dh0
+
+
+def kernel_bwd_smem_bytes() -> int:
+    """Dynamic shared memory per block of the backward kernel, as the built
+    library states it (needs nvcc)."""
+    fn = _library("selective_scan_bwd").selective_scan_bwd_smem_bytes
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 # C entry: its pointer arguments, then int ones (dtypes, B, T, d, n and, but

@@ -30,7 +30,9 @@ B, S0, DECODE_STEPS = 4, 1024, 8
 _GROUPS = (("flash_attention", ("flash_attention_fwd",)),
            ("flash_attention_bwd", ("flash_attention_bwd",)),
            ("linear_scan", ("linear_scan_kernel",)),
+           ("linear_scan_bwd", ("linear_scan_bwd_",)),
            ("selective_scan", ("selective_scan_kernel",)),
+           ("selective_scan_bwd", ("selective_scan_bwd_",)),
            ("gmm", ("gmm_wgmma", "gmm_tc", "gmm_cc")),
            ("matmul_f32", ("sgemm", "f32f32")),
            ("matmul", ("gemm", "gemv", "nvjet", "sm90", "cutlass", "xmma",

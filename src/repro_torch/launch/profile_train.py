@@ -1,17 +1,21 @@
-"""Where the train-step time goes: profile one train step of full-width
-gemma2-2b (f32 master params and Adam moments, random weights from seed 0)
-on the GPU, and print one JSON line.
+"""Where the train-step time goes: profile one train step of a full-width
+arch (f32 master params and Adam moments, random weights from seed 0) on
+the GPU, and print one JSON line.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
-        [--microbatches N]
+        [--arch ARCH] [--microbatches N]
 
-``TRAIN`` is the shape, also that of the train phase of ``chip_smoke.py``;
-``--microbatches`` (default ``TRAIN``'s) splits its batch otherwise.  The
-line holds the host wall time of the step (ending in a synchronize), the
+``TRAIN`` is the shape, also that of the train phases of ``chip_smoke.py``;
+``ARCHS`` the archs those phases train, with their microbatches:
+gemma2-2b (the default), recurrentgemma-2b and falcon-mamba-7b-L24
+(falcon-mamba-7b cut to 24 of its 64 layers: 7.27 B params and their Adam
+moments do not fit on one card); ``--microbatches`` splits the batch
+otherwise.  The line holds the host wall time of the step (ending in a synchronize), the
 summed device time of its kernels, the device's idle share, the device
-time by kernel group (``profile_serve``'s groups: flash forward and
-backward, bf16 and f32 matmuls (the f32 ones are the LM head's), copies
-and casts, other) and by the heaviest kernel names, from
+time by kernel group (``profile_serve``'s groups: the hand kernels'
+forwards and backwards, bf16 and f32 matmuls (the f32 ones are the LM
+head's and, in recurrentgemma-2b, the RG-LRU gates'), copies and casts,
+other) and by the heaviest kernel names, from
 ``torch.profiler``, and the peak of allocated device memory over a warm-up
 step and the profiled one.
 """
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 
 import torch
 
@@ -29,16 +34,32 @@ from repro_torch.launch.profile_serve import _profile
 from repro_torch.train import TrainHyper, build_train_step, make_train_state
 
 TRAIN = dict(arch="gemma2-2b", batch=4, seq=1024, microbatches=2)
+ARCHS = {"gemma2-2b": 2, "recurrentgemma-2b": 2, "falcon-mamba-7b-L24": 1}
+
+
+def train_config(arch: str):
+    """The config of ``arch``: a registered name, or ``<base>-L<n>``, the
+    full-width ``base`` config cut to its first n layers."""
+    try:
+        return get_config(arch)
+    except KeyError:
+        m = re.fullmatch(r"(.+)-L(\d+)", arch)
+        if m is None:
+            raise
+        return get_config(m[1]).replace(name=arch, num_layers=int(m[2]))
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--microbatches", type=int, default=TRAIN["microbatches"])
+    ap.add_argument("--arch", default=TRAIN["arch"], choices=sorted(ARCHS))
+    ap.add_argument("--microbatches", type=int, default=None,
+                    help="default: the arch's in ARCHS")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train measures the GPU; CUDA is missing")
     dev = torch.device("cuda")
-    cfg = get_config(TRAIN["arch"]).replace(microbatches=args.microbatches)
+    mb = args.microbatches or ARCHS[args.arch]
+    cfg = train_config(args.arch).replace(microbatches=mb)
     state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(0))
     step = build_train_step(cfg, TrainHyper(warmup=2, total_steps=1000))
     data = SyntheticLM(cfg, ShapeSpec("profile", "train", TRAIN["seq"],
@@ -50,8 +71,8 @@ def main(argv=None):
         n["step"] += 1
     torch.cuda.reset_peak_memory_stats(dev)
     res = _profile(one_step, 1, dev)
-    print(json.dumps({"profile": "train_step", **TRAIN,
-                      "microbatches": args.microbatches,
+    print(json.dumps({"profile": "train_step", **TRAIN, "arch": args.arch,
+                      "microbatches": mb,
                       "device": torch.cuda.get_device_name(dev), **res,
                       "peak_mem_gb": torch.cuda.max_memory_allocated(dev)
                       / 1e9}), flush=True)

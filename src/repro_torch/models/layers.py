@@ -291,8 +291,10 @@ def _moe_local(cfg: ModelConfig, p: Params, xt, capacity_factor: float,
     xt: (T, D) tokens.  Returns (y (T, D), aux load-balance loss).  The
     router runs in f32; top-k weights are renormalised; assignments past an
     expert's capacity C go to a spare row and are dropped.  Nothing here
-    waits for the device: counts are built with ``scatter_add_`` and C
-    depends only on T, k, E and ``capacity_factor``.
+    waits for the device: counts are built with ``scatter_add`` and C
+    depends only on T, k, E and ``capacity_factor``.  Every write is out of
+    place (``scatter_add``, ``index_put``, ``scatter``), so the dispatch
+    runs under ``torch.func.vmap`` (a fused ensemble's member axis).
 
     The combine is deterministic (no atomics): each token's k contributions
     ``back * w`` (rounded to ``ye``'s dtype) are added one after another in
@@ -310,7 +312,7 @@ def _moe_local(cfg: ModelConfig, p: Params, xt, capacity_factor: float,
 
     eids = idx.reshape(-1)                                       # (T*k,)
     tids = torch.arange(T, device=dev).repeat_interleave(k)
-    counts = torch.zeros((E,), dtype=torch.int32, device=dev).scatter_add_(
+    counts = torch.zeros((E,), dtype=torch.int32, device=dev).scatter_add(
         0, eids, torch.ones_like(eids, dtype=torch.int32))
     # aux loss (switch-style)
     aux = E * (counts.float() / (T * k) * probs.mean(dim=0)).sum()
@@ -328,8 +330,8 @@ def _moe_local(cfg: ModelConfig, p: Params, xt, capacity_factor: float,
     keep = pos_in_e < C
     slot = torch.where(keep, e_s * C + pos_in_e, torch.full_like(e_s, E * C))
 
-    xe = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=dev)
-    xe[slot] = xt[tid_s] * keep[:, None].to(xt.dtype)
+    xe = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=dev).index_put(
+        (slot,), xt[tid_s] * keep[:, None].to(xt.dtype))
     xe = xe[:-1].reshape(E, C, D)
     group_sizes = torch.clamp(counts, max=C)
 
@@ -344,7 +346,7 @@ def _moe_local(cfg: ModelConfig, p: Params, xt, capacity_factor: float,
     contrib = flat[slot] * keep[:, None].to(ye.dtype) * w_s[:, None].to(
         ye.dtype)
     # each token's k positions in the sorted order, ascending
-    rank = torch.empty_like(order).scatter_(
+    rank = torch.empty_like(order).scatter(
         0, order, torch.arange(T * k, device=dev))
     rank = rank.view(T, k).sort(dim=1).values
     y = torch.zeros((T, D), dtype=xt.dtype, device=dev)

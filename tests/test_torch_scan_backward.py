@@ -274,6 +274,232 @@ def test_backward_wrappers_need_cuda_tensors():
         mamba_ops.selective_scan_bwd_cuda(*args[:7], ckpt, *args[7:])
 
 
+# ------------------------------------ mirrors of the backward kernels' schedules
+#
+# The CUDA kernels run only on the card.  These plain-PyTorch mirrors follow
+# their schedules step for step at small sizes (test code; nothing on the
+# main path calls them), so the algebra of each schedule is held here
+# against the plain gradients and the JAX package's.
+
+LS_CHUNK, LS_CHUNKS = 16, 8      # linear_scan_bwd.cu: kL, kChunks
+
+
+def _linear_scan_bwd_chunked(x, a, h0, dy, dh_last):
+    """linear_scan_bwd.cu's chunked reverse scan: segments of LS_CHUNKS
+    chunks of LS_CHUNK steps, the last segment first; each chunk's carry
+    out L from a carry of 0 and its product of a's P; each chunk's carry in
+    folded from the segment's carry over the later chunks, last first; the
+    chunk rerun from it.  float32, states recomputed in float32."""
+    xf, af, dyf = x.float(), a.float(), dy.float()
+    B, T, C = x.shape
+    h = h0.float()
+    hs = torch.empty_like(xf)
+    for t in range(T):
+        h = af[:, t] * h + xf[:, t]
+        hs[:, t] = h
+    hprev = torch.cat([h0.float()[:, None], hs[:, :-1]], 1)
+    dx, da = torch.empty_like(xf), torch.empty_like(xf)
+    carry = dh_last.float().clone()
+    seg = LS_CHUNK * LS_CHUNKS
+    for s0 in reversed(range(0, T, seg)):
+        chunks = [(t0, min(t0 + LS_CHUNK, T))
+                  for t0 in range(s0, min(s0 + seg, T), LS_CHUNK)]
+        LP = []
+        for t0, t1 in chunks:                       # 1. from a carry of 0
+            L, P = torch.zeros_like(carry), torch.ones_like(carry)
+            for t in reversed(range(t0, t1)):
+                L = af[:, t] * (dyf[:, t] + L)
+                P = P * af[:, t]
+            LP.append((L, P))
+        cin = [None] * len(chunks)
+        c = carry
+        for j in reversed(range(len(chunks))):      # 2. fold, last first
+            cin[j] = c
+            c = LP[j][1] * c + LP[j][0]
+        for (t0, t1), cr in zip(chunks, cin):       # 3. rerun
+            for t in reversed(range(t0, t1)):
+                g = dyf[:, t] + cr
+                dx[:, t], da[:, t] = g, g * hprev[:, t]
+                cr = af[:, t] * g
+        carry = c
+    return dx.to(x.dtype), da.to(a.dtype), carry
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,C", [(2, 300, 40), (1, 256, 33), (3, 7, 5)])
+def test_linear_scan_bwd_chunked_schedule(B, T, C, dtype):
+    """The chunked reverse scan (ragged T: a partial last segment and
+    chunk) against linear_scan_bwd_ref and jax.grad of the reference."""
+    x, a, h0, dy, dh = _ls_inputs(B, T, C)
+    dt = getattr(torch, dtype)
+    xt, at, dyt = (_t(v).to(dt) for v in (x, a, dy))
+    got = _linear_scan_bwd_chunked(xt, at, _t(h0), dyt, _t(dh))
+    ref = linear_scan_bwd_ref(xt, at, _t(h0), dyt, _t(dh))
+    want = _jax_ls_grads(*(np.asarray(v.float()) for v in (xt, at)), h0,
+                         np.asarray(dyt.float()), dh, "ref")
+    for name, g, r, w in zip(("dx", "da", "dh0"), got, ref, want):
+        assert g.dtype == r.dtype
+        if g.dtype == torch.bfloat16:
+            scale = float(np.abs(np.asarray(w)).max())
+            _close(g.float(), w, rtol=0, atol=2.0 ** -7 * scale + 1e-6,
+                   msg=name)
+            _close(g.float(), r.float(), rtol=0,
+                   atol=2.0 ** -7 * scale + 1e-6, msg=name)
+        else:
+            _close(g, w, msg=name)
+            _close(g, r, msg=name)
+
+
+SS_CH, SS_LANES, SS_NP, SS_K = 128, 4, 16, 8    # selective_scan_bwd.cu
+SS_WARP_CH = 32 // SS_LANES                      # channels a warp
+
+
+def _warp_tree(v):
+    """Sum over axis -1 of 8 channels (a warp's) as the kernel's shuffles
+    group them: pairs differing in channel bit 2, then bit 1, then bit 0."""
+    v = v[..., :4] + v[..., 4:]
+    v = v[..., :2] + v[..., 2:]
+    return v[..., 0] + v[..., 1]
+
+
+def _selective_scan_bwd_lanes(x, dt, A, Bm, C, D, h0, dy, dh_last):
+    """selective_scan_bwd.cu's schedule in float32.  n padded to 16; each
+    channel's states on 4 lanes of 4, lane q's slot s holding state
+    4 q + (s ^ p), p = (channel in its warp >> 1) & 3; checkpoints every 8
+    steps; per chunk, last first, the states recomputed from the
+    checkpoint with every exponential evaluated once and kept for the
+    reverse pass; dx, ddt from each lane's slot-ordered sums added over the
+    4 lanes as (q0 + q1) + (q2 + q3); dBm, dC over a warp's 8 channels by
+    the shuffle tree, the block's 16 warps in order, then the blocks in
+    order; dA, dD over T in registers, then the batch rows in order.
+    Returns the gradients and the number of exponentials evaluated."""
+    B, T, d = x.shape
+    n = A.shape[1]
+    K, NP = SS_K, SS_NP
+    dp = -(-d // SS_CH) * SS_CH
+    Tp = -(-T // K) * K
+
+    def pad(v, shape):
+        out = torch.zeros(shape)
+        out[tuple(slice(0, s) for s in v.shape)] = v.float()
+        return out
+    xf, dtf, dyf = (pad(v, (B, Tp, dp)) for v in (x, dt, dy))
+    Bf, Cf = pad(Bm, (B, Tp, NP)), pad(C, (B, Tp, NP))
+    A2 = pad(A, (dp, NP)) * 1.4426950408889634
+    Df = pad(D, (dp,))
+    h = pad(h0, (B, dp, NP))
+    g = pad(dh_last, (B, dp, NP))
+    # the forward's checkpoints: the state before steps 0, K, 2K, ...
+    ckpt = []
+    for t in range(Tp):
+        if t % K == 0:
+            ckpt.append(h.clone())
+        e = torch.exp2(dtf[:, t, :, None] * A2)
+        h = e * h + (dtf[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :]
+    # slot layout: (B, dp, lane q, slot s) <- state perm[ch, q, s]
+    cl = torch.arange(dp) % SS_CH
+    p = ((cl % SS_WARP_CH) >> 1) & 3
+    perm = (4 * torch.arange(SS_LANES)[None, :, None]
+            + (torch.arange(4)[None, None, :] ^ p[:, None, None]))
+
+    def slots(v):       # (..., dp, NP) -> (..., dp, 4, 4)
+        idx = perm.expand(*v.shape[:-2], dp, 4, 4).reshape(
+            *v.shape[:-2], dp, NP)
+        return torch.gather(v, -1, idx).reshape(*v.shape[:-1], 4, 4)
+
+    def unslot(v):      # (..., dp, 4, 4) -> (..., dp, NP)
+        out = torch.empty(*v.shape[:-2], NP)
+        idx = perm.expand(*v.shape[:-3], dp, 4, 4).reshape(
+            *v.shape[:-3], dp, NP)
+        return out.scatter_(-1, idx, v.reshape(*v.shape[:-2], NP))
+    A2s, g = slots(A2), slots(g)
+    dA = torch.zeros(B, dp, 4, 4)
+    dD = torch.zeros(B, dp)
+    dx, ddt = torch.empty(B, Tp, dp), torch.empty(B, Tp, dp)
+    dB, dC = torch.empty(B, Tp, NP), torch.empty(B, Tp, NP)
+    n_exp = 0
+    nblk, nw = dp // SS_CH, SS_CH // SS_WARP_CH
+    for c in reversed(range(Tp // K)):
+        h = slots(ckpt[c])
+        hs, es = [], []
+        for u in range(K):                    # recompute, exps kept
+            t = c * K + u
+            hs.append(h)
+            es.append(torch.exp2(dtf[:, t, :, None, None] * A2s))
+            n_exp += es[-1].numel()
+            bb = slots(Bf[:, t, None, :].expand(B, dp, NP))
+            h = es[-1] * h + (dtf[:, t] * xf[:, t])[..., None, None] * bb
+        for u in reversed(range(K)):          # reverse, the same exps
+            t = c * K + u
+            dyv, dtv, xv = (v[:, t, :, None, None] for v in (dyf, dtf, xf))
+            bb = slots(Bf[:, t, None, :].expand(B, dp, NP))
+            cc = slots(Cf[:, t, None, :].expand(B, dp, NP))
+            hp = hs[u]
+            g = dyv * cc + g
+            vC, vB = dyv * h, g * (dtv * xv)
+            ge = g * es[u]
+            ghe = ge * hp
+            dA = ghe * dtv + dA
+            gea = (ghe * A2s).cumsum(-1)[..., -1]     # slot order
+            gb = (g * bb).cumsum(-1)[..., -1]
+            gea = (gea[..., 0] + gea[..., 1]) + (gea[..., 2] + gea[..., 3])
+            gb = (gb[..., 0] + gb[..., 1]) + (gb[..., 2] + gb[..., 3])
+            g, h = ge, hp
+            dD = dyv[..., 0, 0] * xv[..., 0, 0] + dD
+            dx[:, t] = gb * dtv[..., 0, 0] + Df * dyv[..., 0, 0]
+            ddt[:, t] = gea * 0.6931471805599453 + gb * xv[..., 0, 0]
+            for kind, v, out in ((0, vB, dB), (1, vC, dC)):
+                w = _warp_tree(unslot(v).reshape(
+                    B, nblk, nw, SS_WARP_CH, NP).transpose(-1, -2))
+                blk = torch.zeros(B, nblk, NP)
+                for j in range(nw):                  # the block's warps
+                    blk = blk + w[:, :, j]
+                tot = torch.zeros(B, NP)
+                for j in range(nblk):                # the blocks
+                    tot = tot + blk[:, j]
+                out[:, t] = tot
+    dA, dh0 = unslot(dA), unslot(g)
+    dAs, dDs = torch.zeros(dp, NP), torch.zeros(dp)
+    for b in range(B):                               # the batch rows
+        dAs, dDs = dAs + dA[b], dDs + dD[b]
+    grads = (dx[:, :T, :d].to(x.dtype), ddt[:, :T, :d],
+             dAs[:d, :n], dB[:, :T, :n].to(Bm.dtype),
+             dC[:, :T, :n].to(C.dtype), dDs[:d], dh0[:, :d, :n])
+    return grads, n_exp
+
+
+@pytest.mark.parametrize("B,T,d,n", [(2, 40, 136, 12), (1, 32, 128, 16),
+                                     (2, 9, 20, 5)])
+def test_selective_scan_bwd_lane_schedule(B, T, d, n):
+    """The lane split of the states with its fixed-order sums and the
+    exponentials kept from the recompute (ragged T and d, n = 12) against
+    selective_scan_bwd_ref and jax.grad of the reference; it evaluates
+    B * T * d * 16 exponentials (padded), once each."""
+    args = _ss_inputs(B, T, d, n)
+    got, n_exp = _selective_scan_bwd_lanes(*(_t(v) for v in args))
+    assert n_exp == B * (-(-T // SS_K) * SS_K) * (-(-d // SS_CH) * SS_CH) \
+        * SS_NP
+    ref = selective_scan_bwd_ref(*(_t(v) for v in args))
+    want = _jax_ss_grads(*args, "ref")
+    for name, g, r, w in zip(SS_NAMES, got, ref, want):
+        assert g.shape == r.shape == np.shape(w)
+        _close(g, w, msg=name)
+        _close(g, r, msg=name)
+
+
+def test_selective_scan_bwd_lane_permutation_covers_states():
+    """Each channel's 4 lanes x 4 slots hold its 16 states once, and after
+    the shuffles a warp's 32 lanes hold the 32 (kind, state) sums once:
+    lane bit 2 picks the kind, state 4 q + p."""
+    for cl in range(SS_CH):
+        p = ((cl % SS_WARP_CH) >> 1) & 3
+        held = sorted(4 * q + (s ^ p) for q in range(4) for s in range(4))
+        assert held == list(range(SS_NP))
+    slots = sorted(((lane >> 2) & 1) * SS_NP + 4 * (lane & 3)
+                   + ((lane >> 3) & 3) for lane in range(32))
+    assert slots == list(range(2 * SS_NP))
+
+
 # ------------------------------------------- train steps through the Functions
 
 def _port_cfg(jcfg) -> ModelConfig:
