@@ -11,7 +11,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  the library states it)
   kernel ...     hold each kernel (flash_attention, flash_attention_bwd,
                  linear_scan, selective_scan, gmm, linear_scan_bwd,
-                 selective_scan_bwd) against its plain
+                 selective_scan_bwd, gmm_bwd) against its plain
                  PyTorch version on the card at the main paths' shapes, and
                  time kernel, plain version, the nearest PyTorch library
                  call (where one computes the same function) and the card's
@@ -51,7 +51,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  backward's measures with bitwise repeats;
                  selective_scan_bwd's includes a batch row of T * d >=
                  2^31, whose last 256 steps' gradients must equal, bitwise,
-                 a backward of those steps alone
+                 a backward of those steps alone.  gmm's cases include
+                 group sizes from qwen3-moe-30b-a3b's own layer-0 router
+                 (seed-0 weights, a SyntheticLM batch) at the serve shape
+                 (C = 384) and the train microbatch's (C = 80); gmm_bwd's
+                 (dx and dw) are held by the flash backward's measures,
+                 with dx's padding rows and empty experts' dw exactly 0,
+                 bitwise repeats and nonzero dy on the padding rows, at
+                 qwen3's train, eval and fused shapes, grok-1-314b's
+                 expert shape (E=8, D=6144, F=32768), ragged, empty and
+                 f32, against the bound and a torch.bmm pair
   train gemma2-2b
                  ``lm.train`` of full-width gemma2-2b (f32 master params
                  and Adam moments, bf16 compute, remat, batch 4 of 1024
@@ -66,6 +75,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  falcon-mamba-7b cut to 24 layers, one microbatch), 2
                  steps and lm.eval: exact launches of the scans' forward,
                  recompute and backward kernels and of flash
+  train qwen3-moe-30b-a3b-L4
+                 full-width qwen3-moe-30b-a3b cut to 4 of 48 layers, batch
+                 4 x 1024 in the config's 4 microbatches, 2 steps and
+                 lm.eval: exact launches of gmm (forward), gmm_bwd (dx,
+                 dw) and flash a step; the comparison with impl="ref"
+                 includes layer 0's router and experts
   ensemble       replica exchange (4 members, 2 cycles) and a
                  simulation-analysis loop (2 members, 2 iterations, then
                  ``lm.eval``) of full-width gemma2-2b members cut to 4
@@ -86,7 +101,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  idle; the flash launches of a cycle are one member's, the
                  swaps replay on the host, the peak; then the same members
                  in task mode (RE on a 2-slot pilot: TTC and dispatch per
-                 cycle) and one re.exchange task on the card
+                 cycle) and one re.exchange task on the card; then a
+                 FusedEnsemble of 2 full-width qwen3-moe-30b-a3b members
+                 cut to 1 layer (batch 1 x 1024, 2 cycles): gmm and
+                 gmm_bwd launch once a call for both members (the member
+                 axis folded into the experts'), swaps replayed from loss
+                 + 0.01 aux
   serve_ensemble examples/serve_ensemble.py's co-tenant application in
                  real mode (its traffic, Channels and staging layer; 4 of
                  its 8 windows): serve windows of two SLA classes decoded
@@ -113,7 +133,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  distance), each off-by-one control above it, the last
                  position's logits within a stated tolerance, and greedy
                  tokens decoded from its cache by ``impl="ref"`` decode
-                 steps against the served ones
+                 steps against the served ones; recurrentgemma-2b's hidden
+                 states are read right after its first (recurrent) block
+                 too, under a limit of their own, against that block's
+                 linear_scan control
   task           ``Kernel("lm.decode")`` on gemma2-2b on the card
   continuous     the continuous-batching loop on ``serve-tiny`` on the card
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -167,6 +190,11 @@ KERNELS = {   # name: (source, the TPU kernel it replaces, its case in the line)
     "selective_scan_bwd": (
         "src/repro_torch/kernels/mamba/csrc/selective_scan_bwd.cu",
         "src/repro/kernels/mamba/pallas_kernel.py:41", "train"),
+    # the gradient of gmm, which the JAX package takes by XLA autodiff of
+    # its einsum (moe_gmm/ref.py, moe_gmm/ops.py:24-25); its case is the
+    # qwen3 train microbatch's wi/wg product
+    "gmm_bwd": ("src/repro_torch/kernels/moe_gmm/csrc/gmm_bwd.cu",
+                "src/repro/kernels/moe_gmm/pallas_kernel.py:45", "train_wi"),
 }
 
 # name, B, Sq, Sk, H, KH, D, causal, window, softcap, scale, q_offset, dtype,
@@ -303,19 +331,28 @@ BWD_TOL = {"bfloat16": (1e-2, 2.0 ** -6), "float32": (1e-4, 1e-4)}
 
 def grad_check(a, r, dtype: str) -> dict:
     """Gradient ``a`` against its plain version ``r`` under BWD_TOL[dtype]:
-    the measures, the bounds, r's rms and max, and ok."""
+    the measures, the bounds, r's rms and max, and ok.  Summed in float64
+    over chunks of 2^27 elements, so a gradient of billions of elements
+    (grok's dw) needs no float64 copy of itself."""
     import torch
-    a, r = a.double(), r.double()
-    diff = a - r
-    r_norm, r_max = float(r.norm()), float(r.abs().max())
-    rel = float(diff.norm()) / r_norm if r_norm else float(diff.norm())
+    sq_diff = sq_ref = max_err = r_max = 0.0
+    finite = True
+    for a_, r_ in zip(a.reshape(-1).split(2 ** 27),
+                      r.reshape(-1).split(2 ** 27)):
+        a_, r_ = a_.double(), r_.double()
+        diff = a_ - r_
+        sq_diff += float((diff * diff).sum())
+        sq_ref += float((r_ * r_).sum())
+        max_err = max(max_err, float(diff.abs().max()))
+        r_max = max(r_max, float(r_.abs().max()))
+        finite = finite and bool(torch.isfinite(a_).all())
+    r_norm = sq_ref ** 0.5
+    rel = sq_diff ** 0.5 / r_norm if r_norm else sq_diff ** 0.5
     rel_tol, max_tol = BWD_TOL[dtype]
-    max_err = float(diff.abs().max())
     return {"rel_err": rel, "rel_tol": rel_tol, "max_abs_err": max_err,
             "max_abs_tol": max_tol * r_max,
             "ref_rms": r_norm / r.numel() ** 0.5, "ref_max": r_max,
-            "ok": bool(torch.isfinite(a).all()) and rel <= rel_tol
-            and max_err <= max_tol * r_max}
+            "ok": finite and rel <= rel_tol and max_err <= max_tol * r_max}
 
 
 # Scan cases.  Tolerances: a float32 output at 1e-4 (the serial chain is the
@@ -347,7 +384,11 @@ SS_LONG = dict(name="long_row", B=1, T=2 ** 32 // 8192 + 256, d=8192, n=16,
 # "route": (T, k), the sizes of T tokens each sent to k distinct experts
 # drawn at random, as a random-weight router sends them, clipped to C; the
 # serve shapes are qwen3-moe-30b-a3b's: prefill (B=4, prompt 1024: T=4096,
-# C=384) for wi/wg and wo, and a decode step (T=4, C=8, ~28 live experts).
+# C=384) for wi/wg and wo, and a decode step (T=4, C=8, ~28 live experts);
+# the train shape is a microbatch of 1 x 1024 (T=1024: C=80).  "router":
+# the sizes qwen3's own layer-0 router gives (``_router_sizes``) at the
+# serve shape or the train microbatch, so that the kernel's time predicts
+# the model's.
 # x ~ N(0, 1), w ~ 0.02 N(0, 1) as the model's weights.  Tolerances: bf16
 # one bf16 step of the largest output (kernel and plain version round f32
 # sums that agree to ~1e-6); f32 1e-4 (summation order).  Padding rows must
@@ -359,11 +400,46 @@ GMM_CASES = [
          dtype="bfloat16"),
     dict(name="decode", E=128, C=8, D=2048, F=768, route=(4, 8),
          dtype="bfloat16"),
+    dict(name="serve_router", E=128, C=384, D=2048, F=768, router="serve",
+         dtype="bfloat16"),
+    dict(name="train", E=128, C=80, D=2048, F=768, route=(1024, 8),
+         dtype="bfloat16"),
+    dict(name="train_router", E=128, C=80, D=2048, F=768, router="train",
+         dtype="bfloat16"),
     dict(name="ragged", E=5, C=100, D=200, F=300, sizes=[0, 100, 37, 64, 1],
          dtype="bfloat16"),
     dict(name="ragged_aligned", E=6, C=200, D=136, F=264,
          sizes=[200, 0, 129, 64, 1, 63], dtype="bfloat16"),
     dict(name="empty", E=128, C=384, D=2048, F=768, sizes=[0] * 128,
+         dtype="bfloat16"),
+    dict(name="f32", E=8, C=256, D=512, F=384, route=(512, 2),
+         dtype="float32"),
+]
+
+# Grouped-matmul backward cases (dx and dw), as GMM_CASES; dy ~ N(0, 1) on
+# every row, the padding rows too.  "members": the sizes of that many
+# members' routes side by side, as the vmap rule folds a fused
+# population's experts.  Tolerances: BWD_TOL (dx sums F products, dw up to
+# C; bf16 outputs are one rounding of f32 sums).
+GMM_BWD_CASES = [
+    # qwen3-moe-30b-a3b's train microbatch (T=1024, top-8: C=80): the
+    # backward of wi / wg (D=2048, F=768) and of wo (D=768, F=2048)
+    dict(name="train_wi", E=128, C=80, D=2048, F=768, route=(1024, 8),
+         dtype="bfloat16"),
+    dict(name="train_wo", E=128, C=80, D=768, F=2048, route=(1024, 8),
+         dtype="bfloat16"),
+    dict(name="train_router", E=128, C=80, D=2048, F=768, router="train",
+         dtype="bfloat16"),
+    dict(name="eval", E=128, C=384, D=2048, F=768, route=(4096, 8),
+         dtype="bfloat16"),
+    dict(name="fused", E=256, C=80, D=2048, F=768, route=(1024, 8),
+         members=2, dtype="bfloat16"),
+    # grok-1-314b's experts (8 of d_ff 32768, top-2) at 4096 tokens: C=1280
+    dict(name="grok", E=8, C=1280, D=6144, F=32768, route=(4096, 2),
+         dtype="bfloat16"),
+    dict(name="ragged", E=5, C=100, D=200, F=300, sizes=[0, 100, 37, 64, 1],
+         dtype="bfloat16"),
+    dict(name="empty", E=128, C=80, D=2048, F=768, sizes=[0] * 128,
          dtype="bfloat16"),
     dict(name="f32", E=8, C=256, D=512, F=384, route=(512, 2),
          dtype="float32"),
@@ -423,6 +499,16 @@ PREFILL_H_LIMIT = {"gemma2-2b": 0.08, "recurrentgemma-2b": 0.0123,
                    "falcon-mamba-7b": 0.13, "qwen3-moe-30b-a3b": 0.07,
                    "gemma3-4b": 0.09, "minicpm-2b": 0.14,
                    "nemotron-4-15b": 0.07}
+# (3) Where a control reads close to the sound reading at the end of the
+# model, the first block's update of the residual stream as well (its
+# output less the embeddings it took in), under a limit of its own,
+# against the control of the kernel that block runs: there the off-by-one
+# is diluted neither by the later layers nor by the embeddings.
+# recurrentgemma-2b's first block is recurrent (linear_scan); its limit
+# lies near the geometric mean of the block's sound reading and its
+# control reading on an H100: 0.000323 / 0.01024 (the model's end reads
+# 0.0115 / 0.0132).
+PREFILL_H1 = {"recurrentgemma-2b": ("linear_scan", 0.0018)}
 
 
 def rel_fro(a, r) -> float:
@@ -507,12 +593,15 @@ def ptxas_report(log: str) -> dict:
             m = re.search(r"(flash_attention_fwd_(?:wgmma|tc|cc)|"
                           r"flash_attention_bwd_(?:dkdv_tc|dq_tc|dkdv_cc|"
                           r"dq_cc|delta|wgmma)|"
-                          r"linear_scan_kernel|selective_scan_kernel|gmm_tc)"
+                          r"linear_scan_kernel|selective_scan_kernel|gmm_tc|"
+                          r"gmm_bwd_d[xw]_tc)"
                           r"I(?:Li)?(.+?)EE+v", entry[1])
-            plain = [k for k in ("gmm_cc", "gmm_wgmma",
+            plain = [k for k in ("gmm_cc", "gmm_wgmma", "gmm_bwd_dx_cc",
+                                 "gmm_bwd_dw_cc",
                                  "flash_attention_bwd_reduce")
                      if k in entry[1]]
-            args = re.sub(r"ELb([01])", r",\1", m[2]) if m else ""
+            args = re.sub(r"^Lb([01])", r"\1",
+                          re.sub(r"ELb([01])", r",\1", m[2])) if m else ""
             name = (f"{m[1]}<{args}>" if m else
                     plain[0] if plain else entry[1])
         elif name and ("registers" in line or "spill" in line
@@ -946,21 +1035,32 @@ TRAIN_GRAD_RTOL = 0.05
 
 _FAMILIES = {"flash": ("flash_attention", "flash_attention_bwd"),
              "rec": ("linear_scan", "linear_scan_bwd"),
-             "mamba": ("selective_scan", "selective_scan_bwd")}
+             "mamba": ("selective_scan", "selective_scan_bwd"),
+             "moe": ("gmm", "gmm_bwd")}
+# calls of a family's wrapper a layer: an MoE layer's wi, wg and wo
+_CALLS = {"moe": 3}
 
 
 def _launches(**per):
     """Launch counts of a train step: per[family] = (layers, microbatches);
     the forward kernel twice a layer and microbatch (remat), the backward
-    once; flash's all through its wgmma kernels."""
+    once (gmm: three products a layer, each backward call launching its
+    dx and dw kernels once); flash's all through its wgmma kernels, gmm's
+    forward through wgmma (the train shape's C = 80 > 16) and its backward
+    through mma.sync."""
     out = {}
     for family, (layers, mb) in per.items():
         fwd, bwd = _FAMILIES[family]
-        out[fwd] = 2 * layers * mb
-        out[bwd] = layers * mb
+        calls = _CALLS.get(family, 1) * layers * mb
+        out[fwd] = 2 * calls
+        out[bwd] = calls
         if family == "flash":
             out[f"{fwd}.wgmma"] = out[fwd]
             out[f"{bwd}.wgmma"] = out[bwd]
+        if family == "moe":
+            out["gmm.wgmma"] = out[fwd]
+            for name in ("dx", "dw", "mma_sync"):
+                out[f"gmm_bwd.{name}"] = calls
     return out
 
 
@@ -968,6 +1068,9 @@ def _launches(**per):
 # 131 GB, would not fit): FALCON_LAYERS of 64 layers, registered by the
 # script (PERF.md has the reckoning)
 FALCON_LAYERS = 24
+# full-width qwen3-moe-30b-a3b cut in depth (30.5B params at 14 B a param,
+# 427 GB, would not fit): QWEN_LAYERS of 48 layers, 3.115B params
+QWEN_LAYERS = 4
 TRAIN_PHASES = [
     # gemma2-2b at profile_train.TRAIN (batch 4 x 1024 in 2 microbatches),
     # the shape that profile_train times; then lm.eval and lm.decode
@@ -984,6 +1087,15 @@ TRAIN_PHASES = [
          layers=FALCON_LAYERS, steps=2, decode=False, microbatches=1,
          launches=_launches(mamba=(FALCON_LAYERS, 1)), mixer="mamba",
          picked=("in_proj", "x_proj", "dt_proj", "A_log", "D", "out_proj")),
+    # qwen3-moe-30b-a3b-L<QWEN_LAYERS>, the config's 4 microbatches of
+    # 1 x 1024 (T = 1024 a microbatch: C = 80); "a/b" picks leaf b of
+    # layer 0's subtree a
+    dict(arch=f"qwen3-moe-30b-a3b-L{QWEN_LAYERS}", base="qwen3-moe-30b-a3b",
+         layers=QWEN_LAYERS, steps=2, decode=False, microbatches=4,
+         launches=_launches(flash=(QWEN_LAYERS, 4), moe=(QWEN_LAYERS, 4)),
+         mixer="attn",
+         picked=("wq", "wk", "wv", "wo", "moe/router", "moe/wi", "moe/wg",
+                 "moe/wo")),
 ]
 
 
@@ -996,6 +1108,48 @@ def _cut_cfg(name, base, layers):
     except KeyError:
         return register(get_config(base).replace(name=name,
                                                  num_layers=layers))
+
+
+@contextlib.contextmanager
+def _routing(log, replay=False):
+    """The MoE routers' top-k (the only ``torch.topk`` calls of a train
+    step) append their indices to ``log``; with ``replay`` they take
+    ``log``'s in order instead, the weights gathered from this run's
+    probabilities, so that a second run routes every token as the first
+    did (its remat recompute too)."""
+    import torch
+    real, it = torch.topk, iter(list(log))
+
+    def topk(t, k, *args, **kw):
+        if replay:
+            idx = next(it)
+            return t.gather(-1, idx), idx
+        vals, idx = real(t, k, *args, **kw)
+        log.append(idx)
+        return vals, idx
+    torch.topk = topk
+    try:
+        yield
+    finally:
+        torch.topk = real
+    if replay and next(it, None) is not None:
+        raise AssertionError("a replayed run took fewer routes than given")
+
+
+@contextlib.contextmanager
+def _recording_sizes(out):
+    """The model's gmm calls append their group sizes to ``out``."""
+    from repro_torch.models import layers
+    real = layers.gmm
+
+    def recording(x, w, group_sizes, **kw):
+        out.append(group_sizes.detach().clone())
+        return real(x, w, group_sizes, **kw)
+    layers.gmm = recording
+    try:
+        yield
+    finally:
+        layers.gmm = real
 
 
 def phase_train(dev, spec=TRAIN_PHASES[0]):
@@ -1024,11 +1178,16 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
             "microbatches": mbs, "ensemble": "chip_smoke", "member": 0}
     steps_n, want_step = spec["steps"], spec["launches"]
     cfg = lm.resolve_cfg(args["arch"])
-    state_gb = 16 * cfg.param_count() / 1e9
+    # f32 master params and their f32 gradients, Adam m and v in the
+    # config's moment dtype, and the bf16 compute copy
+    P = cfg.param_count()
+    moment = 2 if cfg.optstate_dtype == "bfloat16" else 4
+    per_param = 4 + 4 + 2 * moment
     emit({"phase": f"train {spec['arch']}",
-          "predicted": {"params": cfg.param_count(),
-                        "state_gb": state_gb,
-                        "with_bf16_cast_gb": 18 * cfg.param_count() / 1e9}})
+          "predicted": {"params": P, "optstate_dtype": cfg.optstate_dtype,
+                        "bytes_per_param": per_param,
+                        "state_gb": per_param * P / 1e9,
+                        "with_bf16_cast_gb": (per_param + 2) * P / 1e9}})
     torch.cuda.synchronize(dev)   # initialises CUDA when this phase is first
     torch.cuda.reset_peak_memory_stats(dev)
     steps = []
@@ -1080,19 +1239,26 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
                                     TRAIN["batch"]), seed=1,
                      device=dev).batch_at(0)
     mb = {n: t[:TRAIN["batch"] // mbs] for n, t in mb.items()}
-    layer0 = params["layers"][0][spec["mixer"]]
+    layer0 = params["layers"][0]
     picked = {"embed": params["embed"]["tok"], **{
-        f"layer0/{w}": layer0[w] for w in spec["picked"]}}
+        f"layer0/{w}": (layer0[w.split("/")[0]][w.split("/")[1]] if "/" in w
+                        else layer0[spec["mixer"]][w])
+        for w in spec["picked"]}}
+    # an MoE arch's group sizes, gmm call by call, of each run: top-k
+    # near-ties can route a few assignments differently in the two
+    routed = {}
 
-    def grads_of(impl):
+    def grads_of(impl, tag, routes, replay=False):
         leaves = list(tree_leaves(params))
         for p in leaves:
             p.requires_grad_(True)
             p.grad = None
         try:
-            loss, _, _ = lm_loss(cfg, compute_cast(cfg, params), mb, impl,
-                                 remat=True)
-            loss.backward()
+            with _routing(routes, replay):   # the recompute's top-k too
+                with _recording_sizes(routed.setdefault(tag, [])):
+                    loss, _, _ = lm_loss(cfg, compute_cast(cfg, params), mb,
+                                         impl, remat=True)
+                loss.backward()
             with torch.no_grad():
                 norm = float(global_norm([p.grad for p in leaves]))
                 out = {n: t.grad.clone() for n, t in picked.items()}
@@ -1101,12 +1267,33 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
                 p.grad = None
                 p.requires_grad_(False)
         _release()
-        return float(loss), norm, out
-    loss_k, norm_k, g_k = grads_of(None)
-    loss_r, norm_r, g_r = grads_of("ref")
-    grad_rel = {n: float((g_k[n] - g_r[n]).norm() / g_r[n].norm())
-                for n in picked}
-    del g_k, g_r
+        return float(loss.detach()), norm, out
+
+    def rel(a, b):
+        return {n: float((a[n] - b[n]).norm() / b[n].norm()) for n in picked}
+    # the plain versions route as the kernels did (the MoE routers' top-k
+    # replayed): the comparison holds the kernels, not bf16 near-ties of
+    # the f32 router
+    routes = []
+    loss_k, norm_k, g_k = grads_of(None, "kernels", routes)
+    loss_r, norm_r, g_r = grads_of("ref", "ref", routes, replay=True)
+    grad_rel = rel(g_k, g_r)
+    del g_r
+    free = None
+    if cfg.num_experts:   # and routing freely, for the record
+        loss_f, norm_f, g_f = grads_of("ref", "ref_free", [])
+        # assignments routed to another expert: half the summed changes of
+        # the group sizes (the forward's gmm calls)
+        moved = sum(int((a - b).abs().sum()) for a, b in
+                    zip(routed["kernels"], routed["ref_free"])) // 2
+        free = {"loss_ref": loss_f, "grad_norm_ref": norm_f,
+                "grad_rel_frobenius": rel(g_k, g_f),
+                "assignments_routed_elsewhere": moved,
+                # the forward's, of the recorded top-k (forward and
+                # recompute each route every assignment once)
+                "assignments": sum(r.numel() for r in routes) // 2}
+        del g_f
+    del g_k
 
     losses = [s_["loss"] for s_ in steps]
     per_step_ok = all(s_["launches"] == want_step for s_ in steps)
@@ -1145,7 +1332,14 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
                       "loss_tol": TRAIN_LOSS_TOL, "grad_norm_kernels": norm_k,
                       "grad_norm_ref": norm_r,
                       "grad_rel_frobenius": grad_rel,
-                      "grad_rtol": TRAIN_GRAD_RTOL},
+                      "grad_rtol": TRAIN_GRAD_RTOL,
+                      "routing": "the plain run replays the kernel run's "
+                                 "top-k",
+                      "gmm_calls": len(routed["kernels"]),
+                      "same_group_sizes": all(
+                          torch.equal(a, b) for a, b in
+                          zip(routed["kernels"], routed["ref"])),
+                      "free_routing": free},
            "ok": ok}
     emit(row)
     lm.STATE_STORE.clear()
@@ -1434,11 +1628,18 @@ def phase_ensemble(dev):
 # end of the backward: every gradient (16 bytes a parameter in all) and the
 # embedding gather's dense gradient, one more V x d_model a member.
 FUSED = dict(base="gemma2-2b", arch="gemma2-2b-L2", layers=2, members=4,
-             cycles=2, steps=1, batch=1, seq=1024, seed=0)
+             cycles=2, steps=1, batch=1, seq=1024, seed=0, task_mode=True)
+# An MoE population: 2 full-width qwen3-moe-30b-a3b members cut to 1
+# layer (1.245B params each, reckoned at 42.3 GB; 3 members would reckon
+# to ~64 GB, too near the limit), no task mode.  gmm's vmap rule folds the
+# members into its expert axis (2 x 128 experts): one launch a call for
+# both members, the forward on wgmma.
+FUSED_MOE = dict(base="qwen3-moe-30b-a3b", arch="qwen3-moe-30b-a3b-L1",
+                 layers=1, members=2, cycles=2, steps=1, batch=1, seq=1024,
+                 seed=0, task_mode=False)
 
 
-def _fused_reckoning(cfg):
-    F = FUSED
+def _fused_reckoning(cfg, F):
     n, P = F["members"], cfg.param_count()
     head = 4 * cfg.vocab_size * cfg.d_model * n / 1e9
     logits = 4 * F["batch"] * F["seq"] * cfg.vocab_size * n / 1e9
@@ -1450,14 +1651,16 @@ def _fused_reckoning(cfg):
             "peak_gb": max(at_loss, at_end)}
 
 
-def phase_fused(dev):
-    """FusedEnsemble through ``_build_cycle`` (the reference benchmark's
-    entry, benchmarks/fused_dispatch.py): per cycle the losses,
-    temperatures, accepted pairs, the seconds until the cycle returns its
-    metrics to the host and until the device is idle, the launches;
-    asserts one member's flash launches a step, the temperature multiset,
-    the swaps replayed on the host from the losses and uniforms, finite
-    losses and the peak.  Then task mode and re.exchange on the device."""
+def phase_fused(dev, F=FUSED):
+    """FusedEnsemble of ``F`` through ``_build_cycle`` (the reference
+    benchmark's entry, benchmarks/fused_dispatch.py): per cycle the losses
+    (cross-entropy + 0.01 aux), temperatures, accepted pairs, the seconds
+    until the cycle returns its metrics to the host and until the device is
+    idle, the launches; asserts one member's kernel launches a step (flash,
+    and an MoE arch's gmm and gmm_bwd), the temperature multiset, the swaps
+    replayed on the host from the losses and uniforms, finite losses and
+    the peak.  Then, where ``F["task_mode"]``, task mode and re.exchange
+    on the device."""
     import numpy as np
     import torch
 
@@ -1472,12 +1675,15 @@ def phase_fused(dev):
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.plugins.re_exchange import exchange_uniforms
 
-    F = FUSED
     cfg = _cut_cfg(F["arch"], F["base"], F["layers"])
     n = F["members"]
-    predicted = _fused_reckoning(cfg)
-    emit({"phase": "fused", "predicted": predicted, "config": F})
-    want = _launches(flash=(F["layers"], F["steps"]))   # one member's
+    predicted = _fused_reckoning(cfg, F)
+    emit({"phase": "fused", "arch": cfg.name, "predicted": predicted,
+          "config": F})
+    per = {"flash": (F["layers"], F["steps"])}
+    if cfg.num_experts:
+        per["moe"] = (F["layers"], F["steps"])
+    want = _launches(**per)   # one member's
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     fe = FusedEnsemble(cfg, n, device=dev)
@@ -1526,57 +1732,62 @@ def phase_fused(dev):
     del ens, fe, batches, data
     _release()
 
-    # the same members and config in task mode, on a 2-slot pilot
-    train = {"arch": cfg.name, "device": str(dev), "steps": F["steps"],
-             "batch": F["batch"], "seq": F["seq"], "microbatches": 1,
-             "seed": F["seed"]}
-    app = _re_app(n, F["cycles"], train, "fused_task", F["seed"],
-                  temps0.tolist())
-    prof, task_launches, task_peak_gb = _run_app(dev, app, "fused_task")
-    _drop_members("fused_task")
-    task_want = {k: v * n * F["cycles"] for k, v in want.items()}
-    task = {**_ttc(prof), "ttc_per_cycle": prof.ttc / F["cycles"],
-            "dispatch_per_cycle": (prof.t_rts_overhead
-                                   + prof.t_pattern_overhead) / F["cycles"],
-            "temps": app.temp_history, "launches": task_launches,
-            "launches_expected": task_want, "peak_mem_gb": task_peak_gb}
-    ok = ok and task_launches == task_want
-
-    # one re.exchange task on the device, from the fused run's last cycle
-    k = Kernel("re.exchange")
-    k.arguments = {"replicas": n, "cycle": F["cycles"],
-                   "temps": last["temps"], "losses": last["losses"],
-                   "device": str(dev), "seed": F["seed"]}
-    x = k.execute()
-    u = exchange_uniforms(n, F["seed"], F["cycles"], dev)
-    new_t, n_acc = metropolis_swap_device(
-        torch.tensor(last["losses"], dtype=torch.float32, device=dev),
-        torch.tensor(last["temps"], dtype=torch.float32, device=dev),
-        F["cycles"], u)
-    x_same = (np.array_equal(np.float32(x["temps"]), new_t.cpu().numpy())
-              and len(x["accepted"]) == int(n_acc))
-    ok = ok and x_same
     row = {"phase": "fused", "arch": cfg.name, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-           "params": cfg.param_count(), "members": n,
-           "cycles": F["cycles"], "steps_per_cycle": F["steps"],
-           "batch": F["batch"], "seq": F["seq"], "init_s": init_s,
-           "fused_cycles": cycles, "launches_per_cycle_expected": want,
-           "peak_mem_gb": peak_gb, "predicted_peak_gb": predicted["peak_gb"],
+           "num_experts": cfg.num_experts, "params": cfg.param_count(),
+           "members": n, "cycles": F["cycles"],
+           "steps_per_cycle": F["steps"], "batch": F["batch"],
+           "seq": F["seq"], "init_s": init_s, "fused_cycles": cycles,
+           "launches_per_cycle_expected": want, "peak_mem_gb": peak_gb,
+           "predicted_peak_gb": predicted["peak_gb"],
            "peak_limit_gb": ENS_PEAK_LIMIT_GB, "member_steps": steps,
-           "task_mode": task,
            "per_cycle": {"fused_return_s": [c_["return_s"] for c_ in cycles],
-                         "fused_total_s": [c_["total_s"] for c_ in cycles],
-                         "task_ttc_s": task["ttc_per_cycle"],
-                         "task_dispatch_s": task["dispatch_per_cycle"]},
-           "exchange_on_device": {"result": x, "same_as_swap": x_same,
-                                  "uniforms": u.cpu().tolist()},
-           "ok": ok}
+                         "fused_total_s": [c_["total_s"] for c_ in cycles]}}
+    path = {}
+    if F["task_mode"]:
+        # the same members and config in task mode, on a 2-slot pilot
+        train = {"arch": cfg.name, "device": str(dev), "steps": F["steps"],
+                 "batch": F["batch"], "seq": F["seq"], "microbatches": 1,
+                 "seed": F["seed"]}
+        app = _re_app(n, F["cycles"], train, "fused_task", F["seed"],
+                      temps0.tolist())
+        prof, task_launches, task_peak_gb = _run_app(dev, app, "fused_task")
+        _drop_members("fused_task")
+        task_want = {k: v * n * F["cycles"] for k, v in want.items()}
+        task = {**_ttc(prof), "ttc_per_cycle": prof.ttc / F["cycles"],
+                "dispatch_per_cycle": (prof.t_rts_overhead
+                                       + prof.t_pattern_overhead)
+                / F["cycles"],
+                "temps": app.temp_history, "launches": task_launches,
+                "launches_expected": task_want, "peak_mem_gb": task_peak_gb}
+        ok = ok and task_launches == task_want
+        path = dict(task_launches)
+
+        # one re.exchange task on the device, from the fused run's last
+        # cycle
+        k = Kernel("re.exchange")
+        k.arguments = {"replicas": n, "cycle": F["cycles"],
+                       "temps": last["temps"], "losses": last["losses"],
+                       "device": str(dev), "seed": F["seed"]}
+        x = k.execute()
+        u = exchange_uniforms(n, F["seed"], F["cycles"], dev)
+        new_t, n_acc = metropolis_swap_device(
+            torch.tensor(last["losses"], dtype=torch.float32, device=dev),
+            torch.tensor(last["temps"], dtype=torch.float32, device=dev),
+            F["cycles"], u)
+        x_same = (np.array_equal(np.float32(x["temps"]), new_t.cpu().numpy())
+                  and len(x["accepted"]) == int(n_acc))
+        ok = ok and x_same
+        row["task_mode"] = task
+        row["per_cycle"].update(task_ttc_s=task["ttc_per_cycle"],
+                                task_dispatch_s=task["dispatch_per_cycle"])
+        row["exchange_on_device"] = {"result": x, "same_as_swap": x_same,
+                                     "uniforms": u.cpu().tolist()}
+    row["ok"] = ok
     emit(row)
     _release()
     if not ok:
         raise AssertionError(f"fused phase failed: {row}")
-    path = dict(task_launches)
     for c_ in cycles:
         for name, v in c_["launches"].items():
             path[name] = path.get(name, 0) + v
@@ -2410,18 +2621,67 @@ def _selective_scan_bwd_long_row(dev, gen):
     return row
 
 
-def _gmm_sizes(c, gen, dev):
+ROUTER = dict(base="qwen3-moe-30b-a3b", arch="qwen3-moe-30b-a3b-L1",
+              layers=1, batch=4, seq=1024, seed=0)
+
+
+def _router_sizes(dev):
+    """{"serve", "train"}: the group sizes of qwen3-moe-30b-a3b's layer-0
+    router (full width, bf16 params from seed 0: layer 0 of the config cut
+    to one layer, which init_params draws as the full model's) on
+    SyntheticLM's batch 0 (seed 0, 4 x 1024 tokens): all of it, the serve
+    shape (T=4096, C=384), and its first row, the train microbatch (T=1024,
+    C=80)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import forward, init_params
+    R = ROUTER
+    cfg = _cut_cfg(R["arch"], R["base"], R["layers"]).replace(
+        param_dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        R["seed"]))
+    tokens = SyntheticLM(cfg, ShapeSpec("router", "train", R["seq"],
+                                        R["batch"]), seed=R["seed"],
+                         device=dev).batch_at(0)["tokens"]
+    sizes = {}
+    for name, rows in (("serve", tokens), ("train", tokens[:1])):
+        seen = []
+        with _recording_sizes(seen), torch.inference_mode():
+            forward(cfg, params, rows)
+        sizes[name] = seen[0]
+    del params
+    _release()
+    return sizes
+
+
+def _route(E, C, T, k, gen, dev):
+    import torch
+    idx = torch.rand((T, E), generator=gen, device=dev).topk(k).indices
+    counts = torch.zeros(E, dtype=torch.int32, device=dev).scatter_add_(
+        0, idx.reshape(-1), torch.ones(T * k, dtype=torch.int32, device=dev))
+    return counts.clamp(max=C)
+
+
+def _gmm_sizes(c, gen, dev, router):
+    """A case's group sizes: given, ``router[c["router"]]`` (the
+    ``_router_sizes`` of the run), or routed at random."""
     import torch
     if "sizes" in c:
         return torch.tensor(c["sizes"], dtype=torch.int32, device=dev)
-    T, k = c["route"]
-    idx = torch.rand((T, c["E"]), generator=gen, device=dev).topk(k).indices
-    counts = torch.zeros(c["E"], dtype=torch.int32, device=dev).scatter_add_(
-        0, idx.reshape(-1), torch.ones(T * k, dtype=torch.int32, device=dev))
-    return counts.clamp(max=c["C"])
+    if "router" in c:
+        sizes = router[c["router"]]
+        if sizes.shape != (c["E"],) or int(sizes.max()) > c["C"]:
+            raise AssertionError(f"router sizes {sizes.tolist()} do not fit "
+                                 f"case {c}")
+        return sizes
+    n = c.get("members", 1)
+    return torch.cat([_route(c["E"] // n, c["C"], *c["route"], gen, dev)
+                      for _ in range(n)])
 
 
-def phase_kernel_gmm(dev, baseline=None):
+def phase_kernel_gmm(dev, router, baseline=None):
     import torch
 
     from repro_torch.kernels import LAUNCHES
@@ -2435,7 +2695,7 @@ def phase_kernel_gmm(dev, baseline=None):
         E, C, D, F = c["E"], c["C"], c["D"], c["F"]
         x = torch.randn((E, C, D), generator=gen, device=dev).to(dt)
         w = (0.02 * torch.randn((E, D, F), generator=gen, device=dev)).to(dt)
-        sizes = _gmm_sizes(c, gen, dev)
+        sizes = _gmm_sizes(c, gen, dev, router)
         kind = variant(dt, E, C, D, F)
         if kernel_variant(dt, E, C, D, F) != kind:
             raise AssertionError(f"gmm case {c['name']}: the library's rule "
@@ -2500,6 +2760,100 @@ def phase_kernel_gmm(dev, baseline=None):
     return results
 
 
+def phase_kernel_gmm_bwd(dev, router):
+    """dx and dw of the grouped-matmul backward kernels against gmm_bwd_ref
+    on the card (GMM_BWD_CASES): the flash backward's measures, dx's
+    padding rows and the dw of empty experts exactly 0, two calls bitwise
+    equal; device, host-inclusive, plain and torch.bmm-pair times beside
+    the bound."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.moe_gmm import gmm_bwd_ref
+    from repro_torch.kernels.moe_gmm.ops import bwd_variant, gmm_bwd_cuda
+    gen = torch.Generator(device=dev).manual_seed(5)
+    results = {}
+    for c in GMM_BWD_CASES:
+        dt = getattr(torch, c["dtype"])
+        E, C, D, F = c["E"], c["C"], c["D"], c["F"]
+        x = torch.randn((E, C, D), generator=gen, device=dev).to(dt)
+        w = (0.02 * torch.randn((E, D, F), generator=gen, device=dev)).to(dt)
+        dy = torch.randn((E, C, F), generator=gen, device=dev).to(dt)
+        sizes = _gmm_sizes(c, gen, dev, router)
+        kind = bwd_variant(dt)
+        names = ("gmm_bwd", "gmm_bwd.dx", "gmm_bwd.dw", f"gmm_bwd.{kind}")
+        before = [LAUNCHES[n] for n in names]
+        dx, dw = gmm_bwd_cuda(x, w, sizes, dy)
+        torch.cuda.synchronize()
+        if [LAUNCHES[n] for n in names] != [b + 1 for b in before]:
+            raise AssertionError(f"gmm_bwd case {c['name']} did not launch "
+                                 f"its {kind} kernels once each")
+        dx2, dw2 = gmm_bwd_cuda(x, w, sizes, dy)
+        bitwise = bool(torch.equal(dx, dx2) and torch.equal(dw, dw2))
+        del dx2, dw2
+        valid = torch.arange(C, device=dev)[None, :] < sizes[:, None]
+        padding_zero = bool((dx[~valid] == 0).all())
+        empty_zero = bool((dw[sizes == 0] == 0).all())
+        rx, rw = gmm_bwd_ref(x, w, sizes, dy)
+        checks = {"dx": grad_check(dx, rx, c["dtype"]),
+                  "dw": grad_check(dw, rw, c["dtype"])}
+        del rx, rw, dx, dw
+        torch.cuda.empty_cache()
+        big = E * D * F > 100_000_000
+
+        def kernel():
+            return gmm_bwd_cuda(x, w, sizes, dy)
+
+        def library():
+            return torch.bmm(dy, w.mT), torch.bmm(x.mT, dy)
+        n_it = 5 if big else 20
+        ms = device_ms(kernel, n_it)
+        host_ms = time_ms(kernel, n_it)
+        dx_ms = device_ms(lambda: gmm_bwd_cuda(x, w, sizes, dy,
+                                               need_dw=False), n_it)
+        dw_ms = device_ms(lambda: gmm_bwd_cuda(x, w, sizes, dy,
+                                               need_dx=False), n_it)
+        plain_ms = time_ms(lambda: gmm_bwd_ref(x, w, sizes, dy), 2)
+        library_ms = device_ms(library, n_it)
+
+        rows = int(sizes.sum())
+        live_experts = int((sizes > 0).sum())
+        esz = x.element_size()
+        flops = 2 * 2 * rows * D * F
+        # x and dy read over live rows, dx written whole (its padding rows
+        # as zeros), w read for the experts that hold tokens, dw written
+        nbytes = (rows * (D + F) + E * C * D + live_experts * D * F
+                  + E * D * F) * esz + 4 * E
+        t_ops = flops / PEAK_FLOPS[c["dtype"]]
+        t_bytes = nbytes / PEAK_BYTES
+        ok = (all(v["ok"] for v in checks.values()) and bitwise
+              and padding_zero and empty_zero)
+        row = {"phase": "kernel gmm_bwd", "case": c["name"],
+               "shape": {n: c[n] for n in ("E", "C", "D", "F")},
+               "dtype": c["dtype"], "variant": kind, "live_rows": rows,
+               "live_experts": live_experts, "checks": checks,
+               "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
+               "bitwise_repeat": bitwise,
+               "dx_padding_rows_zero": padding_zero,
+               "dw_empty_experts_zero": empty_zero, "ok": ok, "ms": ms,
+               "dx_ms": dx_ms, "dw_ms": dw_ms,
+               "host_ms": host_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               "library": "torch.bmm(dy, w.mT) + torch.bmm(x.mT, dy) in x's "
+                          "dtype over every row and expert",
+               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+               "tflops": flops / ms / 1e9,
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"gmm_bwd case {c['name']}: {row}")
+        results[c["name"]] = row
+        del x, w, dy, sizes, valid
+        torch.cuda.empty_cache()
+    return results
+
+
 @contextlib.contextmanager
 def _off_by_one(name):
     """The model's calls of kernel wrapper ``name`` read their arguments at
@@ -2556,7 +2910,11 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
     from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import forward, init_params
-    from repro_torch.models.transformer import lm_logits
+    from repro_torch.models.transformer import (
+        embed_tokens,
+        forward_block,
+        lm_logits,
+    )
     from repro_torch.serve import (
         BatchedServer,
         build_prefill_step,
@@ -2654,6 +3012,28 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
             del out_c, h_c
         h_ref_max = float(h_r.float().abs().max())
         del h_r
+        first = {}
+        if arch in PREFILL_H1:
+            control, limit1 = PREFILL_H1[arch]
+            kind = cfg.layer_kind(0)
+            pos = torch.arange(S0, dtype=torch.int32,
+                               device=dev)[None].expand(B, S0)
+            h0 = embed_tokens(cfg, params, wave, pos)
+
+            def update(impl=None):
+                h1, _, _ = forward_block(cfg, params["layers"][0], h0, kind,
+                                         positions=pos, seg_ids=None,
+                                         cache_len=None, impl=impl)
+                return h1.float() - h0.float()
+            u_r = update("ref")
+            first = {"blocks": 1, "kind": kind,
+                     "compared": "the first block's update of the residual "
+                                 "stream (its output less its input)",
+                     "h_rel_frobenius": rel_fro(update(), u_r),
+                     "limit": limit1, "controls": {}}
+            with _off_by_one(control):
+                first["controls"][control] = rel_fro(update(), u_r)
+            del u_r, h0
         top2 = lk[:, 0].topk(2, dim=-1).values
         argmax_same = float((lk[:, 0].argmax(-1) == lr[:, 0].argmax(-1))
                             .float().mean())
@@ -2697,7 +3077,7 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
            "prefill_h_compared": "final hidden states of every position of "
                                  "the first wave, kernels against "
                                  "impl='ref'",
-           "controls": controls,
+           "controls": controls, "first_block": first,
            "controls_compared": "the kernels' prefill with the named "
                                 "wrapper's arguments delayed one position, "
                                 "against impl='ref'",
@@ -2721,6 +3101,10 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
         raise AssertionError(f"{arch} prefill: the controls {blind or 'none'}"
                              f" do not read above the limit {limit}: "
                              f"{controls}")
+    if first and not (first["h_rel_frobenius"] <= first["limit"] <
+                      min(first["controls"].values())):
+        raise AssertionError(f"{arch} prefill after the first block: "
+                             f"{first}")
     return row
 
 
@@ -2836,16 +3220,18 @@ def main() -> int:
 
     phase_build()
     with torch.inference_mode():
+        router = _router_sizes(dev)
         cases = {"flash_attention": phase_kernel_flash_attention(
                      dev, baselines.get("flash_attention")),
                  "linear_scan": phase_kernel_linear_scan(dev),
                  "selective_scan": phase_kernel_selective_scan(
                      dev, baselines.get("selective_scan")),
-                 "gmm": phase_kernel_gmm(dev, baselines.get("gmm")),
+                 "gmm": phase_kernel_gmm(dev, router, baselines.get("gmm")),
                  "linear_scan_bwd": phase_kernel_linear_scan_bwd(
                      dev, baselines.get("linear_scan_bwd")),
                  "selective_scan_bwd": phase_kernel_selective_scan_bwd(
-                     dev, baselines.get("selective_scan_bwd"))}
+                     dev, baselines.get("selective_scan_bwd")),
+                 "gmm_bwd": phase_kernel_gmm_bwd(dev, router)}
         _release()
     cases["flash_attention_bwd"] = phase_kernel_flash_attention_bwd(
         dev, baselines.get("flash_attention_bwd"))
@@ -2859,9 +3245,10 @@ def main() -> int:
     for name, n in phase_ensemble(dev).items():
         if name in launches:
             launches[name]["ensemble"] = n
-    for name, n in phase_fused(dev).items():
-        if name in launches:
-            launches[name]["fused"] = n
+    for spec in (FUSED, FUSED_MOE):
+        for name, n in phase_fused(dev, spec).items():
+            if name in launches:
+                launches[name][f"fused {spec['arch']}"] = n
     for name, n in phase_serve_ensemble(dev).items():
         if name in launches:
             launches[name]["serve_ensemble"] = n

@@ -1,7 +1,7 @@
 """Arch registry: importing this package registers the ported architectures
 (gemma2-2b, gemma3-4b, minicpm-2b, nemotron-4-15b, recurrentgemma-2b,
-falcon-mamba-7b, qwen3-moe-30b-a3b and ``serve-tiny``); ``configs.toy``
-holds the paper's toy workload (not a model)."""
+falcon-mamba-7b, qwen3-moe-30b-a3b, grok-1-314b and ``serve-tiny``);
+``configs.toy`` holds the paper's toy workload (not a model)."""
 from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
     get_config,
@@ -14,6 +14,7 @@ from repro_torch.configs import (  # noqa: F401
     falcon_mamba_7b,
     gemma2_2b,
     gemma3_4b,
+    grok_1_314b,
     minicpm_2b,
     nemotron_4_15b,
     qwen3_moe_30b_a3b,

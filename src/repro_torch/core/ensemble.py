@@ -6,7 +6,8 @@ host round-trip at every exchange).  Here the members' states are stacked
 on a leading axis, their train steps run through ``torch.func.vmap`` over
 the port's functional ``forward``, and the exchange is computed on the
 device (a Metropolis swap of the temperature vector).  Under ``vmap`` the
-hand kernels' ``vmap`` rules fold the member axis into their batch, so one
+hand kernels' ``vmap`` rules fold the member axis into their batch (gmm's
+into its expert axis: an MoE population's experts are disjoint), so one
 launch serves every member (``kernels.fold_members``), and the block and
 loss-chunk rematerialisation recomputes under the same ``vmap``
 (``models.remat``).  Dispatch becomes one vmapped step per cycle for the

@@ -3,12 +3,13 @@
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made on a CUDA
 tensor (and nothing else), so a run can show that its main path went
 through the kernels; "flash_attention.<variant>", "flash_attention_bwd.
-<variant>" and "gmm.<variant>" count the launches of each of their
-kernels besides.  Wrappers count through ``count_launch``, under a lock, so
+<variant>", "gmm.<variant>" and "gmm_bwd.<variant>" count the launches of
+each of their kernels besides.  A ``gmm_bwd`` call launches two kernels,
+counted once each as "gmm_bwd.dx" and "gmm_bwd.dw".  Wrappers count through ``count_launch``, under a lock, so
 tasks that launch from several threads at once lose no count.
 ``reset_launches`` sets every count to 0.
 
-The wrappers with a gradient (flash attention and the two scans) are
+The wrappers with a gradient (flash attention, the two scans and gmm) are
 ``autograd.Function``s in the ``setup_context`` form with a ``vmap`` rule,
 so ``torch.func.vmap`` (the fused ensemble's member axis) reaches them;
 ``fold_members`` and ``unfold_members`` are the rules' shared reshapes.
@@ -29,7 +30,9 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention.wgmma": 0,
                              "flash_attention_bwd.f32": 0, "linear_scan": 0,
                              "linear_scan_bwd": 0, "selective_scan": 0,
                              "selective_scan_bwd": 0, "gmm": 0, "gmm.wgmma": 0,
-                             "gmm.mma_sync": 0, "gmm.f32": 0}
+                             "gmm.mma_sync": 0, "gmm.f32": 0, "gmm_bwd": 0,
+                             "gmm_bwd.dx": 0, "gmm_bwd.dw": 0,
+                             "gmm_bwd.mma_sync": 0, "gmm_bwd.f32": 0}
 
 
 _LAUNCH_LOCK = threading.Lock()
@@ -50,8 +53,8 @@ def reset_launches() -> None:
 
 def grad_required(*tensors) -> bool:
     """Whether autograd records a call on ``tensors`` now: grad mode is on
-    and one of them requires grad.  A wrapper whose kernel has no backward
-    raises on CUDA inputs for which this holds."""
+    and one of them requires grad.  Where it holds, a wrapper goes through
+    its ``autograd.Function``."""
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
 

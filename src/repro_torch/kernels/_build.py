@@ -36,6 +36,7 @@ SOURCES: Dict[str, str] = {
     "selective_scan": "mamba/csrc/selective_scan.cu",
     "selective_scan_bwd": "mamba/csrc/selective_scan_bwd.cu",
     "gmm": "moe_gmm/csrc/gmm.cu",
+    "gmm_bwd": "moe_gmm/csrc/gmm_bwd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,4 +1,5 @@
-"""Public MoE grouped-matmul entry point with device dispatch.
+"""Public MoE grouped-matmul entry point with device dispatch, and its
+gradient.
 
 A CPU tensor goes to the plain PyTorch version (``ref``).  A CUDA tensor goes
 to the hand-written Hopper kernels (``csrc/gmm.cu``), or to ``ref`` only when
@@ -14,6 +15,17 @@ aligned x, w and out (TMA's stride and address rule), at most
 (prefill); other bf16 inputs, decode's C <= 16 among them, the mma.sync
 kernel; f32 the CUDA-core kernel.  ``LAUNCHES["gmm"]`` counts every launch,
 ``LAUNCHES["gmm.<variant>"]`` each variant's.
+
+When autograd records the call (or the inputs come wrapped by
+``torch.func.vmap``) ``gmm`` runs through ``GroupedMatmul``, an
+``autograd.Function`` whose backward is the pair of kernels in
+``csrc/gmm_bwd.cu`` (dx = mask(dy) w^T and dw = x^T mask(dy);
+``gmm_bwd_ref`` on the CPU or with ``impl="ref"``): bf16 on mma.sync,
+f32 on the CUDA cores (``bwd_variant``).  ``LAUNCHES["gmm_bwd"]`` counts
+its calls, "gmm_bwd.dx" and "gmm_bwd.dw" each kernel's launches and
+"gmm_bwd.<variant>" the calls of each variant.  Its ``vmap`` rule folds
+the member axis into the expert axis, since members share no experts:
+one launch for every member.
 """
 from __future__ import annotations
 
@@ -22,8 +34,14 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import count_launch, grad_required, transformed
-from repro_torch.kernels.moe_gmm.ref import gmm_ref
+from repro_torch.kernels import (
+    count_launch,
+    fold_members,
+    grad_required,
+    transformed,
+    unfold_members,
+)
+from repro_torch.kernels.moe_gmm.ref import gmm_bwd_ref, gmm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WGMMA_EXPERTS = 1024   # the wgmma kernel stages the sizes on chip
@@ -50,14 +68,59 @@ def gmm(x, w, group_sizes, *, impl: Optional[str] = None):
     """
     if impl not in (None, "ref"):
         raise ValueError(f"unknown moe impl {impl!r}")
-    if impl == "ref" or x.device.type == "cpu":
-        return gmm_ref(x, w, group_sizes)
+    plain = impl == "ref" or x.device.type == "cpu"
     if grad_required(x, w) or transformed(x, w, group_sizes):
-        raise NotImplementedError(
-            "gmm has no backward kernel and no vmap rule yet (ROADMAP B2): "
-            "training through it on CUDA, or vmapping it, waits for them; "
-            "impl='ref' differentiates")
+        return GroupedMatmul.apply(x, w, group_sizes, plain)
+    if plain:
+        return gmm_ref(x, w, group_sizes)
     return gmm_cuda(x, w, group_sizes)
+
+
+def bwd_variant(dtype: torch.dtype) -> str:
+    """The backward kernels a ``gmm_bwd_cuda`` call takes."""
+    return "f32" if dtype == torch.float32 else "mma_sync"
+
+
+class GroupedMatmul(torch.autograd.Function):
+    """out = gmm(x, w, group_sizes); saves x, w and the sizes.  The
+    backward gives dx and dw (no gradient for the sizes).  ``plain``: the
+    plain versions instead of the kernels."""
+
+    @staticmethod
+    def forward(x, w, group_sizes, plain):
+        if plain:
+            return gmm_ref(x, w, group_sizes)
+        return gmm_cuda(x, w, group_sizes)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, group_sizes, plain = inputs
+        ctx.save_for_backward(x, w, group_sizes)
+        ctx.plain = plain
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, group_sizes = ctx.saved_tensors
+        if ctx.plain:
+            dx, dw = gmm_bwd_ref(x, w, group_sizes, dy)
+        else:
+            need_dx, need_dw = ctx.needs_input_grad[:2]
+            dx, dw = gmm_bwd_cuda(x, w, group_sizes, dy.contiguous(),
+                                  need_dx=need_dx, need_dw=need_dw)
+        return dx, dw, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, group_sizes, plain):
+        """Fold the member axis into the expert axis, (N, E, ...) ->
+        (N * E, ...): members share no experts, so one launch computes
+        every member's product (and, through this Function, its
+        gradients).  An argument that is not batched is expanded to every
+        member first; for w that is a copy of N * E expert weights."""
+        n = info.batch_size
+        out = GroupedMatmul.apply(*(fold_members(t, d, n).contiguous()
+                                    for t, d in zip((x, w, group_sizes),
+                                                    in_dims[:3])), plain)
+        return unfold_members(out, n), 0
 
 
 def check_inputs(x, w, group_sizes) -> None:
@@ -112,16 +175,70 @@ def gmm_cuda(x, w, group_sizes):
     return out
 
 
-def _library():
+def gmm_bwd_cuda(x, w, group_sizes, dy, *, need_dx=True, need_dw=True):
+    """Launch the backward kernels on ``torch.cuda.current_stream()``:
+    (dx (E, C, D) in x's dtype, rows past the sizes exactly 0; dw (E, D, F)
+    in w's) from the forward's inputs and the output gradient dy (E, C, F)
+    in x's dtype.  dy's padding rows are never read.  A gradient not
+    needed is not computed (None in its place)."""
+    for name, t in (("x", x), ("w", w), ("group_sizes", group_sizes),
+                    ("dy", dy)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}; the kernel needs CUDA")
+        if t.device != x.device:
+            raise ValueError("x, w, group_sizes, dy must be on one device")
+    check_inputs(x, w, group_sizes)
+    E, C, D = x.shape
+    F = w.shape[2]
+    if dy.shape != (E, C, F) or dy.dtype != x.dtype or not dy.is_contiguous():
+        raise ValueError(f"dy must be contiguous {(E, C, F)} {x.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype}")
+    dx = torch.empty_like(x) if need_dx else None
+    dw = torch.empty_like(w) if need_dw else None
+    outs = [t for t in (dx, dw) if t is not None]
+    if not outs:
+        return dx, dw
+    if 0 in (C, D, F):   # nothing to sum: the kernels take no empty axis
+        for t in outs:
+            t.zero_()
+        return dx, dw
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, dy, *outs))
+    vec = int(D % 8 == 0 and F % 8 == 0 and aligned)
+    lib = _library("gmm_bwd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.gmm_bwd(x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
+                          dy.data_ptr(), None if dx is None else dx.data_ptr(),
+                          None if dw is None else dw.data_ptr(),
+                          _DTYPES[x.dtype], E, C, D, F, vec, stream)
+    if err:
+        msg = lib.gmm_bwd_error_string(err).decode()
+        raise RuntimeError(f"gmm_bwd launch failed: {msg} ({err})")
+    count_launch("gmm_bwd", f"gmm_bwd.{bwd_variant(x.dtype)}",
+                 *(f"gmm_bwd.{n}" for n, t in (("dx", dx), ("dw", dw))
+                   if t is not None))
+    return dx, dw
+
+
+_ARGTYPES = {   # library: its launch entry's pointer and int arguments
+    "gmm": (4, 6),        # x w sizes out; dtype E C D F vec
+    "gmm_bwd": (6, 6),    # x w sizes dy dx dw; dtype E C D F vec
+}
+
+
+def _library(name: str = "gmm"):
+    """The loaded library ``name`` (gmm or gmm_bwd), its C entries typed."""
     from repro_torch.kernels import _build
-    lib = _build.load("gmm")
-    fn = lib.gmm
+    lib = _build.load(name)
+    fn = getattr(lib, name)
     if fn.argtypes is None:   # typed last: a thread that sees it sees all
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [i32]
+        err.restype = ctypes.c_char_p
         fn.restype = i32
-        lib.gmm_error_string.argtypes = [i32]
-        lib.gmm_error_string.restype = ctypes.c_char_p
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+        n_ptr, n_int = _ARGTYPES[name]
+        fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
     return lib
 
 

@@ -33,6 +33,7 @@ _GROUPS = (("flash_attention", ("flash_attention_fwd",)),
            ("linear_scan_bwd", ("linear_scan_bwd_",)),
            ("selective_scan", ("selective_scan_kernel",)),
            ("selective_scan_bwd", ("selective_scan_bwd_",)),
+           ("gmm_bwd", ("gmm_bwd_",)),
            ("gmm", ("gmm_wgmma", "gmm_tc", "gmm_cc")),
            ("matmul_f32", ("sgemm", "f32f32")),
            ("matmul", ("gemm", "gemv", "nvjet", "sm90", "cutlass", "xmma",

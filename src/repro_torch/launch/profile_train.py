@@ -7,13 +7,14 @@ the GPU, and print one JSON line.
 
 ``TRAIN`` is the shape, also that of the train phases of ``chip_smoke.py``;
 ``ARCHS`` the archs those phases train, with their microbatches:
-gemma2-2b (the default), recurrentgemma-2b and falcon-mamba-7b-L24
+gemma2-2b (the default), recurrentgemma-2b, falcon-mamba-7b-L24
 (falcon-mamba-7b cut to 24 of its 64 layers: 7.27 B params and their Adam
-moments do not fit on one card); ``--microbatches`` splits the batch
-otherwise.  The line holds the host wall time of the step (ending in a synchronize), the
+moments do not fit on one card) and qwen3-moe-30b-a3b-L4 (4 of its 48
+layers, in the config's 4 microbatches); ``--microbatches`` splits the
+batch otherwise.  The line holds the host wall time of the step (ending in a synchronize), the
 summed device time of its kernels, the device's idle share, the device
 time by kernel group (``profile_serve``'s groups: the hand kernels'
-forwards and backwards, bf16 and f32 matmuls (the f32 ones are the LM
+forwards and backwards (gmm's among them), bf16 and f32 matmuls (the f32 ones are the LM
 head's and, in recurrentgemma-2b, the RG-LRU gates'), copies and casts,
 other) and by the heaviest kernel names, from
 ``torch.profiler``, and the peak of allocated device memory over a warm-up
@@ -34,7 +35,8 @@ from repro_torch.launch.profile_serve import _profile
 from repro_torch.train import TrainHyper, build_train_step, make_train_state
 
 TRAIN = dict(arch="gemma2-2b", batch=4, seq=1024, microbatches=2)
-ARCHS = {"gemma2-2b": 2, "recurrentgemma-2b": 2, "falcon-mamba-7b-L24": 1}
+ARCHS = {"gemma2-2b": 2, "recurrentgemma-2b": 2, "falcon-mamba-7b-L24": 1,
+         "qwen3-moe-30b-a3b-L4": 4}
 
 
 def train_config(arch: str):

@@ -294,7 +294,11 @@ def _moe_local(cfg: ModelConfig, p: Params, xt, capacity_factor: float,
     waits for the device: counts are built with ``scatter_add`` and C
     depends only on T, k, E and ``capacity_factor``.  Every write is out of
     place (``scatter_add``, ``index_put``, ``scatter``), so the dispatch
-    runs under ``torch.func.vmap`` (a fused ensemble's member axis).
+    runs under ``torch.func.vmap`` (a fused ensemble's member axis).  The
+    aux loss differentiates as the reference's: ``counts`` (integers, its
+    ``f``) carries no gradient, ``probs.mean`` does.  Under autograd or
+    vmap the three ``gmm`` calls go through ``GroupedMatmul`` (the
+    backward kernels on CUDA).
 
     The combine is deterministic (no atomics): each token's k contributions
     ``back * w`` (rounded to ``ye``'s dtype) are added one after another in

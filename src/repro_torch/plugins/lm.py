@@ -12,8 +12,8 @@ needs to write the JAX package's layer-stacked layout; ``lm.decode``
 serves the member's trained params when it has a state, and seed-0 params
 otherwise.  They run every ported arch (gemma2-2b, gemma3-4b, minicpm-2b,
 nemotron-4-15b, recurrentgemma-2b, falcon-mamba-7b, qwen3-moe-30b-a3b,
-serve-tiny, and the ``reduced:<arch>`` forms); training the MoE arch on
-CUDA waits for gmm's backward kernel (ROADMAP B2).
+grok-1-314b, serve-tiny, and the ``reduced:<arch>`` forms) on CUDA and on
+the CPU; the MoE archs train through gmm's backward kernels.
 
 The pilot runs tasks on threads of their own, so the step cache is filled
 under a lock.  A preempted ``lm.train`` attempt cannot be stopped (the

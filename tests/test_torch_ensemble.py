@@ -207,13 +207,14 @@ ADAM_EPS = 1e-8
 # reduced qwen3-moe-30b-a3b has one, the LM head's weight (26, 252) of
 # member 3 (see test_fused_ensemble_matches_jax).
 NEAR_EPS = {"gemma2-2b": [],
-            "qwen3-moe-30b-a3b": [("members/params/head", (3, 26, 252))]}
+            "qwen3-moe-30b-a3b": [("members/params/head", (3, 26, 252))],
+            "grok-1-314b": []}
 
 
 @pytest.mark.parametrize("arch,remat", [
     ("gemma2-2b", "none"), ("gemma2-2b", "full"),
-    ("qwen3-moe-30b-a3b", "none")],
-    ids=["none", "full", "qwen3-moe-30b-a3b"])
+    ("qwen3-moe-30b-a3b", "none"), ("grok-1-314b", "none")],
+    ids=["none", "full", "qwen3-moe-30b-a3b", "grok-1-314b"])
 def test_fused_ensemble_matches_jax(arch, remat):
     """Reduced ``arch``, 4 members, 2 cycles of 1 step at
     ShapeSpec("t", "train", 32, 2) from the JAX ensemble's initial state,

@@ -38,7 +38,7 @@ from repro_torch.models.convert import (  # noqa: E402
 
 DENSE_ARCHS = ["gemma2-2b", "gemma3-4b", "minicpm-2b", "nemotron-4-15b"]
 SCAN_ARCHS = ["recurrentgemma-2b", "falcon-mamba-7b"]
-MOE_ARCHS = ["qwen3-moe-30b-a3b"]
+MOE_ARCHS = ["qwen3-moe-30b-a3b", "grok-1-314b"]
 ATOL = 1e-4
 
 

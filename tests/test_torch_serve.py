@@ -265,7 +265,8 @@ def test_chip_smoke_serve_phase_rehearsal(arch, monkeypatch):
     bf16 differences, which the CPU does not have; at these widths a
     mixer's share of the residual stream is small).  The phase's own checks
     pass, and each off-by-one control (``LOGIT_CONTROL``: linear_scan's
-    too) reads above the limit."""
+    too) reads above the limit, after the first block too where the phase
+    reads there (``PREFILL_H1``)."""
     import importlib.util
 
     from repro_torch.configs import base as cfg_base
@@ -306,6 +307,9 @@ def test_chip_smoke_serve_phase_rehearsal(arch, monkeypatch):
                         lambda fn, iters, warmup=1: (fn(), 0.0)[1])
     monkeypatch.setitem(chip_smoke.SERVE_SHAPE, "prompt", 64)
     monkeypatch.setitem(chip_smoke.PREFILL_H_LIMIT, arch, CPU_H_LIMIT)
+    if arch in chip_smoke.PREFILL_H1:
+        monkeypatch.setitem(chip_smoke.PREFILL_H1, arch,
+                            (chip_smoke.PREFILL_H1[arch][0], CPU_H_LIMIT))
     _, loop, per_prefill, per_decode = next(
         e for e in chip_smoke.SERVE if e[0] == arch)
     row = chip_smoke.phase_serve(torch.device("cpu"), arch, loop,
@@ -317,3 +321,8 @@ def test_chip_smoke_serve_phase_rehearsal(arch, monkeypatch):
                                     if n in per_prefill}
     assert all(c["h_rel_frobenius"] > limit
                for c in row["controls"].values()), row["controls"]
+    first = row["first_block"]
+    assert bool(first) == (arch in chip_smoke.PREFILL_H1)
+    if first:   # the first block's own reading and its control
+        assert first["h_rel_frobenius"] == 0.0
+        assert all(c > limit for c in first["controls"].values()), first

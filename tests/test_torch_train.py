@@ -60,7 +60,7 @@ from repro_torch.train import (  # noqa: E402
 from repro_torch.train.step import decay_mask  # noqa: E402
 
 ARCHS = ["gemma2-2b", "recurrentgemma-2b", "falcon-mamba-7b",
-         "qwen3-moe-30b-a3b"]
+         "qwen3-moe-30b-a3b", "grok-1-314b"]
 STEP_ATOL = 1e-5
 STEP_RTOL = 1e-5
 
