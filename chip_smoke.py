@@ -7,8 +7,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   build          compile every CUDA kernel from the sources in this checkout
                  (one nvcc per source, all started together) and report
                  each kernel's registers, spills and shared memory (ptxas;
-                 the flash and gmm wgmma kernels' dynamic shared memory as
-                 the library states it)
+                 the flash, gmm and gmm_bwd wgmma kernels' dynamic shared
+                 memory as the library states it)
   kernel ...     hold each kernel (flash_attention, flash_attention_bwd,
                  linear_scan, selective_scan, gmm, linear_scan_bwd,
                  selective_scan_bwd, gmm_bwd) against its plain
@@ -26,14 +26,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  Kernel
                  and library times are device times: the timed calls queue
                  behind a sleep kernel, so host launch overhead is not in
-                 them.  Flash attention and gmm report the kernel variant
-                 each case took (wgmma, mma_sync, f32; the launch counter
-                 must show it, and for gmm the library's own rule must name
-                 it), flash also TFLOP/s; flash, selective_scan and gmm
-                 give the wrapper's host-inclusive time per call beside
-                 the device time.  ``--baseline NAME=PATH`` (NAME one of
+                 them.  Flash attention, gmm and gmm_bwd report the kernel
+                 variant each case took (wgmma, mma_sync, f32; the launch
+                 counter must show it, and for gmm and gmm_bwd the
+                 library's own rule must name it), flash also TFLOP/s;
+                 flash, selective_scan and gmm give the wrapper's
+                 host-inclusive time per call beside the device time.
+                 ``--baseline NAME=PATH`` (NAME one of
                  flash_attention, flash_attention_bwd, selective_scan,
-                 gmm, linear_scan_bwd, selective_scan_bwd; repeatable)
+                 gmm, linear_scan_bwd, selective_scan_bwd, gmm_bwd;
+                 repeatable)
                  builds an earlier version of that
                  kernel's ``.cu`` (same C entry) and times it on every
                  case of its phase in the same run, with its error against
@@ -42,7 +44,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  flash_attention_bwd: every case, through the entry
                  flash_attention_bwd; it also runs the wgmma backward at
                  more shapes than its launcher keeps plans for, and the
-                 first shape again, bitwise, after its plan was evicted).
+                 first shape again, bitwise, after its plan was evicted;
+                 gmm_bwd: every case, through the entry gmm_bwd, with the
+                 phase's own checks).
                  The selective_scan phase includes a
                  case with T * d > 2^32 (64-bit offsets in a batch row):
                  its last 256 steps must equal, bitwise, a run on them
@@ -59,8 +63,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  with dx's padding rows and empty experts' dw exactly 0,
                  bitwise repeats and nonzero dy on the padding rows, at
                  qwen3's train, eval and fused shapes, grok-1-314b's
-                 expert shape (E=8, D=6144, F=32768), ragged, empty and
-                 f32, against the bound and a torch.bmm pair
+                 expert shape (E=8, D=6144, F=32768), every tail of the
+                 wgmma kernels (``ragged_wgmma``), NaN in x's and dy's
+                 padding rows (``nan_padding``), ragged (F % 8 != 0),
+                 empty and f32, against the bound and a torch.bmm pair
   train gemma2-2b
                  ``lm.train`` of full-width gemma2-2b (f32 master params
                  and Adam moments, bf16 compute, remat, batch 4 of 1024
@@ -419,30 +425,42 @@ GMM_CASES = [
 # Grouped-matmul backward cases (dx and dw), as GMM_CASES; dy ~ N(0, 1) on
 # every row, the padding rows too.  "members": the sizes of that many
 # members' routes side by side, as the vmap rule folds a fused
-# population's experts.  Tolerances: BWD_TOL (dx sums F products, dw up to
-# C; bf16 outputs are one rounding of f32 sums).
+# population's experts; "variant": the kernels ``ops.bwd_variant`` and the
+# library's rule must give the case; "nan_padding": x's and dy's padding
+# rows are NaN.  Tolerances: BWD_TOL (dx sums F products, dw up to C; bf16
+# outputs are one rounding of f32 sums).
 GMM_BWD_CASES = [
     # qwen3-moe-30b-a3b's train microbatch (T=1024, top-8: C=80): the
     # backward of wi / wg (D=2048, F=768) and of wo (D=768, F=2048)
     dict(name="train_wi", E=128, C=80, D=2048, F=768, route=(1024, 8),
-         dtype="bfloat16"),
+         dtype="bfloat16", variant="wgmma"),
     dict(name="train_wo", E=128, C=80, D=768, F=2048, route=(1024, 8),
-         dtype="bfloat16"),
+         dtype="bfloat16", variant="wgmma"),
     dict(name="train_router", E=128, C=80, D=2048, F=768, router="train",
-         dtype="bfloat16"),
+         dtype="bfloat16", variant="wgmma"),
     dict(name="eval", E=128, C=384, D=2048, F=768, route=(4096, 8),
-         dtype="bfloat16"),
+         dtype="bfloat16", variant="wgmma"),
     dict(name="fused", E=256, C=80, D=2048, F=768, route=(1024, 8),
-         members=2, dtype="bfloat16"),
+         members=2, dtype="bfloat16", variant="wgmma"),
     # grok-1-314b's experts (8 of d_ff 32768, top-2) at 4096 tokens: C=1280
     dict(name="grok", E=8, C=1280, D=6144, F=32768, route=(4096, 2),
-         dtype="bfloat16"),
+         dtype="bfloat16", variant="wgmma"),
+    # every tail of the wgmma kernels: sizes 0, 1, 63 / 64 / 65 around a
+    # box, C (two boxes, the second past C), clipped -3 and 150; D = 184:
+    # dx's last 128-column item and dw's last 128-row item hold one live
+    # 64-wide box; F = 520: dw's last 256-column item holds one
+    dict(name="ragged_wgmma", E=16, C=100, D=184, F=520,
+         sizes=[0, 1, 15, 17, 63, 64, 65, 100, 2, 31, 33, 99, -3, 48, 80,
+                150], dtype="bfloat16", variant="wgmma"),
+    # x's and dy's padding rows NaN: no padding value may reach dx or dw
+    dict(name="nan_padding", E=128, C=80, D=2048, F=768, route=(1024, 8),
+         nan_padding=True, dtype="bfloat16", variant="wgmma"),
     dict(name="ragged", E=5, C=100, D=200, F=300, sizes=[0, 100, 37, 64, 1],
-         dtype="bfloat16"),
+         dtype="bfloat16", variant="mma_sync"),
     dict(name="empty", E=128, C=80, D=2048, F=768, sizes=[0] * 128,
-         dtype="bfloat16"),
+         dtype="bfloat16", variant="wgmma"),
     dict(name="f32", E=8, C=256, D=512, F=384, route=(512, 2),
-         dtype="float32"),
+         dtype="float32", variant="f32"),
 ]
 
 # serve phases: batch, prompt length, new tokens a request, requests
@@ -567,6 +585,9 @@ def phase_build():
     from repro_torch.kernels.mamba.ops import (
         kernel_bwd_smem_bytes as ss_bwd_smem,
     )
+    from repro_torch.kernels.moe_gmm.ops import (
+        kernel_bwd_smem_bytes as gmm_bwd_smem,
+    )
     from repro_torch.kernels.moe_gmm.ops import kernel_smem_bytes as gmm_smem
     t0 = time.perf_counter()
     info = _build.build()
@@ -576,6 +597,7 @@ def phase_build():
     smem.update({f"flash_attention_bwd_wgmma<{D}>": kernel_bwd_smem_bytes(D)
                  for D in (64, 128, 256)})
     smem["gmm_wgmma"] = gmm_smem()
+    smem.update(gmm_bwd_smem())
     smem["selective_scan_bwd_kernel"] = ss_bwd_smem()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: {"seconds": v["seconds"], "cached": v["cached"]}
@@ -594,10 +616,11 @@ def ptxas_report(log: str) -> dict:
                           r"flash_attention_bwd_(?:dkdv_tc|dq_tc|dkdv_cc|"
                           r"dq_cc|delta|wgmma)|"
                           r"linear_scan_kernel|selective_scan_kernel|gmm_tc|"
-                          r"gmm_bwd_d[xw]_tc)"
+                          r"gmm_bwd_d[xw]_tc|gmm_bwd_dx_wgmma)"
                           r"I(?:Li)?(.+?)EE+v", entry[1])
             plain = [k for k in ("gmm_cc", "gmm_wgmma", "gmm_bwd_dx_cc",
-                                 "gmm_bwd_dw_cc",
+                                 "gmm_bwd_dw_cc", "gmm_bwd_dw_wgmma",
+                                 "gmm_bwd_dw_pp_wgmma",
                                  "flash_attention_bwd_reduce")
                      if k in entry[1]]
             args = re.sub(r"^Lb([01])", r"\1",
@@ -654,6 +677,8 @@ BASELINES = {
     "selective_scan": ("selective_scan", "repro_torch.kernels.mamba.ops",
                        "selective_scan_cuda", {}),
     "gmm": ("gmm", "repro_torch.kernels.moe_gmm.ops", "gmm_cuda", {}),
+    "gmm_bwd": ("gmm_bwd", "repro_torch.kernels.moe_gmm.ops", "gmm_bwd_cuda",
+                {}),
     "linear_scan_bwd": ("linear_scan_bwd", "repro_torch.kernels.rglru.ops",
                         "linear_scan_bwd_cuda", {}),
     "selective_scan_bwd": ("selective_scan_bwd",
@@ -1047,7 +1072,7 @@ def _launches(**per):
     once (gmm: three products a layer, each backward call launching its
     dx and dw kernels once); flash's all through its wgmma kernels, gmm's
     forward through wgmma (the train shape's C = 80 > 16) and its backward
-    through mma.sync."""
+    through wgmma too."""
     out = {}
     for family, (layers, mb) in per.items():
         fwd, bwd = _FAMILIES[family]
@@ -1059,7 +1084,7 @@ def _launches(**per):
             out[f"{bwd}.wgmma"] = out[bwd]
         if family == "moe":
             out["gmm.wgmma"] = out[fwd]
-            for name in ("dx", "dw", "mma_sync"):
+            for name in ("dx", "dw", "wgmma"):
                 out[f"gmm_bwd.{name}"] = calls
     return out
 
@@ -2760,18 +2785,25 @@ def phase_kernel_gmm(dev, router, baseline=None):
     return results
 
 
-def phase_kernel_gmm_bwd(dev, router):
+def phase_kernel_gmm_bwd(dev, router, baseline=None):
     """dx and dw of the grouped-matmul backward kernels against gmm_bwd_ref
-    on the card (GMM_BWD_CASES): the flash backward's measures, dx's
-    padding rows and the dw of empty experts exactly 0, two calls bitwise
-    equal; device, host-inclusive, plain and torch.bmm-pair times beside
-    the bound."""
+    on the card (GMM_BWD_CASES): the case's variant by ``ops.bwd_variant``,
+    the library's own rule and the launch counters; the flash backward's
+    measures, dx's padding rows and the dw of empty experts exactly 0, two
+    calls bitwise equal; device, host-inclusive, plain and torch.bmm-pair
+    times beside the bound, and an earlier source's time and checks where
+    ``baseline`` names one."""
     import torch
 
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.moe_gmm import gmm_bwd_ref
-    from repro_torch.kernels.moe_gmm.ops import bwd_variant, gmm_bwd_cuda
+    from repro_torch.kernels.moe_gmm.ops import (
+        bwd_variant,
+        gmm_bwd_cuda,
+        kernel_bwd_variant,
+    )
     gen = torch.Generator(device=dev).manual_seed(5)
+    old = _baseline("gmm_bwd", baseline)
     results = {}
     for c in GMM_BWD_CASES:
         dt = getattr(torch, c["dtype"])
@@ -2780,7 +2812,16 @@ def phase_kernel_gmm_bwd(dev, router):
         w = (0.02 * torch.randn((E, D, F), generator=gen, device=dev)).to(dt)
         dy = torch.randn((E, C, F), generator=gen, device=dev).to(dt)
         sizes = _gmm_sizes(c, gen, dev, router)
-        kind = bwd_variant(dt)
+        valid = torch.arange(C, device=dev)[None, :] < sizes[:, None]
+        if c.get("nan_padding"):
+            x[~valid] = float("nan")
+            dy[~valid] = float("nan")
+        kind = bwd_variant(dt, E, C, D, F)
+        lib_kind = kernel_bwd_variant(dt, E, C, D, F)
+        if not kind == lib_kind == c["variant"]:
+            raise AssertionError(f"gmm_bwd case {c['name']}: ops.bwd_variant "
+                                 f"names {kind}, the library {lib_kind}, "
+                                 f"the case {c['variant']}")
         names = ("gmm_bwd", "gmm_bwd.dx", "gmm_bwd.dw", f"gmm_bwd.{kind}")
         before = [LAUNCHES[n] for n in names]
         dx, dw = gmm_bwd_cuda(x, w, sizes, dy)
@@ -2788,16 +2829,27 @@ def phase_kernel_gmm_bwd(dev, router):
         if [LAUNCHES[n] for n in names] != [b + 1 for b in before]:
             raise AssertionError(f"gmm_bwd case {c['name']} did not launch "
                                  f"its {kind} kernels once each")
-        dx2, dw2 = gmm_bwd_cuda(x, w, sizes, dy)
-        bitwise = bool(torch.equal(dx, dx2) and torch.equal(dw, dw2))
-        del dx2, dw2
-        valid = torch.arange(C, device=dev)[None, :] < sizes[:, None]
-        padding_zero = bool((dx[~valid] == 0).all())
-        empty_zero = bool((dw[sizes == 0] == 0).all())
         rx, rw = gmm_bwd_ref(x, w, sizes, dy)
-        checks = {"dx": grad_check(dx, rx, c["dtype"]),
-                  "dw": grad_check(dw, rw, c["dtype"])}
-        del rx, rw, dx, dw
+
+        def check(dx, dw, again):
+            """The measures of one kernel's (dx, dw) and a second call's."""
+            dx2, dw2 = again()
+            out = {"checks": {"dx": grad_check(dx, rx, c["dtype"]),
+                              "dw": grad_check(dw, rw, c["dtype"])},
+                   "bitwise_repeat": bool(torch.equal(dx, dx2)
+                                          and torch.equal(dw, dw2)),
+                   "dx_padding_rows_zero": bool((dx[~valid] == 0).all()),
+                   "dw_empty_experts_zero": bool((dw[sizes == 0] == 0).all())}
+            out["ok"] = all(v["ok"] for v in out["checks"].values()) and all(
+                out[k] for k in ("bitwise_repeat", "dx_padding_rows_zero",
+                                 "dw_empty_experts_zero"))
+            return out
+        mine = check(dx, dw, lambda: gmm_bwd_cuda(x, w, sizes, dy))
+        del dx, dw
+        base = None
+        if old:
+            base = check(*old(x, w, sizes, dy), lambda: old(x, w, sizes, dy))
+        del rx, rw
         torch.cuda.empty_cache()
         big = E * D * F > 100_000_000
 
@@ -2813,11 +2865,14 @@ def phase_kernel_gmm_bwd(dev, router):
                                                need_dw=False), n_it)
         dw_ms = device_ms(lambda: gmm_bwd_cuda(x, w, sizes, dy,
                                                need_dx=False), n_it)
+        baseline_ms = (device_ms(lambda: old(x, w, sizes, dy), n_it)
+                       if old else None)
         plain_ms = time_ms(lambda: gmm_bwd_ref(x, w, sizes, dy), 2)
         library_ms = device_ms(library, n_it)
 
-        rows = int(sizes.sum())
-        live_experts = int((sizes > 0).sum())
+        live = sizes.clamp(0, C)
+        rows = int(live.sum())
+        live_experts = int((live > 0).sum())
         esz = x.element_size()
         flops = 2 * 2 * rows * D * F
         # x and dy read over live rows, dx written whole (its padding rows
@@ -2826,18 +2881,15 @@ def phase_kernel_gmm_bwd(dev, router):
                   + E * D * F) * esz + 4 * E
         t_ops = flops / PEAK_FLOPS[c["dtype"]]
         t_bytes = nbytes / PEAK_BYTES
-        ok = (all(v["ok"] for v in checks.values()) and bitwise
-              and padding_zero and empty_zero)
         row = {"phase": "kernel gmm_bwd", "case": c["name"],
                "shape": {n: c[n] for n in ("E", "C", "D", "F")},
                "dtype": c["dtype"], "variant": kind, "live_rows": rows,
-               "live_experts": live_experts, "checks": checks,
-               "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
-               "bitwise_repeat": bitwise,
-               "dx_padding_rows_zero": padding_zero,
-               "dw_empty_experts_zero": empty_zero, "ok": ok, "ms": ms,
-               "dx_ms": dx_ms, "dw_ms": dw_ms,
-               "host_ms": host_ms, "plain_ms": plain_ms,
+               "live_experts": live_experts, **mine,
+               "max_abs_err": max(v["max_abs_err"]
+                                  for v in mine["checks"].values()),
+               "ms": ms, "dx_ms": dx_ms, "dw_ms": dw_ms,
+               "host_ms": host_ms, "baseline_ms": baseline_ms,
+               "baseline": base, "plain_ms": plain_ms,
                "library_ms": library_ms,
                "library": "torch.bmm(dy, w.mT) + torch.bmm(x.mT, dy) in x's "
                           "dtype over every row and expert",
@@ -2846,7 +2898,7 @@ def phase_kernel_gmm_bwd(dev, router):
                "bound_ms": 1e3 * max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
         emit(row)
-        if not ok:
+        if not mine["ok"]:
             raise AssertionError(f"gmm_bwd case {c['name']}: {row}")
         results[c["name"]] = row
         del x, w, dy, sizes, valid
@@ -3192,9 +3244,9 @@ def main() -> int:
                     metavar="NAME=PATH",
                     help="an earlier .cu of kernel NAME (flash_attention, "
                          "flash_attention_bwd, selective_scan, gmm, "
-                         "linear_scan_bwd, selective_scan_bwd; same C "
-                         "entry) to time beside the kernel on its cases; "
-                         "repeatable")
+                         "linear_scan_bwd, selective_scan_bwd, gmm_bwd; "
+                         "same C entry) to time beside the kernel on its "
+                         "cases; repeatable")
     args = ap.parse_args()
     baselines = {}
     for spec in args.baseline:
@@ -3231,7 +3283,8 @@ def main() -> int:
                      dev, baselines.get("linear_scan_bwd")),
                  "selective_scan_bwd": phase_kernel_selective_scan_bwd(
                      dev, baselines.get("selective_scan_bwd")),
-                 "gmm_bwd": phase_kernel_gmm_bwd(dev, router)}
+                 "gmm_bwd": phase_kernel_gmm_bwd(
+                     dev, router, baselines.get("gmm_bwd"))}
         _release()
     cases["flash_attention_bwd"] = phase_kernel_flash_attention_bwd(
         dev, baselines.get("flash_attention_bwd"))

@@ -32,7 +32,8 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention.wgmma": 0,
                              "selective_scan_bwd": 0, "gmm": 0, "gmm.wgmma": 0,
                              "gmm.mma_sync": 0, "gmm.f32": 0, "gmm_bwd": 0,
                              "gmm_bwd.dx": 0, "gmm_bwd.dw": 0,
-                             "gmm_bwd.mma_sync": 0, "gmm_bwd.f32": 0}
+                             "gmm_bwd.wgmma": 0, "gmm_bwd.mma_sync": 0,
+                             "gmm_bwd.f32": 0}
 
 
 _LAUNCH_LOCK = threading.Lock()

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
-// mbarriers, named barriers, TMA tensor loads, stmatrix, shared-memory matrix
-// descriptors for 128-byte-swizzled bf16 tiles, warpgroup MMA (wgmma)
-// wrappers and register reallocation (setmaxnreg); and the warp-level pieces
-// of the mma.sync kernels (cp.async, ldmatrix, mma.m16n8k16).
+// mbarriers, named barriers, TMA tensor loads and stores, stmatrix,
+// shared-memory matrix descriptors for 128-byte-swizzled bf16 tiles,
+// warpgroup MMA (wgmma) wrappers and register reallocation (setmaxnreg);
+// and the warp-level pieces of the mma.sync kernels (cp.async, ldmatrix,
+// mma.m16n8k16).
 //
 // Tile layout that the descriptors below describe.  A TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B and an inner box of 64 bf16 (128 bytes) writes
@@ -134,6 +135,38 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One box (the map's box size and swizzle) from shared memory at `src` to
+// a 3-D tensor map at coordinates c0 (innermost) ..; elements past the
+// map's bounds are not written.  The writes of `src` must be ordered before
+// it by fence_proxy_async_shared().  Completion is tracked per thread by
+// bulk groups: the issuing thread commits, then waits (`bulk_wait_read`
+// before `src` is written again, `bulk_wait` before its block exits).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// At most N of this thread's committed bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// At most N of this thread's committed bulk groups are still incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
@@ -215,6 +248,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
 #define HOPPER_F16(i) HOPPER_F4(i), HOPPER_F4(i + 4), HOPPER_F4(i + 8), \
                       HOPPER_F4(i + 12)
 #define HOPPER_F32(i) HOPPER_F16(i), HOPPER_F16(i + 16)
+#define HOPPER_F64(i) HOPPER_F32(i), HOPPER_F32(i + 32)
 #define HOPPER_D16 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define HOPPER_D32                                                          \
@@ -227,12 +261,28 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
+#define HOPPER_D128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, " \
+  "%122, %123, %124, %125, %126, %127}"
 
 // d (64 x N f32, fragment layout of the PTX ISA) (+)= A . B, bf16 inputs.
 // A is 64 x 16 and B is 16 x N.  `ss`: A and B from shared memory by
 // descriptor; `rs`: A from four registers per thread, B by descriptor.
 // TB = 0: B is K-major (stored as N rows of 16 contiguous k); TB = 1: B is
-// MN-major (16 rows of N contiguous outputs).  scale_d = 0 overwrites d.
+// MN-major (16 rows of N contiguous outputs).  Wgmma<256, TB>::ss takes TA
+// the same way for A: 0 K-major (64 rows of 16 contiguous k), 1 MN-major
+// (16 rows of 64 contiguous outputs, i.e. A stored transposed); the
+// narrower shapes' A is K-major (a transpose-A parameter on them, even one
+// that defaults to 0, renumbers the flash kernels' PTX registers).
+// scale_d = 0 overwrites d.
 template <int N, int TB>
 struct Wgmma;
 
@@ -297,12 +347,28 @@ struct Wgmma<128, TB> {
   }
 };
 
+template <int TB>
+struct Wgmma<256, TB> {
+  template <int TA = 0>
+  static __device__ __forceinline__ void ss(float (&d)[128], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_D128
+        ", %128, %129, p, 1, 1, %132, %131;\n}\n"
+        : HOPPER_F64(0), HOPPER_F64(64)
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB), "n"(TA));
+  }
+};
+
 #undef HOPPER_F4
 #undef HOPPER_F16
 #undef HOPPER_F32
+#undef HOPPER_F64
 #undef HOPPER_D16
 #undef HOPPER_D32
 #undef HOPPER_D64
+#undef HOPPER_D128
 
 // Two floats as a bf16x2 register (lo in the low half), round to nearest.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

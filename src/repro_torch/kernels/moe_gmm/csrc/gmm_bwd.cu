@@ -11,8 +11,10 @@
 //   dx[e] = mask(dy[e]) . w[e]^T   (E, C, D); rows r >= size_e exactly 0
 //   dw[e] = x[e]^T . mask(dy[e])   (E, D, F); summed over live rows only
 // with f32 accumulation, rounded to the inputs' dtype.  dy's padding rows
-// may hold anything (the model gives zeros there; the kernels never read
-// them), and so may x's.
+// may hold anything (the model gives zeros there), and so may x's: no
+// padding value reaches a result.  No atomics and no split over K, so the
+// order of every sum is fixed by the shapes and two calls are bitwise
+// equal.  Every element offset is 64-bit: grok's dw holds 1.6e9 elements.
 //
 // What bounds it on an H100.  At qwen3-moe-30b-a3b's train microbatch
 // (E=128, C=80, D=2048, F=768, 1024 tokens top-8: 8192 live rows) each
@@ -23,35 +25,72 @@
 // grok-1-314b's expert shape (E=8, C=1280, D=6144, F=32768, 4096 tokens
 // top-2) each is 3.3e12 flops against 3.2 GB of w: bound by operations.
 //
-// Two kernels, one launch each:
-//  * dx: one block per (expert, 128 rows, 128 columns of D), looping over F
-//    64 deep at a time.  A row tile at or past the expert's size writes
-//    zeros and returns before it loads anything; inside a tile, a warp's
-//    16-row slices past the size issue no products and write zeros.  w is
-//    read in its own (D, F) layout: a (128 D x 64 F) tile in shared memory
-//    is the B operand column by column (F contiguous), loaded by ldmatrix
-//    without a transpose, so no transposed copy of w is ever made.
-//  * dw: one block per (expert, 128 rows of D, 128 columns of F), looping
-//    over that expert's live rows only, 32 at a time (rows past the size
-//    load as zeros).  There is no split over rows: no atomics, no second
-//    pass, and the order of every sum is fixed by the shapes, so two calls
-//    give bitwise-equal results.  An expert with size 0 reads nothing and
-//    writes exact zeros.  The x tile (32 rows x 128 D) is the A operand
-//    transposed, by ldmatrix.trans.
-//  bf16 (both): 8 warps (4 x 2, each 32 x 64 outputs) of warp-level
-//  mma.sync m16n8k16 with f32 accumulators, fed by cp.async (16 bytes a
-//  thread, zero-filled past the ragged ends) through a ring in dynamic
-//  shared memory (dx 3 stages, dw 4, so that a train microbatch's expert
-//  of up to 96 live rows has every load in flight at once); rows are padded by 16 bytes so ldmatrix is free
-//  of bank conflicts.  Shapes whose rows are not a multiple of 16 bytes
-//  (D or F % 8 != 0) or whose pointers are not 16-byte aligned stage
-//  through plain loads instead.  The outputs are staged as bf16 in the
-//  ring once the K loop is done and written as 16-byte stores, whole
-//  rows of the tile at a time (a dw call writes as many bytes as w holds);
-//  the unaligned shapes write bf16 straight from the fragments.
-//  f32 (both): CUDA-core FMAs in IEEE f32 (no TF32), 64 x 64 tiles, 4 x 4
-//  outputs a thread: the path of the f32 tests, not of training.
-// Every element offset is 64-bit: grok's dw holds 1.6e9 elements.
+// Two products, one launch each, by one of three kernel pairs; the
+// launcher picks them by the rule of `variant_of` (the Python wrapper's
+// ops.bwd_variant states the same rule):
+//  * wgmma (bf16, D % 8 == F % 8 == 0, 16-byte aligned pointers, E <= 1024,
+//    C * D, C * F and D * F < 2^39 (tensor-map strides under 2^40 bytes),
+//    fewer than 2^31 items a product): the training path.  Every kernel has
+//    gmm.cu's forward shape: persistent and warp specialised, one block per
+//    SM, one TMA producer warpgroup (one thread issues the loads, three
+//    warps write the zeros no item covers) and two consumer warpgroups of
+//    wgmma with f32 accumulators in registers; every block prefix-sums the
+//    live items per expert from the sizes in shared memory and walks items
+//    blockIdx.x, blockIdx.x + gridDim.x, ... (an expert's items are
+//    adjacent, so the blocks that share its operands run together and
+//    find them in L2); 3-D tensor maps with a 128-byte swizzle and 64 x 64
+//    boxes; stages tracked by full and empty mbarriers.
+//    - dx is the forward with B transposed: A = dy (an (F, C, E) map,
+//      K-major), B = w as it lies ((F, D, E), F contiguous: K-major, so no
+//      transposed copy is made, and no byte of w is read for a dead
+//      expert), K = F, 64 deep a stage.  Items are (live expert, up to 384
+//      rows, 128 columns of D) in 3 stages of 64 KB, or at C <= 128 up to
+//      128 rows in 6 stages of 32 KB: no stage then holds dy boxes that no
+//      row fills, and twice the bytes are in flight.  Only the 64-row boxes
+//      of dy that hold live rows are loaded and multiplied; the epilogue
+//      writes real rows below the size and zeros above by stmatrix into
+//      the last ring stage and 16-byte stores; rows past the size rounded
+//      up to 64, and dead experts, are zeroed by the producer's idle warps.
+//    - dw: K = the expert's live rows, 64 a stage, only the boxes that
+//      hold live rows loaded.  A = x^T from x's (rows x D) box: MN-major,
+//      wgmma's transpose-A; B = dy's (rows x F) boxes, MN-major.  A
+//      consumer's tile is 64 rows of D x 256 columns of F: one m64n256k16
+//      a k16 step, 128 accumulators a thread.  In the last box, rows
+//      [size, box end) of both operands are zeroed in shared memory
+//      before the products read them (0 . NaN is NaN).  The epilogue
+//      rounds to bf16 and stores each 64 x 64 box by TMA (a third map,
+//      (F, D, E) on dw) from a staging slot that stmatrix fills, one bulk
+//      group a box, so a box's store runs on under the next box and the
+//      next item; a slot is rewritten only after its group has read it.
+//      Above C = 128 an item is 128 rows of D (both consumers, one x box
+//      each, sharing the dy tile) in 3 stages of 48 KB, 4 slots a
+//      consumer.  At C <= 128, where an item's K is one or two boxes, the
+//      consumers play ping-pong: each takes every other item, 64 rows of
+//      D, through its own 2 stages of 40 KB, loaded by its own producer
+//      thread, and its own 2 slots, so one consumer's tail zeroing and
+//      epilogue run under the other's products (on the H100, faster at
+//      the train shapes and slower at eval and grok, whose longer K wants
+//      the shared dy tile).  F tile 256, not 128: at 85 flops a byte of
+//      operand staged (64 at 128) it serves grok's dw, which is bound by
+//      operations (on the H100, 128 was slower there and at the train
+//      shape).  An empty expert's dw is written as zeros by the producer's
+//      idle warps, with nothing read.
+//  * mma_sync (bf16 the wgmma kernels do not take): dx one block per
+//    (expert, 128 rows, 128 columns of D), looping over F 64 deep; a row
+//    tile at or past the size writes zeros and returns before it loads
+//    anything.  dw one block per (expert, 128 rows of D, 128 columns of F),
+//    looping over the expert's live rows, 32 at a time (rows past the
+//    size load as zeros); an empty expert reads nothing and writes zeros.
+//    8 warps (4 x 2, each 32 x 64 outputs) of warp-level mma.sync m16n8k16,
+//    fed by cp.async (16 bytes a thread, zero-filled past the ragged ends)
+//    through rings of 3 (dx) and 4 (dw) stages; w's (D, F) rows are the B
+//    operand of dx as they lie, dw's x tile is A transposed by
+//    ldmatrix.trans.  Outputs are staged as bf16 in the ring and written
+//    as 16-byte stores.  Shapes whose rows are not a multiple of 16 bytes
+//    (D or F % 8 != 0) or whose pointers are not 16-byte aligned stage
+//    through plain loads and write bf16 straight from the fragments.
+//  * f32: CUDA-core FMAs in IEEE f32 (no TF32), 64 x 64 tiles, 4 x 4
+//    outputs a thread: the path of the f32 tests, not of training.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -63,6 +102,8 @@
 #include <atomic>
 #include <cstddef>
 #include <cstdint>
+
+#include "../../common/hopper.cuh"
 
 namespace {
 
@@ -456,6 +497,668 @@ gmm_bwd_dw_tc(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 
 }  // namespace tc
 
+// ===================================================== bf16: wgmma and TMA
+
+namespace wg {
+
+using namespace hopper;
+
+constexpr int kConsumers = 2;                      // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);   // + one producer warpgroup
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;   // 2 x 128 x 240 + 128 x 24 <= 65536
+constexpr int kMaxE = 1024;          // experts staged in shared memory
+constexpr int kBK = 64;              // depth a stage (128 bytes of bf16)
+constexpr uint32_t kBoxBytes = 64 * 128;   // one TMA box: 64 rows of 64 bf16
+
+// alignment slack, the ring, the staging slots, full and empty barriers,
+// the sizes and the item prefix sum
+constexpr size_t smem_bytes(int stages, uint32_t stage_bytes,
+                            uint32_t out_bytes) {
+  return 1024 + size_t(stages) * stage_bytes + out_bytes + 8 * 2 * stages +
+         4 * (2 * kMaxE + 1);
+}
+constexpr size_t kMaxSmem = 232448;   // a block's shared memory
+
+// dx's items: up to 64 * kBoxes rows x kDxN columns of D; a stage holds
+// their dy boxes and w's kDxN columns, 64 deep.  MT = 3 (384 rows, 3
+// stages; gmm.cu's forward tile) reads each w tile for the most rows, as
+// grok-1-314b's C = 1280 needs; MT = 1 (128 rows) for C <= kSmallC, where
+// an expert's live rows fit one item: the stage holds no dead boxes, so six
+// of them fit and twice the bytes are in flight (on the H100, faster at
+// qwen3's train microbatch and far slower at grok's).
+constexpr int kDxN = 128;
+constexpr int kSmallC = 128;   // C at or below it takes Dx<1>
+template <int MT>
+struct Dx {
+  static constexpr int kMT = MT;                    // boxes a consumer
+  static constexpr int kBoxes = MT * kConsumers;    // dy boxes an item
+  static constexpr int kRM = 64 * kBoxes;           // rows an item
+  static constexpr int kStages = MT == 1 ? 6 : 3;
+  static constexpr uint32_t kABytes = kBoxes * kBoxBytes;                 // dy
+  static constexpr uint32_t kStageBytes = kABytes + (kDxN / 64) * kBoxBytes;
+  static constexpr size_t kSmem = smem_bytes(kStages, kStageBytes, 0);
+  static_assert(kSmem <= kMaxSmem, "the ring exceeds a block's shared memory");
+  static_assert(kABytes % 1024 == 0 && kStageBytes % 1024 == 0,
+                "every box starts on a 1024-byte swizzle atom");
+};
+
+// dw's items: 128 rows of D (64 a consumer) x 256 columns of F; a stage
+// holds their x box pair and dy tile over 64 rows, and each consumer
+// stages its 64 x 256 outputs in four 64 x 64 slots.
+constexpr int kDwM = 64 * kConsumers;
+constexpr int kDwN = 256;
+constexpr int kDwStages = 3;
+constexpr uint32_t kDwABytes = kConsumers * kBoxBytes;                 // x
+constexpr uint32_t kDwStageBytes = kDwABytes + (kDwN / 64) * kBoxBytes;   // + dy
+constexpr uint32_t kDwOutBytes = kConsumers * (kDwN / 64) * kBoxBytes;
+constexpr size_t kDwSmem = smem_bytes(kDwStages, kDwStageBytes, kDwOutBytes);
+static_assert(kDwSmem <= kMaxSmem, "the ring exceeds a block's shared memory");
+static_assert(kDwStageBytes % 1024 == 0,
+              "every box starts on a 1024-byte swizzle atom");
+// dw at C <= kSmallC: each consumer's own 2 stages (x box + dy tile) and
+// 2 staging slots
+constexpr int kPpStages = 2;
+constexpr uint32_t kPpStageBytes = kBoxBytes + (kDwN / 64) * kBoxBytes;
+constexpr int kPpSlots = 2;
+constexpr uint32_t kPpOutBytes = kConsumers * kPpSlots * kBoxBytes;
+constexpr size_t kDwPpSmem =
+    smem_bytes(kConsumers * kPpStages, kPpStageBytes, kPpOutBytes);
+static_assert(kDwPpSmem <= kMaxSmem && kPpStageBytes % 1024 == 0,
+              "the ping-pong ring");
+
+struct Smem {
+  unsigned char* ring;   // stages, 1024-byte aligned
+  unsigned char* out;    // dw's staging slots, after the ring
+  uint64_t* full;
+  uint64_t* empty;
+  int* rows;    // [kMaxE]: live rows of each expert
+  int* first;   // [kMaxE + 1]: first item of each expert, then the count
+};
+
+__device__ __forceinline__ Smem carve(unsigned char* raw, int stages,
+                                      uint32_t stage_bytes,
+                                      uint32_t out_bytes) {
+  Smem m;
+  m.ring = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  m.out = m.ring + stages * stage_bytes;
+  m.full = reinterpret_cast<uint64_t*>(m.out + out_bytes);
+  m.empty = m.full + stages;
+  m.rows = reinterpret_cast<int*>(m.empty + stages);
+  m.first = m.rows + kMaxE;
+  return m;
+}
+
+// Warp 0: every expert's live rows, the prefix sum of its items(rows)
+// items (every block builds the same list) and the ring's barriers, each
+// empty barrier released by `releases` arrivals (lane 0 of each consumer
+// warp that reads its stage).
+template <typename Items>
+__device__ __forceinline__ void plan(const int* sizes, const Shape& s,
+                                     const Smem& m, int stages, int releases,
+                                     Items items) {
+  const int lane = threadIdx.x;
+  int carry = 0;
+  for (int e0 = 0; e0 < s.E; e0 += 32) {
+    const int e = e0 + lane;
+    const int n = e < s.E ? live_size(sizes, e, s.C) : 0;
+    int v = items(n);
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    if (e < s.E) {
+      m.rows[e] = n;
+      m.first[e + 1] = carry + v;
+    }
+    carry += __shfl_sync(0xffffffffu, v, 31);
+  }
+  if (lane == 0) {
+    m.first[0] = 0;
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(&m.full[st], 1);
+      mbar_init(&m.empty[st], releases);
+    }
+    mbar_fence_init();
+  }
+}
+
+// The expert of item w: first[e] <= w < first[e + 1].
+__device__ __forceinline__ int expert_of(int w, const int* first, int E) {
+  int lo = 0, hi = E;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (first[mid] <= w) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// The producer warpgroup's idle warps (THREADS threads from kConsumers *
+// 128 + 128 - THREADS), while the consumers run: 16-byte zeros over
+// span(e, n)[0, n) of every expert, spread over every block.
+template <int THREADS, typename Span>
+__device__ __forceinline__ void zero_fill(int E, Span span) {
+  const int zt = threadIdx.x - (kConsumers * 128 + 128 - THREADS);
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const size_t stride = (size_t)gridDim.x * THREADS;
+  for (int e = 0; e < E; ++e) {
+    size_t n;
+    uint4* dst = span(e, n);
+    const size_t b = (blockIdx.x + 37u * e) % gridDim.x;
+    for (size_t c = b * THREADS + zt; c < n; c += stride) dst[c] = zero;
+  }
+}
+
+__device__ __forceinline__ void arrive(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// ------------------------------------------------------------------- dx
+
+// One live dx item: expert e, its rows [m0, m0 + 64 boxes) of which the
+// first rows - m0 hold tokens, D columns [n0, n0 + kDxN).
+struct DxItem {
+  int e, m0, n0, boxes, rows;
+};
+
+template <typename T>
+__device__ __forceinline__ DxItem dx_item(int w, const Smem& m,
+                                          const Shape& s) {
+  DxItem it;
+  it.e = expert_of(w, m.first, s.E);
+  it.rows = m.rows[it.e];
+  const int groups = (it.rows + T::kRM - 1) / T::kRM;
+  const int j = w - m.first[it.e];
+  it.n0 = (j / groups) * kDxN;
+  it.m0 = (j % groups) * T::kRM;
+  it.boxes = min(T::kBoxes, (it.rows - it.m0 + 63) / 64);
+  return it;
+}
+
+// The K loop (over F) and epilogue of one dx item for a consumer warpgroup
+// that owns MT live dy boxes (its boxes are 2i + wgi, i < MT).  Ring slots
+// ring0 .. ring0 + KT - 1 hold the item's stages.
+template <typename T, int MT>
+__device__ __forceinline__ void consume_dx(float (&acc)[T::kMT][64],
+                                           const DxItem& it, const Shape& s,
+                                           int ring0, int KT, const Smem& m,
+                                           int wgi, bf16* __restrict__ dx) {
+  constexpr int kMT = T::kMT, kStages = T::kStages;
+  constexpr uint32_t kStageBytes = T::kStageBytes;
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[i][e] = 0.f;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int r = ring0 + kt, st = r % kStages;
+    mbar_wait(&m.full[st], (uint32_t)((r / kStages) & 1));
+    if constexpr (MT > 0) {
+      const uint32_t ab = smem_u32(m.ring + st * kStageBytes);
+      const uint32_t bb = ab + T::kABytes;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) fence_regs(acc[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        // w (K-major, as it lies): 128 rows of D, 16 deep = 32 bytes of
+        // each; its two 64-row boxes are adjacent 8-row groups
+        const uint64_t db = desc_sw128(bb + kk * 32, 16, 1024);
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          Wgmma<kDxN, 0>::ss(
+              acc[i],
+              desc_sw128(ab + (2 * i + wgi) * kBoxBytes + kk * 32, 16, 1024),
+              db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();   // step kt - 1's products are done: free its stage
+#pragma unroll
+      for (int i = 0; i < MT; ++i) fence_regs(acc[i]);
+      if (kt > 0) arrive(&m.empty[(r - 1) % kStages], lane);
+    } else {
+      arrive(&m.empty[st], lane);
+    }
+  }
+  if constexpr (MT > 0) {
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < MT; ++i) fence_regs(acc[i]);
+
+    // Epilogue, as gmm.cu's forward: staged through the item's last ring
+    // stage, which this warpgroup releases only afterwards (its own dy
+    // boxes 2q + wgi are kMT free 64 x 64 slots), by stmatrix of bf16,
+    // zeros for rows past the size, into slots whose 16-byte chunks are
+    // XOR-swizzled by row % 8; then 16-byte stores, 8 threads to a row.
+    unsigned char* last = m.ring + ((ring0 + KT - 1) % kStages) * kStageBytes;
+    const auto slot = [&](int q) { return last + (2 * q + wgi) * kBoxBytes; };
+    const int mq = lane / 8;   // the matrix whose row address this lane gives
+    const int srow = 16 * warp + 8 * (mq & 1) + lane % 8;
+#pragma unroll
+    for (int h0 = 0; h0 < 2 * MT; h0 += kMT) {
+      if (h0 > 0) named_bar_sync(1 + wgi, 128);   // the slots are free again
+#pragma unroll
+      for (int q = 0; q < kMT && h0 + q < 2 * MT; ++q) {
+        const int i = (h0 + q) / 2, half = (h0 + q) % 2;
+        if (it.n0 + 64 * half >= s.D) continue;
+        const int row = it.m0 + (2 * i + wgi) * 64 + 16 * warp + lane / 4;
+        const bool live0 = row < it.rows, live1 = row + 8 < it.rows;
+        const uint32_t ob = smem_u32(slot(q));
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float* a0 = &acc[i][4 * (8 * half + 2 * jj)];
+          const float* a1 = a0 + 4;
+          const int chunk = 2 * jj + (mq >> 1);
+          stmatrix_x4(ob + srow * 128 + ((chunk ^ (srow & 7)) << 4),
+                      pack_bf16(live0 ? a0[0] : 0.f, live0 ? a0[1] : 0.f),
+                      pack_bf16(live1 ? a0[2] : 0.f, live1 ? a0[3] : 0.f),
+                      pack_bf16(live0 ? a1[0] : 0.f, live0 ? a1[1] : 0.f),
+                      pack_bf16(live1 ? a1[2] : 0.f, live1 ? a1[3] : 0.f));
+        }
+      }
+      named_bar_sync(1 + wgi, 128);   // the slots are written
+#pragma unroll
+      for (int q = 0; q < kMT && h0 + q < 2 * MT; ++q) {
+        const int i = (h0 + q) / 2, half = (h0 + q) % 2;
+        const int row0 = it.m0 + (2 * i + wgi) * 64, col0 = it.n0 + 64 * half;
+        const unsigned char* src = slot(q);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int idx = t + 128 * k, r = idx / 8, c = idx % 8;
+          const int row = row0 + r, col = col0 + 8 * c;
+          if (row < s.C && col < s.D)
+            *reinterpret_cast<uint4*>(dx + ((size_t)it.e * s.C + row) * s.D +
+                                      col) =
+                *reinterpret_cast<const uint4*>(src + r * 128 +
+                                                ((c ^ (r & 7)) << 4));
+        }
+      }
+    }
+    // the stage goes back to the producer: this thread's reads of it are
+    // done, and the coming TMA writes are ordered after them
+    fence_proxy_async_shared();
+    arrive(&m.empty[(ring0 + KT - 1) % kStages], lane);
+  }
+}
+
+// consume_dx<mt>, one instantiation per count of live boxes (no branch
+// inside a loop of wgmmas).
+template <typename T, int MT>
+__device__ __forceinline__ void consume_dx_n(int mt,
+                                             float (&acc)[T::kMT][64],
+                                             const DxItem& it, const Shape& s,
+                                             int ring0, int KT, const Smem& m,
+                                             int wgi, bf16* __restrict__ dx) {
+  if (mt == MT)
+    consume_dx<T, MT>(acc, it, s, ring0, KT, m, wgi, dx);
+  else if constexpr (MT > 0)
+    consume_dx_n<T, MT - 1>(mt, acc, it, s, ring0, KT, m, wgi, dx);
+}
+
+// dx[e, r, n] = sum_f dy[e, r, f] w[e, n, f] for r < size, else 0.
+template <int TMT>
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_bwd_dx_wgmma(const __grid_constant__ CUtensorMap tdy,
+                 const __grid_constant__ CUtensorMap tw,
+                 const int* __restrict__ sizes, bf16* __restrict__ dx,
+                 const Shape s) {
+  using T = Dx<TMT>;
+  constexpr int kStages = T::kStages;
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const Smem m = carve(wg_smem, kStages, T::kStageBytes, 0);
+  const int wgi = threadIdx.x / 128;
+  const int n_col = (s.D + kDxN - 1) / kDxN;
+  if (threadIdx.x < 32)
+    plan(sizes, s, m, kStages, 4 * kConsumers,
+         [&](int n) { return (n + T::kRM - 1) / T::kRM * n_col; });
+  __syncthreads();
+  const int n_items = m.first[s.E];
+  const int KT = (s.F + kBK - 1) / kBK;
+
+  if (wgi == kConsumers) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= kConsumers * 128 + 32) {
+      // rows at or past each expert's size rounded up to 64 (no item
+      // covers them): zeros, and nothing read
+      zero_fill<96>(s.E, [&](int e, size_t& n) {
+        const int z0 = min(s.C, (m.rows[e] + 63) / 64 * 64);
+        n = (size_t)(s.C - z0) * (s.D / 8);
+        return reinterpret_cast<uint4*>(dx + ((size_t)e * s.C + z0) * s.D);
+      });
+    } else if (threadIdx.x == kConsumers * 128) {
+      tma_prefetch_map(&tdy);
+      tma_prefetch_map(&tw);
+      int r = 0;   // stages loaded so far
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+        const DxItem it = dx_item<T>(w, m, s);
+        // w boxes wholly past D are not loaded (their columns are never
+        // stored), so the stage waits only for the boxes issued
+        const int wboxes = min(kDxN / 64, (s.D - it.n0 + 63) / 64);
+        const uint32_t bytes = (uint32_t)(it.boxes + wboxes) * kBoxBytes;
+        for (int kt = 0; kt < KT; ++kt, ++r) {
+          const int st = r % kStages, k0 = kt * kBK;
+          if (r >= kStages)
+            mbar_wait(&m.empty[st], (uint32_t)(((r / kStages) - 1) & 1));
+          mbar_arrive_expect_tx(&m.full[st], bytes);
+          unsigned char* a = m.ring + st * T::kStageBytes;
+          for (int b = 0; b < it.boxes; ++b)
+            tma_load_3d(a + b * kBoxBytes, &tdy, &m.full[st], k0,
+                        it.m0 + 64 * b, it.e);
+          for (int c = 0; c < wboxes; ++c)
+            tma_load_3d(a + T::kABytes + c * kBoxBytes, &tw, &m.full[st], k0,
+                        it.n0 + 64 * c, it.e);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    float acc[TMT][64];
+    int r = 0;   // stages consumed so far
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x, r += KT) {
+      const DxItem it = dx_item<T>(w, m, s);
+      const int mt = (it.boxes + 1 - wgi) / 2;   // this warpgroup's boxes
+      consume_dx_n<T, TMT>(mt, acc, it, s, r, KT, m, wgi, dx);
+    }
+  }
+}
+
+// ------------------------------------------------------------------- dw
+
+// A consumer's epilogue for its 64 x kDwN outputs (rows row0 .., columns
+// n0 ..): bf16, one 64-column box at a time, by stmatrix into one of its
+// SLOTS staging slots (16-byte chunks XOR-swizzled by row % 8: the store
+// map's 128-byte swizzle), then one TMA store a box from thread 0, a bulk
+// group each.  A slot is written again once the group that stored from it
+// has read it, so the stores run on under the next boxes and the next
+// item.  `bar`: the warpgroup's own named barrier.
+template <int SLOTS>
+__device__ __forceinline__ void store_boxes(const float (&acc)[kDwN / 2],
+                                            unsigned char* slots,
+                                            const CUtensorMap* tdw, int e,
+                                            int row0, int n0, const Shape& s,
+                                            int bar) {
+  static_assert((kDwN / 64) % SLOTS == 0, "slots in turn, item after item");
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int mq = lane / 8;   // the matrix whose row address this lane gives
+  const int srow = 16 * warp + 8 * (mq & 1) + lane % 8;
+#pragma unroll
+  for (int q = 0; q < kDwN / 64; ++q) {
+    unsigned char* slot = slots + (q % SLOTS) * kBoxBytes;
+    if (t == 0) bulk_wait_read<SLOTS - 1>();
+    named_bar_sync(bar, 128);   // the slot is free
+    const uint32_t ob = smem_u32(slot);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const float* a0 = &acc[4 * (8 * q + 2 * jj)];
+      const float* a1 = a0 + 4;
+      const int chunk = 2 * jj + (mq >> 1);
+      stmatrix_x4(ob + srow * 128 + ((chunk ^ (srow & 7)) << 4),
+                  pack_bf16(a0[0], a0[1]), pack_bf16(a0[2], a0[3]),
+                  pack_bf16(a1[0], a1[1]), pack_bf16(a1[2], a1[3]));
+    }
+    fence_proxy_async_shared();
+    named_bar_sync(bar, 128);   // the slot is written
+    if (t == 0) {
+      if (row0 < s.D && n0 + 64 * q < s.F)
+        tma_store_3d(tdw, slot, n0 + 64 * q, row0, e);
+      bulk_commit();
+    }
+  }
+}
+
+// One dw item: expert e (size > 0) over its kt boxes of live rows, D rows
+// [m0, m0 + ROWS), F columns [n0, n0 + kDwN).
+struct DwItem {
+  int e, m0, n0, kt, rows;
+};
+
+template <int ROWS>
+__device__ __forceinline__ DwItem dw_item(int w, const Smem& m,
+                                          const Shape& s, int d_tiles) {
+  DwItem it;
+  it.e = expert_of(w, m.first, s.E);
+  it.rows = m.rows[it.e];
+  it.kt = (it.rows + kBK - 1) / kBK;
+  const int j = w - m.first[it.e];
+  it.m0 = (j % d_tiles) * ROWS;
+  it.n0 = (j / d_tiles) * kDwN;
+  return it;
+}
+
+// dw[e, m, n] = sum_{r < size} x[e, r, m] dy[e, r, n]; an empty expert's
+// dw is 0.
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_bwd_dw_wgmma(const __grid_constant__ CUtensorMap tx,
+                 const __grid_constant__ CUtensorMap tdy,
+                 const __grid_constant__ CUtensorMap tdw,
+                 const int* __restrict__ sizes, bf16* __restrict__ dw,
+                 const Shape s) {
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const Smem m = carve(wg_smem, kDwStages, kDwStageBytes, kDwOutBytes);
+  const int wgi = threadIdx.x / 128;
+  const int d_tiles = (s.D + kDwM - 1) / kDwM;
+  const int per_expert = d_tiles * ((s.F + kDwN - 1) / kDwN);
+  if (threadIdx.x < 32)
+    plan(sizes, s, m, kDwStages, 4 * kConsumers,
+         [&](int n) { return n > 0 ? per_expert : 0; });
+  __syncthreads();
+  const int n_items = m.first[s.E];
+
+  if (wgi == kConsumers) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= kConsumers * 128 + 32) {
+      // the dw of an expert without rows: zeros, and nothing read
+      zero_fill<96>(s.E, [&](int e, size_t& n) {
+        n = m.rows[e] == 0 ? (size_t)s.D * s.F / 8 : 0;
+        return reinterpret_cast<uint4*>(dw + (size_t)e * s.D * s.F);
+      });
+    } else if (threadIdx.x == kConsumers * 128) {
+      tma_prefetch_map(&tx);
+      tma_prefetch_map(&tdy);
+      int r = 0;   // stages loaded so far
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+        const DwItem it = dw_item<kDwM>(w, m, s, d_tiles);
+        // boxes wholly past D or F are not loaded: their products land in
+        // rows or columns that are never stored
+        const int xboxes = min(kConsumers, (s.D - it.m0 + 63) / 64);
+        const int yboxes = min(kDwN / 64, (s.F - it.n0 + 63) / 64);
+        const uint32_t bytes = (uint32_t)(xboxes + yboxes) * kBoxBytes;
+        for (int kt = 0; kt < it.kt; ++kt, ++r) {
+          const int st = r % kDwStages, k0 = kt * kBK;
+          if (r >= kDwStages)
+            mbar_wait(&m.empty[st], (uint32_t)(((r / kDwStages) - 1) & 1));
+          mbar_arrive_expect_tx(&m.full[st], bytes);
+          unsigned char* a = m.ring + st * kDwStageBytes;
+          for (int b = 0; b < xboxes; ++b)
+            tma_load_3d(a + b * kBoxBytes, &tx, &m.full[st], it.m0 + 64 * b,
+                        k0, it.e);
+          for (int c = 0; c < yboxes; ++c)
+            tma_load_3d(a + kDwABytes + c * kBoxBytes, &tdy, &m.full[st],
+                        it.n0 + 64 * c, k0, it.e);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    unsigned char* slots = m.out + wgi * (kDwN / 64) * kBoxBytes;
+    float acc[kDwN / 2];
+    int r = 0;   // stages consumed so far
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+      const DwItem it = dw_item<kDwM>(w, m, s, d_tiles);
+#pragma unroll
+      for (int e = 0; e < kDwN / 2; ++e) acc[e] = 0.f;
+      for (int kt = 0; kt < it.kt; ++kt, ++r) {
+        const int st = r % kDwStages;
+        mbar_wait(&m.full[st], (uint32_t)((r / kDwStages) & 1));
+        unsigned char* a = m.ring + st * kDwStageBytes;
+        const int live = it.rows - kt * kBK;
+        if (live < kBK) {
+          // The expert's last box: its rows [live, 64) of x and of dy are
+          // padding and may hold anything, NaN too (0 . NaN is NaN), so
+          // both are zeroed, by both warpgroups, before either reads them.
+          // A row of a 128-byte-swizzled box keeps its own 128 bytes, so
+          // whole rows are zeroed whatever the swizzle.
+          const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+          const int chunks = (kBK - live) * 8;   // 16-byte chunks a box
+          for (int idx = threadIdx.x; idx < (kConsumers + kDwN / 64) * chunks;
+               idx += kConsumers * 128) {
+            const int b = idx / chunks, c = idx % chunks;
+            *reinterpret_cast<uint4*>(a + b * kBoxBytes + live * 128 +
+                                      c * 16) = zero;
+          }
+          fence_proxy_async_shared();
+          named_bar_sync(1, kConsumers * 128);
+        }
+        fence_regs(acc);
+        wgmma_fence();
+        // A = this warpgroup's x box transposed and B = the dy tile, both
+        // MN-major: a k16 step is 16 rows of 128 bytes, dy's 64-column
+        // blocks are one box apart
+        const uint32_t ab = smem_u32(a) + wgi * kBoxBytes;
+        const uint32_t bb = smem_u32(a) + kDwABytes;
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          Wgmma<kDwN, 1>::ss<1>(acc,
+                                desc_sw128(ab + kk * 16 * 128, kBoxBytes, 1024),
+                                desc_sw128(bb + kk * 16 * 128, kBoxBytes, 1024),
+                                1);
+        wgmma_commit();
+        wgmma_wait<1>();   // step kt - 1's products are done: free its stage
+        fence_regs(acc);
+        if (kt > 0) arrive(&m.empty[(r - 1) % kDwStages], lane);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      arrive(&m.empty[(r - 1) % kDwStages], lane);
+
+      store_boxes<kDwN / 64>(acc, slots, &tdw, it.e, it.m0 + 64 * wgi, it.n0,
+                             s, 2 + wgi);
+    }
+    if (t == 0) bulk_wait<0>();
+  }
+}
+
+
+// dw for C <= kSmallC, ping-pong: each consumer warpgroup takes every other
+// item of its block, items of 64 rows of D x kDwN columns of F, through its
+// own stages (x box and dy tile over 64 rows), loaded by its own producer
+// thread, and its own staging slots, so one warpgroup's tail zeroing and
+// epilogue run under the other's products.
+__global__ void __launch_bounds__(kThreads, 1)
+gmm_bwd_dw_pp_wgmma(const __grid_constant__ CUtensorMap tx,
+                    const __grid_constant__ CUtensorMap tdy,
+                    const __grid_constant__ CUtensorMap tdw,
+                    const int* __restrict__ sizes, bf16* __restrict__ dw,
+                    const Shape s) {
+  extern __shared__ __align__(16) unsigned char wg_smem[];
+  const Smem m = carve(wg_smem, kConsumers * kPpStages, kPpStageBytes,
+                       kPpOutBytes);
+  const int wgi = threadIdx.x / 128;
+  const int d_tiles = (s.D + 63) / 64;
+  const int per_expert = d_tiles * ((s.F + kDwN - 1) / kDwN);
+  if (threadIdx.x < 32)
+    plan(sizes, s, m, kConsumers * kPpStages, 4,
+         [&](int n) { return n > 0 ? per_expert : 0; });
+  __syncthreads();
+  const int n_items = m.first[s.E];
+
+  if (wgi == kConsumers) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kProducerRegs>();
+    const int pw = (threadIdx.x - kConsumers * 128) / 32;   // producer warp
+    if (pw >= kConsumers) {
+      // the dw of an expert without rows: zeros, and nothing read
+      zero_fill<128 - 32 * kConsumers>(s.E, [&](int e, size_t& n) {
+        n = m.rows[e] == 0 ? (size_t)s.D * s.F / 8 : 0;
+        return reinterpret_cast<uint4*>(dw + (size_t)e * s.D * s.F);
+      });
+    } else if (threadIdx.x % 32 == 0) {
+      // warp pw's lane 0 loads consumer pw's items
+      tma_prefetch_map(&tx);
+      tma_prefetch_map(&tdy);
+      int r = 0;   // this consumer's stages loaded so far
+      for (int w = blockIdx.x + pw * gridDim.x; w < n_items;
+           w += kConsumers * gridDim.x) {
+        const DwItem it = dw_item<64>(w, m, s, d_tiles);
+        const int yboxes = min(kDwN / 64, (s.F - it.n0 + 63) / 64);
+        const uint32_t bytes = (uint32_t)(1 + yboxes) * kBoxBytes;
+        for (int kt = 0; kt < it.kt; ++kt, ++r) {
+          const int st = pw * kPpStages + r % kPpStages, k0 = kt * kBK;
+          if (r >= kPpStages)
+            mbar_wait(&m.empty[st], (uint32_t)(((r / kPpStages) - 1) & 1));
+          mbar_arrive_expect_tx(&m.full[st], bytes);
+          unsigned char* a = m.ring + st * kPpStageBytes;
+          tma_load_3d(a, &tx, &m.full[st], it.m0, k0, it.e);
+          for (int c = 0; c < yboxes; ++c)
+            tma_load_3d(a + (1 + c) * kBoxBytes, &tdy, &m.full[st],
+                        it.n0 + 64 * c, k0, it.e);
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    unsigned char* slots = m.out + wgi * kPpSlots * kBoxBytes;
+    float acc[kDwN / 2];
+    int r = 0;   // this warpgroup's stages consumed so far
+    for (int w = blockIdx.x + wgi * gridDim.x; w < n_items;
+         w += kConsumers * gridDim.x) {
+      const DwItem it = dw_item<64>(w, m, s, d_tiles);
+#pragma unroll
+      for (int e = 0; e < kDwN / 2; ++e) acc[e] = 0.f;
+      for (int kt = 0; kt < it.kt; ++kt, ++r) {
+        const int st = wgi * kPpStages + r % kPpStages;
+        mbar_wait(&m.full[st], (uint32_t)((r / kPpStages) & 1));
+        unsigned char* a = m.ring + st * kPpStageBytes;
+        const int live = it.rows - kt * kBK;
+        if (live < kBK) {
+          // the last box's padding rows of x and dy: zeros (as in
+          // gmm_bwd_dw_wgmma), read by this warpgroup alone
+          const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+          const int chunks = (kBK - live) * 8;   // 16-byte chunks a box
+          for (int idx = t; idx < (1 + kDwN / 64) * chunks; idx += 128) {
+            const int b = idx / chunks, c = idx % chunks;
+            *reinterpret_cast<uint4*>(a + b * kBoxBytes + live * 128 +
+                                      c * 16) = zero;
+          }
+          fence_proxy_async_shared();
+          named_bar_sync(1 + wgi, 128);
+        }
+        fence_regs(acc);
+        wgmma_fence();
+        const uint32_t ab = smem_u32(a), bb = ab + kBoxBytes;
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          Wgmma<kDwN, 1>::ss<1>(acc,
+                                desc_sw128(ab + kk * 16 * 128, kBoxBytes, 1024),
+                                desc_sw128(bb + kk * 16 * 128, kBoxBytes, 1024),
+                                1);
+        wgmma_commit();
+        wgmma_wait<1>();   // step kt - 1's products are done: free its stage
+        fence_regs(acc);
+        if (kt > 0)
+          arrive(&m.empty[wgi * kPpStages + (r - 1) % kPpStages], lane);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      arrive(&m.empty[wgi * kPpStages + (r - 1) % kPpStages], lane);
+      store_boxes<kPpSlots>(acc, slots, &tdw, it.e, it.m0, it.n0, s,
+                            3 + wgi);
+    }
+    if (t == 0) bulk_wait<0>();
+  }
+}
+
+}  // namespace wg
+
 // ========================================================= f32: CUDA cores
 
 namespace cc {
@@ -588,13 +1291,38 @@ gmm_bwd_dw_cc(const float* __restrict__ x, const float* __restrict__ dy,
 }  // namespace cc
 
 constexpr int kMaxDevices = 64;
+enum Variant { kF32 = 0, kMmaSync = 1, kWgmma = 2 };
+
+long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+
+// Rows of a wgmma dx item at capacity C.
+int dx_rows(int C) {
+  return C <= wg::kSmallC ? wg::Dx<1>::kRM : wg::Dx<3>::kRM;
+}
+
+// The kernels that take a launch (ops.bwd_variant states the same rule), or
+// -1.  vec: the caller found D % 8 == F % 8 == 0 and every pointer 16-byte
+// aligned.
+int variant_of(int dtype, int E, int C, int D, int F, int vec) {
+  if (dtype == 0) return kF32;
+  if (dtype != 1) return -1;
+  const long long strides = 1ll << 39;   // tensor-map strides < 2^40 bytes
+  if (vec && E <= wg::kMaxE && (long long)C * D < strides &&
+      (long long)C * F < strides && (long long)D * F < strides &&
+      E * ceil_div(C, dx_rows(C)) * ceil_div(D, wg::kDxN) < (1ll << 31) &&
+      E * ceil_div(D, C <= wg::kSmallC ? 64 : wg::kDwM) *
+              ceil_div(F, wg::kDwN) <
+          (1ll << 31))
+    return kWgmma;
+  return kMmaSync;
+}
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// The dynamic shared memory of the four bf16 instantiations is allowed
-// once per device, so a launch costs the host nothing more.
+// The dynamic shared memory of the four bf16 mma.sync instantiations is
+// allowed once per device, so a launch costs the host nothing more.
 int prepare_tc() {
   static std::atomic<bool> ready[kMaxDevices];
   int device;
@@ -616,6 +1344,7 @@ template <bool VEC>
 int launch_tc(const void* x, const void* w, const void* sizes, const void* dy,
               void* dx, void* dw, const Shape& s, cudaStream_t stream) {
   using namespace tc;
+  if (int err = prepare_tc()) return err;
   const int* sz = static_cast<const int*>(sizes);
   if (dx) {
     const dim3 grid((s.C + kBM - 1) / kBM, (s.D + kBN - 1) / kBN, s.E);
@@ -630,6 +1359,82 @@ int launch_tc(const void* x, const void* w, const void* sizes, const void* dy,
         static_cast<const bf16*>(x), static_cast<const bf16*>(dy), sz,
         static_cast<bf16*>(dw), s);
     if (int err = (int)cudaGetLastError()) return err;
+  }
+  return 0;
+}
+
+// The wgmma kernels' shared-memory attribute is set, and the SM count
+// read, once per device, so a launch costs the host only its tensor maps.
+int prepare_wg(int* sms) {
+  static std::atomic<int> sms_of[kMaxDevices];   // 0: not yet prepared
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  int n = sms_of[device].load(std::memory_order_relaxed);
+  if (n == 0) {
+    const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
+    if ((err = cudaFuncSetAttribute(wg::gmm_bwd_dx_wgmma<1>, a,
+                                    (int)wg::Dx<1>::kSmem)) ||
+        (err = cudaFuncSetAttribute(wg::gmm_bwd_dx_wgmma<3>, a,
+                                    (int)wg::Dx<3>::kSmem)) ||
+        (err = cudaFuncSetAttribute(wg::gmm_bwd_dw_wgmma, a,
+                                    (int)wg::kDwSmem)) ||
+        (err = cudaFuncSetAttribute(wg::gmm_bwd_dw_pp_wgmma, a,
+                                    (int)wg::kDwPpSmem)) ||
+        (err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount,
+                                      device)))
+      return (int)err;
+    sms_of[device].store(n, std::memory_order_relaxed);
+  }
+  *sms = n;
+  return 0;
+}
+
+int launch_wg(const void* x, const void* w, const void* sizes, const void* dy,
+              void* dx, void* dw, const Shape& s, cudaStream_t stream) {
+  int sms;
+  if (int err = prepare_wg(&sms)) return err;
+  // dy (E, C, F) as (F, C, E), x (E, C, D) as (D, C, E), w and dw (E, D, F)
+  // as (F, D, E); every box 64 x 64 with a 128-byte swizzle
+  const uint64_t es = sizeof(bf16);
+  const uint32_t box[3] = {64, 64, 1};
+  const uint64_t yd[3] = {(uint64_t)s.F, (uint64_t)s.C, (uint64_t)s.E};
+  const uint64_t ys[2] = {s.F * es, (uint64_t)s.C * s.F * es};
+  const uint64_t wd[3] = {(uint64_t)s.F, (uint64_t)s.D, (uint64_t)s.E};
+  const uint64_t ws[2] = {s.F * es, (uint64_t)s.D * s.F * es};
+  const uint64_t xd[3] = {(uint64_t)s.D, (uint64_t)s.C, (uint64_t)s.E};
+  const uint64_t xs[2] = {s.D * es, (uint64_t)s.C * s.D * es};
+  const int* sz = static_cast<const int*>(sizes);
+  CUtensorMap tdy;
+  int err = hopper::encode_tensor_map_bf16(&tdy, dy, 3, yd, ys, box);
+  if (err) return err;
+  if (dx) {
+    CUtensorMap tw;
+    if ((err = hopper::encode_tensor_map_bf16(&tw, w, 3, wd, ws, box)))
+      return err;
+    constexpr size_t smem1 = wg::Dx<1>::kSmem, smem3 = wg::Dx<3>::kSmem;
+    if (s.C <= wg::kSmallC)
+      wg::gmm_bwd_dx_wgmma<1><<<sms, wg::kThreads, smem1, stream>>>(
+          tdy, tw, sz, static_cast<bf16*>(dx), s);
+    else
+      wg::gmm_bwd_dx_wgmma<3><<<sms, wg::kThreads, smem3, stream>>>(
+          tdy, tw, sz, static_cast<bf16*>(dx), s);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  if (dw) {
+    CUtensorMap tx, tdw;
+    if ((err = hopper::encode_tensor_map_bf16(&tx, x, 3, xd, xs, box)) ||
+        (err = hopper::encode_tensor_map_bf16(&tdw, dw, 3, wd, ws, box)))
+      return err;
+    constexpr size_t smem = wg::kDwSmem, pp = wg::kDwPpSmem;
+    if (s.C <= wg::kSmallC)
+      wg::gmm_bwd_dw_pp_wgmma<<<sms, wg::kThreads, pp, stream>>>(
+          tx, tdy, tdw, sz, static_cast<bf16*>(dw), s);
+    else
+      wg::gmm_bwd_dw_wgmma<<<sms, wg::kThreads, smem, stream>>>(
+          tx, tdy, tdw, sz, static_cast<bf16*>(dw), s);
+    if ((err = (int)cudaGetLastError())) return err;
   }
   return 0;
 }
@@ -664,8 +1469,8 @@ extern "C" {
 // sizes (E,) int32, on the device.  dx or dw may be null: that product is
 // not launched.  vec = 1 states that D % 8 == F % 8 == 0 and every pointer
 // is 16-byte aligned (checked here too).  Launches the dx kernel, then the
-// dw kernel, on `stream`, does not synchronise, and returns the
-// cudaError_t of the launches (0 on success).
+// dw kernel, of the variant `gmm_bwd_variant` names, on `stream`, does not
+// synchronise, and returns the cudaError_t of the launches (0 on success).
 int gmm_bwd(const void* x, const void* w, const void* sizes, const void* dy,
             void* dx, void* dw, int dtype, int E, int C, int D, int F,
             int vec, void* stream) {
@@ -680,11 +1485,36 @@ int gmm_bwd(const void* x, const void* w, const void* sizes, const void* dy,
     return (int)cudaErrorInvalidValue;
   const Shape s{E, C, D, F};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_cc(x, w, sizes, dy, dx, dw, s, st);
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  if (int err = prepare_tc()) return err;
-  return vec ? launch_tc<true>(x, w, sizes, dy, dx, dw, s, st)
-             : launch_tc<false>(x, w, sizes, dy, dx, dw, s, st);
+  switch (variant_of(dtype, E, C, D, F, vec)) {
+    case kWgmma:
+      return launch_wg(x, w, sizes, dy, dx, dw, s, st);
+    case kMmaSync:
+      return vec ? launch_tc<true>(x, w, sizes, dy, dx, dw, s, st)
+                 : launch_tc<false>(x, w, sizes, dy, dx, dw, s, st);
+    case kF32:
+      return launch_cc(x, w, sizes, dy, dx, dw, s, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The kernels a launch with these arguments takes: 0 f32, 1 mma_sync,
+// 2 wgmma, -1 none.
+int gmm_bwd_variant(int dtype, int E, int C, int D, int F, int vec) {
+  return variant_of(dtype, E, C, D, F, vec);
+}
+
+// Dynamic shared memory per block of a wgmma kernel, in bytes (ptxas
+// reports only static shared memory): 0 dx at C <= 128, 1 dx above, 2 dw
+// at C <= 128, 3 dw above; -1 for another number.
+int gmm_bwd_wgmma_smem_bytes(int kernel) {
+  switch (kernel) {
+    case 0: return (int)wg::Dx<1>::kSmem;
+    case 1: return (int)wg::Dx<3>::kSmem;
+    case 2: return (int)wg::kDwPpSmem;
+    case 3: return (int)wg::kDwSmem;
+    default: return -1;
+  }
 }
 
 const char* gmm_bwd_error_string(int err) {

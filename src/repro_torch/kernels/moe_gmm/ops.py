@@ -20,12 +20,15 @@ When autograd records the call (or the inputs come wrapped by
 ``torch.func.vmap``) ``gmm`` runs through ``GroupedMatmul``, an
 ``autograd.Function`` whose backward is the pair of kernels in
 ``csrc/gmm_bwd.cu`` (dx = mask(dy) w^T and dw = x^T mask(dy);
-``gmm_bwd_ref`` on the CPU or with ``impl="ref"``): bf16 on mma.sync,
-f32 on the CUDA cores (``bwd_variant``).  ``LAUNCHES["gmm_bwd"]`` counts
-its calls, "gmm_bwd.dx" and "gmm_bwd.dw" each kernel's launches and
-"gmm_bwd.<variant>" the calls of each variant.  Its ``vmap`` rule folds
-the member axis into the expert axis, since members share no experts:
-one launch for every member.
+``gmm_bwd_ref`` on the CPU or with ``impl="ref"``), chosen by
+``bwd_variant`` (the C launcher's ``gmm_bwd_variant`` applies the same
+rule): bf16 with D % 8 == F % 8 == 0, 16-byte aligned x, w, dy, dx and
+dw, at most ``MAX_WGMMA_EXPERTS`` experts and the tensor maps' and item
+counters' limits on wgmma/TMA; other bf16 on mma.sync; f32 on the CUDA
+cores.  ``LAUNCHES["gmm_bwd"]`` counts its calls, "gmm_bwd.dx" and
+"gmm_bwd.dw" each kernel's launches and "gmm_bwd.<variant>" the calls of
+each variant.  Its ``vmap`` rule folds the member axis into the expert
+axis, since members share no experts: one launch for every member.
 """
 from __future__ import annotations
 
@@ -76,9 +79,26 @@ def gmm(x, w, group_sizes, *, impl: Optional[str] = None):
     return gmm_cuda(x, w, group_sizes)
 
 
-def bwd_variant(dtype: torch.dtype) -> str:
-    """The backward kernels a ``gmm_bwd_cuda`` call takes."""
-    return "f32" if dtype == torch.float32 else "mma_sync"
+def bwd_variant(dtype: torch.dtype, E: int, C: int, D: int, F: int,
+                aligned: bool = True) -> str:
+    """The backward kernels a ``gmm_bwd_cuda`` call takes; ``aligned``: x,
+    w, dy and the gradients start on a 16-byte boundary.  The wgmma
+    kernels' further limits: a tensor map's strides stay under 2^40 bytes
+    (C * D, C * F, D * F < 2^39 bf16) and each product's items (dx: up to
+    128 rows at C <= 128, else 384, x 128 columns of D; dw: 64 rows of D at
+    C <= 128, else 128, x 256 columns of F; counted for all E experts)
+    number fewer than 2^31."""
+    if dtype == torch.float32:
+        return "f32"
+    strides = 2 ** 39
+    if (D % 8 == 0 and F % 8 == 0 and aligned and E <= MAX_WGMMA_EXPERTS
+            and max(C * D, C * F, D * F) < strides
+            and E * -(-C // (128 if C <= 128 else 384)) * -(-D // 128)
+            < 2 ** 31
+            and E * -(-D // (64 if C <= 128 else 128)) * -(-F // 256)
+            < 2 ** 31):
+        return "wgmma"
+    return "mma_sync"
 
 
 class GroupedMatmul(torch.autograd.Function):
@@ -204,6 +224,7 @@ def gmm_bwd_cuda(x, w, group_sizes, dy, *, need_dx=True, need_dw=True):
         return dx, dw
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, dy, *outs))
     vec = int(D % 8 == 0 and F % 8 == 0 and aligned)
+    kind = bwd_variant(x.dtype, E, C, D, F, aligned)
     lib = _library("gmm_bwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -214,7 +235,7 @@ def gmm_bwd_cuda(x, w, group_sizes, dy, *, need_dx=True, need_dw=True):
     if err:
         msg = lib.gmm_bwd_error_string(err).decode()
         raise RuntimeError(f"gmm_bwd launch failed: {msg} ({err})")
-    count_launch("gmm_bwd", f"gmm_bwd.{bwd_variant(x.dtype)}",
+    count_launch("gmm_bwd", f"gmm_bwd.{kind}",
                  *(f"gmm_bwd.{n}" for n, t in (("dx", dx), ("dw", dw))
                    if t is not None))
     return dx, dw
@@ -262,3 +283,27 @@ def kernel_smem_bytes() -> int:
     fn.argtypes = []
     fn.restype = ctypes.c_int
     return fn()
+
+
+def kernel_bwd_variant(dtype: torch.dtype, E: int, C: int, D: int, F: int,
+                       aligned: bool = True) -> str:
+    """The backward variant the built library's launcher picks (needs
+    nvcc)."""
+    fn = _library("gmm_bwd").gmm_bwd_variant
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_int
+    vec = int(D % 8 == 0 and F % 8 == 0 and aligned)
+    code = fn(_DTYPES[dtype], E, C, D, F, vec)
+    if code < 0:
+        raise ValueError(f"no gmm_bwd kernel takes {dtype}")
+    return VARIANTS[code]
+
+
+def kernel_bwd_smem_bytes() -> dict:
+    """Dynamic shared memory per block of the wgmma dx and dw kernels, as
+    the built library states it (needs nvcc)."""
+    fn = _library("gmm_bwd").gmm_bwd_wgmma_smem_bytes
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return {"gmm_bwd_dx_wgmma<1>": fn(0), "gmm_bwd_dx_wgmma<3>": fn(1),
+            "gmm_bwd_dw_pp_wgmma": fn(2), "gmm_bwd_dw_wgmma": fn(3)}

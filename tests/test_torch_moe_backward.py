@@ -208,16 +208,43 @@ def test_backward_cuda_entry_needs_cuda_and_checks_dy():
                     _inputs(6, 2, 4, 8, 8, [4, 1]))
     with pytest.raises(ValueError, match="needs CUDA"):
         gmm_bwd_cuda(x, w, sz, dy)
-    assert bwd_variant(torch.bfloat16) == "mma_sync"
-    assert bwd_variant(torch.float32) == "f32"
+    # qwen3's train microbatch takes the wgmma kernels, f32 the CUDA cores
+    assert bwd_variant(torch.bfloat16, 128, 80, 2048, 768) == "wgmma"
+    assert bwd_variant(torch.float32, 128, 80, 2048, 768) == "f32"
     assert issubclass(GroupedMatmul, torch.autograd.Function)
-    for name in ("gmm_bwd", "gmm_bwd.dx", "gmm_bwd.dw", "gmm_bwd.mma_sync",
-                 "gmm_bwd.f32"):
+    for name in ("gmm_bwd", "gmm_bwd.dx", "gmm_bwd.dw", "gmm_bwd.wgmma",
+                 "gmm_bwd.mma_sync", "gmm_bwd.f32"):
         assert name in LAUNCHES
     src = _build._KERNELS_DIR / _build.SOURCES["gmm_bwd"]
     assert src.is_file() and src.name == "gmm_bwd.cu"
     path = _build.library_path("gmm_bwd")
     assert path.parent == _build.BUILD_DIR and "gmm_bwd" in path.name
+
+
+@pytest.mark.parametrize("dtype,E,C,D,F,aligned,want", [
+    ("bfloat16", 128, 80, 2048, 768, True, "wgmma"),     # qwen3's train
+    ("bfloat16", 256, 80, 2048, 768, True, "wgmma"),     # fused, 2 members
+    ("bfloat16", 8, 1280, 6144, 32768, True, "wgmma"),   # grok-1-314b
+    ("bfloat16", 16, 100, 184, 520, True, "wgmma"),      # ragged_wgmma
+    ("bfloat16", 4, 3, 8, 8, True, "wgmma"),             # no lower limit
+    ("bfloat16", 5, 100, 200, 300, True, "mma_sync"),    # F % 8 != 0
+    ("bfloat16", 5, 100, 204, 304, True, "mma_sync"),    # D % 8 != 0
+    ("bfloat16", 128, 80, 2048, 768, False, "mma_sync"),  # misaligned
+    ("bfloat16", 1025, 80, 2048, 768, True, "mma_sync"),  # E over the limit
+    ("bfloat16", 1024, 80, 2048, 768, True, "wgmma"),     # E at the limit
+    ("bfloat16", 2, 2 ** 28, 2 ** 11, 8, True, "mma_sync"),   # C*D = 2^39
+    ("bfloat16", 2, 2 ** 28 - 1, 2 ** 11, 8, True, "wgmma"),  # just under
+    ("bfloat16", 1, 8, 2 ** 20, 2 ** 19, True, "mma_sync"),   # D*F = 2^39
+    ("float32", 128, 80, 2048, 768, True, "f32"),
+    ("float32", 5, 100, 200, 300, False, "f32"),
+])
+def test_bwd_variant_rule(dtype, E, C, D, F, aligned, want):
+    """``bwd_variant``'s rule: bf16 with D % 8 == F % 8 == 0, aligned
+    pointers, at most ``MAX_WGMMA_EXPERTS`` experts and tensor-map strides
+    under 2^40 bytes takes the wgmma kernels, other bf16 mma.sync, f32 the
+    CUDA cores."""
+    assert gops.MAX_WGMMA_EXPERTS == 1024
+    assert bwd_variant(getattr(torch, dtype), E, C, D, F, aligned) == want
 
 
 # ------------------------------------------------ chip_smoke rehearsals
@@ -261,9 +288,10 @@ def _count_plain_versions(monkeypatch):
     counted(gops, "gmm_ref", lambda x, w, *_: (
         "gmm", "gmm." + gops.variant(x.dtype, x.shape[0], x.shape[1],
                                      x.shape[2], w.shape[2])))
-    counted(gops, "gmm_bwd_ref", lambda x, *_: (
+    counted(gops, "gmm_bwd_ref", lambda x, w, *_: (
         "gmm_bwd", "gmm_bwd.dx", "gmm_bwd.dw",
-        f"gmm_bwd.{bwd_variant(x.dtype)}"))
+        "gmm_bwd." + bwd_variant(x.dtype, x.shape[0], x.shape[1], x.shape[2],
+                                 w.shape[2])))
 
 
 def _reduced_moe(monkeypatch, name, layers):
@@ -280,47 +308,93 @@ def _reduced_moe(monkeypatch, name, layers):
     return cfg
 
 
+def _plain_gmm_bwd(x, w, s, dy, need_dx=True, need_dw=True):
+    """``gmm_bwd_cuda``'s stand-in on the CPU: the plain backward, counted
+    as the launches of the variant ``bwd_variant`` names."""
+    E, C, D = x.shape
+    count_launch("gmm_bwd",
+                 f"gmm_bwd.{bwd_variant(x.dtype, E, C, D, w.shape[2])}",
+                 *(["gmm_bwd.dx"] if need_dx else []),
+                 *(["gmm_bwd.dw"] if need_dw else []))
+    dx, dw = gmm_bwd_ref(x, w, s, dy)
+    return dx if need_dx else None, dw if need_dw else None
+
+
 def test_chip_smoke_gmm_bwd_phase_rehearsal(monkeypatch):
     """``chip_smoke.py``'s ``kernel gmm_bwd`` phase on the CPU at small
     shapes, ``gmm_bwd_cuda`` standing in as the plain backward counted as
-    its launches: every case passes the phase's own checks (tolerances,
+    its launches: every case passes the phase's own checks (its variant by
+    ``bwd_variant``, the library's rule and the counters; tolerances,
     padding rows and empty experts 0, bitwise repeat, launches), a case
-    with router sizes among them."""
+    with router sizes, every tail of the wgmma kernels and NaN padding
+    rows among them; with ``--baseline`` (the plain backward again) each
+    case also carries the baseline's time and checks."""
     chip_smoke = _chip_smoke()
     _no_cuda_calls(monkeypatch, chip_smoke)
-
-    def plain_kernel(x, w, s, dy, need_dx=True, need_dw=True):
-        count_launch("gmm_bwd", f"gmm_bwd.{bwd_variant(x.dtype)}",
-                     *(["gmm_bwd.dx"] if need_dx else []),
-                     *(["gmm_bwd.dw"] if need_dw else []))
-        dx, dw = gmm_bwd_ref(x, w, s, dy)
-        return dx if need_dx else None, dw if need_dw else None
-    monkeypatch.setattr(gops, "gmm_bwd_cuda", plain_kernel)
+    monkeypatch.setattr(gops, "gmm_bwd_cuda", _plain_gmm_bwd)
+    monkeypatch.setattr(gops, "kernel_bwd_variant", gops.bwd_variant)
+    monkeypatch.setattr(chip_smoke, "_baseline",
+                        lambda name, path: path and _plain_gmm_bwd)
     monkeypatch.setattr(chip_smoke, "GMM_BWD_CASES", [
         dict(name="train_wi", E=8, C=16, D=32, F=24, route=(16, 4),
-             dtype="bfloat16"),
+             dtype="bfloat16", variant="wgmma"),
         dict(name="fused", E=8, C=16, D=32, F=24, route=(16, 4), members=2,
-             dtype="bfloat16"),
+             dtype="bfloat16", variant="wgmma"),
         dict(name="train_router", E=8, C=16, D=32, F=24, router="train",
-             dtype="bfloat16"),
+             dtype="bfloat16", variant="wgmma"),
+        dict(name="ragged_wgmma", E=8, C=10, D=16, F=24,
+             sizes=[0, 1, 3, 9, 10, -3, 15, 5], dtype="bfloat16",
+             variant="wgmma"),
+        dict(name="nan_padding", E=8, C=16, D=32, F=24, route=(16, 4),
+             nan_padding=True, dtype="bfloat16", variant="wgmma"),
         dict(name="ragged", E=5, C=10, D=20, F=30, sizes=[0, 10, 3, 6, 1],
-             dtype="bfloat16"),
+             dtype="bfloat16", variant="mma_sync"),
         dict(name="empty", E=4, C=8, D=16, F=8, sizes=[0] * 4,
-             dtype="bfloat16"),
+             dtype="bfloat16", variant="wgmma"),
         dict(name="f32", E=4, C=16, D=16, F=8, route=(16, 2),
-             dtype="float32")])
+             dtype="float32", variant="f32")])
     router = {"train": torch.tensor([16, 0, 3, 9, 16, 1, 7, 12],
                                     dtype=torch.int32)}
-    rows = chip_smoke.phase_kernel_gmm_bwd(torch.device("cpu"), router)
-    assert set(rows) == {"train_wi", "fused", "train_router", "ragged",
-                         "empty", "f32"}
+    before = dict(LAUNCHES)
+    rows = chip_smoke.phase_kernel_gmm_bwd(torch.device("cpu"), router,
+                                           baseline=ROOT / "chip_smoke.py")
+    assert set(rows) == {"train_wi", "fused", "train_router", "ragged_wgmma",
+                         "nan_padding", "ragged", "empty", "f32"}
     assert rows["train_router"]["live_rows"] == 64
+    assert rows["ragged_wgmma"]["live_rows"] == 0 + 1 + 3 + 9 + 10 + 10 + 5
     for r in rows.values():
         assert r["ok"] and r["bitwise_repeat"] and r["dx_padding_rows_zero"]
+        assert r["baseline"]["ok"] and r["baseline_ms"] is not None
         assert set(r) >= {"max_abs_err", "ms", "plain_ms", "bound_ms",
-                          "bound_by", "library_ms"}
+                          "bound_by", "library_ms", "variant"}
+    assert {n: r["variant"] for n, r in rows.items()} == {
+        "train_wi": "wgmma", "fused": "wgmma", "train_router": "wgmma",
+        "ragged_wgmma": "wgmma", "nan_padding": "wgmma",
+        "ragged": "mma_sync", "empty": "wgmma", "f32": "f32"}
+    assert LAUNCHES["gmm_bwd.mma_sync"] > before["gmm_bwd.mma_sync"]
+    assert rows["nan_padding"]["checks"]["dw"]["ok"]
     assert rows["fused"]["live_rows"] <= 2 * 16 * 4
     assert rows["empty"]["live_rows"] == 0
+
+
+def test_chip_smoke_gmm_bwd_phase_rejects_a_wrong_variant(monkeypatch):
+    """The phase fails a case whose variant the library's rule names
+    otherwise than ``bwd_variant``, and a case the rule gives to another
+    variant than the case states."""
+    chip_smoke = _chip_smoke()
+    _no_cuda_calls(monkeypatch, chip_smoke)
+    monkeypatch.setattr(gops, "gmm_bwd_cuda", _plain_gmm_bwd)
+    case = dict(name="train_wi", E=8, C=16, D=32, F=24, route=(16, 4),
+                dtype="bfloat16", variant="wgmma")
+    monkeypatch.setattr(chip_smoke, "GMM_BWD_CASES", [case])
+    monkeypatch.setattr(gops, "kernel_bwd_variant",
+                        lambda *a, **kw: "mma_sync")
+    with pytest.raises(AssertionError, match="the library mma_sync"):
+        chip_smoke.phase_kernel_gmm_bwd(torch.device("cpu"), {})
+    monkeypatch.setattr(gops, "kernel_bwd_variant", gops.bwd_variant)
+    monkeypatch.setitem(case, "variant", "mma_sync")
+    with pytest.raises(AssertionError, match="the case mma_sync"):
+        chip_smoke.phase_kernel_gmm_bwd(torch.device("cpu"), {})
 
 
 def test_chip_smoke_router_sizes_rehearsal(monkeypatch):
@@ -373,6 +447,7 @@ def test_chip_smoke_moe_train_phase_rehearsal(monkeypatch):
     step = spec["launches"]
     assert step["gmm"] == step["gmm.wgmma"] == 2 * 3 * 2 * 4
     assert step["gmm_bwd.dx"] == step["gmm_bwd.dw"] == 3 * 2 * 4
+    assert step["gmm_bwd.wgmma"] == step["gmm_bwd"] == 3 * 2 * 4
     assert {"layer0/moe/router", "layer0/moe/wi", "layer0/moe/wg",
             "layer0/moe/wo"} <= set(row["vs_ref"]["grad_rel_frobenius"])
     vs = row["vs_ref"]
@@ -402,3 +477,4 @@ def test_chip_smoke_fused_moe_phase_rehearsal(monkeypatch):
     per_cycle = chip_smoke._launches(flash=(1, 1), moe=(1, 1))
     assert got == {k: v * F["cycles"] for k, v in per_cycle.items()}
     assert per_cycle["gmm_bwd.dx"] == 3 and per_cycle["gmm"] == 6
+    assert per_cycle["gmm_bwd.wgmma"] == 3
