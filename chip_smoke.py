@@ -87,6 +87,26 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  lm.eval: exact launches of gmm (forward), gmm_bwd (dx,
                  dw) and flash a step; the comparison with impl="ref"
                  includes layer 0's router and experts
+  dryrun         after each train phase, launch train and each fused
+                 population: repro_torch.launch.dryrun's reckoning of that
+                 cell (its config, shape, microbatches or members; fake
+                 tensors on the meta device, nothing allocated, computed
+                 in worker processes that see no card while the kernel
+                 phases run): the reckoned peak beside
+                 max_memory_allocated (within 5%), the flash backward's
+                 C-side bytes on their own, the tally of
+                 kernel calls beside each step's (cycle's) measured
+                 launches and the hand counts (equal); for the train
+                 phases the roofline of the step (t_compute, t_memory, the
+                 counted FLOPs, model_flops) and the model-FLOP share,
+                 model_flops / (warm step s x 989 TFLOP/s), beside the
+                 card's name and power limit
+  launch train   repro_torch.launch.train's main() in this process:
+                 full-width gemma2-2b, 4 steps of 4 x 1024 (2 x 1024 when
+                 the dry run reckons 4 over 76 GB) at the config's one
+                 microbatch on the card: finite losses, 52 flash forward
+                 and 26 backward launches a step (wgmma), steps and
+                 tokens a second, peak
   ensemble       replica exchange (4 members, 2 cycles) and a
                  simulation-analysis loop (2 members, 2 iterations, then
                  ``lm.eval``) of full-width gemma2-2b members cut to 4
@@ -152,6 +172,7 @@ when CUDA is missing or the port's package is not beside this script.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -163,9 +184,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (dense): bf16 tensor cores, f32 CUDA cores, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
 # special-function unit: 16 results per SM and clock, 132 SMs, 1.98 GHz boost
 PEAK_EXP = 16 * 132 * 1.98e9
 
@@ -574,6 +592,18 @@ def device_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bound(flops, nbytes, dtype: str):
+    """(bound ms, "operations" or "bytes") of a kernel's work, its
+    ``cost()``, at the card's data-sheet peaks (``repro_torch.launch.mesh.
+    HW``: bf16 on the tensor cores, anything else on the CUDA cores in f32,
+    HBM3)."""
+    from repro_torch.launch.mesh import HW
+    peak = HW.peak_flops if dtype == "bfloat16" else HW.peak_flops_f32
+    t_ops, t_bytes = flops / peak, nbytes / HW.hbm_bw
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 def phase_build():
     import torch
 
@@ -766,6 +796,7 @@ def phase_kernel_flash_attention(dev, baseline=None):
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention import attention_ref, flash_attention
     from repro_torch.kernels.flash_attention.ops import (
+        cost,
         flash_attention_cuda,
         variant,
     )
@@ -834,13 +865,11 @@ def phase_kernel_flash_attention(dev, baseline=None):
         library_ms = device_ms(lib, 3 if big else 10)
 
         pairs = int(mask.sum()) * (1 if seg_q is not None else B)
-        flops = 4 * D * pairs * H
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        if seg_q is not None:
-            nbytes += 4 * (seg_q.numel() + seg_kv.numel())
-        t_ops = flops / PEAK_FLOPS[c["dtype"]]
-        t_bytes = nbytes / PEAK_BYTES
-        bound_ms = 1e3 * max(t_ops, t_bytes)
+        flops, nbytes = cost(B, Sq, Sk, H, KH, D, q.element_size(),
+                             causal=c["causal"], window=c["window"],
+                             q_offset=c["q_offset"],
+                             segments=seg_q is not None, live_pairs=pairs)
+        bound_ms, bound_by = _bound(flops, nbytes, c["dtype"])
         ok = (finite and err <= c["tol"] and lse_inf_match and out_l_same
               and lse_err <= LSE_TOL[c["dtype"]])
         row = {"phase": "kernel flash_attention", "case": c["name"],
@@ -864,7 +893,7 @@ def phase_kernel_flash_attention(dev, baseline=None):
                              else ""),
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms,
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "bound_by": bound_by,
                "f32_matmul_precision": torch.get_float32_matmul_precision(),
                "tf32": torch.backends.cuda.matmul.allow_tf32}
         emit(row)
@@ -891,6 +920,7 @@ def phase_kernel_flash_attention_bwd(dev, baseline=None):
 
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention.ops import (
+        bwd_cost,
         bwd_variant,
         flash_attention_bwd_cuda,
         flash_attention_cuda,
@@ -960,13 +990,11 @@ def phase_kernel_flash_attention_bwd(dev, baseline=None):
 
         live = int(_mask(c, dev, seg_q, seg_kv).sum()) * (
             1 if seg_q is not None else B)
-        flops = 5 * 2 * D * live * H        # s, dP, dv, dk, dq
-        nbytes = ((4 * q.numel() + 4 * k.numel()) * q.element_size()
-                  + lse.numel() * 4)          # q o do dq, k v dk dv, lse
-        if seg_q is not None:
-            nbytes += 4 * (seg_q.numel() + seg_kv.numel())
-        t_ops = flops / PEAK_FLOPS[c["dtype"]]
-        t_bytes = nbytes / PEAK_BYTES
+        flops, nbytes = bwd_cost(B, Sq, Sk, H, KH, D, q.element_size(),
+                                 causal=c["causal"], window=c["window"],
+                                 q_offset=c["q_offset"],
+                                 segments=seg_q is not None, live_pairs=live)
+        bound_ms, bound_by = _bound(flops, nbytes, c["dtype"])
         ok = bitwise and all(ch["ok"] for ch in checks.values())
         row = {"phase": "kernel flash_attention_bwd", "case": c["name"],
                "shape": {n: c[n] for n in ("B", "Sq", "Sk", "H", "KH", "D")},
@@ -985,8 +1013,7 @@ def phase_kernel_flash_attention_bwd(dev, baseline=None):
                "live_pairs": live, "gflop": flops / 1e9,
                "mbytes": nbytes / 1e6, "tflops": flops / ms / 1e9,
                "baseline_tflops": baseline_ms and flops / baseline_ms / 1e9,
-               "bound_ms": 1e3 * max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+               "bound_ms": bound_ms, "bound_by": bound_by}
         emit(row)
         if not ok:
             raise AssertionError(f"flash_attention_bwd case {c['name']}: "
@@ -1203,16 +1230,6 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
             "microbatches": mbs, "ensemble": "chip_smoke", "member": 0}
     steps_n, want_step = spec["steps"], spec["launches"]
     cfg = lm.resolve_cfg(args["arch"])
-    # f32 master params and their f32 gradients, Adam m and v in the
-    # config's moment dtype, and the bf16 compute copy
-    P = cfg.param_count()
-    moment = 2 if cfg.optstate_dtype == "bfloat16" else 4
-    per_param = 4 + 4 + 2 * moment
-    emit({"phase": f"train {spec['arch']}",
-          "predicted": {"params": P, "optstate_dtype": cfg.optstate_dtype,
-                        "bytes_per_param": per_param,
-                        "state_gb": per_param * P / 1e9,
-                        "with_bf16_cast_gb": (per_param + 2) * P / 1e9}})
     torch.cuda.synchronize(dev)   # initialises CUDA when this phase is first
     torch.cuda.reset_peak_memory_stats(dev)
     steps = []
@@ -1375,6 +1392,216 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
     if not ok:
         raise AssertionError(f"train phase failed: {row}")
     return row
+
+
+# dryrun phase: each train and fused phase's cell (its config, shape,
+# microbatches or members) is reckoned by repro_torch.launch.dryrun on fake
+# tensors on the meta device, nothing allocated, in worker processes that
+# see no card (so they start no CUDA context beside the phases), started
+# after the build so that they run beside the kernel phases, and awaited
+# before the first train phase so that no timed step shares the host with
+# them.  After the
+# phase its reckoned peak is held against max_memory_allocated within
+# DRYRUN_PEAK_RTOL, and its tally of kernel calls must equal each measured
+# step's (or cycle's) launches and the hand counts.  Train phases also get
+# the roofline of the reckoned step beside the warm step's time: the
+# model-FLOP share, model_flops / (step_s * HW.peak_flops).
+DRYRUN_PEAK_RTOL = 0.05
+DRYRUN_WORKERS = 4
+# launch train: full-width gemma2-2b through repro_torch.launch.train's
+# CLI at the config's one microbatch, LAUNCH_TRAIN["batch"] x 1024 when the
+# dry run reckons it under ENS_PEAK_LIMIT_GB, else "fallback_batch"
+LAUNCH_TRAIN = dict(arch="gemma2-2b", batch=4, fallback_batch=2, seq=1024,
+                    steps=4)
+
+
+def _dryrun_init(src: str) -> None:
+    """A dry-run worker: no card visible (set before torch is imported)."""
+    import os
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+
+
+def _reckon(arch, batch, seq, microbatches=None, members=0, steps=1):
+    """``launch.dryrun.reckon`` of a phase's cell: ``arch`` a registered
+    name or ``<base>-L<n>`` (``profile_train.train_config``)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import reckon
+    from repro_torch.launch.profile_train import train_config
+    t = time.perf_counter()
+    out = reckon(train_config(arch),
+                 ShapeSpec("chip_smoke", "train", seq, batch),
+                 microbatches=microbatches, members=members,
+                 steps_per_cycle=steps)
+    return {**out, "reckon_s": time.perf_counter() - t}
+
+
+def _reckon_cells():
+    """The cells of the dryrun phase: key -> ``_reckon``'s arguments."""
+    from repro_torch.launch.profile_train import TRAIN
+    cells = {}
+    for spec in TRAIN_PHASES:
+        cells[f"train {spec['arch']}"] = dict(
+            arch=spec["arch"], batch=TRAIN["batch"], seq=TRAIN["seq"],
+            microbatches=spec.get("microbatches", TRAIN["microbatches"]))
+    for F in (FUSED, FUSED_MOE):
+        cells[f"fused {F['arch']}"] = dict(
+            arch=F["arch"], batch=F["batch"], seq=F["seq"],
+            members=F["members"], steps=F["steps"])
+    for b in (LAUNCH_TRAIN["batch"], LAUNCH_TRAIN["fallback_batch"]):
+        cells[f"launch train {b}"] = dict(arch=LAUNCH_TRAIN["arch"], batch=b,
+                                          seq=LAUNCH_TRAIN["seq"])
+    return cells
+
+
+class _Reckonings:
+    """The dryrun phase's reckonings, computed in worker processes (spawned,
+    no card visible); ``get(key)`` waits for one, ``wait`` for all (the
+    seconds waited), ``close`` stops them."""
+
+    def __init__(self, cells):
+        import concurrent.futures
+        import multiprocessing
+        self._pool = concurrent.futures.ProcessPoolExecutor(
+            max_workers=DRYRUN_WORKERS,
+            mp_context=multiprocessing.get_context("spawn"),
+            initializer=_dryrun_init, initargs=(str(ROOT / "src"),))
+        self._futures = {k: self._pool.submit(_reckon, **kw)
+                         for k, kw in cells.items()}
+
+    def get(self, key):
+        return self._futures[key].result()
+
+    def wait(self) -> float:
+        """Wait for every reckoning (raising any one's error); returns the
+        seconds waited."""
+        t = time.perf_counter()
+        for f in self._futures.values():
+            f.result()
+        return time.perf_counter() - t
+
+    def close(self):
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_dryrun(of, reckoning, peak_gb, measured, hand, step_ms=None):
+    """The dryrun row of phase ``of``: the reckoned peak beside the
+    measured ``peak_gb`` (within DRYRUN_PEAK_RTOL), the C launchers' bytes
+    on their own, the tally of fake kernel calls beside the ``measured``
+    launches of each step or cycle (a list) and the ``hand`` counts (all
+    equal); with ``step_ms`` (a warm step), the roofline row and the
+    model-FLOP share beside the card's nvidia-smi line."""
+    from repro_torch.launch.mesh import HW
+    calls = reckoning["kernel_calls"]
+    reckoned_gb = reckoning["peak_bytes"] / 1e9
+    rel = reckoned_gb / peak_gb - 1 if peak_gb else float("inf")
+    tally_equal = all(m == calls for m in measured) and calls == hand
+    row = {"phase": "dryrun", "of": of, "arch": reckoning["arch"],
+           **{k: reckoning[k] for k in ("batch", "seq", "microbatches",
+                                        "members", "device")},
+           "reckoned_peak_gb": reckoned_gb, "measured_peak_gb": peak_gb,
+           "peak_rel_diff": rel, "peak_rtol": DRYRUN_PEAK_RTOL,
+           "param_gb": reckoning["param_bytes"] / 1e9,
+           "state_gb": reckoning["state_bytes"] / 1e9,
+           "host_alloc_bytes": reckoning["host_alloc"],
+           "fake_calls": calls, "measured_launches": measured,
+           "hand_counts": hand, "tally_equal": tally_equal,
+           "reckon_s": reckoning.get("reckon_s")}
+    if step_ms is not None:
+        r = reckoning["roofline"]
+        step_s = step_ms / 1e3
+        row["roofline"] = {
+            "flops": r["flops_per_dev"], "bytes": r["bytes_per_dev"],
+            "t_compute_ms": 1e3 * r["t_compute"],
+            "t_memory_ms": 1e3 * r["t_memory"],
+            "bottleneck": r["bottleneck"], "model_flops": r["model_flops_total"],
+            "useful_ratio": r["useful_ratio"], "step_ms": step_ms,
+            "peak_flops": HW.peak_flops,
+            "model_flop_share": r["model_flops_total"]
+            / (step_s * HW.peak_flops),
+            "card": _card()}
+    row["ok"] = tally_equal and abs(rel) <= DRYRUN_PEAK_RTOL
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"dryrun of {of}: {row}")
+    return row
+
+
+def phase_launch_train(dev, reckonings):
+    """``repro_torch.launch.train``'s ``main`` in this process: full-width
+    gemma2-2b, LAUNCH_TRAIN's steps at the config's one microbatch, on the
+    card (batch LAUNCH_TRAIN["batch"] where the dry run reckons it under
+    ENS_PEAK_LIMIT_GB); finite losses, the flash launches of every step
+    (all wgmma), steps and tokens a second; then its dryrun row.  Returns
+    the launches."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train as launch_train
+    L = LAUNCH_TRAIN
+    batch = L["batch"]
+    why = None
+    reckoning = reckonings.get(f"launch train {batch}")
+    if reckoning["peak_bytes"] / 1e9 > ENS_PEAK_LIMIT_GB:
+        why = (f"batch {batch} reckoned at {reckoning['peak_bytes'] / 1e9:.2f}"
+               f" GB, over {ENS_PEAK_LIMIT_GB} GB")
+        batch = L["fallback_batch"]
+        reckoning = reckonings.get(f"launch train {batch}")
+    from repro_torch.configs import get_config
+    want = _launches(flash=(get_config(L["arch"]).num_layers, 1))
+    steps = []
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    mark = {"t": time.perf_counter(), "launches": dict(LAUNCHES)}
+
+    def on_step(i, m):
+        torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        steps.append({"step": i, "loss": float(m["loss"]),
+                      "ms": 1e3 * (now - mark["t"]),
+                      "launches": {n: LAUNCHES[n] - mark["launches"][n]
+                                   for n in LAUNCHES
+                                   if LAUNCHES[n] != mark["launches"][n]}})
+        mark.update(t=time.perf_counter(), launches=dict(LAUNCHES))
+    history = launch_train.main(
+        ["--arch", L["arch"], "--batch", str(batch), "--seq", str(L["seq"]),
+         "--steps", str(L["steps"]), "--device", str(dev)], on_step=on_step)
+    torch.cuda.synchronize(dev)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    _release()
+    warm = [s_["ms"] for s_ in steps[1:]] or [steps[0]["ms"]]
+    step_ms = sum(warm) / len(warm)
+    tokens = batch * L["seq"]
+    losses = [h["loss"] for h in history]
+    ok = (len(steps) == L["steps"] and all(map(math.isfinite, losses))
+          and all(s_["launches"] == want for s_ in steps)
+          and peak_gb <= ENS_PEAK_LIMIT_GB)
+    row = {"phase": "launch train", "arch": L["arch"], "batch": batch,
+           "seq": L["seq"], "microbatches": 1, "steps": L["steps"],
+           "batch_fallback_reason": why, "history": history,
+           "steps_run": steps, "launches": launches,
+           "launches_per_step": want, "step_ms_steady": step_ms,
+           "steps_per_s": 1e3 / step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3), "peak_mem_gb": peak_gb,
+           "peak_limit_gb": ENS_PEAK_LIMIT_GB, "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"launch train phase failed: {row}")
+    phase_dryrun("launch train", reckoning, peak_gb,
+                 [s_["launches"] for s_ in steps], want, step_ms=step_ms)
+    return launches
 
 
 # ensemble phase: RE and SAL apps of full-width gemma2-2b members cut to 4
@@ -1664,19 +1891,7 @@ FUSED_MOE = dict(base="qwen3-moe-30b-a3b", arch="qwen3-moe-30b-a3b-L1",
                  seed=0, task_mode=False)
 
 
-def _fused_reckoning(cfg, F):
-    n, P = F["members"], cfg.param_count()
-    head = 4 * cfg.vocab_size * cfg.d_model * n / 1e9
-    logits = 4 * F["batch"] * F["seq"] * cfg.vocab_size * n / 1e9
-    at_loss = 12 * P * n / 1e9 + head + 4 * logits
-    at_end = 16 * P * n / 1e9 + head
-    return {"params": P, "state_and_grads_gb": 16 * P * n / 1e9,
-            "head_grad_gb": head, "logits_gb": logits,
-            "at_loss_backward_gb": at_loss, "at_end_of_backward_gb": at_end,
-            "peak_gb": max(at_loss, at_end)}
-
-
-def phase_fused(dev, F=FUSED):
+def phase_fused(dev, F=FUSED, rows=None):
     """FusedEnsemble of ``F`` through ``_build_cycle`` (the reference
     benchmark's entry, benchmarks/fused_dispatch.py): per cycle the losses
     (cross-entropy + 0.01 aux), temperatures, accepted pairs, the seconds
@@ -1685,7 +1900,8 @@ def phase_fused(dev, F=FUSED):
     and an MoE arch's gmm and gmm_bwd), the temperature multiset, the swaps
     replayed on the host from the losses and uniforms, finite losses and
     the peak.  Then, where ``F["task_mode"]``, task mode and re.exchange
-    on the device."""
+    on the device.  Returns the launches; ``rows`` (a list) also takes the
+    phase's row."""
     import numpy as np
     import torch
 
@@ -1702,9 +1918,6 @@ def phase_fused(dev, F=FUSED):
 
     cfg = _cut_cfg(F["arch"], F["base"], F["layers"])
     n = F["members"]
-    predicted = _fused_reckoning(cfg, F)
-    emit({"phase": "fused", "arch": cfg.name, "predicted": predicted,
-          "config": F})
     per = {"flash": (F["layers"], F["steps"])}
     if cfg.num_experts:
         per["moe"] = (F["layers"], F["steps"])
@@ -1764,7 +1977,6 @@ def phase_fused(dev, F=FUSED):
            "steps_per_cycle": F["steps"], "batch": F["batch"],
            "seq": F["seq"], "init_s": init_s, "fused_cycles": cycles,
            "launches_per_cycle_expected": want, "peak_mem_gb": peak_gb,
-           "predicted_peak_gb": predicted["peak_gb"],
            "peak_limit_gb": ENS_PEAK_LIMIT_GB, "member_steps": steps,
            "per_cycle": {"fused_return_s": [c_["return_s"] for c_ in cycles],
                          "fused_total_s": [c_["total_s"] for c_ in cycles]}}
@@ -1810,6 +2022,8 @@ def phase_fused(dev, F=FUSED):
                                      "uniforms": u.cpu().tolist()}
     row["ok"] = ok
     emit(row)
+    if rows is not None:
+        rows.append(row)
     _release()
     if not ok:
         raise AssertionError(f"fused phase failed: {row}")
@@ -2207,8 +2421,7 @@ def _scan_check(name, case, kernel, plain, y_dtype, nbytes, flops, extra,
     host_ms = time_ms(kernel, 20)
     baseline_ms = device_ms(old, 20) if old else None
     plain_ms = time_ms(plain, 2)
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = flops / PEAK_FLOPS["float32"]
+    bound_ms, bound_by = _bound(flops, nbytes, "float32")
     row = {"phase": f"kernel {name}", "case": case["name"],
            "shape": {k: v for k, v in case.items() if k != "name"},
            "max_abs_err": y_err, "tol": y_tol, "h_last_err": h_err,
@@ -2217,8 +2430,7 @@ def _scan_check(name, case, kernel, plain, y_dtype, nbytes, flops, extra,
            "plain_ms": plain_ms, "library_ms": None,
            "library": "none: no single PyTorch call computes the recurrence",
            "mbytes": nbytes / 1e6, "gflop": flops / 1e9,
-           "bound_ms": 1e3 * max(t_bytes, t_ops),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes", **extra}
+           "bound_ms": bound_ms, "bound_by": bound_by, **extra}
     emit(row)
     if not ok:
         raise AssertionError(f"{name} case {case['name']}: y error {y_err} "
@@ -2231,6 +2443,7 @@ def phase_kernel_linear_scan(dev):
     import torch
 
     from repro_torch.kernels.rglru import linear_scan, linear_scan_ref
+    from repro_torch.kernels.rglru.ops import cost
     gen = torch.Generator(device=dev).manual_seed(1)
     results = {}
     for c in LS_CASES:
@@ -2240,11 +2453,11 @@ def phase_kernel_linear_scan(dev):
         a = (0.5 + 0.49 * torch.rand((B, T, C), generator=gen,
                                      device=dev)).to(dt)
         h0 = torch.randn((B, C), generator=gen, device=dev)
-        nbytes = 3 * x.numel() * x.element_size() + 2 * h0.numel() * 4
+        flops, nbytes = cost(B, T, C, x.element_size())
         results[c["name"]] = _scan_check(
             "linear_scan", c, lambda: linear_scan(x, a, h0),
             lambda: linear_scan_ref(x, a, h0), c["dtype"], nbytes,
-            2 * B * T * C, {})
+            flops, {})
         del x, a, h0
         torch.cuda.empty_cache()
     return results
@@ -2254,7 +2467,7 @@ def phase_kernel_selective_scan(dev, baseline=None):
     import torch
 
     from repro_torch.kernels.mamba import selective_scan, selective_scan_ref
-    from repro_torch.kernels.mamba.ops import variant
+    from repro_torch.kernels.mamba.ops import cost, variant
     gen = torch.Generator(device=dev).manual_seed(2)
     old = _baseline("selective_scan", baseline)
     results = {}
@@ -2271,10 +2484,7 @@ def phase_kernel_selective_scan(dev, baseline=None):
         D = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
         h0 = torch.randn((B, d, n), generator=gen, device=dev)
         args = (x, dt, A, Bm, Cc, D, h0)
-        esz = x.element_size()
-        nbytes = (2 * x.numel() * esz + dt.numel() * 4 + A.numel() * 4
-                  + 2 * B * T * n * Bm.element_size() + D.numel() * 4
-                  + 2 * h0.numel() * 4)
+        flops, nbytes = cost(B, T, d, n, x.element_size(), Bm.element_size())
         exps = B * T * d * n
         extra = {"variant": variant(n), "exponentials": exps,
                  "exp_bound_ms": 1e3 * exps / PEAK_EXP,
@@ -2283,7 +2493,7 @@ def phase_kernel_selective_scan(dev, baseline=None):
         results[c["name"]] = _scan_check(
             "selective_scan", c, lambda: selective_scan(*args),
             lambda: selective_scan_ref(*args), c["dtype"], nbytes,
-            B * T * d * (7 * n + 3), extra,
+            flops, extra,
             old=(lambda: old(*args)) if old else None)
         del x, dt, A, xdbc, Bm, Cc, D, h0, args
         torch.cuda.empty_cache()
@@ -2395,8 +2605,7 @@ def _bwd_row(name, c, grads, again, refs, names, dtypes, nbytes, flops,
     baseline_ms = device_ms(old, 10) if old else None
     host_ms = time_ms(kernel, 10)
     plain_ms = time_ms(plain, 1)
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = flops / PEAK_FLOPS["float32"]
+    bound_ms, bound_by = _bound(flops, nbytes, "float32")
     ok = bitwise and all(ch["ok"] for ch in checks.values())
     row = {"phase": f"kernel {name}", "case": c["name"],
            "shape": {k: v for k, v in c.items() if k not in ("name",
@@ -2410,8 +2619,7 @@ def _bwd_row(name, c, grads, again, refs, names, dtypes, nbytes, flops,
            "library": "none: no single PyTorch call computes the gradient "
                       "of the recurrence",
            "mbytes": nbytes / 1e6, "gflop": flops / 1e9,
-           "bound_ms": 1e3 * max(t_bytes, t_ops),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes", **extra}
+           "bound_ms": bound_ms, "bound_by": bound_by, **extra}
     emit(row)
     if not ok:
         raise AssertionError(f"{name} case {c['name']}: {checks}, bitwise "
@@ -2429,6 +2637,7 @@ def phase_kernel_linear_scan_bwd(dev, baseline=None):
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.rglru import linear_scan_bwd_ref
     from repro_torch.kernels.rglru.ops import (
+        bwd_cost,
         linear_scan_bwd_cuda,
         linear_scan_cuda,
     )
@@ -2453,11 +2662,7 @@ def phase_kernel_linear_scan_bwd(dev, baseline=None):
         if LAUNCHES["linear_scan_bwd"] != before + 2:
             raise AssertionError("linear_scan_bwd did not count its launches")
         refs = linear_scan_bwd_ref(x, a, h0, dy, dh)
-        esz = x.element_size()
-        # reads a, dy and h_{t-1} (y, or x to recompute it), writes dx, da;
-        # h0 and dh_last read, dh0 written
-        nbytes = 5 * x.numel() * esz + 3 * h0.numel() * 4
-        flops = (3 if c["dtype"] == "float32" else 5) * x.numel()
+        flops, nbytes = bwd_cost(B, T, C, x.element_size())
         results[c["name"]] = _bwd_row(
             "linear_scan_bwd", c, grads, again, refs, ("dx", "da", "dh0"),
             (c["dtype"], c["dtype"], "float32"), nbytes, flops,
@@ -2516,6 +2721,7 @@ def phase_kernel_selective_scan_bwd(dev, baseline=None):
     from repro_torch.kernels.mamba.ops import (
         BWD_CHANNELS,
         BWD_STATES,
+        bwd_cost,
         selective_scan_bwd_cuda,
         selective_scan_cuda,
     )
@@ -2541,19 +2747,13 @@ def phase_kernel_selective_scan_bwd(dev, baseline=None):
             raise AssertionError("selective_scan_bwd did not count its "
                                  "launches")
         refs = selective_scan_bwd_ref(*args, dy, dh)
-        esz = x.element_size()
-        bc = B * T * n * args[3].element_size()
-        # inputs x, dt, A, Bm, C, D, h0, dy, dh_last read once; outputs dx,
-        # ddt, dA, dBm, dC, dD, dh0 written once (the checkpoints and the
-        # partial sums are the design's, not the function's)
-        nbytes = (2 * x.numel() * esz + 2 * x.numel() * 4 + 4 * bc
-                  + 4 * (2 * d * n + 2 * d) + 4 * 4 * B * d * n)
+        flops, nbytes = bwd_cost(B, T, d, n, x.element_size(),
+                                 args[3].element_size())
         # the function's exponentials, the recompute's and the reverse's
         # (the floor every row is held to), and those the kernel evaluates:
         # each of the recompute's once, over n padded to BWD_STATES
         exps = 2 * B * T * d * n
         design_exps = B * T * d * BWD_STATES
-        flops = B * T * d * (22 * n + 10)
         dtypes = (c["dtype"], "float32", "float32", c["dtype"], c["dtype"],
                   "float32", "float32")
         results[c["name"]] = _bwd_row(
@@ -2711,7 +2911,7 @@ def phase_kernel_gmm(dev, router, baseline=None):
 
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.moe_gmm import gmm, gmm_ref
-    from repro_torch.kernels.moe_gmm.ops import kernel_variant, variant
+    from repro_torch.kernels.moe_gmm.ops import cost, kernel_variant, variant
     gen = torch.Generator(device=dev).manual_seed(3)
     old = _baseline("gmm", baseline)
     results = {}
@@ -2754,12 +2954,9 @@ def phase_kernel_gmm(dev, router, baseline=None):
 
         live_rows = int(sizes.sum())
         live_experts = int((sizes > 0).sum())
-        esz = x.element_size()
-        flops = 2 * live_rows * D * F
-        nbytes = (live_rows * D + live_experts * D * F + E * C * F) * esz \
-            + 4 * E
-        t_ops = flops / PEAK_FLOPS[c["dtype"]]
-        t_bytes = nbytes / PEAK_BYTES
+        flops, nbytes = cost(E, C, D, F, x.element_size(),
+                             live_rows=live_rows, live_experts=live_experts)
+        bound_ms, bound_by = _bound(flops, nbytes, c["dtype"])
         ok = finite and padding_zero and err <= tol
         row = {"phase": "kernel gmm", "case": c["name"],
                "shape": {n: c[n] for n in ("E", "C", "D", "F")},
@@ -2772,8 +2969,7 @@ def phase_kernel_gmm(dev, router, baseline=None):
                "plain_ms": plain_ms, "library_ms": library_ms,
                "library": "torch.bmm in x's dtype over every row and expert",
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-               "bound_ms": 1e3 * max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+               "bound_ms": bound_ms, "bound_by": bound_by}
         emit(row)
         if not ok:
             raise AssertionError(f"gmm case {c['name']}: max error {err} > "
@@ -2798,6 +2994,7 @@ def phase_kernel_gmm_bwd(dev, router, baseline=None):
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.moe_gmm import gmm_bwd_ref
     from repro_torch.kernels.moe_gmm.ops import (
+        bwd_cost,
         bwd_variant,
         gmm_bwd_cuda,
         kernel_bwd_variant,
@@ -2873,14 +3070,9 @@ def phase_kernel_gmm_bwd(dev, router, baseline=None):
         live = sizes.clamp(0, C)
         rows = int(live.sum())
         live_experts = int((live > 0).sum())
-        esz = x.element_size()
-        flops = 2 * 2 * rows * D * F
-        # x and dy read over live rows, dx written whole (its padding rows
-        # as zeros), w read for the experts that hold tokens, dw written
-        nbytes = (rows * (D + F) + E * C * D + live_experts * D * F
-                  + E * D * F) * esz + 4 * E
-        t_ops = flops / PEAK_FLOPS[c["dtype"]]
-        t_bytes = nbytes / PEAK_BYTES
+        flops, nbytes = bwd_cost(E, C, D, F, x.element_size(),
+                                 live_rows=rows, live_experts=live_experts)
+        bound_ms, bound_by = _bound(flops, nbytes, c["dtype"])
         row = {"phase": "kernel gmm_bwd", "case": c["name"],
                "shape": {n: c[n] for n in ("E", "C", "D", "F")},
                "dtype": c["dtype"], "variant": kind, "live_rows": rows,
@@ -2895,8 +3087,7 @@ def phase_kernel_gmm_bwd(dev, router, baseline=None):
                           "dtype over every row and expert",
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                "tflops": flops / ms / 1e9,
-               "bound_ms": 1e3 * max(t_ops, t_bytes),
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+               "bound_ms": bound_ms, "bound_by": bound_by}
         emit(row)
         if not mine["ok"]:
             raise AssertionError(f"gmm_bwd case {c['name']}: {row}")
@@ -3237,6 +3428,72 @@ def _release():
     torch.cuda.empty_cache()
 
 
+def _phases(dev, baselines, reckonings):
+    """Every phase after the build, in order; returns the main paths'
+    launches of each kernel ({kernel: {path: n}}) and the kernel phases'
+    cases."""
+    import torch
+    with torch.inference_mode():
+        router = _router_sizes(dev)
+        cases = {"flash_attention": phase_kernel_flash_attention(
+                     dev, baselines.get("flash_attention")),
+                 "linear_scan": phase_kernel_linear_scan(dev),
+                 "selective_scan": phase_kernel_selective_scan(
+                     dev, baselines.get("selective_scan")),
+                 "gmm": phase_kernel_gmm(dev, router, baselines.get("gmm")),
+                 "linear_scan_bwd": phase_kernel_linear_scan_bwd(
+                     dev, baselines.get("linear_scan_bwd")),
+                 "selective_scan_bwd": phase_kernel_selective_scan_bwd(
+                     dev, baselines.get("selective_scan_bwd")),
+                 "gmm_bwd": phase_kernel_gmm_bwd(
+                     dev, router, baselines.get("gmm_bwd"))}
+        _release()
+    cases["flash_attention_bwd"] = phase_kernel_flash_attention_bwd(
+        dev, baselines.get("flash_attention_bwd"))
+    _release()
+    launches = {name: {} for name in KERNELS}
+    emit({"phase": "dryrun", "workers": DRYRUN_WORKERS,
+          "waited_s": reckonings.wait()})
+    for spec in TRAIN_PHASES:
+        row = phase_train(dev, spec)
+        for name, n in row["launches"].items():
+            if name in launches:
+                launches[name][row["phase"]] = n
+        phase_dryrun(row["phase"], reckonings.get(row["phase"]),
+                     row["peak_mem_gb"],
+                     [s_["launches"] for s_ in row["steps_run"]],
+                     spec["launches"], step_ms=row["step_ms_steady"])
+    for name, n in phase_launch_train(dev, reckonings).items():
+        if name in launches:
+            launches[name]["launch train"] = n
+    for name, n in phase_ensemble(dev).items():
+        if name in launches:
+            launches[name]["ensemble"] = n
+    for spec in (FUSED, FUSED_MOE):
+        rows = []
+        for name, n in phase_fused(dev, spec, rows).items():
+            if name in launches:
+                launches[name][f"fused {spec['arch']}"] = n
+        phase_dryrun(f"fused {spec['arch']}",
+                     reckonings.get(f"fused {spec['arch']}"),
+                     rows[0]["peak_mem_gb"],
+                     [c_["launches"] for c_ in rows[0]["fused_cycles"]],
+                     rows[0]["launches_per_cycle_expected"])
+    for name, n in phase_serve_ensemble(dev).items():
+        if name in launches:
+            launches[name]["serve_ensemble"] = n
+    with torch.inference_mode():
+        for arch, loop, per_prefill, per_decode in SERVE:
+            row = phase_serve(dev, arch, loop, per_prefill, per_decode)
+            for name, n in row["launches"].items():
+                if n and name in launches:
+                    launches[name][arch] = n
+            _release()
+        phase_task(dev)
+        phase_continuous(dev)
+    return launches, cases
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3271,49 +3528,11 @@ def main() -> int:
     t0 = time.perf_counter()
 
     phase_build()
-    with torch.inference_mode():
-        router = _router_sizes(dev)
-        cases = {"flash_attention": phase_kernel_flash_attention(
-                     dev, baselines.get("flash_attention")),
-                 "linear_scan": phase_kernel_linear_scan(dev),
-                 "selective_scan": phase_kernel_selective_scan(
-                     dev, baselines.get("selective_scan")),
-                 "gmm": phase_kernel_gmm(dev, router, baselines.get("gmm")),
-                 "linear_scan_bwd": phase_kernel_linear_scan_bwd(
-                     dev, baselines.get("linear_scan_bwd")),
-                 "selective_scan_bwd": phase_kernel_selective_scan_bwd(
-                     dev, baselines.get("selective_scan_bwd")),
-                 "gmm_bwd": phase_kernel_gmm_bwd(
-                     dev, router, baselines.get("gmm_bwd"))}
-        _release()
-    cases["flash_attention_bwd"] = phase_kernel_flash_attention_bwd(
-        dev, baselines.get("flash_attention_bwd"))
-    _release()
-    launches = {name: {} for name in KERNELS}
-    for spec in TRAIN_PHASES:
-        row = phase_train(dev, spec)
-        for name, n in row["launches"].items():
-            if name in launches:
-                launches[name][row["phase"]] = n
-    for name, n in phase_ensemble(dev).items():
-        if name in launches:
-            launches[name]["ensemble"] = n
-    for spec in (FUSED, FUSED_MOE):
-        for name, n in phase_fused(dev, spec).items():
-            if name in launches:
-                launches[name][f"fused {spec['arch']}"] = n
-    for name, n in phase_serve_ensemble(dev).items():
-        if name in launches:
-            launches[name]["serve_ensemble"] = n
-    with torch.inference_mode():
-        for arch, loop, per_prefill, per_decode in SERVE:
-            row = phase_serve(dev, arch, loop, per_prefill, per_decode)
-            for name, n in row["launches"].items():
-                if n and name in launches:
-                    launches[name][arch] = n
-            _release()
-        phase_task(dev)
-        phase_continuous(dev)
+    reckonings = _Reckonings(_reckon_cells())
+    try:
+        launches, cases = _phases(dev, baselines, reckonings)
+    finally:
+        reckonings.close()
 
     kernels = []
     for name, (source, replaces, case) in KERNELS.items():
@@ -3331,10 +3550,7 @@ def main() -> int:
             "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             **{k: s[k] for k in ("variant", "host_ms") if k in s}})
     emit({"kernels": kernels, "seconds": time.perf_counter() - t0})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_card(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

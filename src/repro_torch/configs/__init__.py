@@ -3,8 +3,13 @@
 falcon-mamba-7b, qwen3-moe-30b-a3b, grok-1-314b and ``serve-tiny``);
 ``configs.toy`` holds the paper's toy workload (not a model)."""
 from repro_torch.configs.base import (  # noqa: F401
+    LAYER_KINDS,
+    SHAPES,
     ModelConfig,
+    ShapeSpec,
+    cell_applicable,
     get_config,
+    input_specs,
     list_configs,
     reduced,
     register,

@@ -1,12 +1,26 @@
-"""Model configs, the arch registry and the input-shape spec (own copy of
-``repro.configs.base`` without its table of dry-run shapes, ``SHAPES``,
-which belongs to a dry-run port)."""
+"""Model configs, the input-shape cells and the arch registry (own copy of
+``repro.configs.base``).
+
+``SHAPES`` are the JAX package's four pod-scale input-shape cells, kept as
+they are; ``launch.dryrun`` takes them (and a one-device ``--batch`` /
+``--seq``).  ``input_specs`` returns ``torch.empty(..., device="meta")``
+stand-ins with the JAX specs' shapes and dtypes, so nothing is allocated.
+"""
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+# Layer kinds used in ``layer_pattern`` (cycled over the depth of the stack):
+#   "global" - full causal attention
+#   "local"  - sliding-window causal attention
+#   "rec"    - RG-LRU recurrent block (Griffin / RecurrentGemma)
+#   "mamba"  - Mamba-1 selective-SSM block
+LAYER_KINDS = ("global", "local", "rec", "mamba")
 
 
 @dataclass(frozen=True)
@@ -22,8 +36,6 @@ class ModelConfig:
     vocab_size: int
 
     # -- block structure ----------------------------------------------------
-    # layer kinds, cycled over the depth of the stack: "global" (full causal
-    # attention), "local" (sliding window), "rec" (RG-LRU), "mamba"
     layer_pattern: Tuple[str, ...] = ("global",)
     sliding_window: int = 0          # >0 for "local" layers
     mlp: str = "swiglu"              # swiglu | geglu | relu2 | gelu
@@ -109,6 +121,23 @@ class ModelConfig:
     def layer_kinds(self) -> Tuple[str, ...]:
         return tuple(self.layer_kind(i) for i in range(self.num_layers))
 
+    @property
+    def is_attention_free(self) -> bool:
+        return all(k in ("rec", "mamba") for k in self.layer_kinds)
+
+    @property
+    def is_pure_full_attention(self) -> bool:
+        return all(k == "global" for k in self.layer_kinds)
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic per-token state: SSM / recurrent / local-dominant."""
+        return not self.is_pure_full_attention
+
+    @property
+    def has_decode(self) -> bool:
+        return True  # all assigned archs have an autoregressive decoder
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -146,6 +175,26 @@ class ModelConfig:
             n += self.num_layers * attn              # cross attention
         return int(n)
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE counts only routed experts)."""
+        if self.num_experts == 0:
+            return self.param_count()
+        dense = self.replace(num_experts=0, experts_per_tok=0,
+                             d_ff=self.expert_ff)
+        base = dense.param_count()
+        gated = self.mlp in ("swiglu", "geglu")
+        per_expert = self.expert_ff * self.d_model * (3 if gated else 2)
+        n_attn_layers = sum(1 for k in self.layer_kinds
+                            if k in ("global", "local"))
+        # dense.param_count used one expert-sized ffn per layer; swap in top-k
+        base += n_attn_layers * (self.experts_per_tok - 1) * per_expert
+        base += n_attn_layers * self.d_model * self.num_experts  # router
+        return int(base)
+
+
+# --------------------------------------------------------------------------
+# Input-shape cells
+# --------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class ShapeSpec:
@@ -153,6 +202,52 @@ class ShapeSpec:
     kind: str          # train | prefill | decode
     seq_len: int
     global_batch: int
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k":    ShapeSpec("train_4k",    "train",   4_096,   256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768,  32),
+    "decode_32k":  ShapeSpec("decode_32k",  "decode",  32_768,  128),
+    "long_500k":   ShapeSpec("long_500k",   "decode",  524_288, 1),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether an (arch x shape) cell runs, and why not if skipped."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, "pure full-attention arch: long_500k skipped per assignment"
+    if shape.kind == "decode" and not cfg.has_decode:
+        return False, "encoder-only arch has no decode step"
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                batch_override: Optional[int] = None
+                ) -> Dict[str, torch.Tensor]:
+    """Stand-ins on the meta device (no storage) for every model input of
+    the given shape cell, with the JAX package's shapes and dtypes."""
+    B = batch_override or shape.global_batch
+    S = shape.seq_len
+
+    def spec(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+    i32, bf16 = torch.int32, torch.bfloat16
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": spec((B, S), i32)}
+        if shape.kind == "train":
+            specs["labels"] = spec((B, S), i32)
+            specs["seg_ids"] = spec((B, S), i32)
+        if cfg.vision_tokens:
+            specs["vision_embeds"] = spec((B, cfg.vision_tokens, cfg.d_model),
+                                          bf16)
+        if cfg.encoder_layers:
+            specs["enc_frames"] = spec((B, cfg.encoder_seq, cfg.d_model),
+                                       bf16)
+        return specs
+    if shape.kind == "decode":
+        # one new token against a KV/state cache of length S
+        return {"tokens": spec((B, 1), i32), "positions": spec((B,), i32)}
+    raise ValueError(shape.kind)
 
 
 # --------------------------------------------------------------------------

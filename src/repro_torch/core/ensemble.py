@@ -95,6 +95,24 @@ def _fused_train_step(cfg: ModelConfig, members, batch, lr) -> torch.Tensor:
     return losses.detach()
 
 
+def device_cycle(cfg: ModelConfig, steps_per_cycle: int, ens_state, batches,
+                 u):
+    """The device part of a cycle (``FusedEnsemble._build_cycle``):
+    ``steps_per_cycle`` fused train steps, then the swap; updates
+    ``ens_state`` in place (temperatures, cycle) and returns the last
+    step's (N,) losses and the accepted pairs, on the device."""
+    members, temps = ens_state["members"], ens_state["temps"]
+    losses = None
+    for s in range(steps_per_cycle):
+        batch = {k: batches[k][:, s] for k in ("tokens", "labels")}
+        losses = _fused_train_step(cfg, members, batch, temps)
+    new_temps, n_acc = metropolis_swap_device(
+        losses, temps, ens_state["cycle"], u)
+    ens_state["temps"] = new_temps
+    ens_state["cycle"] = ens_state["cycle"] + 1
+    return losses, n_acc
+
+
 def metropolis_swap_device(losses, temps, cycle, u):
     """On-device even/odd Metropolis swap of the temperature vector.
     losses, temps, u: (N,), u the uniforms in (0, 1] (``draw_uniforms``);
@@ -182,18 +200,11 @@ class FusedEnsemble:
         cfg = self.cfg
 
         def cycle(ens_state, batches, u):
-            members, temps = ens_state["members"], ens_state["temps"]
-            losses = None
-            for s in range(steps_per_cycle):
-                batch = {k: batches[k][:, s] for k in ("tokens", "labels")}
-                losses = _fused_train_step(cfg, members, batch, temps)
-            new_temps, n_acc = metropolis_swap_device(
-                losses, temps, ens_state["cycle"], u)
-            ens_state["temps"] = new_temps
-            ens_state["cycle"] = ens_state["cycle"] + 1
+            losses, n_acc = device_cycle(cfg, steps_per_cycle, ens_state,
+                                         batches, u)
             return ens_state, {"losses": losses.cpu().numpy(),
                                "accepted": int(n_acc),
-                               "temps": new_temps.cpu().numpy()}
+                               "temps": ens_state["temps"].cpu().numpy()}
         return cycle
 
     def run(self, gen: torch.Generator, *, cycles: int, steps_per_cycle: int,

@@ -27,18 +27,29 @@ items in one launch, dealt by a schedule that the C launcher builds and
 keeps per shape), bf16 with D in 16, 32 the mma.sync kernels, f32 the
 CUDA-core kernels; ``LAUNCHES["flash_attention_bwd"]`` and
 ``LAUNCHES["flash_attention_bwd.<variant>"]`` count its calls.
+
+``cost`` and ``bwd_cost`` give each kernel's (FLOPs, bytes): the work of
+the function it computes and the bytes it must move, the measure of
+``chip_smoke.py``'s bounds and of ``launch.dryrun``.  On fake tensors the
+launchers take that route (``kernels.is_fake``): checks, outputs and
+workspaces, ``FAKE_CALLS`` and the cost, and nothing of the library.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import (
+    aligned16,
+    check_device,
+    count_fake,
     count_launch,
     fold_members,
     grad_required,
+    is_fake,
     transformed,
     unfold_members,
 )
@@ -61,6 +72,110 @@ def variant(dtype: torch.dtype, head_dim: int) -> str:
 
 
 bwd_variant = variant   # the backward kernels follow the forward's rule
+
+
+def mask_pairs(Sq: int, Sk: int, *, causal: bool = True, window: int = 0,
+               q_offset: int = 0) -> int:
+    """The (q, k) pairs of one batch row that the causal / window /
+    offset mask leaves live (segment ids aside)."""
+    qpos = q_offset + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(qpos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(Sq,
+                                                                  np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _pairs(B, Sq, Sk, causal, window, q_offset, live_pairs):
+    if live_pairs is not None:
+        return int(live_pairs)
+    return B * mask_pairs(Sq, Sk, causal=causal, window=window,
+                          q_offset=q_offset)
+
+
+def cost(B: int, Sq: int, Sk: int, H: int, KH: int, D: int, itemsize: int,
+         *, causal: bool = True, window: int = 0, q_offset: int = 0,
+         segments: bool = False, lse: bool = False,
+         live_pairs: Optional[int] = None) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one forward call: two products (q.k and p.v) of
+    the live pairs, 4 * D flops a pair and head; q, k, v read and o
+    written once, the segment ids read and the lse written where given.
+    ``live_pairs``: the live (q, k) pairs summed over the batch, which only
+    the data gives under segment ids; without it, the mask's pairs of the
+    shape (segments ignored) times B."""
+    pairs = _pairs(B, Sq, Sk, causal, window, q_offset, live_pairs)
+    flops = 4 * D * pairs * H
+    nbytes = (2 * B * Sq * H * D + 2 * B * Sk * KH * D) * itemsize
+    if segments:
+        nbytes += 4 * B * (Sq + Sk)
+    if lse:
+        nbytes += 4 * B * H * Sq
+    return float(flops), float(nbytes)
+
+
+def bwd_cost(B: int, Sq: int, Sk: int, H: int, KH: int, D: int,
+             itemsize: int, *, causal: bool = True, window: int = 0,
+             q_offset: int = 0, segments: bool = False,
+             live_pairs: Optional[int] = None) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one backward call: five products of the live
+    pairs (s, dP, dv, dk, dq), 10 * D flops a pair and head; q, o, do read
+    and dq written, k, v read and dk, dv written, the lse read, the
+    segment ids read where given.  ``live_pairs`` as in ``cost``."""
+    pairs = _pairs(B, Sq, Sk, causal, window, q_offset, live_pairs)
+    flops = 5 * 2 * D * pairs * H
+    nbytes = ((4 * B * Sq * H * D + 4 * B * Sk * KH * D) * itemsize
+              + 4 * B * H * Sq)
+    if segments:
+        nbytes += 4 * B * (Sq + Sk)
+    return float(flops), float(nbytes)
+
+
+H100_SMS = 132          # the backward plan's blocks: one an SM
+BWD_TILE = 64           # kT of flash_attention_bwd.cu: rows of a tile
+BWD_MAX_CHUNKS = 8      # kMaxChunks: dK/dV chunks a kv tile at most
+
+
+def bwd_host_alloc_bytes(B: int, Sq: int, Sk: int, H: int, KH: int, D: int,
+                         *, causal: bool = True, window: int = 0,
+                         q_offset: int = 0, segments: bool = False,
+                         sms: int = H100_SMS) -> dict:
+    """Device bytes the wgmma backward's C launcher allocates outside
+    PyTorch's allocator for one launch shape, as
+    ``csrc/flash_attention_bwd.cu`` works them out: ``plan``, the
+    schedule ``build_plan`` makes and ``cached_plan`` keeps with
+    ``cudaMalloc`` (one a shape, the 32 most recent); ``scratch``, the
+    stream-ordered dK/dV f32 partials (where kv tiles are cut into
+    chunks) and the tiles' segment-id ranges, from a pool that keeps what
+    it took.  ``max_memory_allocated`` sees neither."""
+    G = H // KH
+    BQ = BWD_TILE // G
+    nkv, nq = -(-Sk // BWD_TILE), -(-Sq // BQ)
+
+    def dkdv(tk):   # dkdv_tiles: the folded q tiles a kv tile meets
+        k0 = tk * BWD_TILE
+        lo = max(0, k0 - q_offset) if causal else 0
+        hi = (min(Sq, k0 + BWD_TILE - 1 + window - q_offset) if window > 0
+              else Sq)
+        return (hi - 1) // BQ - lo // BQ + 1 if lo < hi else 0
+
+    def dq(tq):     # dq_tiles: the kv tiles a folded q tile meets
+        q_lo = q_offset + tq * BQ
+        q_hi = q_offset + min(tq * BQ + BQ, Sq) - 1
+        end = min(Sk, q_hi + 1) if causal else Sk
+        begin = max(0, q_lo - window + 1) if window > 0 else 0
+        return ((end - 1) // BWD_TILE - begin // BWD_TILE + 1 if begin < end
+                else 0)
+    costs = [4 * dkdv(t) + 2 for t in range(nkv)] + [3 * dq(t) + 2
+                                                     for t in range(nq)]
+    total, longest = B * KH * sum(costs), max(costs)
+    grid = min(B * KH * (nkv + nq), sms)
+    mean = -(-total // grid)
+    nchunk = (min(BWD_MAX_CHUNKS, -(-longest // mean))
+              if 4 * longest > 5 * mean else 1)
+    items = B * KH * (nkv * nchunk + nq)
+    plan = 4 * (min(items, sms) + 1 + items)
+    scratch = (2 * nchunk * B * Sk * KH * D * 4 if nchunk > 1 else 0) + (
+        8 * B * (nq + nkv) if segments else 0)
+    return {"plan": plan, "scratch": scratch, "nchunk": nchunk}
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -164,19 +279,16 @@ def check_inputs(q, k, v, seg_q=None, seg_kv=None) -> None:
     _check_segments(seg_q, seg_kv, B, q.shape[1], k.shape[1])
 
 
-def _on_cuda(**tensors) -> None:
+def _on_cuda(fake: bool, **tensors) -> None:
     """Raise unless every tensor given lies on one CUDA device, starting on
-    a 16-byte boundary (the kernels read 16-byte chunks)."""
-    dev = None
+    a 16-byte boundary (the kernels read 16-byte chunks; a fake tensor's
+    offset into its storage is read instead of its address)."""
+    check_device(fake, **tensors)
     for name, t in tensors.items():
         if t is None:
             continue
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; the kernel needs CUDA")
-        if dev is not None and t.device != dev:
-            raise ValueError(f"{', '.join(tensors)} must be on one device")
-        dev = t.device
-        if t.data_ptr() % 16 and t.dtype != torch.int32:
+        misaligned = (not aligned16(t)) if fake else t.data_ptr() % 16
+        if misaligned and t.dtype != torch.int32:
             raise ValueError(f"{name} must start on a 16-byte boundary "
                              "(the kernel reads 16-byte chunks)")
 
@@ -191,7 +303,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
                          return_lse: bool = False):
     """Launch the Hopper kernel on ``torch.cuda.current_stream()``.  With
     ``return_lse`` returns (o, lse (B, H, Sq) f32), else o."""
-    _on_cuda(q=q, k=k, v=v, seg_q=seg_q, seg_kv=seg_kv)
+    fake = is_fake(q, k, v, seg_q, seg_kv)
+    _on_cuda(fake, q=q, k=k, v=v, seg_q=seg_q, seg_kv=seg_kv)
     check_inputs(q, k, v, seg_q, seg_kv)
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
@@ -204,6 +317,12 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
             lse.fill_(float("-inf"))
         return (o, lse) if return_lse else o
     kind = variant(q.dtype, D)
+    if fake:
+        count_fake(cost(B, Sq, Sk, H, KH, D, q.element_size(), causal=causal,
+                        window=window, q_offset=q_offset,
+                        segments=seg_q is not None, lse=return_lse),
+                   "flash_attention", f"flash_attention.{kind}")
+        return (o, lse) if return_lse else o
     scale = scale if scale is not None else D ** -0.5
     lib = _library("flash_attention_fwd")
     args = (_DTYPES[q.dtype], B, Sq, Sk, H, KH, D, int(bool(causal)),
@@ -228,7 +347,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     (dq, dk, dv) from the forward's o and lse (``flash_attention_cuda``
     with the same arguments and ``return_lse``) and the output gradient
     do."""
-    _on_cuda(q=q, k=k, v=v, o=o, lse=lse, do=do, seg_q=seg_q, seg_kv=seg_kv)
+    fake = is_fake(q, k, v, o, lse, do, seg_q, seg_kv)
+    _on_cuda(fake, q=q, k=k, v=v, o=o, lse=lse, do=do, seg_q=seg_q,
+             seg_kv=seg_kv)
     check_inputs(q, k, v, seg_q, seg_kv)
     B, Sq, H, D = q.shape
     Sk, KH = k.shape[1], k.shape[2]
@@ -247,6 +368,18 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     if B == 0 or Sq == 0 or Sk == 0:   # nothing is live: zero gradients
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if fake:
+        count_fake(bwd_cost(B, Sq, Sk, H, KH, D, q.element_size(),
+                            causal=causal, window=window, q_offset=q_offset,
+                            segments=seg_q is not None),
+                   "flash_attention_bwd",
+                   f"flash_attention_bwd.{bwd_variant(q.dtype, D)}",
+                   launch=dict(B=B, Sq=Sq, Sk=Sk, H=H, KH=KH, D=D,
+                               causal=bool(causal), window=int(window),
+                               q_offset=int(q_offset),
+                               segments=seg_q is not None,
+                               variant=bwd_variant(q.dtype, D)))
+        return dq, dk, dv
     scale = scale if scale is not None else D ** -0.5
     lib = _library("flash_attention_bwd")
     with torch.cuda.device(q.device):

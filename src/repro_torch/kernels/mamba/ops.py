@@ -19,18 +19,26 @@ launches once per member.
 
 ``selective_step`` is the plain counterpart of ``selective_step_xla``; the
 JAX package has no Pallas kernel for it, so it stays plain torch.
+
+``cost`` and ``bwd_cost`` give each kernel's (FLOPs, bytes); on fake
+tensors the launchers make their outputs and workspaces (``part_bc``,
+``part_ad``), count the call in ``FAKE_CALLS`` with its cost, and return
+before the library (``kernels.is_fake``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import (
+    check_device,
+    count_fake,
     count_launch,
     fold_members,
     grad_required,
+    is_fake,
     transformed,
     unfold_members,
 )
@@ -54,6 +62,33 @@ def variant(n: int) -> str:
     if not 1 <= n <= MAX_STATE:
         raise ValueError(f"state size {n}; the kernel takes 1..{MAX_STATE}")
     return f"np{4 if n <= 4 else 8 if n <= 8 else 16}"
+
+
+def cost(B: int, T: int, d: int, n: int, itemsize: int, bc_itemsize: int,
+         *, checkpoints: bool = False) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one forward call: 7 n + 3 flops a step and channel;
+    x read and y written in x's dtype, dt, A, D read in f32, Bm and C read
+    in their dtype, h0 read and h_last written in f32, and with
+    ``checkpoints`` the states kept every ``CKPT_STEPS`` steps written.
+    (Its B * T * d * n exponentials are the special-function units' work,
+    which ``chip_smoke.py`` holds apart.)"""
+    nbytes = (2 * B * T * d * itemsize + B * T * d * 4 + d * n * 4
+              + 2 * B * T * n * bc_itemsize + d * 4 + 2 * B * d * n * 4)
+    if checkpoints:
+        nbytes += 4 * B * -(-T // CKPT_STEPS) * d * n
+    return float(B * T * d * (7 * n + 3)), float(nbytes)
+
+
+def bwd_cost(B: int, T: int, d: int, n: int, itemsize: int,
+             bc_itemsize: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one backward call: 22 n + 10 flops a step and
+    channel; inputs x, dt, A, Bm, C, D, h0, dy, dh_last read once and
+    dx, ddt, dA, dBm, dC, dD, dh0 written once (the checkpoints and the
+    partial sums are the design's, not the function's)."""
+    bc = B * T * n * bc_itemsize
+    nbytes = (2 * B * T * d * itemsize + 2 * B * T * d * 4 + 4 * bc
+              + 4 * (2 * d * n + 2 * d) + 4 * 4 * B * d * n)
+    return float(B * T * d * (22 * n + 10)), float(nbytes)
 
 
 def selective_scan(x, dt, A, Bm, C, D, h0, *, impl: Optional[str] = None):
@@ -173,22 +208,13 @@ def check_inputs(x, dt, A, Bm, C, D, h0) -> None:
         raise ValueError(f"batch {B} exceeds the grid limit")
 
 
-def _check_cuda(**tensors) -> None:
-    dev = None
-    for name, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; the kernel needs CUDA")
-        if dev is not None and t.device != dev:
-            raise ValueError("all inputs must be on one device")
-        dev = t.device
-
-
 def selective_scan_cuda(x, dt, A, Bm, C, D, h0, *, checkpoints: bool = False):
     """Launch the Hopper kernel on ``torch.cuda.current_stream()``.  With
     ``checkpoints`` it also writes the states before every
     ``CKPT_STEPS``-th step, (B, ceil(T / CKPT_STEPS), d, n) float32, and
     returns (y, h_last, ckpt)."""
-    _check_cuda(x=x, dt=dt, A=A, Bm=Bm, C=C, D=D, h0=h0)
+    fake = is_fake(x, dt, A, Bm, C, D, h0)
+    check_device(fake, x=x, dt=dt, A=A, Bm=Bm, C=C, D=D, h0=h0)
     check_inputs(x, dt, A, Bm, C, D, h0)
     B, T, d = x.shape
     n = A.shape[1]
@@ -198,6 +224,10 @@ def selective_scan_cuda(x, dt, A, Bm, C, D, h0, *, checkpoints: bool = False):
     if B * d == 0 or T == 0:
         return (y, h0.clone(), ckpt) if checkpoints else (y, h0.clone())
     h_last = torch.empty_like(h0)
+    if fake:
+        count_fake(cost(B, T, d, n, x.element_size(), Bm.element_size(),
+                        checkpoints=checkpoints), "selective_scan")
+        return (y, h_last, ckpt) if checkpoints else (y, h_last)
     lib = _library()
     ptrs = [t.data_ptr() for t in (x, dt, A, Bm, C, D, h0, y, h_last)]
     ints = [_DTYPES[x.dtype], _DTYPES[Bm.dtype], B, T, d, n]
@@ -222,8 +252,9 @@ def selective_scan_bwd_cuda(x, dt, A, Bm, C, D, h0, ckpt, dy, dh_last):
     it kept (``selective_scan_cuda(..., checkpoints=True)``) and the output
     gradients dy (x's dtype) and dh_last (float32).  dBm and dC come back
     contiguous in Bm's dtype, the others in their inputs' dtypes."""
-    _check_cuda(x=x, dt=dt, A=A, Bm=Bm, C=C, D=D, h0=h0, ckpt=ckpt, dy=dy,
-                dh_last=dh_last)
+    fake = is_fake(x, dt, A, Bm, C, D, h0, ckpt, dy, dh_last)
+    check_device(fake, x=x, dt=dt, A=A, Bm=Bm, C=C, D=D, h0=h0, ckpt=ckpt,
+                 dy=dy, dh_last=dh_last)
     check_inputs(x, dt, A, Bm, C, D, h0)
     B, T, d = x.shape
     n = A.shape[1]
@@ -247,6 +278,10 @@ def selective_scan_bwd_cuda(x, dt, A, Bm, C, D, h0, ckpt, dy, dh_last):
     part_bc = torch.empty((B, nblk, T, 2 * BWD_STATES), dtype=torch.float32,
                           device=x.device)
     part_ad = torch.empty((B, d, n + 1), dtype=torch.float32, device=x.device)
+    if fake:
+        count_fake(bwd_cost(B, T, d, n, x.element_size(), Bm.element_size()),
+                   "selective_scan_bwd")
+        return dx, ddt, dA, dBm, dC, dD, dh0
     lib = _library("selective_scan_bwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

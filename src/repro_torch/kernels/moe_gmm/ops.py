@@ -29,18 +29,28 @@ cores.  ``LAUNCHES["gmm_bwd"]`` counts its calls, "gmm_bwd.dx" and
 "gmm_bwd.dw" each kernel's launches and "gmm_bwd.<variant>" the calls of
 each variant.  Its ``vmap`` rule folds the member axis into the expert
 axis, since members share no experts: one launch for every member.
+
+``cost`` and ``bwd_cost`` give each kernel's (FLOPs, bytes); on fake
+tensors the launchers make their outputs, count the call in
+``FAKE_CALLS`` (its variant too, alignment read from the tensors'
+offsets) with its cost over all E * C capacity rows, and return before
+the library and any ``data_ptr()`` (``kernels.is_fake``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import (
+    aligned16,
+    check_device,
+    count_fake,
     count_launch,
     fold_members,
     grad_required,
+    is_fake,
     transformed,
     unfold_members,
 )
@@ -61,6 +71,39 @@ def variant(dtype: torch.dtype, E: int, C: int, D: int, F: int,
             and E <= MAX_WGMMA_EXPERTS and C * F < 2 ** 34):
         return "wgmma"
     return "mma_sync"
+
+
+def cost(E: int, C: int, D: int, F: int, itemsize: int, *,
+         live_rows: Optional[int] = None,
+         live_experts: Optional[int] = None) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one forward call: 2 D F flops a live row; x's
+    live rows and the live experts' w read, out written whole (its padding
+    rows as zeros), the sizes read.  ``live_rows`` / ``live_experts``:
+    the sum of the group sizes and the experts holding a row, which only
+    the data gives; without them all E * C capacity rows and E experts."""
+    rows = E * C if live_rows is None else int(live_rows)
+    experts = E if live_experts is None else int(live_experts)
+    nbytes = (rows * D + experts * D * F + E * C * F) * itemsize + 4 * E
+    return float(2 * rows * D * F), float(nbytes)
+
+
+def bwd_cost(E: int, C: int, D: int, F: int, itemsize: int, *,
+             live_rows: Optional[int] = None,
+             live_experts: Optional[int] = None, need_dx: bool = True,
+             need_dw: bool = True) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one backward call: 2 D F flops a live row for each
+    of dx and dw; dy's live rows read, and for dx the live experts' w read
+    and dx written whole, for dw x's live rows read and dw written; the
+    sizes read.  ``live_rows`` / ``live_experts`` as in ``cost``."""
+    rows = E * C if live_rows is None else int(live_rows)
+    experts = E if live_experts is None else int(live_experts)
+    elems = rows * F
+    if need_dx:
+        elems += E * C * D + experts * D * F
+    if need_dw:
+        elems += rows * D + E * D * F
+    flops = 2 * rows * D * F * (int(need_dx) + int(need_dw))
+    return float(flops), float(elems * itemsize + 4 * E)
 
 
 def gmm(x, w, group_sizes, *, impl: Optional[str] = None):
@@ -168,16 +211,18 @@ def check_inputs(x, w, group_sizes) -> None:
 def gmm_cuda(x, w, group_sizes):
     """Launch the Hopper kernel on ``torch.cuda.current_stream()``.  The
     sizes stay on the device: the kernel reads them there."""
-    for name, t in (("x", x), ("w", w), ("group_sizes", group_sizes)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; the kernel needs CUDA")
-    if w.device != x.device or group_sizes.device != x.device:
-        raise ValueError("x, w, group_sizes must be on one device")
+    fake = is_fake(x, w, group_sizes)
+    check_device(fake, x=x, w=w, group_sizes=group_sizes)
     check_inputs(x, w, group_sizes)
     E, C, D = x.shape
     F = w.shape[2]
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
+        return out
+    if fake:
+        kind = variant(x.dtype, E, C, D, F,
+                       all(aligned16(t) for t in (x, w, out)))
+        count_fake(cost(E, C, D, F, x.element_size()), "gmm", f"gmm.{kind}")
         return out
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, out))
     vec = int(D % 8 == 0 and F % 8 == 0 and aligned)
@@ -201,12 +246,8 @@ def gmm_bwd_cuda(x, w, group_sizes, dy, *, need_dx=True, need_dw=True):
     in w's) from the forward's inputs and the output gradient dy (E, C, F)
     in x's dtype.  dy's padding rows are never read.  A gradient not
     needed is not computed (None in its place)."""
-    for name, t in (("x", x), ("w", w), ("group_sizes", group_sizes),
-                    ("dy", dy)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; the kernel needs CUDA")
-        if t.device != x.device:
-            raise ValueError("x, w, group_sizes, dy must be on one device")
+    fake = is_fake(x, w, group_sizes, dy)
+    check_device(fake, x=x, w=w, group_sizes=group_sizes, dy=dy)
     check_inputs(x, w, group_sizes)
     E, C, D = x.shape
     F = w.shape[2]
@@ -221,6 +262,15 @@ def gmm_bwd_cuda(x, w, group_sizes, dy, *, need_dx=True, need_dw=True):
     if 0 in (C, D, F):   # nothing to sum: the kernels take no empty axis
         for t in outs:
             t.zero_()
+        return dx, dw
+    if fake:
+        kind = bwd_variant(x.dtype, E, C, D, F,
+                           all(aligned16(t) for t in (x, w, dy, *outs)))
+        count_fake(bwd_cost(E, C, D, F, x.element_size(),
+                            need_dx=need_dx, need_dw=need_dw),
+                   "gmm_bwd", f"gmm_bwd.{kind}",
+                   *(f"gmm_bwd.{n}" for n, t in (("dx", dx), ("dw", dw))
+                     if t is not None))
         return dx, dw
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, dy, *outs))
     vec = int(D % 8 == 0 and F % 8 == 0 and aligned)

@@ -13,24 +13,49 @@ When autograd records the call (or the inputs come wrapped by
 ``impl="ref"``).  ``LAUNCHES["linear_scan_bwd"]`` counts its launches.  Its
 ``vmap`` rule folds the member axis into the batch (the scan has no
 weights): one launch for all members.
+
+``cost`` and ``bwd_cost`` give each kernel's (FLOPs, bytes); on fake
+tensors the launchers make their outputs and workspaces, count the call in
+``FAKE_CALLS`` with its cost, and return before the library
+(``kernels.is_fake``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import (
+    check_device,
+    count_fake,
     count_launch,
     fold_members,
     grad_required,
+    is_fake,
     transformed,
     unfold_members,
 )
 from repro_torch.kernels.rglru.ref import linear_scan_bwd_ref, linear_scan_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def cost(B: int, T: int, C: int, itemsize: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one forward call: a multiply and an add a step and
+    channel; x, a read and y written in x's dtype, h0 read and h_last
+    written in f32."""
+    return float(2 * B * T * C), float(3 * B * T * C * itemsize
+                                       + 2 * B * C * 4)
+
+
+def bwd_cost(B: int, T: int, C: int, itemsize: int) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one backward call: 3 flops a step and channel (5
+    for bf16 inputs, whose f32 states are recomputed); a, dy and h_{t-1}
+    (y, or x to recompute it) read and dx, da written in x's dtype, h0 and
+    dh_last read and dh0 written in f32."""
+    flops = (3 if itemsize == 4 else 5) * B * T * C
+    return float(flops), float(5 * B * T * C * itemsize + 3 * B * C * 4)
 
 
 def linear_scan(x, a, h0, *, impl: Optional[str] = None):
@@ -107,17 +132,17 @@ def check_inputs(x, a, h0) -> None:
 
 def linear_scan_cuda(x, a, h0):
     """Launch the Hopper kernel on ``torch.cuda.current_stream()``."""
-    for name, t in (("x", x), ("a", a), ("h0", h0)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; the kernel needs CUDA")
-    if a.device != x.device or h0.device != x.device:
-        raise ValueError("x, a, h0 must be on one device")
+    fake = is_fake(x, a, h0)
+    check_device(fake, x=x, a=a, h0=h0)
     check_inputs(x, a, h0)
     B, T, C = x.shape
     y = torch.empty_like(x)
     if B * C == 0 or T == 0:
         return y, h0.clone()
     h_last = torch.empty_like(h0)
+    if fake:
+        count_fake(cost(B, T, C, x.element_size()), "linear_scan")
+        return y, h_last
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -135,12 +160,8 @@ def linear_scan_bwd_cuda(x, a, h0, y, dy, dh_last):
     """Launch the reverse-scan kernel on ``torch.cuda.current_stream()``:
     (dx, da, dh0) from the forward's inputs, its output y and the output
     gradients dy (x's dtype) and dh_last (float32)."""
-    for name, t in (("x", x), ("a", a), ("h0", h0), ("y", y), ("dy", dy),
-                    ("dh_last", dh_last)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; the kernel needs CUDA")
-        if t.device != x.device:
-            raise ValueError("all inputs must be on one device")
+    fake = is_fake(x, a, h0, y, dy, dh_last)
+    check_device(fake, x=x, a=a, h0=h0, y=y, dy=dy, dh_last=dh_last)
     check_inputs(x, a, h0)
     for name, t, dtype in (("y", y, x.dtype), ("dy", dy, x.dtype),
                            ("dh_last", dh_last, torch.float32)):
@@ -157,6 +178,9 @@ def linear_scan_bwd_cuda(x, a, h0, y, dy, dh_last):
     # states here, and the reverse pass reads h_{t-1} from them
     hs = (torch.empty(x.shape, dtype=torch.float32, device=x.device)
           if x.dtype != torch.float32 else None)
+    if fake:
+        count_fake(bwd_cost(B, T, C, x.element_size()), "linear_scan_bwd")
+        return dx, da, dh0
     lib = _library("linear_scan_bwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

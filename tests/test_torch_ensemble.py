@@ -245,7 +245,7 @@ def test_fused_ensemble_matches_jax(arch, remat):
     ens = ensemble_state_from_numpy(flat, cfg)
     shape = ShapeSpec("t", "train", 32, 2)
     cyc = fe._build_cycle(1, shape)
-    data = [SyntheticLM(cfg, shape, seed=i) for i in range(N)]
+    data = [SyntheticLM(cfg, shape, seed=i, device="cpu") for i in range(N)]
     lrs = []
     for c, u in enumerate(uniforms):
         lrs.append(ens["temps"].numpy().copy())
@@ -308,7 +308,8 @@ def test_fused_moe_losses_include_aux():
     shape = ShapeSpec("t", "train", 32, 2)
     ens = ensemble_state_from_numpy(flat, cfg)
     cyc = FusedEnsemble(cfg, N, device="cpu")._build_cycle(1, shape)
-    batches = {k: torch.stack([_stack_steps(SyntheticLM(cfg, shape, seed=i),
+    batches = {k: torch.stack([_stack_steps(SyntheticLM(cfg, shape, seed=i,
+                                                        device="cpu"),
                                             0, 1)[k] for i in range(N)])
                for k in ("tokens", "labels")}
     _, m = cyc(ens, batches, torch.full((N,), 0.5))

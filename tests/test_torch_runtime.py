@@ -557,6 +557,9 @@ def test_core_imports_without_jax():
         "PipelineSpec, Stage, TaskSpec, Kernel)\n"
         "import repro_torch.analysis, repro_torch.staging\n"
         "import repro_torch.runtime.strategy\n"
+        "import repro_torch.launch.train, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.mesh, repro_torch.roofline.report\n"
+        "import repro_torch.roofline.op_costs\n"
         "bad = sorted(m for m in sys.modules if m == 'repro' "
         "or m.startswith('repro.'))\n"
         "assert not bad, bad\n")

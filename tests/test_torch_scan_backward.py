@@ -537,7 +537,8 @@ def test_train_step_through_the_functions_matches_jax(arch, bwd, monkeypatch):
     before = dict(LAUNCHES)
     state = train_state_from_numpy(flat, cfg)
     state, m = build_train_step(cfg, TrainHyper(**hyper))(
-        state, SyntheticLM(cfg, ShapeSpec("t", "train", 32, 4)).batch_at(0))
+        state, SyntheticLM(cfg, ShapeSpec("t", "train", 32, 4),
+                           device="cpu").batch_at(0))
     kind = "rec" if arch.startswith("recurrent") else "mamba"
     n_scan = sum(cfg.layer_kind(i) == kind for i in range(cfg.num_layers))
     assert len(calls) == n_scan * 2

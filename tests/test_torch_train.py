@@ -92,7 +92,7 @@ def test_synthetic_batches_bit_equal_to_jax(arch, step):
     want = JaxSyntheticLM(jcfg, JaxShapeSpec("t", "train", 48, 3),
                           seed=5).batch_at(step)
     got = SyntheticLM(port_cfg(jcfg), ShapeSpec("t", "train", 48, 3),
-                      seed=5).batch_at(step)
+                      seed=5, device="cpu").batch_at(step)
     assert set(got) == set(want)
     for name, t in got.items():
         assert t.dtype == torch.int32 and t.is_contiguous()
@@ -290,7 +290,8 @@ def test_one_train_step_matches_jax(arch):
                                                4)).batch_at(0)
     jstate, jm = jstep(jstate, jbatch)
     state = train_state_from_numpy(flat, cfg)
-    batch = SyntheticLM(cfg, ShapeSpec("t", "train", 32, 4)).batch_at(0)
+    batch = SyntheticLM(cfg, ShapeSpec("t", "train", 32, 4),
+                        device="cpu").batch_at(0)
     state, m = build_train_step(cfg, TrainHyper(**hyper))(state, batch)
     for key in ("loss", "grad_norm", "lr", "aux"):
         np.testing.assert_allclose(float(m[key]), float(jm[key]),
@@ -315,7 +316,8 @@ def test_eval_step_matches_jax():
     want = jax_build_eval_step(jcfg)(jstate["params"], jbatch)
     state = train_state_from_numpy(flat, cfg)
     got = build_eval_step(cfg)(state["params"], SyntheticLM(
-        cfg, ShapeSpec("t", "train", 32, 2), seed=1).batch_at(0))
+        cfg, ShapeSpec("t", "train", 32, 2), seed=1,
+        device="cpu").batch_at(0))
     np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
                                rtol=1e-6)
     assert float(got["ntok"]) == float(want["ntok"])
