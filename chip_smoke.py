@@ -87,6 +87,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  lm.eval: exact launches of gmm (forward), gmm_bwd (dx,
                  dw) and flash a step; the comparison with impl="ref"
                  includes layer 0's router and experts
+  train whisper-large-v3
+                 full-width whisper-large-v3 (4 x 1024 tokens and 4 x
+                 1500 frames, one microbatch), 2 steps and lm.eval: 192
+                 forward and 96 backward flash launches a step (encoder,
+                 decoder self- and cross-attention); the comparison with
+                 impl="ref" includes the first encoder layer's and the
+                 cross-attention's gradients
   dryrun         after each train phase, launch train and each fused
                  population: repro_torch.launch.dryrun's reckoning of that
                  cell (its config, shape, microbatches or members; fake
@@ -146,8 +153,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  assertions, full token counts, flash launches over every
                  attempt, the checkpoints restored bitwise
   serve <arch>   full-width gemma2-2b, recurrentgemma-2b, falcon-mamba-7b,
-                 qwen3-moe-30b-a3b, gemma3-4b, minicpm-2b and
-                 nemotron-4-15b (bf16, random weights from seed 0;
+                 qwen3-moe-30b-a3b, gemma3-4b, minicpm-2b, nemotron-4-15b,
+                 whisper-large-v3 and internvl2-26b (bf16, random weights
+                 from seed 0;
                  qwen3 needs ~65 GB) through ``BatchedServer``: 8 requests,
                  batch 4, prompt 1024, 16 new tokens; asserts the loop (wave
                  or continuous) and each kernel's launches per prefill and
@@ -162,7 +170,14 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  steps against the served ones; recurrentgemma-2b's hidden
                  states are read right after its first (recurrent) block
                  too, under a limit of their own, against that block's
-                 linear_scan control
+                 linear_scan control; whisper's and internvl's checked
+                 prefill takes their stub inputs (frames, vision
+                 embeddings) through build_prefill_step (launches
+                 asserted), decodes on from its cache (whisper: the cross
+                 k, v), adds a control that reads q late on the non-causal
+                 flash calls; whisper also reads its first attention
+                 sublayers' outputs, internvl2-26b its first block's
+                 update
   task           ``Kernel("lm.decode")`` on gemma2-2b on the card
   continuous     the continuous-batching loop on ``serve-tiny`` on the card
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -295,6 +310,16 @@ FA_CASES = [
     dict(name="minicpm_admit", B=16, Sq=32, Sk=32, H=36, KH=36, D=64,
          causal=True, window=0, softcap=0.0, scale=1.0 / 8, q_offset=0,
          dtype="bfloat16", tol=3e-2),
+    # whisper-large-v3's encoder (non-causal over its 1500 frames: 1500 =
+    # 23 * 64 + 28, a ragged tail at every tile) and its decoder's
+    # cross-attention (1024 queries over the 1500 encoder positions); MHA,
+    # D = 64
+    dict(name="whisper_encoder", B=4, Sq=1500, Sk=1500, H=20, KH=20, D=64,
+         causal=False, window=0, softcap=0.0, scale=None, q_offset=0,
+         dtype="bfloat16", tol=3e-2),
+    dict(name="whisper_cross", B=4, Sq=1024, Sk=1500, H=20, KH=20, D=64,
+         causal=False, window=0, softcap=0.0, scale=None, q_offset=0,
+         dtype="bfloat16", tol=3e-2),
 ]
 # rows of a wgmma forward work item: the G heads of a kv head folded, 128 / G
 # positions each (flash_attention_fwd.cu); an item holds G x min(Sq, 128 / G)
@@ -338,6 +363,15 @@ FA_BWD_CASES = [
          dtype="bfloat16", seg=3),
     dict(name="f32", B=2, Sq=256, Sk=256, causal=True, window=100,
          q_offset=0, dtype="float32", seg=3, **G2),
+    # whisper-large-v3's train microbatch (4 x 1024 tokens, 4 x 1500
+    # frames): the encoder's non-causal self-attention and the decoder's
+    # cross-attention (Sq != Sk, every pair live, no segment ids)
+    dict(name="whisper_encoder", B=4, Sq=1500, Sk=1500, H=20, KH=20, D=64,
+         causal=False, window=0, softcap=0.0, scale=None, q_offset=0,
+         dtype="bfloat16", seg=0),
+    dict(name="whisper_cross", B=4, Sq=1024, Sk=1500, H=20, KH=20, D=64,
+         causal=False, window=0, softcap=0.0, scale=None, q_offset=0,
+         dtype="bfloat16", seg=0),
 ]
 # Backward tolerances, (relative, largest) for each of dq, dk, dv against
 # attention_bwd_ref: the relative Frobenius distance |a - r| / |r| and the
@@ -504,7 +538,25 @@ SERVE = [
      {"flash_attention": 40, "flash_attention.wgmma": 40}, {}),
     ("nemotron-4-15b", "continuous",
      {"flash_attention": 32, "flash_attention.wgmma": 32}, {}),
+    # the server prefills tokens alone, as the JAX package's does: whisper
+    # runs no encoder there (32 decoder self-attention launches) and
+    # internvl no vision embeddings
+    ("whisper-large-v3", "continuous",
+     {"flash_attention": 32, "flash_attention.wgmma": 32}, {}),
+    ("internvl2-26b", "continuous",
+     {"flash_attention": 48, "flash_attention.wgmma": 48}, {}),
 ]
+# The checked prefill of an arch with a stubbed frontend takes its stub
+# inputs (random, 0.02 std, seed 0) through build_prefill_step: whisper's
+# frames (B, 1500, 1280) run the encoder (32 non-causal launches) and the
+# decoder's cross-attention (32 more), internvl's vision embeddings (B,
+# 256, 6144) replace the first 256 positions.  Its launches, those of the
+# serve_step decode that follows it (whisper: cross-attention over the
+# cached xk, xv), and greedy tokens against impl="ref" from impl="ref"'s
+# prefill of the same inputs.
+STUB_PREFILL = {
+    "whisper-large-v3": {"flash_attention": 96, "flash_attention.wgmma": 96},
+    "internvl2-26b": {"flash_attention": 48, "flash_attention.wgmma": 48}}
 # Prefill, kernels against plain versions, bf16 through every layer.  Two
 # checks.  (1) The final hidden states of every position of the first
 # wave's prompts, h (B, S, d_model) before the LM head: their relative
@@ -523,18 +575,25 @@ LOGIT_TOL = 0.25
 LOGIT_CONTROL = {"flash_attention": (1, 2),        # k, v
                  "linear_scan": (0, 1),            # x, a
                  "selective_scan": (0, 1, 3, 4)}   # x, dt, B, C
+# Over every key of a non-causal call, k and v read late change one pair of
+# ~1500 (the set of keys barely moves), so that control is blind to
+# whisper's encoder and cross-attention; theirs reads q late (each query
+# takes its neighbour's output), on the calls with causal=False alone.
+NONCAUSAL_Q_CONTROL = "flash_attention_q"
 # Each limit near the geometric mean of the arch's sound reading and its
 # smallest control reading on an H100 (sound / control, deterministic
 # from call to call): gemma2-2b 0.0187 / 0.378, recurrentgemma-2b 0.0115 /
 # 0.0132 (linear_scan; flash 0.0217), falcon-mamba-7b 0.0146 / 1.121,
 # qwen3-moe 0.0153 / 0.339, gemma3-4b 0.0208 / 0.388, minicpm-2b 0.0402 /
-# 0.509, nemotron-4-15b 0.0256 / 0.188.  recurrentgemma-2b's linear_scan
-# control is 15% above its sound reading: an RG-LRU state decays slowly,
-# so h read a step late is close to h.
+# 0.509, nemotron-4-15b 0.0256 / 0.188, whisper-large-v3 0.0122 / 0.0178
+# (q; flash 0.0185), internvl2-26b 0.0854 / 0.775.  recurrentgemma-2b's
+# linear_scan control is 15% above its sound reading: an RG-LRU state
+# decays slowly, so h read a step late is close to h.
 PREFILL_H_LIMIT = {"gemma2-2b": 0.08, "recurrentgemma-2b": 0.0123,
                    "falcon-mamba-7b": 0.13, "qwen3-moe-30b-a3b": 0.07,
                    "gemma3-4b": 0.09, "minicpm-2b": 0.14,
-                   "nemotron-4-15b": 0.07}
+                   "nemotron-4-15b": 0.07, "whisper-large-v3": 0.0147,
+                   "internvl2-26b": 0.26}
 # (3) Where a control reads close to the sound reading at the end of the
 # model, the first block's update of the residual stream as well (its
 # output less the embeddings it took in), under a limit of its own,
@@ -543,8 +602,28 @@ PREFILL_H_LIMIT = {"gemma2-2b": 0.08, "recurrentgemma-2b": 0.0123,
 # recurrentgemma-2b's first block is recurrent (linear_scan); its limit
 # lies near the geometric mean of the block's sound reading and its
 # control reading on an H100: 0.000323 / 0.01024 (the model's end reads
-# 0.0115 / 0.0132).
-PREFILL_H1 = {"recurrentgemma-2b": ("linear_scan", 0.0018)}
+# 0.0115 / 0.0132).  internvl2-26b's final hidden states drift with depth
+# (0.006 after its first block, 0.034 after 12, 0.085 after 48: bf16
+# through 48 layers of d_model 6144), so its first block is read too:
+# 0.00608 / 0.137 (flash).
+PREFILL_H1 = {"recurrentgemma-2b": ("linear_scan", 0.0018),
+              "internvl2-26b": ("flash_attention", 0.029)}
+# (4) Random whisper-large-v3 adds O(1) sinusoidal positions to 0.02-std
+# embeddings and frames, and its attention updates barely move them (in
+# bf16 most are under half a unit in the last place of the stream), so at
+# the model's end the controls read only 1.5x its sound reading.  It also
+# reads the outputs of its first attention sublayers (before the residual
+# add), each on the input the model gives it: the first encoder layer's
+# self-attention (non-causal; q control), the first decoder layer's
+# self-attention (causal; k, v control) and its cross-attention (on lnx of
+# the embeddings, over the encoder's output from impl="ref"; q control).
+# The limit near the geometric mean of their sound readings and controls
+# on an H100: 0.0015 / 0.0332, 0.0018 / 0.0325, 0.0014 / 0.0269.
+PREFILL_ATTN1 = {"whisper-large-v3": 0.007}
+# the last position's logits of internvl2-26b move with its drift (0.085
+# relative after 48 layers): 0.652 against logits of up to 7.54, its flash
+# control 4.39; the limit near their geometric mean
+LOGIT_TOL_ARCH = {"internvl2-26b": 1.5}
 
 
 def rel_fro(a, r) -> float:
@@ -789,6 +868,15 @@ def _flash_baseline(lib):
     return run
 
 
+def _sdpa_unmasked(c, seg_q) -> bool:
+    """Whether SDPA's own masks (``is_causal`` or none) give case ``c``'s
+    mask: no segment ids, no window that bites, and a causal case square
+    with no query offset."""
+    return (seg_q is None and (not c["window"] or c["window"] >= c["Sk"])
+            and (not c["causal"] or (c["q_offset"] == 0
+                                     and c["Sq"] == c["Sk"])))
+
+
 def phase_kernel_flash_attention(dev, baseline=None):
     import torch
     import torch.nn.functional as F
@@ -851,13 +939,10 @@ def phase_kernel_flash_attention(dev, baseline=None):
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(H // KH, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(H // KH, dim=2).transpose(1, 2).contiguous()
-        plain_causal = (c["causal"] and c["q_offset"] == 0 and Sq == Sk
-                        and (not c["window"] or c["window"] >= Sk)
-                        and seg_q is None)
-        if plain_causal:
+        if _sdpa_unmasked(c, seg_q):
             def lib():
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, scale=c["scale"])
+                    qt, kt, vt, is_causal=c["causal"], scale=c["scale"])
         else:
             def lib():
                 return F.scaled_dot_product_attention(
@@ -971,8 +1056,8 @@ def phase_kernel_flash_attention_bwd(dev, baseline=None):
         baseline_ms = (device_ms(lambda: old(q, k, v, o, lse, do, **kw),
                                  5 if big else 20) if old else None)
 
-        # yardstick: SDPA forward + backward at the same shape, causal, no
-        # softcap, no segments, kv heads repeated to H
+        # yardstick: SDPA forward + backward at the same shape, causal as
+        # the case, no softcap, no segments, kv heads repeated to H
         with torch.enable_grad():
             qt = q.transpose(1, 2).contiguous().requires_grad_(True)
             kt = (k.repeat_interleave(H // KH, dim=2).transpose(1, 2)
@@ -983,7 +1068,7 @@ def phase_kernel_flash_attention_bwd(dev, baseline=None):
 
             def lib():
                 out = F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, scale=c["scale"])
+                    qt, kt, vt, is_causal=c["causal"], scale=c["scale"])
                 return torch.autograd.grad(out, (qt, kt, vt), dot)
             library_ms = device_ms(lib, 5 if big else 20)
         del qt, kt, vt, dot
@@ -1008,8 +1093,8 @@ def phase_kernel_flash_attention_bwd(dev, baseline=None):
                "baseline_ms": baseline_ms, "baseline_checks": base_checks,
                "library_ms": library_ms,
                "library": "scaled_dot_product_attention forward + backward, "
-                          "is_causal, no softcap, no segments, kv heads "
-                          "repeated",
+                          f"is_causal={c['causal']}, no softcap, no "
+                          "segments, kv heads repeated",
                "live_pairs": live, "gflop": flops / 1e9,
                "mbytes": nbytes / 1e6, "tflops": flops / ms / 1e9,
                "baseline_tflops": baseline_ms and flops / baseline_ms / 1e9,
@@ -1083,6 +1168,16 @@ def _bwd_plan_eviction(dev, gen):
 # distance) by a few bf16 steps, 0.05.
 TRAIN_LOSS_TOL = 0.01
 TRAIN_GRAD_RTOL = 0.05
+# A phase's "f32_held" leaves have gradients that bf16 cannot resolve
+# after its steps: whisper-large-v3's cross-attention q and k projections,
+# whose true gradient falls 1000x in two AdamW steps (its cross-attention
+# turns uniform over the 1500 frames: the largest P of a row 1/1335), so
+# that the kernels' and the plain versions' bf16 gradients both lie 1.4
+# (relative Frobenius distance) from an f32 plain run's and 0.45 from each
+# other.  Such a leaf is held against the f32 plain run: the kernels' bf16
+# gradient no further from it than F32_HELD_RATIO times the plain
+# versions' (measured 1.014 after two steps, 1.055 after one).
+F32_HELD_RATIO = 1.25
 
 
 _FAMILIES = {"flash": ("flash_attention", "flash_attention_bwd"),
@@ -1148,6 +1243,16 @@ TRAIN_PHASES = [
          mixer="attn",
          picked=("wq", "wk", "wv", "wo", "moe/router", "moe/wi", "moe/wg",
                  "moe/wo")),
+    # whisper-large-v3 at full width (1.53 B params: 24.5 GB of f32 params,
+    # gradients and moments), batch 4 x 1024 tokens and 4 x 1500 frames in
+    # its config's one microbatch: 96 flash calls a forward (32 encoder,
+    # 32 decoder self- and 32 cross-attention), each run twice under remat;
+    # "enc:a/b" picks leaf b of the first encoder layer's subtree a
+    dict(arch="whisper-large-v3", steps=2, decode=False, microbatches=1,
+         launches=_launches(flash=(96, 1)), mixer="attn",
+         picked=("wq", "wv", "xattn/wv", "xattn/wo", "enc:attn/wq",
+                 "enc:attn/wk", "enc:attn/wv", "enc:attn/wo", "enc:mlp/wi"),
+         f32_held=("xattn/wq", "xattn/wk")),
 ]
 
 
@@ -1282,15 +1387,22 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
                      device=dev).batch_at(0)
     mb = {n: t[:TRAIN["batch"] // mbs] for n, t in mb.items()}
     layer0 = params["layers"][0]
-    picked = {"embed": params["embed"]["tok"], **{
-        f"layer0/{w}": (layer0[w.split("/")[0]][w.split("/")[1]] if "/" in w
-                        else layer0[spec["mixer"]][w])
-        for w in spec["picked"]}}
+
+    def leaf(w):
+        first = layer0
+        if w.startswith("enc:"):
+            first, w = params["enc"]["layers"][0], w[len("enc:"):]
+        a, _, b = w.rpartition("/")
+        return first[a or spec["mixer"]][b]
+    held = [f"layer0/{w}" for w in spec.get("f32_held", ())]
+    picked = {"embed": params["embed"]["tok"],
+              **{f"layer0/{w}": leaf(w) for w in spec["picked"]},
+              **{n: leaf(n[len("layer0/"):]) for n in held}}
     # an MoE arch's group sizes, gmm call by call, of each run: top-k
     # near-ties can route a few assignments differently in the two
     routed = {}
 
-    def grads_of(impl, tag, routes, replay=False):
+    def grads_of(impl, tag, routes, replay=False, c=cfg, batch=mb):
         leaves = list(tree_leaves(params))
         for p in leaves:
             p.requires_grad_(True)
@@ -1298,7 +1410,7 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
         try:
             with _routing(routes, replay):   # the recompute's top-k too
                 with _recording_sizes(routed.setdefault(tag, [])):
-                    loss, _, _ = lm_loss(cfg, compute_cast(cfg, params), mb,
+                    loss, _, _ = lm_loss(c, compute_cast(c, params), batch,
                                          impl, remat=True)
                 loss.backward()
             with torch.no_grad():
@@ -1320,6 +1432,20 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
     loss_k, norm_k, g_k = grads_of(None, "kernels", routes)
     loss_r, norm_r, g_r = grads_of("ref", "ref", routes, replay=True)
     grad_rel = rel(g_k, g_r)
+    f32_held = None
+    if held:   # and an f32 plain run for the leaves bf16 cannot resolve
+        mb32 = {n: t.float() if t.is_floating_point() else t
+                for n, t in mb.items()}
+        _, _, g_f = grads_of("ref", "ref_f32", [], c=cfg.replace(
+            dtype="float32"), batch=mb32)
+        to_f32 = {"kernels": rel(g_k, g_f), "ref": rel(g_r, g_f)}
+        f32_held = {n: {"kernels_vs_ref": grad_rel.pop(n),
+                        "kernels_vs_f32": to_f32["kernels"][n],
+                        "ref_vs_f32": to_f32["ref"][n],
+                        "f32_norm": float(g_f[n].norm()),
+                        "ratio": to_f32["kernels"][n] / to_f32["ref"][n]}
+                    for n in held}
+        del g_f
     del g_r
     free = None
     if cfg.num_experts:   # and routing freely, for the record
@@ -1347,6 +1473,8 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
           and abs(loss_k - loss_r) <= TRAIN_LOSS_TOL
           and abs(norm_k - norm_r) <= TRAIN_GRAD_RTOL * norm_r
           and all(r <= TRAIN_GRAD_RTOL for r in grad_rel.values())
+          and all(h["ratio"] <= F32_HELD_RATIO
+                  for h in (f32_held or {}).values())
           and peak_gb <= ENS_PEAK_LIMIT_GB)
     row = {"phase": f"train {spec['arch']}", "arch": cfg.name,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -1375,6 +1503,8 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
                       "grad_norm_ref": norm_r,
                       "grad_rel_frobenius": grad_rel,
                       "grad_rtol": TRAIN_GRAD_RTOL,
+                      "f32_held": f32_held,
+                      "f32_held_ratio": F32_HELD_RATIO,
                       "routing": "the plain run replays the kernel run's "
                                  "top-k",
                       "gmm_calls": len(routed["kernels"]),
@@ -3101,27 +3231,98 @@ def phase_kernel_gmm_bwd(dev, router, baseline=None):
 def _off_by_one(name):
     """The model's calls of kernel wrapper ``name`` read their arguments at
     ``LOGIT_CONTROL[name]`` ((B, T, ...) each) one position late, as a
-    kernel whose tile loads are off by one would."""
+    kernel whose tile loads are off by one would; NONCAUSAL_Q_CONTROL: the
+    flash calls with causal=False read q late."""
     import torch
 
     from repro_torch.models import layers, transformer
-    mods = [m for m in (layers, transformer) if hasattr(m, name)]
-    saved = [getattr(m, name) for m in mods]
+    wrapper, late_args = ((name, LOGIT_CONTROL[name]) if name in LOGIT_CONTROL
+                          else ("flash_attention", (0,)))
+    only_noncausal = name == NONCAUSAL_Q_CONTROL
+    mods = [m for m in (layers, transformer) if hasattr(m, wrapper)]
+    saved = [getattr(m, wrapper) for m in mods]
 
     def late(fn):
         def run(*args, **kw):
             a = list(args)
-            for i in LOGIT_CONTROL[name]:
-                a[i] = torch.cat([a[i][:, :1], a[i][:, :-1]], dim=1)
+            if not (only_noncausal and kw.get("causal", True)):
+                for i in late_args:
+                    a[i] = torch.cat([a[i][:, :1], a[i][:, :-1]], dim=1)
             return fn(*a, **kw)
         return run
     for m, fn in zip(mods, saved):
-        setattr(m, name, late(fn))
+        setattr(m, wrapper, late(fn))
     try:
         yield
     finally:
         for m, fn in zip(mods, saved):
-            setattr(m, name, fn)
+            setattr(m, wrapper, fn)
+
+
+def _controls(cfg, per_prefill):
+    """The controls of an arch's prefill check: each LOGIT_CONTROL wrapper
+    its prefill launches, and the non-causal q control where it has an
+    encoder."""
+    return ([n for n in LOGIT_CONTROL if n in per_prefill]
+            + ([NONCAUSAL_Q_CONTROL] if cfg.encoder_layers else []))
+
+
+def _stub_inputs(cfg, B, dev):
+    """Random stub inputs of the frontends (0.02 std, seed 0, bf16):
+    ``enc_frames`` for an encoder, ``vision_embeds`` for a VLM."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for key, on, S in (("vision_embeds", cfg.vision_tokens,
+                        cfg.vision_tokens),
+                       ("enc_frames", cfg.encoder_layers, cfg.encoder_seq)):
+        if on:
+            out[key] = (0.02 * torch.randn((B, S, cfg.d_model),
+                                           generator=gen, device=dev)
+                        ).to(torch.bfloat16)
+    return out
+
+
+def _attn_sublayers(cfg, params, wave, frames, limit):
+    """PREFILL_ATTN1's readings: the first encoder layer's and the first
+    decoder layer's attention sublayers' outputs, kernels against
+    impl="ref", and under each one's control."""
+    import torch
+
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import (
+        embed_frames,
+        embed_tokens,
+        encode,
+    )
+    mem = encode(cfg, params, frames, impl="ref")
+    enc, dec = params["enc"]["layers"][0], params["layers"][0]
+    he, pe = embed_frames(cfg, frames)
+    B, S = wave.shape
+    pd = torch.arange(S, dtype=torch.int32, device=wave.device)[None].expand(
+        B, S)
+    hd = embed_tokens(cfg, params, wave, pd)
+    calls = {
+        "encoder 0 self-attention": (
+            enc["attn"], layers.apply_norm(cfg, enc["ln1"], he), "enc", pe,
+            None, NONCAUSAL_Q_CONTROL),
+        "decoder 0 self-attention": (
+            dec["attn"], layers.apply_norm(cfg, dec["ln1"], hd), "global",
+            pd, None, "flash_attention"),
+        "decoder 0 cross-attention": (
+            dec["xattn"], layers.apply_norm(cfg, dec["lnx"], hd), "cross",
+            pd, mem, NONCAUSAL_Q_CONTROL)}
+    rows = {}
+    for name, (p, x, kind, pos, m, control) in calls.items():
+        def out(impl=None):
+            return layers.apply_attn(cfg, p, x, kind=kind, positions=pos,
+                                     mem=m, impl=impl)
+        ref = out("ref")
+        row = {"h_rel_frobenius": rel_fro(out(), ref), "limit": limit}
+        with _off_by_one(control):
+            row["controls"] = {control: rel_fro(out(), ref)}
+        rows[name] = row
+    return rows
 
 
 def _requests(cfg, n, S0, new, seed=0):
@@ -3214,17 +3415,27 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
 
     # one prefill of the first wave, kernels against plain versions: the
     # prefill step's own two lines (forward, then the last position's
-    # logits), keeping every position's final hidden states
+    # logits), keeping every position's final hidden states; an arch with a
+    # stubbed frontend takes its stub inputs
     wave = torch.stack([torch.as_tensor(r.prompt) for r in
                         _requests(cfg, B, S0, NEW)]).to(dev)
+    stubs = _stub_inputs(cfg, B, dev)
+    batch = {"tokens": wave, **stubs}
+    check_want = STUB_PREFILL.get(arch, per_prefill)
 
     def prefill(impl=None, cache=True):
         out = forward(cfg, params, wave, cache_len=max_len if cache else None,
-                      impl=impl)
+                      impl=impl, **stubs)
         return ({"logits": lm_logits(cfg, params, out["h"][:, -1:]),
                  "cache": out["cache"]}, out["h"])
     with torch.inference_mode():
         pre_k = build_prefill_step(cfg, cache_len=max_len)
+        # the prefill step users call, on the checked batch: its launches
+        reset_launches()
+        out = pre_k(params, batch)
+        torch.cuda.synchronize()
+        check_launches = {n: c for n, c in LAUNCHES.items() if c}
+        del out
         torch.cuda.synchronize()
         t = time.perf_counter()
         out_r, h_r = prefill("ref")
@@ -3236,6 +3447,10 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
         del out_r
         out_k, h_k = prefill()
         lk = out_k["logits"]
+        # the served tokens; with stub inputs, serve_step's decode from the
+        # checked prefill's cache
+        served = ([tokens[i] for i in range(B)] if not stubs else
+                  _greedy(srv.step, params, out_k, S0, NEW, dev))
         del out_k
         logit_err = float((lk - lr).abs().max())
         h_rel = rel_fro(h_k, h_r)
@@ -3244,11 +3459,13 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
                       and torch.isfinite(h_k.float()).all())
         del h_k
         controls = {}
-        for control in (n for n in LOGIT_CONTROL if n in per_prefill):
+        for control in _controls(cfg, per_prefill):
             with _off_by_one(control):
                 out_c, h_c = prefill(cache=False)
             controls[control] = {
-                "inputs_delayed": LOGIT_CONTROL[control],
+                "inputs_delayed": LOGIT_CONTROL.get(control, (0,)),
+                "calls": ("causal=False" if control == NONCAUSAL_Q_CONTROL
+                          else "all"),
                 "h_rel_frobenius": rel_fro(h_c, h_r),
                 "last_logit_max_abs_err":
                     float((out_c["logits"] - lr).abs().max())}
@@ -3262,6 +3479,9 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
             pos = torch.arange(S0, dtype=torch.int32,
                                device=dev)[None].expand(B, S0)
             h0 = embed_tokens(cfg, params, wave, pos)
+            if cfg.vision_tokens:
+                h0 = torch.cat([stubs["vision_embeds"].to(h0.dtype),
+                                h0[:, cfg.vision_tokens:]], dim=1)
 
             def update(impl=None):
                 h1, _, _ = forward_block(cfg, params["layers"][0], h0, kind,
@@ -3277,14 +3497,16 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
             with _off_by_one(control):
                 first["controls"][control] = rel_fro(update(), u_r)
             del u_r, h0
+        attn1 = (_attn_sublayers(cfg, params, wave, stubs["enc_frames"],
+                                 PREFILL_ATTN1[arch])
+                 if arch in PREFILL_ATTN1 else {})
         top2 = lk[:, 0].topk(2, dim=-1).values
         argmax_same = float((lk[:, 0].argmax(-1) == lr[:, 0].argmax(-1))
                             .float().mean())
-        served = [tokens[i] for i in range(B)]
         same = sum(a == b for s, r in zip(served, ref_tokens)
                    for a, b in zip(s, r))
-        prefill_ms = time_ms(lambda: pre_k(params, {"tokens": wave}), 3)
-        out = pre_k(params, {"tokens": wave})
+        prefill_ms = time_ms(lambda: pre_k(params, batch), 3)
+        out = pre_k(params, batch)
         cache, last = out["cache"], out["logits"][:, 0].argmax(-1)
         state = {"pos": S0}
 
@@ -3294,10 +3516,11 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
             srv.step(params, cache, last[:, None], pos)
             state["pos"] += 1
         decode_ms = time_ms(step, NEW - 2)
-    tol = LOGIT_TOL
+    tol = LOGIT_TOL_ARCH.get(arch, LOGIT_TOL)
     limit = PREFILL_H_LIMIT[arch]
     row = {"phase": f"serve {arch}", "arch": cfg.name, "dtype": cfg.dtype,
            "param_dtype": cfg.param_dtype, "layers": cfg.num_layers,
+           "encoder_layers": cfg.encoder_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
            "head_dim": cfg.head_dim, "lru_width": cfg.lru_width,
@@ -3312,6 +3535,9 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
            "stats": srv.stats, "launches": launches,
            "launches_per_prefill": per_prefill,
            "launches_per_decode_step": per_decode,
+           "stub_inputs": {k: list(v.shape) for k, v in stubs.items()},
+           "checked_prefill_launches": check_launches,
+           "checked_prefill_launches_expected": check_want,
            "wall_s": wall, "tokens_per_s": ntok / wall,
            "prefill_ms": prefill_ms, "prefill_ref_ms": prefill_ref_ms,
            "decode_step_ms": decode_ms,
@@ -3321,6 +3547,7 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
                                  "the first wave, kernels against "
                                  "impl='ref'",
            "controls": controls, "first_block": first,
+           "first_attention_sublayers": attn1,
            "controls_compared": "the kernels' prefill with the named "
                                 "wrapper's arguments delayed one position, "
                                 "against impl='ref'",
@@ -3329,12 +3556,17 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
            "greedy_token_agreement": same / (B * NEW),
            "prefill_argmax_agreement": argmax_same,
            "prefill_top2_gap_min": float((top2[:, 0] - top2[:, 1]).min()),
-           "greedy_compared": "first wave's served tokens (kernels) against "
-                              "tokens decoded by impl='ref' decode steps "
-                              "(plain versions) from the impl='ref' "
-                              "prefill's cache",
+           "greedy_compared": ("first wave's served tokens (kernels) "
+                               if not stubs else
+                               "serve_step's tokens (kernels) from the "
+                               "checked prefill's cache ")
+           + "against tokens decoded by impl='ref' decode steps (plain "
+             "versions) from the impl='ref' prefill's cache",
            "peak_mem_gb": peak_gb}
     emit(row)
+    if check_launches != check_want:
+        raise AssertionError(f"{arch} checked prefill launched "
+                             f"{check_launches}, expected {check_want}")
     if not finite or logit_err > tol or h_rel > limit:
         raise AssertionError(f"{arch} prefill: hidden states {h_rel} "
                              f"(limit {limit}), last logits {logit_err} "
@@ -3348,6 +3580,10 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
                       min(first["controls"].values())):
         raise AssertionError(f"{arch} prefill after the first block: "
                              f"{first}")
+    for name, sub in attn1.items():
+        if not sub["h_rel_frobenius"] <= sub["limit"] < min(
+                sub["controls"].values()):
+            raise AssertionError(f"{arch} prefill, {name}: {sub}")
     return row
 
 
@@ -3488,6 +3724,10 @@ def _phases(dev, baselines, reckonings):
             for name, n in row["launches"].items():
                 if n and name in launches:
                     launches[name][arch] = n
+            if row["stub_inputs"]:   # build_prefill_step with them
+                for name, n in row["checked_prefill_launches"].items():
+                    if name in launches:
+                        launches[name][f"{arch} prefill, stub inputs"] = n
             _release()
         phase_task(dev)
         phase_continuous(dev)

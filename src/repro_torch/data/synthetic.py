@@ -4,11 +4,15 @@
 JAX package's order, so its tokens, labels and segment ids are those of the
 JAX batch at the same step; they come back as int32 tensors on ``device``
 (``cuda`` unless the caller asks for the CPU, ``flags.resolve_device``).
+The frontends' stub inputs follow from the same generator, in the same
+order and with the same values: ``vision_embeds`` (B, vision_tokens,
+d_model) for a VLM config, float32 (a bf16 config's rounded to bf16 before
+the 0.02 scale, as the reference's numpy does), then ``enc_frames`` (B,
+encoder_seq, d_model) for an encoder-decoder config, in the compute dtype.
 ``batches(start, prefetch)`` is the JAX package's double-buffered iterator:
 a producer thread makes the next batches while the caller consumes one,
 and stops when the generator is closed.  The JAX package's sharded
-``device_put`` is not ported (one device), nor are the vision and encoder
-stub inputs, which no ported arch takes (ROADMAP A8).
+``device_put`` is not ported (one device).
 """
 from __future__ import annotations
 
@@ -27,23 +31,32 @@ class SyntheticLM:
     def __init__(self, cfg: ModelConfig, shape: ShapeSpec, *, seed: int = 0,
                  batch_override: Optional[int] = None,
                  device: DeviceLike = None):
-        if cfg.vision_tokens or cfg.encoder_layers:
-            raise NotImplementedError(
-                f"{cfg.name}: vision and encoder inputs are not ported yet")
         self.cfg, self.shape, self.seed = cfg, shape, seed
         self.B = batch_override or shape.global_batch
         self.S = shape.seq_len
         self.device = resolve_device(device)
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
         rng = np.random.default_rng((self.seed, step))
-        toks = rng.integers(0, self.cfg.vocab_size, (self.B, self.S + 1),
+        toks = rng.integers(0, cfg.vocab_size, (self.B, self.S + 1),
                             dtype=np.int32)
-        out = {"tokens": toks[:, :-1],
-               "labels": toks[:, 1:],
-               "seg_ids": np.zeros((self.B, self.S), np.int32)}
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in out.items()}
+        out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+               (("tokens", toks[:, :-1]), ("labels", toks[:, 1:]),
+                ("seg_ids", np.zeros((self.B, self.S), np.int32)))}
+        bf16 = cfg.dtype == "bfloat16"
+        if cfg.vision_tokens:
+            v = torch.from_numpy(rng.standard_normal(
+                (self.B, cfg.vision_tokens, cfg.d_model)).astype(np.float32))
+            if bf16:
+                v = v.to(torch.bfloat16).float()
+            out["vision_embeds"] = v * 0.02
+        if cfg.encoder_layers:
+            f = torch.from_numpy(rng.standard_normal(
+                (self.B, cfg.encoder_seq, cfg.d_model)) * 0.02)
+            out["enc_frames"] = f.to(torch.bfloat16 if bf16
+                                     else torch.float32)
+        return {k: v.to(self.device) for k, v in out.items()}
 
     def batches(self, start: int = 0, prefetch: int = 1
                 ) -> Iterator[Dict[str, torch.Tensor]]:

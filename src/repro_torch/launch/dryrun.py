@@ -11,8 +11,9 @@ builds it and runs one step of the path's own function:
   fused    a ``FusedEnsemble``'s stacked members (``members``), then one
            cycle's device part (``core.ensemble.device_cycle``);
   prefill  bf16 params, then ``build_prefill_step`` with its cache;
-  decode   bf16 params and a cache of ``seq`` positions, then one
-           ``build_serve_step`` step.
+  decode   bf16 params and a cache of ``seq`` positions (an
+           encoder-decoder's with the encoder's cross-attention k, v),
+           then one ``build_serve_step`` step.
 
 The step runs under ``MemoryTracker`` (the peak of live device bytes, each
 storage rounded up to the caching allocator's 512-byte blocks, from its
@@ -246,8 +247,13 @@ def reckon(cfg: ModelConfig, shape: ShapeSpec, *,
                 # windows, whose states it sets) at S positions
                 prompt = torch.zeros((B, min(S, PROMPT)), dtype=torch.int32,
                                      device=dev)
+                batch = {"tokens": prompt}
+                if cfg.encoder_layers:   # and the encoder's cross k, v
+                    batch["enc_frames"] = torch.zeros(
+                        (B, cfg.encoder_seq, cfg.d_model),
+                        dtype=torch.bfloat16, device=dev)
                 cache = build_prefill_step(cfg, cache_len=S)(
-                    params, {"tokens": prompt})["cache"]
+                    params, batch)["cache"]
                 tokens = prompt[:, :1]
                 state["cache"] = cache
                 cache_bytes = _nbytes(cache)

@@ -6,7 +6,10 @@ checkpointer does, ``repro/checkpoint/checkpoint.py``) and stacks the layers
 of each pattern period into ``(G, ...)`` leaves under ``blocks/sub_<s>/...``,
 with the remainder under ``tail/block_<j>/...``.  The port keeps one dict
 per layer in ``params["layers"]``: layer ``i = g * period + s`` for scanned
-groups and ``i = G * period + j`` for the tail.
+groups and ``i = G * period + j`` for the tail.  An encoder is stacked there
+as ``enc/blocks/sub_0/...`` (leading axis ``encoder_layers``) beside
+``enc/final_norm/...``; the port keeps ``params["enc"]["layers"]`` (one dict
+per encoder layer) and ``params["enc"]["final_norm"]``.
 """
 from __future__ import annotations
 
@@ -72,12 +75,24 @@ def layers_from_numpy(flat: Flat, cfg: ModelConfig,
     return [_nest(d) for d in per_layer]
 
 
+_ENC_BLOCKS = "enc/blocks/sub_0/"
+
+
 def params_from_numpy(flat: Flat, cfg: ModelConfig, device="cpu"):
     """``{"/"-joined JAX key path: np.ndarray}`` -> the port's params."""
     top = {k: _to_tensor(v, device) for k, v in flat.items()
-           if k.split("/", 1)[0] not in ("blocks", "tail")}
+           if k.split("/", 1)[0] not in ("blocks", "tail")
+           and not k.startswith(_ENC_BLOCKS)}
     params = _nest(top)
     params["layers"] = layers_from_numpy(flat, cfg, device)
+    if cfg.encoder_layers:
+        per_layer: List[Dict[str, Any]] = [
+            {} for _ in range(cfg.encoder_layers)]
+        for key, arr in flat.items():
+            if key.startswith(_ENC_BLOCKS):
+                for i, d in enumerate(per_layer):
+                    d[key[len(_ENC_BLOCKS):]] = _to_tensor(arr[i], device)
+        params["enc"]["layers"] = [_nest(d) for d in per_layer]
     return params
 
 
@@ -87,7 +102,15 @@ def params_to_flat(params, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     period, G, _ = _layout(cfg)
     flat = {k: v.detach().cpu() for k, v in
             _flatten({k: v for k, v in params.items()
-                      if k != "layers"}).items()}
+                      if k not in ("layers", "enc")}).items()}
+    if "enc" in params:
+        enc = params["enc"]
+        flat.update({f"enc/final_norm/{k}": v.detach().cpu()
+                     for k, v in _flatten(enc["final_norm"]).items()})
+        per = [_flatten(layer) for layer in enc["layers"]]
+        flat.update({_ENC_BLOCKS + k: torch.stack([p[k].detach().cpu()
+                                                   for p in per])
+                     for k in per[0]})
     stacks: Dict[str, List[torch.Tensor]] = {}
     for i, layer in enumerate(params["layers"]):
         for rest, t in _flatten(layer).items():

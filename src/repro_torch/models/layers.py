@@ -182,18 +182,36 @@ def _qkv(cfg: ModelConfig, p: Params, x, positions, kind: str):
     return q, k, v
 
 
-def apply_attn(cfg: ModelConfig, p: Params, x, *, kind: str, positions,
-               seg_ids=None, impl: Optional[str] = None):
-    """Self-attention.  kind: global | local | enc."""
-    if kind == "cross":
-        raise NotImplementedError("cross-attention is not ported yet")
+def cross_qkv(cfg: ModelConfig, p: Params, x, mem):
+    """Cross-attention's q from x (B,S,D) and k, v from the encoder output
+    mem (B,Sm,D): no rope, no qk-norm."""
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, p, x, positions, kind)
-    window = cfg.sliding_window if kind == "local" else 0
-    o = flash_attention(q, k, v, causal=kind != "enc", window=window,
-                        softcap=cfg.attn_softcap,
-                        scale=cfg.attn_scale or None,
-                        seg_q=seg_ids, seg_kv=seg_ids, impl=impl)
+    Sm = mem.shape[1]
+    q = (x @ cast(cfg, p["wq"])).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = (mem @ cast(cfg, p["wk"])).reshape(B, Sm, cfg.num_kv_heads,
+                                           cfg.head_dim)
+    v = (mem @ cast(cfg, p["wv"])).reshape(B, Sm, cfg.num_kv_heads,
+                                           cfg.head_dim)
+    return q, k, v
+
+
+def apply_attn(cfg: ModelConfig, p: Params, x, *, kind: str, positions,
+               seg_ids=None, mem=None, impl: Optional[str] = None):
+    """Self- or cross-attention.  kind: global | local | enc | cross
+    (q from x, k and v from ``mem``, every pair attended, no segments)."""
+    B, S, _ = x.shape
+    if kind == "cross":
+        q, k, v = cross_qkv(cfg, p, x, mem)
+        o = flash_attention(q, k, v, causal=False, window=0,
+                            softcap=cfg.attn_softcap,
+                            scale=cfg.attn_scale or None, impl=impl)
+    else:
+        q, k, v = _qkv(cfg, p, x, positions, kind)
+        window = cfg.sliding_window if kind == "local" else 0
+        o = flash_attention(q, k, v, causal=kind != "enc", window=window,
+                            softcap=cfg.attn_softcap,
+                            scale=cfg.attn_scale or None,
+                            seg_q=seg_ids, seg_kv=seg_ids, impl=impl)
     return o.reshape(B, S, cfg.q_dim) @ cast(cfg, p["wo"])
 
 
@@ -260,8 +278,14 @@ def attn_decode(cfg: ModelConfig, p: Params, x, cache: Params, positions,
 
 
 def attn_decode_cross(cfg: ModelConfig, p: Params, x, cache: Params):
-    """Cross-attention decode (encoder-decoder models): not ported yet."""
-    raise NotImplementedError("cross-attention decode is not ported yet")
+    """Cross-attention decode: the encoder's k, v were cached at prefill
+    (``xk``, ``xv``: (B,Sm,KH,D)) and every one of them is attended."""
+    B = x.shape[0]
+    q = (x @ cast(cfg, p["wq"])).reshape(B, 1, cfg.num_heads, cfg.head_dim)
+    xk = cache["xk"]
+    mask = torch.ones((B, xk.shape[1]), dtype=torch.bool, device=x.device)
+    out = _decode_attention(cfg, q, xk, cache["xv"], mask)
+    return out @ cast(cfg, p["wo"])
 
 
 # ---------------------------------------------------------------- MoE

@@ -1,14 +1,24 @@
-"""Decoder: parameter init, forward (prefill) and decode step.
+"""Decoder (and encoder): parameter init, forward (prefill) and decode step.
 
 Counterpart of ``repro.models.transformer`` for the layer kinds "global" and
 "local" (attention, with a dense MLP or a mixture-of-experts FFN), "rec"
-(RG-LRU, recurrentgemma) and "mamba" (Mamba-1, falcon-mamba); encoders and
-vision tokens are not ported yet.  Where the JAX package scans stacked
-``(G, ...)`` parameter groups with ``lax.scan``, the port keeps one
-parameter dict per layer in ``params["layers"]`` (layer ``i`` has kind
-``cfg.layer_kind(i)``) and loops over them in Python; ``models.convert``
-maps between the two layouts.  The decode cache is likewise a list with one
-dict per layer.
+(RG-LRU, recurrentgemma) and "mamba" (Mamba-1, falcon-mamba).  Where the
+JAX package scans stacked ``(G, ...)`` parameter groups with ``lax.scan``,
+the port keeps one parameter dict per layer in ``params["layers"]`` (layer
+``i`` has kind ``cfg.layer_kind(i)``) and loops over them in Python;
+``models.convert`` maps between the two layouts.  The decode cache is
+likewise a list with one dict per layer.
+
+Encoder-decoder configs (``cfg.encoder_layers``, whisper) also hold
+``params["enc"] = {"layers": [...], "final_norm": ...}``: non-causal "enc"
+blocks over the frame embeddings (sinusoidal positions added when
+``rope_theta == 0``), never with experts.  Their decoder attention blocks
+carry ``lnx`` and ``xattn``, a cross-attention whose q comes from the
+decoder and k, v from the encoder's output; a prefill given ``enc_frames``
+caches those k, v as ``xk`` / ``xv`` (B, encoder_seq, KH, D), and a decode
+step attends them where its layer's cache holds them.  VLM configs
+(``cfg.vision_tokens``, internvl) splice ``vision_embeds`` over the first
+positions of the token embeddings.
 """
 from __future__ import annotations
 
@@ -27,21 +37,14 @@ Cache = List[Params]
 
 _ATTN_KINDS = ("global", "local")
 _REC_KINDS = ("rec", "mamba")           # recurrent mixers with (h, conv) state
-_KINDS = _ATTN_KINDS + _REC_KINDS
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    bad = sorted({k for k in cfg.layer_kinds if k not in _KINDS})
-    if bad or cfg.encoder_layers or cfg.vision_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: only decoders of {'/'.join(_KINDS)} layers are "
-            f"ported so far (found kinds {bad}, encoder layers "
-            f"{cfg.encoder_layers}, vision tokens {cfg.vision_tokens})")
 
 
 # ---------------------------------------------------------------- init
 
-def _init_block(cfg: ModelConfig, gen: torch.Generator, kind: str) -> Params:
+def _init_block(cfg: ModelConfig, gen: torch.Generator, kind: str, *,
+                cross: bool = False, enc: bool = False) -> Params:
+    """A block of ``kind``; ``cross`` gives an attention block ``lnx`` and
+    ``xattn``, and an encoder block (``enc``) never takes experts."""
     dev = gen.device
     p: Params = {"ln1": L.init_norm(cfg, dev)}
     if kind == "rec":
@@ -52,13 +55,16 @@ def _init_block(cfg: ModelConfig, gen: torch.Generator, kind: str) -> Params:
     if kind == "mamba":
         p["mamba"] = L.init_mamba(cfg, gen)
         return p
-    if kind not in _ATTN_KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    if kind not in _ATTN_KINDS + ("enc",):
+        raise ValueError(kind)
     p["attn"] = L.init_attn(cfg, gen)
     if cfg.post_norms:
         p["ln1_post"] = L.init_norm(cfg, dev)
+    if cross:
+        p["lnx"] = L.init_norm(cfg, dev)
+        p["xattn"] = L.init_attn(cfg, gen, cross=True)
     p["ln2"] = L.init_norm(cfg, dev)
-    if cfg.num_experts:
+    if cfg.num_experts and not enc:
         p["moe"] = L.init_moe(cfg, gen)
     else:
         p["mlp"] = L.init_mlp(cfg, gen)
@@ -79,7 +85,6 @@ def _layout(cfg: ModelConfig) -> Tuple[int, int, int]:
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random parameters with the JAX package's stds and dtypes, made on
     ``gen.device`` from ``gen`` (the numbers differ from JAX's)."""
-    _check_ported(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     params: Params = {
         "embed": {"tok": L._normal(gen, (V, D), 0.02, L._pd(cfg))},
@@ -87,18 +92,26 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     }
     if not cfg.tie_embeddings:
         params["head"] = L._normal(gen, (D, V), 0.02, L._pd(cfg))
-    params["layers"] = [_init_block(cfg, gen, cfg.layer_kind(i))
+    cross = cfg.encoder_layers > 0
+    params["layers"] = [_init_block(cfg, gen, cfg.layer_kind(i), cross=cross)
                         for i in range(cfg.num_layers)]
+    if cfg.encoder_layers:
+        params["enc"] = {
+            "layers": [_init_block(cfg, gen, "enc", enc=True)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": L.init_norm(cfg, gen.device)}
     return params
 
 
 # ---------------------------------------------------------------- blocks
 
 def forward_block(cfg: ModelConfig, bp: Params, h, kind: str, *, positions,
-                  seg_ids, cache_len: Optional[int],
+                  seg_ids, cache_len: Optional[int], mem=None,
                   impl: Optional[str] = None):
     """Returns (h, aux, cache_or_None); aux is the MoE load-balance loss
-    (0 without experts).  ``impl`` goes to the block's kernels."""
+    (0 without experts).  ``mem``: the encoder's output, which a block with
+    ``xattn`` cross-attends (its k, v join the cache in prefill).
+    ``impl`` goes to the block's kernels."""
     cache = None
     xin = L.apply_norm(cfg, bp["ln1"], h)
     if kind in _REC_KINDS:
@@ -118,6 +131,15 @@ def forward_block(cfg: ModelConfig, bp: Params, h, kind: str, *, positions,
     if cfg.post_norms:
         a = L.apply_norm(cfg, bp["ln1_post"], a)
     h = h + a
+    if "xattn" in bp and mem is not None:
+        xin = L.apply_norm(cfg, bp["lnx"], h)
+        if cache_len:
+            xa, xkv = _cross_with_cache(cfg, bp["xattn"], xin, mem, impl)
+            cache.update(xkv)
+        else:
+            xa = L.apply_attn(cfg, bp["xattn"], xin, kind="cross",
+                              positions=positions, mem=mem, impl=impl)
+        h = h + xa
     y, aux = _ffn(cfg, bp, L.apply_norm(cfg, bp["ln2"], h), impl)
     if cfg.post_norms:
         y = L.apply_norm(cfg, bp["ln2_post"], y)
@@ -168,6 +190,16 @@ def _attn_with_cache(cfg, p, x, *, kind, positions, seg_ids, cache_len,
     return out, {"k": kc, "v": vc}
 
 
+def _cross_with_cache(cfg, p, x, mem, impl=None):
+    """Prefill: cross-attention AND its k, v for the decode cache."""
+    B, S, _ = x.shape
+    q, k, v = L.cross_qkv(cfg, p, x, mem)
+    o = flash_attention(q, k, v, causal=False, softcap=cfg.attn_softcap,
+                        scale=cfg.attn_scale or None, impl=impl)
+    out = o.reshape(B, S, cfg.q_dim) @ L.cast(cfg, p["wo"])
+    return out, {"xk": k, "xv": v}
+
+
 def decode_block(cfg: ModelConfig, bp: Params, h, cache: Params, kind: str,
                  *, positions, impl: Optional[str] = None):
     """Single-token step.  h: (B,1,D).  Returns (h, cache).  ``impl`` goes
@@ -177,11 +209,15 @@ def decode_block(cfg: ModelConfig, bp: Params, h, cache: Params, kind: str,
         step = L.rglru_decode if kind == "rec" else L.mamba_decode
         m, cache = step(cfg, bp[kind], xin, cache)
         return _rec_mlp(cfg, bp, h + m), cache
-    a, cache = L.attn_decode(cfg, bp["attn"], xin, cache, positions,
-                             kind=kind)
+    a, upd = L.attn_decode(cfg, bp["attn"], xin, cache, positions,
+                           kind=kind)
+    cache = {**cache, **upd}
     if cfg.post_norms:
         a = L.apply_norm(cfg, bp["ln1_post"], a)
     h = h + a
+    if "xattn" in bp and "xk" in cache:
+        xin = L.apply_norm(cfg, bp["lnx"], h)
+        h = h + L.attn_decode_cross(cfg, bp["xattn"], xin, cache)
     y, _ = _ffn(cfg, bp, L.apply_norm(cfg, bp["ln2"], h), impl)
     if cfg.post_norms:
         y = L.apply_norm(cfg, bp["ln2_post"], y)
@@ -211,13 +247,64 @@ def lm_logits(cfg: ModelConfig, params: Params, h):
     return logits
 
 
+# ---------------------------------------------------------------- encoder
+
+def embed_frames(cfg: ModelConfig, enc_frames):
+    """The encoder's input: frame embeddings (B, S, d_model) cast to the
+    compute dtype, with sinusoidal positions added when ``rope_theta ==
+    0``; returns (h, positions)."""
+    B, S, _ = enc_frames.shape
+    pos = torch.arange(S, dtype=torch.int32,
+                       device=enc_frames.device)[None].expand(B, S)
+    h = enc_frames.to(L._dt(cfg))
+    if cfg.rope_theta == 0:
+        h = h + L.sinusoidal_pos(pos, cfg.d_model).to(L._dt(cfg))
+    return h, pos
+
+
+def encode(cfg: ModelConfig, params: Params, enc_frames, *,
+           impl: Optional[str] = None, remat: bool = False):
+    """The encoder: ``embed_frames``, non-causal "enc" blocks, then the
+    encoder's final norm."""
+    h, pos = embed_frames(cfg, enc_frames)
+    for bp in params["enc"]["layers"]:
+        h = _run_block(cfg, bp, h, "enc", positions=pos, seg_ids=None,
+                       mem=None, impl=impl, remat=remat)[0]
+    return L.apply_norm(cfg, params["enc"]["final_norm"], h)
+
+
+def _run_block(cfg, bp, h, kind, *, positions, seg_ids, mem, impl, remat,
+               cache_len=None):
+    """``forward_block``, recomputed in the backward pass under ``remat``
+    (every tensor it reads passed as an argument, ``mem`` too, so that the
+    recompute's gradients reach the encoder)."""
+    if not remat:
+        return forward_block(cfg, bp, h, kind, positions=positions,
+                             seg_ids=seg_ids, cache_len=cache_len, mem=mem,
+                             impl=impl)
+
+    def block(hh, bp, positions, seg_ids, mem):
+        out, a, _ = forward_block(cfg, bp, hh, kind, positions=positions,
+                                  seg_ids=seg_ids, cache_len=None, mem=mem,
+                                  impl=impl)
+        return out, torch.as_tensor(a, dtype=torch.float32,
+                                    device=out.device)
+    out, a = _remat(block, h, bp, positions, seg_ids, mem)
+    return out, a, None
+
+
 # ---------------------------------------------------------------- forward
 
 def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
-            seg_ids=None, cache_len: Optional[int] = None,
-            impl: Optional[str] = None, remat: bool = False):
+            seg_ids=None, vision_embeds=None, enc_frames=None,
+            cache_len: Optional[int] = None, impl: Optional[str] = None,
+            remat: bool = False):
     """Returns dict with h (B,S,D final-normed), aux (scalar), cache (or None).
 
+    ``vision_embeds`` (B, vt, d_model) replace the first vt positions'
+    embeddings (configs with ``vision_tokens``); ``enc_frames`` (B, Sm,
+    d_model) run the encoder, whose output the decoder cross-attends
+    (configs with ``encoder_layers``).
     ``cache_len``: when set, collect a decode cache (prefill mode); caches
     for global-attention layers are padded to this length.
     ``impl``: passed to every kernel wrapper on the path
@@ -229,30 +316,23 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     """
     if remat and cache_len is not None:
         raise ValueError("remat is for training; prefill collects a cache")
-    _check_ported(cfg)
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
     h = embed_tokens(cfg, params, tokens, positions)
+    if vision_embeds is not None and cfg.vision_tokens:
+        vt = vision_embeds.shape[1]
+        h = torch.cat([vision_embeds.to(h.dtype), h[:, vt:]], dim=1)
+    mem = None
+    if enc_frames is not None and cfg.encoder_layers:
+        mem = encode(cfg, params, enc_frames, impl=impl, remat=remat)
     cache: Cache = []
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, bp in enumerate(params["layers"]):
-        kind = cfg.layer_kind(i)
-        if remat:
-            def block(hh, bp, positions, seg_ids, kind=kind):
-                out, a, _ = forward_block(cfg, bp, hh, kind,
-                                          positions=positions,
-                                          seg_ids=seg_ids, cache_len=None,
-                                          impl=impl)
-                return out, torch.as_tensor(a, dtype=torch.float32,
-                                            device=out.device)
-            h, a = _remat(block, h, bp, positions, seg_ids)
-            c = None
-        else:
-            h, a, c = forward_block(cfg, bp, h, kind, positions=positions,
-                                    seg_ids=seg_ids, cache_len=cache_len,
-                                    impl=impl)
+        h, a, c = _run_block(cfg, bp, h, cfg.layer_kind(i),
+                             positions=positions, seg_ids=seg_ids, mem=mem,
+                             impl=impl, remat=remat, cache_len=cache_len)
         aux = aux + a
         cache.append(c)
     h = L.apply_norm(cfg, params["final_norm"], h)
@@ -283,23 +363,29 @@ def _block_cache_zeros(cfg: ModelConfig, kind: str, B: int, cache_len: int,
                        device) -> Params:
     dt = L._dt(cfg)
     KH, Dh = cfg.num_kv_heads, cfg.head_dim
-    if kind == "local" and cfg.sliding_window:
-        W = min(cfg.sliding_window, cache_len)
-        return {"k": torch.zeros((B, W, KH, Dh), dtype=dt, device=device),
-                "v": torch.zeros((B, W, KH, Dh), dtype=dt, device=device),
-                "pos": torch.full((W,), -1, dtype=torch.int32, device=device)}
-    if kind in _ATTN_KINDS:
-        return {"k": torch.zeros((B, cache_len, KH, Dh), dtype=dt,
-                                 device=device),
-                "v": torch.zeros((B, cache_len, KH, Dh), dtype=dt,
-                                 device=device)}
     if kind in _REC_KINDS:
         W = cfg.lru_width_ if kind == "rec" else cfg.d_inner
         h = (B, W) if kind == "rec" else (B, W, cfg.ssm_state)
         return {"h": torch.zeros(h, dtype=torch.float32, device=device),
                 "conv": torch.zeros((B, cfg.ssm_conv - 1, W), dtype=dt,
                                     device=device)}
-    raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    if kind not in _ATTN_KINDS:
+        raise ValueError(kind)
+    if kind == "local" and cfg.sliding_window:
+        W = min(cfg.sliding_window, cache_len)
+        c = {"k": torch.zeros((B, W, KH, Dh), dtype=dt, device=device),
+             "v": torch.zeros((B, W, KH, Dh), dtype=dt, device=device),
+             "pos": torch.full((W,), -1, dtype=torch.int32, device=device)}
+    else:
+        c = {"k": torch.zeros((B, cache_len, KH, Dh), dtype=dt,
+                              device=device),
+             "v": torch.zeros((B, cache_len, KH, Dh), dtype=dt,
+                              device=device)}
+    if cfg.encoder_layers:
+        for key in ("xk", "xv"):
+            c[key] = torch.zeros((B, cfg.encoder_seq, KH, Dh), dtype=dt,
+                                 device=device)
+    return c
 
 
 def init_cache(cfg: ModelConfig, B: int, cache_len: int, device) -> Cache:

@@ -12,8 +12,11 @@ needs to write the JAX package's layer-stacked layout; ``lm.decode``
 serves the member's trained params when it has a state, and seed-0 params
 otherwise.  They run every ported arch (gemma2-2b, gemma3-4b, minicpm-2b,
 nemotron-4-15b, recurrentgemma-2b, falcon-mamba-7b, qwen3-moe-30b-a3b,
-grok-1-314b, serve-tiny, and the ``reduced:<arch>`` forms) on CUDA and on
-the CPU; the MoE archs train through gmm's backward kernels.
+grok-1-314b, whisper-large-v3, internvl2-26b, serve-tiny, and the
+``reduced:<arch>`` forms) on CUDA and on the CPU; the MoE archs train
+through gmm's backward kernels, and the stubbed-frontend archs on
+``SyntheticLM``'s frame or vision embeddings (``lm.decode`` serves tokens
+alone, as the JAX package does).
 
 The pilot runs tasks on threads of their own, so the step cache is filled
 under a lock.  A preempted ``lm.train`` attempt cannot be stopped (the

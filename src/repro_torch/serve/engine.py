@@ -19,10 +19,13 @@ from repro_torch.models import decode_step, forward, lm_logits
 def build_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None,
                        impl: Optional[str] = None):
     """``impl`` goes to every kernel wrapper of the forward pass (None: the
-    device decides; "ref": the plain versions)."""
+    device decides; "ref": the plain versions).  A batch may carry the
+    frontends' stub inputs, ``vision_embeds`` and ``enc_frames``."""
     def prefill_step(params, batch):
-        out = forward(cfg, params, batch["tokens"], cache_len=cache_len,
-                      impl=impl)
+        out = forward(cfg, params, batch["tokens"],
+                      vision_embeds=batch.get("vision_embeds"),
+                      enc_frames=batch.get("enc_frames"),
+                      cache_len=cache_len, impl=impl)
         logits = lm_logits(cfg, params, out["h"][:, -1:])
         if cache_len is None:
             return {"logits": logits}

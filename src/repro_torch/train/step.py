@@ -82,14 +82,23 @@ def compute_cast(cfg: ModelConfig, params):
 def decay_mask(cfg: ModelConfig, params):
     """Which leaves AdamW decays: those of 2 or more dims in the JAX
     package's layout, where each layer of a scanned group is stacked into a
-    ``(G, ...)`` leaf.  So a scanned layer's norm scales (1-D here, (G, d)
-    there) decay, as in the reference; the tail layers' do not."""
+    ``(G, ...)`` leaf and the encoder's layers into ``(encoder_layers,
+    ...)`` leaves.  So a scanned layer's norm scales (1-D here, (G, d)
+    there) decay, as in the reference, and every encoder layer's norm
+    scales and biases; the tail layers' and the encoder's final norm do
+    not (ROADMAP C3)."""
     period, G, _ = _layout(cfg)
-    out = {k: tree_map(lambda p: p.dim() >= 2, v) for k, v in params.items()
-           if k != "layers"}
-    out["layers"] = [tree_map(lambda p, e=int(i < G * period): p.dim() + e
-                              >= 2, layer)
+
+    def stacked(layer, extra):
+        return tree_map(lambda p: p.dim() + extra >= 2, layer)
+    out = {k: stacked(v, 0) for k, v in params.items()
+           if k not in ("layers", "enc")}
+    out["layers"] = [stacked(layer, int(i < G * period))
                      for i, layer in enumerate(params["layers"])]
+    if "enc" in params:
+        out["enc"] = {"layers": [stacked(layer, 1)
+                                 for layer in params["enc"]["layers"]],
+                      "final_norm": stacked(params["enc"]["final_norm"], 0)}
     return out
 
 
@@ -106,7 +115,8 @@ def lm_loss(cfg: ModelConfig, params, batch, impl: Optional[str] = None,
     """(mean nll, token count, aux loss) of one batch: the forward pass and
     the chunked LM-head loss, differentiable in ``params``."""
     out = forward(cfg, params, batch["tokens"], seg_ids=batch.get("seg_ids"),
-                  impl=impl, remat=remat)
+                  vision_embeds=batch.get("vision_embeds"),
+                  enc_frames=batch.get("enc_frames"), impl=impl, remat=remat)
     loss, ntok = chunked_softmax_xent(cfg, params, out["h"], batch["labels"])
     return loss, ntok, out["aux"]
 

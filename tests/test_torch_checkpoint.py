@@ -199,3 +199,30 @@ def test_lm_checkpoint_kernel(tmp_path):
         for i in range(2):
             lm.STATE_STORE.pop(("torch_systest_ck", i), None)
             lm.CONFIG_STORE.pop(("torch_systest_ck", i), None)
+
+
+def test_encoder_decoder_checkpoint_round_trips_both_packages(tmp_path):
+    """reduced whisper-large-v3: its encoder's stacked ``enc/blocks/sub_0``
+    leaves and ``enc/final_norm``, and the decoder's ``lnx`` / ``xattn``,
+    through both checkpointers: one manifest, equal values both ways."""
+    arch = "reduced:whisper-large-v3"
+    jstate = jax_make_train_state(jax_resolve_cfg(arch),
+                                  jax.random.PRNGKey(2))
+    cfg = lm.resolve_cfg(arch)
+    state = train_state_from_numpy(
+        {k: np.asarray(v) for k, v in jax_flatten(jstate).items()}, cfg)
+    assert len(state["params"]["enc"]["layers"]) == cfg.encoder_layers
+    Checkpointer(str(tmp_path / "port")).save(train_state_to_flat(state, cfg),
+                                              3)
+    JaxCheckpointer(str(tmp_path / "jax")).save(jstate, 3)
+    ref = _manifest(tmp_path / "jax", 3)
+    assert _manifest(tmp_path / "port", 3) == ref
+    assert "params/enc/blocks/sub_0/attn/wq" in ref["keys"]
+    got, _ = JaxCheckpointer(str(tmp_path / "port")).restore(
+        jax.tree.map(jnp.zeros_like, jstate))
+    for (path, a), (_, b) in zip(jax_flatten(got).items(),
+                                 jax_flatten(jstate).items()):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
+                                      err_msg=path)
+    flat, _ = Checkpointer(str(tmp_path / "jax")).restore(None, device="cpu")
+    _assert_same_state(train_state_from_numpy(flat, cfg), state)

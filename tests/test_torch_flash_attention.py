@@ -55,7 +55,8 @@ def _close(port, ref, atol):
      (2, 128, 128, 8, 4, 16, True, 64, 50.0, 0),
      (1, 256, 256, 2, 1, 32, False, 0, 0.0, 0),
      (1, 128, 384, 4, 2, 16, True, 0, 0.0, 256),
-     (1, 128, 128, 6, 2, 64, True, 96, 30.0, 0)])
+     (1, 128, 128, 6, 2, 64, True, 96, 30.0, 0),
+     (1, 128, 384, 4, 4, 64, False, 0, 0.0, 0)])   # cross: Sq != Sk, MHA
 def test_matches_jax_pallas_interpret(B, Sq, Sk, H, KH, D, causal, window,
                                       cap, qoff, dtype, atol):
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(42, B, Sq, Sk, H, KH, D),
@@ -73,7 +74,9 @@ def test_matches_jax_pallas_interpret(B, Sq, Sk, H, KH, D, causal, window,
     "B,Sq,Sk,H,KH,D,causal,window,cap,qoff,scale",
     [(2, 100, 100, 4, 2, 16, True, 30, 50.0, 0, None),      # ragged
      (2, 1, 512, 8, 4, 32, True, 0, 50.0, 511, 1.0 / 16),   # one query
-     (1, 16, 16, 4, 2, 16, True, 0, 0.0, -5, None)])        # masked rows
+     (1, 16, 16, 4, 2, 16, True, 0, 0.0, -5, None),         # masked rows
+     (2, 24, 40, 2, 2, 64, False, 0, 0.0, 0, None),         # cross, MHA
+     (1, 100, 100, 4, 4, 64, False, 0, 0.0, 0, None)])      # encoder
 def test_matches_jax_oracle(B, Sq, Sk, H, KH, D, causal, window, cap, qoff,
                             scale, dtype, atol):
     (jq, jk, jv), (tq, tk, tv) = _both(_inputs(7, B, Sq, Sk, H, KH, D),

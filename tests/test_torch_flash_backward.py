@@ -122,6 +122,20 @@ def test_bwd_ref_matches_jax_grad_segments_gqa_offset(G, seg, q_offset, Sq,
     _close(_port_grads(arrays, **kw_t), _jax_grads(fn, arrays), GRAD_ATOL)
 
 
+@pytest.mark.parametrize("against", ["ref", "xla"])
+@pytest.mark.parametrize("Sq,Sk", [(24, 40), (100, 100)])
+def test_bwd_ref_matches_jax_grad_non_causal(Sq, Sk, against):
+    """whisper's calls at a small width: cross-attention (Sq != Sk) and the
+    encoder's self-attention, non-causal, MHA (G = 1), D = 64, no segment
+    ids."""
+    arrays = _inputs(5, 2, Sq, Sk, 2, 2, 64)
+    kw = dict(causal=False, window=0, softcap=0.0)
+    fn = (lambda q, k, v: jax_ref(q, k, v, **kw)) if against == "ref" else (
+        lambda q, k, v: jax_flash(q, k, v, impl="xla", q_chunk=8,
+                                  kv_chunk=8, **kw))
+    _close(_port_grads(arrays, **kw), _jax_grads(fn, arrays), GRAD_ATOL)
+
+
 @pytest.mark.parametrize("q_offset,seg", [(0, 3), (-5, 0), (16, 2)])
 def test_fwd_ref_lse_matches_logsumexp_of_jax_scores(q_offset, seg):
     """lse: natural log, (B, H, Sq), -inf on fully masked rows (q_offset
@@ -337,6 +351,31 @@ def test_bwd_kernel_arithmetic_holds_bf16_tolerance(H, KH, D, cap, scale,
     for nchunk in (1, 3):
         got, want = _emulated_and_jax(H, KH, D, cap, scale, window,
                                       nchunk=nchunk)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            check = grad_check(a, b, "bfloat16")
+            assert check["ok"], (nchunk, name, check)
+
+
+@pytest.mark.parametrize("Sq,Sk", [(96, 150), (150, 150)])
+def test_bwd_kernel_arithmetic_holds_bf16_tolerance_non_causal(Sq, Sk):
+    """whisper's non-causal calls in the wgmma backward's tiling, at a
+    small width: every folded q tile meets every kv tile, the last of which
+    is ragged (150 = 2 * 64 + 22, as 1500 = 23 * 64 + 28), Sq != Sk for the
+    cross-attention; dk and dv whole and in 3 chunks pass chip_smoke.py's
+    bf16 check against jax.grad of the JAX oracle."""
+    grad_check = _chip_smoke().grad_check
+    arrays = _inputs(13, 1, Sq, Sk, 2, 2, 64)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in arrays)
+    kw = dict(causal=False, window=0, softcap=0.0)
+    o, lse = attention_fwd_ref(tq, tk, tv, **kw)
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                  for t in (tq, tk, tv))
+    want = jax.grad(lambda q, k, v: (jax_ref(q, k, v, **kw).astype(
+        jnp.float32) ** 2).sum(), argnums=(0, 1, 2))(jq, jk, jv)
+    want = [torch.from_numpy(np.asarray(b, np.float32)) for b in want]
+    for nchunk in (1, 3):
+        got = _emulate_bwd_kernel(tq, tk, tv, o, lse, 2 * o, scale=64 ** -0.5,
+                                  nchunk=nchunk, **kw)
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             check = grad_check(a, b, "bfloat16")
             assert check["ok"], (nchunk, name, check)

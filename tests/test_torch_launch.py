@@ -113,7 +113,7 @@ def test_shapes_and_layer_kinds_are_the_jax_packages():
     assert LAYER_KINDS == JAX_KINDS
     assert {k: dataclasses.astuple(v) for k, v in SHAPES.items()} == \
         {k: dataclasses.astuple(v) for k, v in JAX_SHAPES.items()}
-    assert len(BOTH) == 8
+    assert len(BOTH) == 10
 
 
 @pytest.mark.parametrize("arch", BOTH)
@@ -137,7 +137,8 @@ def test_config_counts_and_cells_match_jax(arch):
                 jax_report.model_flops(jcfg, JAX_SHAPES[name])
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-moe-30b-a3b",
+                                  "whisper-large-v3", "internvl2-26b"])
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_input_specs_have_the_jax_shapes_and_dtypes(arch, name):
     got = input_specs(get_config(arch), SHAPES[name], batch_override=3)
@@ -471,7 +472,8 @@ def _hand(cs, **per):
 @pytest.mark.parametrize("cell", [
     "gemma2-2b 4x1024 mb2", "qwen3-moe-30b-a3b-L4 4x1024 mb4",
     "4 fused gemma2-2b-L2", "reduced recurrentgemma-2b",
-    "reduced falcon-mamba-7b"])
+    "reduced falcon-mamba-7b", "whisper-large-v3 4x1024 mb1",
+    "reduced whisper-large-v3", "reduced internvl2-26b"])
 def test_dryrun_cells_on_the_cpu(cell):
     """The dry run completes here (no nvcc, no card) in under 60 s,
     launches nothing, and its kernel-call tally equals chip_smoke.py's
@@ -487,6 +489,11 @@ def test_dryrun_cells_on_the_cpu(cell):
     elif cell.startswith("qwen3"):
         r = cs._reckon("qwen3-moe-30b-a3b-L4", 4, 1024, microbatches=4)
         want = _hand(cs, flash=(4, 4), moe=(4, 4))
+    elif cell.startswith("whisper"):
+        # 32 encoder, 32 decoder self- and 32 cross-attention calls
+        r = cs._reckon("whisper-large-v3", 4, 1024)
+        want = _hand(cs, flash=(96, 1))
+        assert 20e9 < r["peak_bytes"] < 76e9 and r["fits"]
     elif cell.startswith("4 fused"):
         F = cs.FUSED
         r = cs._reckon(F["arch"], F["batch"], F["seq"], members=F["members"],
@@ -497,10 +504,12 @@ def test_dryrun_cells_on_the_cpu(cell):
         cfg = reduced(get_config(arch)).replace(remat="full")
         r = dryrun.reckon(cfg, ShapeSpec("t", "train", 64, 4),
                           microbatches=2)
-        kind = "rec" if arch.startswith("recurrent") else "mamba"
+        kind = {"r": "rec", "f": "mamba"}.get(arch[0])
         n = sum(k == kind for k in cfg.layer_kinds)
-        want = _hand(cs, **{kind: (n, 2)})
+        want = _hand(cs, **{kind: (n, 2)}) if kind else {}
         att = sum(k in ("global", "local") for k in cfg.layer_kinds)
+        att *= 2 if cfg.encoder_layers else 1     # and cross-attention
+        att += cfg.encoder_layers
         if att:
             want.update(_hand(cs, flash=(att, 2)))
         for k in list(want):     # f32 reduced configs: the f32 variants
@@ -590,7 +599,8 @@ def _jax_loop(jcfg, jstate, steps, hyper, B, S, start=0):
     return losses, lrs, jstate
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "minicpm-2b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "minicpm-2b",
+                                  "whisper-large-v3"])
 def test_train_loop_matches_jax_loop(arch, capsys):
     """``launch.train``'s loop from a JAX train state (carried across by
     ``train_state_from_numpy``) against ``repro.launch.train``'s loop:

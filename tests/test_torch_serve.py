@@ -4,7 +4,8 @@ Both ``BatchedServer``s get the same params (JAX ``init_params`` through
 ``params_from_numpy``) and the same numpy prompts; their greedy tokens must
 be identical, in the wave loop (reduced gemma2-2b and recurrentgemma-2b,
 sliding-window layers) and in the continuous loop (``serve-tiny``, reduced
-falcon-mamba-7b and reduced qwen3-moe-30b-a3b, unequal ``max_new_tokens``).
+falcon-mamba-7b, qwen3-moe-30b-a3b, whisper-large-v3 and internvl2-26b,
+unequal ``max_new_tokens``).
 """
 import dataclasses
 import re
@@ -117,6 +118,21 @@ def test_continuous_loop_tokens_match_jax_qwen3_moe():
     assert srv.continuous and jsrv.continuous
     assert got == want
     assert srv.stats == jsrv.stats
+    assert [len(got[i]) for i in range(5)] == [3, 5, 2, 4, 3]
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-26b"])
+def test_continuous_loop_tokens_match_jax_stub_archs(arch):
+    """The server prefills tokens alone, as the JAX server does: whisper
+    decodes without its encoder (no cross k, v in the cache, so merged
+    rows carry k, v only) and internvl serves text."""
+    srv, jsrv, got, want = _serve_both(
+        jax_reduced(jax_get_config(arch)), batch=2, S0=6,
+        new=[3, 5, 2, 4, 3])
+    assert srv.continuous and jsrv.continuous
+    assert got == want
+    assert srv.stats == jsrv.stats
+    assert srv.stats["prefills"] > 2
     assert [len(got[i]) for i in range(5)] == [3, 5, 2, 4, 3]
 
 
@@ -234,7 +250,7 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 SERVE_ARCHS = ["gemma2-2b", "recurrentgemma-2b", "falcon-mamba-7b",
                "qwen3-moe-30b-a3b", "gemma3-4b", "minicpm-2b",
-               "nemotron-4-15b"]
+               "nemotron-4-15b", "whisper-large-v3", "internvl2-26b"]
 # the rehearsal's limit on the relative distance of the final hidden states:
 # plain against plain is exactly 0 on the CPU, and the weakest control at
 # these widths (recurrentgemma-2b's linear_scan) reads ~4e-4
@@ -252,6 +268,13 @@ def _per_layer(counts, full, cfg):
         return sum(c.layer_kind(i) in kinds for i in range(c.num_layers))
     return {k: v * layers(cfg, k) // layers(full, k)
             for k, v in counts.items()}
+
+
+def _flash_calls(c):
+    """Flash calls of a prefill with the stub inputs: each attention layer's
+    (and its cross-attention's), and each encoder layer's."""
+    attn = sum(k in ("global", "local") for k in c.layer_kinds)
+    return attn * (2 if c.encoder_layers else 1) + c.encoder_layers
 
 
 @pytest.mark.parametrize("arch", SERVE_ARCHS)
@@ -310,6 +333,12 @@ def test_chip_smoke_serve_phase_rehearsal(arch, monkeypatch):
     if arch in chip_smoke.PREFILL_H1:
         monkeypatch.setitem(chip_smoke.PREFILL_H1, arch,
                             (chip_smoke.PREFILL_H1[arch][0], CPU_H_LIMIT))
+    if arch in chip_smoke.PREFILL_ATTN1:
+        monkeypatch.setitem(chip_smoke.PREFILL_ATTN1, arch, CPU_H_LIMIT)
+    if arch in chip_smoke.STUB_PREFILL:
+        monkeypatch.setitem(chip_smoke.STUB_PREFILL, arch, {
+            k: v * _flash_calls(cfg) // _flash_calls(full)
+            for k, v in chip_smoke.STUB_PREFILL[arch].items()})
     _, loop, per_prefill, per_decode = next(
         e for e in chip_smoke.SERVE if e[0] == arch)
     row = chip_smoke.phase_serve(torch.device("cpu"), arch, loop,
@@ -317,12 +346,20 @@ def test_chip_smoke_serve_phase_rehearsal(arch, monkeypatch):
                                  _per_layer(per_decode, full, cfg))
     limit = CPU_H_LIMIT
     assert row["prefill_h_rel_frobenius"] == 0.0
-    assert set(row["controls"]) == {n for n in chip_smoke.LOGIT_CONTROL
-                                    if n in per_prefill}
+    assert set(row["controls"]) == set(chip_smoke._controls(cfg,
+                                                            per_prefill))
     assert all(c["h_rel_frobenius"] > limit
                for c in row["controls"].values()), row["controls"]
+    assert bool(row["stub_inputs"]) == (arch in chip_smoke.STUB_PREFILL)
+    assert row["checked_prefill_launches"] == \
+        row["checked_prefill_launches_expected"]
     first = row["first_block"]
     assert bool(first) == (arch in chip_smoke.PREFILL_H1)
     if first:   # the first block's own reading and its control
         assert first["h_rel_frobenius"] == 0.0
         assert all(c > limit for c in first["controls"].values()), first
+    subs = row["first_attention_sublayers"]
+    assert bool(subs) == (arch in chip_smoke.PREFILL_ATTN1)
+    for sub in subs.values():   # whisper's first attention sublayers
+        assert sub["h_rel_frobenius"] == 0.0
+        assert all(c > limit for c in sub["controls"].values()), subs

@@ -27,6 +27,7 @@ from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import reduced as jax_reduced  # noqa: E402
 from repro.configs.base import ShapeSpec as JaxShapeSpec  # noqa: E402
 from repro.data import SyntheticLM as JaxSyntheticLM  # noqa: E402
+from repro.models import init_params as jax_init_params  # noqa: E402
 from repro.optim import adamw as jax_adamw  # noqa: E402
 from repro.optim import make_schedule as jax_make_schedule  # noqa: E402
 from repro.train import TrainHyper as JaxTrainHyper  # noqa: E402
@@ -60,7 +61,9 @@ from repro_torch.train import (  # noqa: E402
 from repro_torch.train.step import decay_mask  # noqa: E402
 
 ARCHS = ["gemma2-2b", "recurrentgemma-2b", "falcon-mamba-7b",
-         "qwen3-moe-30b-a3b", "grok-1-314b"]
+         "qwen3-moe-30b-a3b", "grok-1-314b", "whisper-large-v3",
+         "internvl2-26b"]
+STUB_ARCHS = ["whisper-large-v3", "internvl2-26b"]   # frontends stubbed
 STEP_ATOL = 1e-5
 STEP_RTOL = 1e-5
 
@@ -362,3 +365,220 @@ def test_train_step_rejects_dots_remat():
     cfg = reduced(get_config("gemma2-2b")).replace(remat="dots")
     with pytest.raises(NotImplementedError):
         build_train_step(cfg)
+
+
+# ------------------------------------------------ encoder and vision inputs
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,step", [("whisper-large-v3", 0),
+                                       ("whisper-large-v3", 5),
+                                       ("internvl2-26b", 2)])
+def test_synthetic_stub_inputs_bit_equal_to_jax(arch, step, dtype):
+    """Tokens, then ``vision_embeds`` (float32; a bf16 config's rounded to
+    bf16 before the scale), then ``enc_frames`` (the compute dtype), from
+    one generator: bitwise the JAX batch, dtypes too."""
+    jcfg = jax_reduced(jax_get_config(arch)).replace(dtype=dtype)
+    want = JaxSyntheticLM(jcfg, JaxShapeSpec("t", "train", 24, 3),
+                          seed=5).batch_at(step)
+    got = SyntheticLM(port_cfg(jcfg), ShapeSpec("t", "train", 24, 3),
+                      seed=5, device="cpu").batch_at(step)
+    assert set(got) == set(want) == {"tokens", "labels", "seg_ids",
+                                     "vision_embeds" if "internvl" in arch
+                                     else "enc_frames"}
+    for name, t in got.items():
+        w = np.asarray(want[name])
+        assert str(t.dtype).removeprefix("torch.") == str(w.dtype), name
+        if t.dtype == torch.bfloat16:
+            t, w = t.view(torch.int16), w.view(np.int16)
+        np.testing.assert_array_equal(t.numpy(), w, err_msg=name)
+
+
+def _jax_loss(jcfg, remat):
+    """The JAX train step's loss of one microbatch (its ``loss_fn``:
+    ``compute_cast``, forward, chunked xent, ``0.01 aux``)."""
+    from repro.models import forward as jax_forward
+
+    def loss(params, mb):
+        params = jax_compute_cast(jcfg, params)
+        out = jax_forward(jcfg, params, mb["tokens"], seg_ids=mb["seg_ids"],
+                          vision_embeds=mb.get("vision_embeds"),
+                          enc_frames=mb.get("enc_frames"), remat=remat)
+        return jax_xent(jcfg, params, out["h"], mb["labels"])[0] \
+            + 0.01 * out["aux"]
+    return loss
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("arch", STUB_ARCHS)
+def test_stub_grads_match_jax(arch, remat):
+    """Loss and every gradient leaf, the encoder's (``enc/...``) and the
+    cross-attention's (``xattn``, ``lnx``) among them, against
+    ``jax.grad`` of the JAX step's loss, with remat on and off: a
+    rematerialised block that closed over the encoder's output would give
+    the encoder no gradient."""
+    from repro_torch.models.convert import params_from_numpy, params_to_flat
+    from repro_torch.train.step import lm_loss
+    jcfg, jstate, flat = _jax_state(arch, 1)
+    cfg = port_cfg(jcfg)
+    jbatch = JaxSyntheticLM(jcfg, JaxShapeSpec("t", "train", 32, 2),
+                            seed=3).batch_at(0)
+    jl, jg = jax.value_and_grad(_jax_loss(jcfg, remat))(jstate["params"],
+                                                        jbatch)
+    params = params_from_numpy({k[len("params/"):]: v for k, v in
+                                flat.items() if k.startswith("params/")},
+                               cfg)
+    leaves = list(jax.tree.leaves(params))
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = SyntheticLM(cfg, ShapeSpec("t", "train", 32, 2), seed=3,
+                        device="cpu").batch_at(0)
+    loss, _, aux = lm_loss(cfg, compute_cast(cfg, params), batch,
+                           remat=remat)
+    total = loss + 0.01 * aux
+    total.backward()
+    np.testing.assert_allclose(float(total.detach()), float(jl),
+                               rtol=STEP_RTOL)
+    grads = jax.tree.map(lambda p: p.grad, params)
+    got = to_numpy(params_to_flat(grads, cfg))
+    want = {k: np.asarray(v) for k, v in _flatten(jg).items()}
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=STEP_ATOL,
+                                   err_msg=k)
+    picked = [k for k in want if k.startswith("enc/") or "xattn" in k
+              or "lnx" in k] if cfg.encoder_layers else []
+    # 12 stacked encoder leaves and its final norm, 6 of xattn and lnx
+    assert len(picked) == (18 if cfg.encoder_layers else 0)
+    for k in picked:
+        assert np.abs(got[k]).max() > 0, k
+
+
+@pytest.mark.parametrize("arch", STUB_ARCHS)
+def test_stub_eval_step_matches_jax(arch):
+    from repro.train import build_eval_step as jax_build_eval_step
+    jcfg, jstate, flat = _jax_state(arch, 1)
+    cfg = port_cfg(jcfg)
+    jbatch = JaxSyntheticLM(jcfg, JaxShapeSpec("t", "train", 32, 2),
+                            seed=1).batch_at(0)
+    want = jax_build_eval_step(jcfg)(jstate["params"], jbatch)
+    state = train_state_from_numpy(flat, cfg)
+    got = build_eval_step(cfg)(state["params"], SyntheticLM(
+        cfg, ShapeSpec("t", "train", 32, 2), seed=1,
+        device="cpu").batch_at(0))
+    np.testing.assert_allclose(float(got["loss"]), float(want["loss"]),
+                               rtol=1e-6)
+    assert float(got["ntok"]) == float(want["ntok"])
+
+
+def test_decay_mask_of_the_encoder_follows_the_stacked_layout():
+    """ROADMAP C3 on the encoder: the JAX package stacks the encoder's
+    layers into (encoder_layers, ...) leaves, so AdamW decays every
+    encoder layer's norm scales and biases, not the encoder's final norm;
+    the decoder's ``lnx`` (a scanned layer's) decays too."""
+    cfg = reduced(get_config("whisper-large-v3"))
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    mask = decay_mask(cfg, params)
+    for layer in mask["enc"]["layers"]:
+        assert all(jax.tree.leaves(layer))
+        assert layer["ln1"] == {"scale": True, "bias": True}
+    assert mask["enc"]["final_norm"] == {"scale": False, "bias": False}
+    assert mask["layers"][0]["lnx"] == {"scale": True, "bias": True}
+    assert mask["final_norm"] == {"scale": False, "bias": False}
+    # as the JAX AdamW's ndim >= 2 rule on the stacked leaves
+    jcfg = jax_reduced(jax_get_config("whisper-large-v3"))
+    jshapes = _flatten(jax.eval_shape(lambda: jax_init_params(
+        jcfg, jax.random.PRNGKey(0))))
+    from repro_torch.models.convert import params_to_flat
+    stacked = params_to_flat(jax.tree.map(
+        lambda m: torch.tensor(float(m)), mask), cfg)
+    for k, v in stacked.items():
+        assert bool(v.flatten()[0]) == (len(jshapes[k].shape) >= 2), k
+
+
+def test_lm_train_and_eval_tasks_carry_the_stub_inputs():
+    """``lm.train`` -> ``lm.eval`` on reduced whisper-large-v3 and
+    internvl2-26b (their SyntheticLM batches carry the stub inputs): the
+    member's loss moves and the encoder's params change."""
+    from repro_torch.core.kernel_plugin import Kernel
+    for arch in STUB_ARCHS:
+        base = {"arch": f"reduced:{arch}", "device": "cpu",
+                "ensemble": "test_stub", "member": 0, "seq": 24,
+                "batch": 2}
+        try:
+            cfg = lm.resolve_cfg(base["arch"])
+            k = Kernel("lm.train")
+            k.arguments = dict(base, steps=1, lr=3e-2)
+            k.execute()
+            state = lm.STATE_STORE[("test_stub", 0)]
+            before = {k_: v.clone() for k_, v in
+                      enumerate(jax.tree.leaves(state["params"]))}
+            k = Kernel("lm.train")
+            k.arguments = dict(base, steps=1, lr=3e-2)
+            assert k.execute()["step"] == 2
+            moved = [not torch.equal(v, before[i]) for i, v in
+                     enumerate(jax.tree.leaves(state["params"]))]
+            assert all(moved)
+            if cfg.encoder_layers:
+                assert "enc" in state["params"]
+            k = Kernel("lm.eval")
+            k.arguments = dict(base)
+            assert np.isfinite(k.execute()["loss"])
+        finally:
+            lm.STATE_STORE.pop(("test_stub", 0), None)
+            lm.CONFIG_STORE.pop(("test_stub", 0), None)
+
+
+def test_chip_smoke_whisper_train_phase_rehearsal(monkeypatch):
+    """``chip_smoke.py``'s ``train whisper-large-v3`` phase on the CPU at
+    reduced widths (remat, bf16 compute, head_dim 64; 64 tokens, 16
+    frames): the plain attention calls are counted as the flash wrappers
+    count kernel launches, so the phase's exact counts a step (encoder,
+    decoder self- and cross-attention: forward twice, backward once) and
+    its check of one microbatch against ``impl="ref"``, with picked leaves
+    of the encoder and of ``xattn``, pass."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.kernels import count_launch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import profile_train
+
+    root = Path(__file__).resolve().parents[1]
+    spec_ = importlib.util.spec_from_file_location("chip_smoke",
+                                                   root / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(chip_smoke)
+    arch = "whisper-large-v3"
+    spec = dict(next(s for s in chip_smoke.TRAIN_PHASES
+                     if s["arch"] == arch))
+    cfg = reduced(get_config(arch)).replace(name=arch, remat="full",
+                                            dtype="bfloat16", head_dim=64)
+    monkeypatch.setitem(cfg_base._REGISTRY, arch, cfg)
+    calls = 2 * cfg.num_layers + cfg.encoder_layers
+    spec["launches"] = chip_smoke._launches(flash=(calls, 1))
+    assert chip_smoke._launches(flash=(96, 1)) == next(
+        s for s in chip_smoke.TRAIN_PHASES if s["arch"] == arch)["launches"]
+    monkeypatch.setitem(profile_train.TRAIN, "seq", 64)
+
+    def counted(attr, *names):
+        fn = getattr(fops, attr)
+
+        def run(*a, **kw):
+            count_launch(*names, f"{names[0]}.{fops.variant(a[0].dtype, 64)}")
+            return fn(*a, **kw)
+        monkeypatch.setattr(fops, attr, run)
+    counted("attention_fwd_ref", "flash_attention")
+    counted("attention_ref", "flash_attention")
+    counted("attention_bwd_ref", "flash_attention_bwd")
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    row = chip_smoke.phase_train(torch.device("cpu"), spec)
+    assert row["ok"]
+    assert all(s["launches"] == spec["launches"] for s in row["steps_run"])
+    grads = row["vs_ref"]["grad_rel_frobenius"]
+    assert {"layer0/enc:attn/wq", "layer0/xattn/wv"} <= set(grads)
+    held = row["vs_ref"]["f32_held"]
+    assert set(held) == {"layer0/xattn/wq", "layer0/xattn/wk"}
+    assert all(h["ratio"] == 1.0 for h in held.values())   # plain = plain
