@@ -126,6 +126,19 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  tokens/s over the TTC, peak memory, and flash launches
                  (exactly the per-step counts times the steps, all wgmma);
                  member 0's first task run again alone gives its loss
+  federation     the ensemble phase's replica exchange on a fleet of two
+                 one-slot pilots on the card (``repro_torch.federation``),
+                 each with its own journal, under a ``repro_torch.obs``
+                 tracer: run 1 as it is (its losses the ensemble phase's,
+                 both pilots dispatched), run 2 losing pilot p2 once its
+                 first ``lm.train`` attempt runs (the attempt ends
+                 pod_lost, its retry runs on p1, the lost attempt trains
+                 on as a zombie).  Per run: TTC and its decomposition,
+                 dispatch per pilot, cross-pilot bytes, the timeline's
+                 samples, exact flash launches, the port's ``obs
+                 decompose`` and ``analysis sanitize`` over the journals
+                 (the journals' per-slot decomposition against the live
+                 tracer's), peak, wall seconds
   fused          a FusedEnsemble of 4 full-width gemma2-2b members cut
                  to 2 layers (one vmapped train step for all a cycle, the
                  swap on the device), 2 cycles of batch 1 of 1024 tokens:
@@ -177,7 +190,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  k, v), adds a control that reads q late on the non-causal
                  flash calls; whisper also reads its first attention
                  sublayers' outputs, internvl2-26b its first block's
-                 update
+                 update; internvl2-26b's final hidden states after 1, 12
+                 and 48 layers and its last logits, and whisper's final
+                 states, are held against an f32 plain run (the kernels'
+                 distance from it within 1.25x the plain versions')
   task           ``Kernel("lm.decode")`` on gemma2-2b on the card
   continuous     the continuous-batching loop on ``serve-tiny`` on the card
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -624,6 +640,87 @@ PREFILL_ATTN1 = {"whisper-large-v3": 0.007}
 # relative after 48 layers): 0.652 against logits of up to 7.54, its flash
 # control 4.39; the limit near their geometric mean
 LOGIT_TOL_ARCH = {"internvl2-26b": 1.5}
+# (5) Both readings above (internvl2-26b's drift with depth and its last
+# logits, whisper-large-v3's thin margin at the model's end) are held
+# against an f32 plain run, as the whisper train phase holds its f32_held
+# leaves: the kernels' bf16 distance from the f32 run no more than
+# F32_HELD_RATIO times the plain versions' bf16 distance from it.  bf16
+# rounding puts both at about the same distance; a fault that grows with
+# depth puts the kernels further.  internvl2-26b is read after the layers
+# in F32_HELD_DEPTHS, its weights upcast to f32 one layer at a time as the
+# stack runs (all of them in f32 would take ~79 GB); whisper-large-v3 (3
+# GB) is upcast whole and read at the model's end.
+F32_HELD_DEPTHS = {"internvl2-26b": (1, 12, 48)}
+F32_HELD_FINAL = ("whisper-large-v3",)
+
+
+def _to_f32(tree):
+    """``tree`` with every floating-point tensor in f32."""
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_f32(v) for v in tree)
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def _f32_held(x) -> dict:
+    """The kernels' and the plain versions' bf16 readings ``x["kernels"]``,
+    ``x["ref"]`` against the f32 plain run's ``x["f32"]``."""
+    k, r = rel_fro(x["kernels"], x["f32"]), rel_fro(x["ref"], x["f32"])
+    return {"kernels_vs_f32": k, "ref_vs_f32": r,
+            "kernels_vs_ref": rel_fro(x["kernels"], x["ref"]),
+            "ratio": k / r}
+
+
+def _f32_depth_drift(cfg, params, wave, stubs, depths):
+    """F32_HELD_DEPTHS: the kernels' bf16 stack, the plain versions' bf16
+    stack and the plain versions' f32 stack, run side by side a layer at a
+    time (each layer's weights upcast just before the f32 run takes it);
+    after each depth in ``depths`` the final norm of each stream, and after
+    the last layer the last position's logits, held by ``_f32_held``."""
+    import torch
+
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import (
+        embed_tokens,
+        forward_block,
+        lm_logits,
+    )
+    c32 = cfg.replace(dtype="float32", param_dtype="float32")
+    top32 = {k: _to_f32(v) for k, v in params.items()
+             if k not in ("layers", "enc")}
+    runs = {"kernels": (cfg, params, None), "ref": (cfg, params, "ref"),
+            "f32": (c32, top32, "ref")}
+    B, S = wave.shape
+    pos = torch.arange(S, dtype=torch.int32, device=wave.device)[None].expand(
+        B, S)
+    h = {}
+    for name, (c, p, _) in runs.items():
+        x = embed_tokens(c, p, wave, pos)
+        if "vision_embeds" in stubs:
+            x = torch.cat([stubs["vision_embeds"].to(x.dtype),
+                           x[:, cfg.vision_tokens:]], dim=1)
+        h[name] = x
+    rows = {}
+    for i, bp in enumerate(params["layers"]):
+        blocks = {"kernels": bp, "ref": bp, "f32": _to_f32(bp)}
+        for name, (c, _, impl) in runs.items():
+            h[name] = forward_block(c, blocks[name], h[name],
+                                    cfg.layer_kind(i), positions=pos,
+                                    seg_ids=None, cache_len=None,
+                                    impl=impl)[0]
+        del blocks
+        if i + 1 not in depths:
+            continue
+        final = {n: L.apply_norm(c, p["final_norm"], h[n])
+                 for n, (c, p, _) in runs.items()}
+        rows[f"h after {i + 1} layers"] = _f32_held(final)
+        if i + 1 == cfg.num_layers:
+            rows["last logits"] = _f32_held(
+                {n: lm_logits(c, p, final[n][:, -1:])
+                 for n, (c, p, _) in runs.items()})
+        del final
+    return rows
 
 
 def rel_fro(a, r) -> float:
@@ -652,14 +749,36 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
+# device_ms times batches of calls until two in a row agree within
+# SETTLE_RTOL (at most SETTLE_ROUNDS batches): after one warm-up call the
+# first case of a kernel phase read high (gmm serve 0.2674 ms against
+# 0.2415 when timed later, gmm_bwd train_wi 0.4139 against 0.3461 on an
+# H100 at 700 W) while the card's clocks and caches settled.
+SETTLE_RTOL = 0.02
+SETTLE_ROUNDS = 6
+
+
 def device_ms(fn, iters: int, warmup: int = 1) -> float:
     """Mean device time of ``fn`` over ``iters`` calls (kernels): the calls
     are queued behind ~20 ms of a sleep kernel, so the card runs them back
-    to back however slowly the host launches them."""
+    to back however slowly the host launches them.  Batches of ``iters``
+    calls are timed until the time settles (SETTLE_RTOL); the last batch's
+    mean is returned."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    prev = None
+    for _ in range(SETTLE_ROUNDS):
+        ms = _device_batch_ms(fn, iters)
+        if prev is not None and abs(ms - prev) <= SETTLE_RTOL * prev:
+            break
+        prev = ms
+    return ms
+
+
+def _device_batch_ms(fn, iters: int) -> float:
+    import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(40_000_000)
@@ -1754,6 +1873,11 @@ ENS_PEAK_LIMIT_GB = 76.0
 ENS_RERUN_RTOL = 1e-3
 
 
+# the ensemble phase's replica-exchange losses and temperatures, which the
+# federation phase's first run must give again
+ENSEMBLE_RE = {}
+
+
 def _ensemble_cfg():
     """``ENSEMBLE["arch"]``: the full-width base config at ``layers``
     layers, registered once."""
@@ -1939,6 +2063,7 @@ def phase_ensemble(dev):
           and replay == app.temp_history and launches == want
           and abs(rerun - first) <= ENS_RERUN_RTOL * abs(first)
           and peak_gb <= ENS_PEAK_LIMIT_GB)
+    ENSEMBLE_RE.update(losses=losses, temps=app.temp_history)
     re_row = report({"phase": "ensemble", "app": "replica_exchange",
                      "arch": cfg.name, "layers": cfg.num_layers,
                      "d_model": cfg.d_model, "vocab": cfg.vocab_size,
@@ -1988,6 +2113,270 @@ def phase_ensemble(dev):
     _release()
     if not (ok and sal_ok):
         raise AssertionError(f"ensemble phase failed: {[re_row, sal_row]}")
+    return path_launches
+
+
+# federation phase: the ensemble phase's RE app (ENSEMBLE's gemma2-2b-L4
+# members, batch, seq, seed and temperatures) on a fleet of two pilots of
+# one slot each, both on the one card (repro_torch.federation.build_fleet
+# (2, slots=1, mode="real")): every task late-binds to a pilot when it
+# launches, each pilot writes its own journal, and a repro_torch.obs.Tracer
+# records the fleet.  Run 1 runs the app as it is.  Run 2 loses pilot
+# FED["lost"] once its first lm.train attempt runs (Fleet.
+# inject_pilot_failure from the pilots' on_schedule hook): that attempt's
+# span ends "pod_lost" and its retry runs on the other pilot, while the
+# lost attempt, which cannot be stopped, trains on as a zombie (ROADMAP
+# C5), so that its member ends one step further than the others.  Run 1
+# gives the ensemble phase's losses: a member's step runs the same kernels
+# (the flash backward repeats bitwise) on the same state, batch and
+# learning rate whichever pilot runs it, two steps at a time on the card
+# in both phases.
+FED = dict(pilots=2, slots=1, lost="p2")
+FED_LOSS_RTOL = ENS_RERUN_RTOL
+# a slot's exec seconds by its pilot's journal (time.time stamps) against
+# the live tracer's (perf_counter): the two are stamped a few statements
+# apart when an attempt launches and when it ends, but the journal's write
+# can hand the interpreter lock to another task's thread for a switch
+# interval (5 ms) in between, so within FED_DECOMP_TOL_S an attempt (on
+# an H100 80GB HBM3 at 700 W: at most 0.24 ms an attempt)
+FED_DECOMP_TOL_S = 0.02
+ZOMBIE_JOIN_S = 300.0
+
+
+def _fleet_run(dev, app, tag, jdir, lose=None):
+    """Run the pattern ``app`` on a new fleet of FED's pilots, journals
+    under ``jdir``, a Tracer attached, from all-zero launch counts and
+    peak; ``lose`` names a pilot lost once its first lm.train attempt runs.
+    Joins the lost attempt's thread.  Returns (profile, fleet, tracer,
+    launches, peak GB, wall s, {"task", "attempt"} of the lost attempt)."""
+    import os
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.core import AppManager
+    from repro_torch.core.execution_plugin import get_plugin
+    from repro_torch.federation import build_fleet
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.obs import Tracer
+    from repro_torch.runtime.states import TaskState
+
+    with mock.patch.dict(os.environ, {"REPRO_JOURNAL_DIR": jdir}):
+        fleet = build_fleet(FED["pilots"], slots=FED["slots"], mode="real",
+                            journal_base=tag)
+    fleet.tracer = tracer = Tracer()
+    lost = {}
+
+    def chaos(rt, graph, now):
+        if lost:
+            return
+        for t in graph.tasks.values():
+            if (t.state == TaskState.RUNNING and ".md" in t.name
+                    and t.meta.get("pilot") == lose):
+                lost.update(task=t.name, attempt=t.attempts)
+                fleet.inject_pilot_failure(lose)
+                return
+    if lose is not None:
+        for rt in fleet.pilots.values():
+            rt.on_schedule = chaos
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        plugin = get_plugin(app, fleet)       # as plugin.execute() runs it
+        pipes = plugin.compile()
+        plugin.profile.t_pattern_overhead += time.perf_counter() - t0
+        am = AppManager(fleet, profile=plugin.profile)
+        prof = am.run(pipes)
+        for th in list(am.session._zombie_threads):
+            th.join(ZOMBIE_JOIN_S)
+            if th.is_alive():
+                raise AssertionError(f"{tag}: the lost attempt's thread "
+                                     f"still runs after {ZOMBIE_JOIN_S} s")
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        fleet.close()
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    return prof, fleet, tracer, launches, peak_gb, wall, lost
+
+
+def _journal_checks(jdir, tracer):
+    """The port's own ``obs decompose`` (JSON) and ``analysis sanitize``
+    over a run's journals, their exit codes, and each slot's decomposition
+    against the live tracer's (attempt counts equal, exec seconds within
+    FED_DECOMP_TOL_S an attempt)."""
+    import io
+
+    from repro_torch.analysis.__main__ import main as analysis_cli
+    from repro_torch.obs import decompose
+    from repro_torch.obs.__main__ import main as obs_cli
+    from repro_torch.obs.report import segment_from_tracer
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc_decompose = obs_cli(["decompose", jdir, "--json"])
+    journals = [json.loads(line) for line in out.getvalue().splitlines()]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc_sanitize = analysis_cli(["sanitize", jdir])
+    live = decompose(segment_from_tracer(tracer))["slots"]
+    slots = {label: c for j in journals for label, c in j["slots"].items()}
+    counts = ("n_attempts", "n_preempted", "n_pod_lost")
+    # the largest difference of a slot's exec seconds, per attempt
+    exec_diff = max((abs(slots[n][k] - live[n][k])
+                     / max(slots[n]["n_attempts"], 1)
+                     for n in slots if n in live
+                     for k in ("t_exec", "t_exec_lost")), default=math.inf)
+    same = (sorted(slots) == sorted(live)
+            and all(slots[n][k] == live[n][k] for n in slots
+                    for k in counts)
+            and exec_diff <= FED_DECOMP_TOL_S)
+    return {"decompose_rc": rc_decompose, "sanitize_rc": rc_sanitize,
+            "sanitize": out.getvalue().splitlines(),
+            "journals": {j["journal"]: {"window_s": j["window"][1]
+                                        - j["window"][0],
+                                        "residual_max": j["residual_max"],
+                                        "n_open": j["n_open"],
+                                        "totals": j["totals"]}
+                         for j in journals},
+            "slots": {n: {k: c[k] for k in ("t_exec", "t_exec_lost",
+                                             *counts)}
+                      for n, c in slots.items()},
+            "slots_live": {n: {k: c[k] for k in ("t_exec", "t_exec_lost",
+                                                  *counts)}
+                           for n, c in live.items()},
+            "exec_s_max_diff_per_attempt": exec_diff,
+            "exec_s_tol_per_attempt": FED_DECOMP_TOL_S,
+            "journals_equal_tracer": same}
+
+
+def phase_federation(dev):
+    """The ensemble phase's RE app on a two-pilot fleet on the card, twice
+    (FED; the second run loses a pilot mid-task); one JSON line per run
+    after the card's line.  Raises unless no task failed, both pilots took
+    work in run 1, the swaps kept the temperature multiset and replay from
+    the recorded losses, run 1's losses are the ensemble phase's
+    (``ENSEMBLE_RE``) within FED_LOSS_RTOL and its temperatures equal, the
+    flash launches are exact (the lost attempt's step included), the lost
+    attempt's span ended pod_lost and its retry ran on the other pilot,
+    the members end at their steps, the journals decompose (exit 0) as
+    the tracer does and pass the sanitizer, and the peak stays under
+    ENS_PEAK_LIMIT_GB.
+    Returns the flash launches of both runs."""
+    import os
+    import tempfile
+
+    from repro_torch.plugins import lm
+    from repro_torch.plugins.re_exchange import metropolis_swaps
+
+    cfg = _ensemble_cfg()
+    E = ENSEMBLE
+    train = {"arch": cfg.name, "device": str(dev), "steps": 1,
+             "batch": E["batch"], "seq": E["seq"],
+             "microbatches": E["microbatches"], "seed": E["seed"]}
+    temps0 = [3e-4 * 1.5 ** i for i in range(E["replicas"])]
+    emit({"phase": "federation", "config": {**FED, **E}})
+    print(_card(), flush=True)
+    path_launches, rows = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for run, lose in ((1, None), (2, FED["lost"])):
+            tag = f"fed_run{run}"
+            jdir = os.path.join(tmp, tag)
+            app = _re_app(E["replicas"], E["cycles"], train, tag, E["seed"],
+                          temps0)
+            prof, fleet, tracer, launches, peak_gb, wall, lost = _fleet_run(
+                dev, app, tag, jdir, lose)
+            steps_held = {i: int(lm.STATE_STORE[(tag, i)]["step"])
+                          for i in range(E["replicas"])}
+            _drop_members(tag)
+            md = [s for s in tracer.spans
+                  if s["cat"] == "task" and ".md" in s["task"]]
+            xs = [prof.results[f"exchange_{c}"] for c in range(E["cycles"])]
+            losses = [x["losses"] for x in xs]
+            replay = [list(app.temp_history[0])]
+            for c, x in enumerate(xs):
+                new, _ = metropolis_swaps(x["losses"], replay[-1], c,
+                                          E["seed"])
+                replay.append([float(t) for t in new])
+            want = _expected_launches(len(md), 0)
+            dispatch = prof.results["federation"]["dispatch"]
+            checks = _journal_checks(jdir, tracer)
+            want_steps = {i: E["cycles"] for i in range(E["replicas"])}
+            ok = (prof.n_failed == 0
+                  and all(math.isfinite(v) for c in losses for v in c)
+                  and all(sorted(t) == sorted(temps0)
+                          for t in app.temp_history)
+                  and replay == app.temp_history and launches == want
+                  and peak_gb <= ENS_PEAK_LIMIT_GB
+                  and checks["decompose_rc"] == 0
+                  and checks["sanitize_rc"] == 0
+                  and checks["journals_equal_tracer"]
+                  and not [s for s in tracer.unpaired()
+                           if s["cat"] == "task"])
+            row = {"phase": "federation", "run": run, "lost_pilot": lose,
+                   "arch": cfg.name, "members": E["replicas"],
+                   "cycles": E["cycles"], "pilots": FED["pilots"],
+                   "slots_per_pilot": FED["slots"], "batch": E["batch"],
+                   "seq": E["seq"], **_ttc(prof),
+                   "dispatch": dispatch,
+                   "bytes_cross_pilot":
+                       fleet.staging.planner.summary()["bytes_cross_pilot"],
+                   "timeline_samples":
+                       prof.results["timeseries"]["n_samples"],
+                   "trace": prof.results["trace"],
+                   "train_attempts": len(md),
+                   "tokens_per_s": E["replicas"] * E["cycles"] * E["batch"]
+                   * E["seq"] / prof.ttc,
+                   "losses": losses, "temps": app.temp_history,
+                   "temps_replayed": replay,
+                   "accepted": [x["accepted"] for x in xs],
+                   "member_steps": steps_held,
+                   "peak_mem_gb": peak_gb,
+                   "peak_limit_gb": ENS_PEAK_LIMIT_GB, "wall_s": wall,
+                   "launches": launches, "launches_expected": want,
+                   **checks}
+            if run == 1:
+                got = [v for c in losses for v in c]
+                ref = [v for c in ENSEMBLE_RE["losses"] for v in c]
+                row["ensemble_phase"] = {
+                    "losses": ENSEMBLE_RE["losses"],
+                    "max_rel_diff": max(abs(a - b) / abs(b)
+                                        for a, b in zip(got, ref)),
+                    "rtol": FED_LOSS_RTOL,
+                    "bitwise_equal": got == ref,
+                    "temps_equal": app.temp_history == ENSEMBLE_RE["temps"]}
+                ok = (ok and prof.n_retries == 0
+                      and len(dispatch) == FED["pilots"]
+                      and min(dispatch.values()) >= 1
+                      and row["ensemble_phase"]["max_rel_diff"]
+                      <= FED_LOSS_RTOL
+                      and row["ensemble_phase"]["temps_equal"]
+                      and steps_held == want_steps)
+            else:
+                spans = [s for s in md if s["task"] == lost.get("task")]
+                member = int(lost["task"].rpartition("md")[2]) if lost \
+                    else None
+                want_steps[member] = E["cycles"] + 1
+                row["lost_attempt"] = {**lost, "member": member,
+                                       "spans": spans}
+                ok = (ok and prof.n_retries == 1
+                      and [(s["attempt"], s["pilot"], s["outcome"])
+                           for s in spans]
+                      == [(1, lose, "pod_lost"), (2, "p1", "done")]
+                      and steps_held == want_steps)
+            row["member_steps_expected"] = want_steps
+            row["ok"] = ok
+            emit(row)
+            rows.append(row)
+            for name, n in launches.items():
+                path_launches[name] = path_launches.get(name, 0) + n
+            _release()
+    lm._STEP_CACHE.clear()
+    _release()
+    if not all(r["ok"] for r in rows):
+        raise AssertionError(f"federation phase failed: {rows}")
     return path_launches
 
 
@@ -3457,6 +3846,14 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
         h_err = float((h_k.float() - h_r.float()).abs().max())
         finite = bool(torch.isfinite(lk).all()
                       and torch.isfinite(h_k.float()).all())
+        f32 = {}
+        if arch in F32_HELD_FINAL:    # the whole model upcast to f32
+            h_f = forward(cfg.replace(dtype="float32", param_dtype="float32"),
+                          _to_f32(params), wave, impl="ref", **stubs)["h"]
+            f32["h after the model"] = _f32_held(
+                {"kernels": h_k, "ref": h_r, "f32": h_f})
+            del h_f
+            _release()
         del h_k
         controls = {}
         for control in _controls(cfg, per_prefill):
@@ -3500,6 +3897,10 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
         attn1 = (_attn_sublayers(cfg, params, wave, stubs["enc_frames"],
                                  PREFILL_ATTN1[arch])
                  if arch in PREFILL_ATTN1 else {})
+        if arch in F32_HELD_DEPTHS:
+            f32 = _f32_depth_drift(cfg, params, wave, stubs,
+                                   F32_HELD_DEPTHS[arch])
+            _release()
         top2 = lk[:, 0].topk(2, dim=-1).values
         argmax_same = float((lk[:, 0].argmax(-1) == lr[:, 0].argmax(-1))
                             .float().mean())
@@ -3548,6 +3949,7 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
                                  "impl='ref'",
            "controls": controls, "first_block": first,
            "first_attention_sublayers": attn1,
+           "f32_held": f32, "f32_held_ratio": F32_HELD_RATIO,
            "controls_compared": "the kernels' prefill with the named "
                                 "wrapper's arguments delayed one position, "
                                 "against impl='ref'",
@@ -3584,6 +3986,11 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
         if not sub["h_rel_frobenius"] <= sub["limit"] < min(
                 sub["controls"].values()):
             raise AssertionError(f"{arch} prefill, {name}: {sub}")
+    far = {n: h for n, h in f32.items() if not h["ratio"] <= F32_HELD_RATIO}
+    if far:
+        raise AssertionError(f"{arch} prefill against an f32 plain run: "
+                             f"the kernels lie further from it than "
+                             f"{F32_HELD_RATIO} x the plain versions: {far}")
     return row
 
 
@@ -3705,6 +4112,9 @@ def _phases(dev, baselines, reckonings):
     for name, n in phase_ensemble(dev).items():
         if name in launches:
             launches[name]["ensemble"] = n
+    for name, n in phase_federation(dev).items():
+        if name in launches:
+            launches[name]["federation"] = n
     for spec in (FUSED, FUSED_MOE):
         rows = []
         for name, n in phase_fused(dev, spec, rows).items():

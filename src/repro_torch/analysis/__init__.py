@@ -11,9 +11,9 @@ Two halves (see ROADMAP "Analysis & correctness tooling"):
   (codes S3xx).  Wired into ``PilotRuntime(sanitize=True)`` and the CI
   smoke-journal gate.
 
-The CLI is the JAX package's alone so far (not ported):
-``python -m repro.analysis lint <module[:factory]>`` and
-``python -m repro.analysis sanitize <journal.jsonl|dir>...``.
+CLI: ``python -m repro_torch.analysis lint <module[:factory]>``,
+``python -m repro_torch.analysis sanitize <journal.jsonl|dir>...`` and
+``python -m repro_torch.analysis codes``.
 """
 from repro_torch.analysis.diagnostics import (CODES, Diagnostic, DiagnosticError,
                                         Report)

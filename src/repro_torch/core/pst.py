@@ -52,9 +52,8 @@ argument).  ``ctx["submesh"]``, the device submesh of the slots granted to
 a task, needs a runtime built with a device topology, which the port does
 not have yet (ROADMAP A9; ``PilotRuntime(topology=...)`` raises).
 
-Federation: ``AppManager`` also accepts a federated runtime (the JAX
-package's :class:`repro.federation.Fleet`, not ported yet) as its
-runtime — the same application then late-binds every task across N
+Federation: ``AppManager`` also accepts a
+:class:`repro_torch.federation.Fleet` as its runtime — the same application then late-binds every task across N
 pilots (different slot counts/meshes, per-pilot journals, optional
 backlog-driven recruiting) with no declaration change; the per-pilot
 dispatch counts land in ``profile.results["federation"]``.
@@ -1043,7 +1042,7 @@ class AppManager:
         if self.staging is not None:
             prof.results["staging"] = self.staging.summary()
         if getattr(self.runtime, "pilots", None) is not None:
-            # federated runtime (repro.federation.Fleet): fleet shape,
+            # federated runtime (repro_torch.federation.Fleet): fleet shape,
             # recruiter activity, and where the dispatcher sent the work
             dispatch: Dict[str, int] = {}
             for t in self.session.graph.tasks.values():

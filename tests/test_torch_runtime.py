@@ -12,9 +12,11 @@ import subprocess
 import sys
 import threading
 from pathlib import Path
-from types import ModuleType, SimpleNamespace
+from types import SimpleNamespace
 
 import pytest
+
+from _port_examples import example_module
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGES = ("repro", "repro_torch")
@@ -378,19 +380,6 @@ def sc_diagnostics(m, tmp):
     return out
 
 
-def serve_ensemble_example(pkg: str) -> ModuleType:
-    """``examples/serve_ensemble.py`` as a module on package ``pkg`` (for
-    the port its ``from repro.`` imports read ``from repro_torch.``), so
-    both packages run the example's own ``build``."""
-    path = ROOT / "examples" / "serve_ensemble.py"
-    src = path.read_text()
-    if pkg == "repro_torch":
-        src = src.replace("from repro.", "from repro_torch.")
-    mod = ModuleType(f"serve_ensemble_{pkg}")
-    exec(compile(src, str(path), "exec"), mod.__dict__)
-    return mod
-
-
 def _serve_ensemble_run(m, ex, mode, journal=None):
     """The example's ``main``: its pilot (``preempt=True``, a staging
     layer), its app and its assertions; returns (profile, channels)."""
@@ -425,7 +414,7 @@ def sc_serve_ensemble_sim(m, tmp):
     """``examples/serve_ensemble.py --sim``: two SLA classes of traffic
     windows through byte-metered Channels, co-tenant with a training bag on
     a preemptive pilot; latency windows evict their way in."""
-    ex = serve_ensemble_example(m.name)
+    ex = example_module("serve_ensemble", m.name)
     prof, channels = _serve_ensemble_run(
         m, ex, "sim", m.journal.Journal(str(tmp / "j.jsonl")))
     assert prof.n_preempted >= 1
@@ -483,7 +472,7 @@ def test_serve_ensemble_example_real_mode_on_serve_tiny():
     decodes on ``serve-tiny`` (CPU) with its full token count, the
     example's assertions hold."""
     m = _pkg("repro_torch")
-    ex = serve_ensemble_example(m.name)
+    ex = example_module("serve_ensemble", m.name)
     prof, _ = _serve_ensemble_run(m, ex, "real")
     tasks = prof.results["tasks"]
     for k in range(ex.WINDOWS):
