@@ -196,6 +196,27 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  distance from it within 1.25x the plain versions')
   task           ``Kernel("lm.decode")`` on gemma2-2b on the card
   continuous     the continuous-batching loop on ``serve-tiny`` on the card
+  mesh           the mesh code paths (``repro_torch.dist``) on a one-rank
+                 NCCL group (a FileStore in a temporary directory; no
+                 network, no MASTER_ADDR) and its ``make_host_mesh((1, 1),
+                 ("data", "model"))`` on the card: (a) full-width gemma2-2b
+                 (fsdp), 2 steps of ``build_train_step(cfg, mesh=...)`` on
+                 DTensor state laid out by ``state_shardings``, on the
+                 ``train gemma2-2b`` phase's seed-0 state and batches:
+                 losses within MESH_LOSS_RTOL of that phase's, its flash
+                 launches a step; (b) qwen3-moe-30b-a3b-L4 (tp_ep), one
+                 step through the expert-parallel branch at model = 1: its
+                 loss within MESH_LOSS_RTOL of the ``train`` phase's first,
+                 its gmm / gmm_bwd / flash launches; (c)
+                 ``BatchedServer(mesh=...)`` of gemma2-2b: the ``serve
+                 gemma2-2b`` phase's greedy tokens exactly, its launches;
+                 (d) the RE app (2 gemma2-2b-L4 members, one cycle) on
+                 ``PilotRuntime(topology=SlotTopology.even([0], 1))``: no
+                 failed task, ``re.exchange`` swapping on the granted
+                 submesh's card, the host replaying the same swap from the
+                 losses and the card's uniforms.
+                 Step ms, peak GB and launches beside the unsharded
+                 phases'
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
 when CUDA is missing or the port's package is not beside this script.
@@ -3934,6 +3955,7 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
            "requests": NREQ, "prompt_len": S0, "new_tokens": NEW,
            "loop": "continuous" if srv.continuous else "wave",
            "stats": srv.stats, "launches": launches,
+           "served_tokens": tokens,
            "launches_per_prefill": per_prefill,
            "launches_per_decode_step": per_decode,
            "stub_inputs": {k: list(v.shape) for k, v in stubs.items()},
@@ -4065,6 +4087,250 @@ def phase_continuous(dev):
     return launches
 
 
+# mesh phase: the mesh code paths on a one-rank NCCL group; losses of the
+# mesh steps against the unsharded train phases' (the same seed-0 state,
+# batches and kernels: one rank moves no bytes and reorders no sum)
+MESH = dict(shape=(1, 1), axes=("data", "model"), gemma_steps=2,
+            qwen_steps=1, re_members=2, re_seed=5)
+MESH_LOSS_RTOL = 1e-3
+
+
+def _mesh_group(dev, tmp):
+    """A one-rank NCCL default group through a FileStore in ``tmp``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+
+
+def _mesh_train(dev, mesh, spec, ref, steps):
+    """``steps`` steps of ``build_train_step(cfg, mesh=mesh)`` from the
+    ``lm.train`` task's seed-0 state on its batches; the row."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import state_shardings
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.profile_train import TRAIN
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.plugins import lm
+    from repro_torch.train import TrainHyper, build_train_step
+    from repro_torch.train import make_train_state
+
+    mbs = spec.get("microbatches", TRAIN["microbatches"])
+    cfg = lm.resolve_cfg(spec["arch"]).replace(microbatches=mbs)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(0))
+    shardings = state_shardings(cfg, mesh, state)
+    state = spmd.distribute_tree(state, shardings)
+    leaves = list(tree_leaves(state))
+    placed = all(spmd.is_dtensor(x) for x in leaves)
+    step = build_train_step(cfg, TrainHyper(base_lr=3e-4, warmup=2,
+                                            total_steps=1000), mesh=mesh)
+    data = SyntheticLM(cfg, ShapeSpec("train", "train", TRAIN["seq"],
+                                      TRAIN["batch"]), seed=0, device=dev)
+    runs = []
+    for i in range(steps):
+        batch = data.batch_at(i)
+        torch.cuda.synchronize(dev)
+        reset_launches()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize(dev)
+        runs.append({"loss": loss, "ms": 1e3 * (time.perf_counter() - t),
+                     "launches": {n: c for n, c in LAUNCHES.items() if c}})
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = ref["losses"][:steps]
+    rel = [abs(r["loss"] - w) / abs(w) for r, w in zip(runs, want)]
+    row = {"part": f"train {spec['arch']}", "profile": cfg.sharding_profile,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "state_dtensors": placed, "placements": sorted(
+               {str(x.placements) for x in leaves}),
+           "local_state_gb": sum(x.to_local().numel() * x.element_size()
+                                 for x in leaves) / 1e9,
+           "losses": [r["loss"] for r in runs], "losses_unsharded": want,
+           "loss_rel": rel, "loss_rtol": MESH_LOSS_RTOL,
+           "step_ms": [r["ms"] for r in runs],
+           "step_ms_unsharded": [s_["ms"] for s_ in ref["steps_run"]],
+           "peak_gb": peak_gb, "peak_gb_unsharded": ref["peak_mem_gb"],
+           "launches_per_step": [r["launches"] for r in runs],
+           "launches_per_step_unsharded": spec["launches"]}
+    row["ok"] = (placed and all(r <= MESH_LOSS_RTOL for r in rel)
+                 and len(rel) == steps
+                 and all(r["launches"] == spec["launches"] for r in runs))
+    del state, leaves, step
+    _release()
+    return row
+
+
+def _mesh_serve(dev, mesh, ref):
+    """``BatchedServer(mesh=mesh)`` of the ``serve gemma2-2b`` phase's
+    params and requests; the row."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import spmd
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.serve import BatchedServer
+
+    cfg = get_config("gemma2-2b").replace(param_dtype="bfloat16")
+    B, S0, NEW, NREQ = (SERVE_SHAPE[k] for k in ("batch", "prompt", "new",
+                                                 "requests"))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    srv = BatchedServer(cfg, params, batch=B, prompt_len=S0,
+                        max_len=S0 + NEW + 1, device=dev, mesh=mesh)
+    del params
+    placed = all(spmd.is_dtensor(x) for x in tree_leaves(srv.params))
+    srv.submit(_requests(cfg, NREQ, S0, NEW))
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    tokens = {str(r.rid): r.out_tokens for r in done}
+    want = {str(k): v for k, v in ref["served_tokens"].items()}
+    row = {"part": "serve gemma2-2b", "params_dtensors": placed,
+           "tokens_equal": tokens == want, "requests": len(tokens),
+           "wall_s": wall, "wall_s_unsharded": ref["wall_s"],
+           "tokens_per_s": sum(map(len, tokens.values())) / wall,
+           "tokens_per_s_unsharded": ref["tokens_per_s"],
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "peak_gb_unsharded": ref["peak_mem_gb"],
+           "launches": launches, "launches_unsharded": ref["launches"],
+           "stats": srv.stats}
+    row["ok"] = (placed and row["tokens_equal"] and len(tokens) == NREQ
+                 and launches == {n: c for n, c in ref["launches"].items()
+                                  if c})
+    del srv
+    _release()
+    return row
+
+
+def _mesh_pilot(dev):
+    """One cycle of the RE app (``MESH["re_members"]`` gemma2-2b-L4
+    members, one ``lm.train`` step each, then ``re.exchange`` with
+    ``device`` set) on a mesh-aware pilot of one slot; the row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (AppManager, Kernel, PipelineSpec, Stage,
+                                  TaskSpec)
+    from repro_torch.dist.topology import SlotTopology
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.core.ensemble import metropolis_swap_device
+    from repro_torch.plugins import lm
+    from repro_torch.plugins.re_exchange import exchange_uniforms
+    from repro_torch.runtime.executor import PilotRuntime
+
+    cfg = _ensemble_cfg()
+    E, n = ENSEMBLE, MESH["re_members"]
+    temps = [3e-4 * 1.3 ** i for i in range(n)]
+    rt = PilotRuntime(mode="real",
+                      topology=SlotTopology.even(np.array([0]), 1))
+    sims = []
+    for i in range(n):
+        k = Kernel("lm.train")
+        k.arguments = {"arch": cfg.name, "device": str(dev), "steps": 1,
+                       "batch": E["batch"], "seq": E["seq"],
+                       "microbatches": E["microbatches"], "seed": E["seed"],
+                       "member": i, "ensemble": "chip_smoke_mesh",
+                       "lr": temps[i]}
+        sims.append(TaskSpec(k, name=f"md{i}", metadata={"instance": i}))
+    sim = Stage(sims, name="simulation")
+    x = Kernel("re.exchange")
+    x.arguments = {"replicas": n, "cycle": 0, "temps": temps,
+                   "seed": MESH["re_seed"], "device": True}
+    ex = Stage([TaskSpec(x, name="exchange")], name="exchange",
+               inputs={"members": sim.future()})
+    reset_launches()
+    prof = AppManager(rt).run(PipelineSpec([sim, ex], name="re_mesh"))
+    torch.cuda.synchronize(dev)
+    launches = {k_: c for k_, c in LAUNCHES.items() if c}
+    res = prof.results["tasks"]["exchange"]
+    # the host replays the swap: the same rule on the same losses and the
+    # uniforms the card drew
+    u = exchange_uniforms(n, MESH["re_seed"], 0, dev).cpu()
+    old = torch.tensor(temps, dtype=torch.float32)
+    new, _ = metropolis_swap_device(
+        torch.tensor(res["losses"], dtype=torch.float32), old, 0, u)
+    host_acc = [(i, i + 1) for i in range(0, n - 1, 2) if new[i] != old[i]]
+    host_t = list(temps)
+    for i, j in host_acc:
+        host_t[i], host_t[j] = host_t[j], host_t[i]
+    want = _expected_launches(n, 0)
+    row = {"part": "re pilot", "slots": rt.slots,
+           "n_failed": prof.n_failed, "n_retries": prof.n_retries,
+           "losses": res["losses"], "temps": res["temps"],
+           "accepted": [list(p) for p in res["accepted"]],
+           "host_replay_accepted": [list(p) for p in host_acc],
+           "ttc": prof.ttc, "launches": launches,
+           "launches_expected": want}
+    row["ok"] = (prof.n_failed == 0 and prof.n_retries == 0
+                 and all(map(math.isfinite, res["losses"]))
+                 and row["accepted"] == row["host_replay_accepted"]
+                 and res["temps"] == [float(t) for t in host_t]
+                 and launches == want)
+    for i in range(n):
+        lm.STATE_STORE.pop(("chip_smoke_mesh", i), None)
+    _release()
+    return row
+
+
+def phase_mesh(dev, refs):
+    """The ``mesh`` phase; ``refs``: the rows of ``train gemma2-2b``,
+    ``train qwen3-moe-30b-a3b-L4`` and ``serve gemma2-2b``.  Returns its
+    launches of each kernel, by part."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    qwen = TRAIN_PHASES[3]
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        _mesh_group(dev, tmp)
+        try:
+            mesh = make_host_mesh(MESH["shape"], MESH["axes"])
+            if mesh.device_type != dev.type:
+                raise AssertionError(f"mesh on {mesh.device_type}, the "
+                                     f"phase on {dev}")
+            rows.append(_mesh_train(dev, mesh, TRAIN_PHASES[0],
+                                    refs["train gemma2-2b"],
+                                    MESH["gemma_steps"]))
+            rows.append(_mesh_train(dev, mesh, qwen,
+                                    refs[f"train {qwen['arch']}"],
+                                    MESH["qwen_steps"]))
+            rows.append(_mesh_serve(dev, mesh, refs["serve gemma2-2b"]))
+            rows.append(_mesh_pilot(dev))
+        finally:
+            dist.destroy_process_group()
+    row = {"phase": "mesh", "backend": "nccl", "world": 1,
+           "mesh": dict(zip(MESH["axes"], MESH["shape"])), "card": _card(),
+           "parts": rows, "ok": all(r["ok"] for r in rows)}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError(f"mesh phase failed: {row}")
+    out = {}
+    for r in rows:
+        per = r.get("launches_per_step") or [r["launches"]]
+        for name in {k for p in per for k in p}:
+            out.setdefault(name, {})[f"mesh {r['part']}"] = sum(
+                p.get(name, 0) for p in per)
+    return out
+
+
 def _release():
     import torch
     gc.collect()
@@ -4097,8 +4363,10 @@ def _phases(dev, baselines, reckonings):
     launches = {name: {} for name in KERNELS}
     emit({"phase": "dryrun", "workers": DRYRUN_WORKERS,
           "waited_s": reckonings.wait()})
+    refs = {}   # the unsharded rows the mesh phase is held against
     for spec in TRAIN_PHASES:
         row = phase_train(dev, spec)
+        refs[row["phase"]] = row
         for name, n in row["launches"].items():
             if name in launches:
                 launches[name][row["phase"]] = n
@@ -4131,6 +4399,7 @@ def _phases(dev, baselines, reckonings):
     with torch.inference_mode():
         for arch, loop, per_prefill, per_decode in SERVE:
             row = phase_serve(dev, arch, loop, per_prefill, per_decode)
+            refs[row["phase"]] = row
             for name, n in row["launches"].items():
                 if n and name in launches:
                     launches[name][arch] = n
@@ -4141,6 +4410,9 @@ def _phases(dev, baselines, reckonings):
             _release()
         phase_task(dev)
         phase_continuous(dev)
+    for name, paths in phase_mesh(dev, refs).items():
+        if name in launches:
+            launches[name].update(paths)
     return launches, cases
 
 

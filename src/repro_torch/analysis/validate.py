@@ -279,11 +279,10 @@ def _check_put_dtype(report, kernel: Optional[Kernel], ch: Channel, loc,
 
 
 def _recarve_counts(topo):
-    """The slot counts a device topology can recarve to: the JAX package
-    asks its sharding rules (``repro.dist.sharding``), which wait for
-    ROADMAP A9 in the port."""
-    raise NotImplementedError("device topologies (slot submeshes) are not "
-                              "ported yet: ROADMAP A9")
+    """The slot counts a device topology can recarve to without breaking
+    the sharding contract (``repro_torch.dist.sharding``)."""
+    from repro_torch.dist.sharding import shardable_recarve_counts
+    return shardable_recarve_counts(topo)
 
 
 def _pilot_reachable_width(rt) -> int:

@@ -75,6 +75,8 @@ def _host(leaf, copy: bool) -> Tuple[np.ndarray, str]:
     """(array to write, manifest dtype) of one leaf; ``copy``: never share
     memory with the leaf (an async save's leaves may change meanwhile)."""
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):     # a DTensor: every rank gathers
+            leaf = leaf.full_tensor()
         t = leaf.detach()
         t = t.to("cpu", copy=True) if copy else t.cpu()
         if t.dtype == torch.bfloat16:
@@ -163,11 +165,10 @@ class Checkpointer:
         """(state, step): ``template``'s tree filled with the checkpoint's
         leaves as tensors on ``device`` (default ``cuda``), in the dtypes
         the manifest names; ``template=None`` gives the flat
-        ``{key: tensor}`` dict of every leaf."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restoring onto shardings waits for device meshes in the "
-                "port (ROADMAP A9)")
+        ``{key: tensor}`` dict of every leaf.  ``shardings``: a tree like
+        the state's of ``dist.sharding.NamedSharding``s (None leaves stay
+        plain tensors): each leaf is placed as a DTensor by its placements
+        on its mesh, every rank keeping only its shard."""
         device = resolve_device(device)
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -176,8 +177,19 @@ class Checkpointer:
         with open(os.path.join(d, "manifest.json")) as f:
             dtypes = json.load(f)["dtypes"]
         with np.load(os.path.join(d, f"shard_{self.host}.npz")) as z:
-            arrays = {k: _from_disk(z[k], dtypes[k]).to(device)
-                      for k in z.files}
+            arrays = {k: _from_disk(z[k], dtypes[k]) for k in z.files}
+        if shardings is not None:
+            if template is None:
+                raise ValueError("restoring onto shardings needs the "
+                                 "state's template")
+            from repro_torch.dist import spmd
+            flat_s = _flatten(shardings)
+            arrays = {k: a.to(device) if flat_s.get(k) is None
+                      else spmd.distribute(a.to(device), flat_s[k].mesh,
+                                           flat_s[k].placements)
+                      for k, a in arrays.items()}
+        else:
+            arrays = {k: a.to(device) for k, a in arrays.items()}
         if template is None:
             return arrays, step
         return _unflatten_into(template, arrays), step

@@ -16,8 +16,13 @@ whole population.
 Differences from the JAX package: the uniforms of the swap come in as a
 tensor (``jax.random`` streams cannot be reproduced in torch; ``run``
 draws them from its generator, ``draw_uniforms``); the state is updated in
-place (the reference donates it); the member axis is not sharded over a
-mesh (one device).
+place (the reference donates it).
+
+With a ``mesh`` the member axis is sharded over its ``"data"`` axis (the
+reference's ``P("data", ...)``; one slot = one member shard): each rank
+steps its own members on their own batches, the losses are gathered for
+the swap, which every rank decides alike, and the temperatures stay whole
+on every rank.
 """
 from __future__ import annotations
 
@@ -95,17 +100,39 @@ def _fused_train_step(cfg: ModelConfig, members, batch, lr) -> torch.Tensor:
     return losses.detach()
 
 
+def member_placements(mesh):
+    """The member axis over ``"data"``, every other mesh dim replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    if "data" not in names:
+        raise ValueError(f"a fused ensemble's mesh needs a 'data' axis, "
+                         f"not {names}")
+    return tuple(Shard(0) if a == "data" else Replicate() for a in names)
+
+
 def device_cycle(cfg: ModelConfig, steps_per_cycle: int, ens_state, batches,
-                 u):
+                 u, mesh=None):
     """The device part of a cycle (``FusedEnsemble._build_cycle``):
     ``steps_per_cycle`` fused train steps, then the swap; updates
     ``ens_state`` in place (temperatures, cycle) and returns the last
-    step's (N,) losses and the accepted pairs, on the device."""
+    step's (N,) losses and the accepted pairs, on the device.  ``mesh``:
+    the members are DTensors sharded over ``"data"``; ``batches``, ``u``
+    and the temperatures are whole on every rank."""
     members, temps = ens_state["members"], ens_state["temps"]
+    lr = temps
+    if mesh is not None:
+        from repro_torch.dist import spmd
+        pl = member_placements(mesh)
+        members = spmd.local(members)
+        batches = {k: spmd.local_shard(batches[k], mesh, pl)
+                   for k in ("tokens", "labels")}
+        lr = spmd.local_shard(temps, mesh, pl)
     losses = None
     for s in range(steps_per_cycle):
         batch = {k: batches[k][:, s] for k in ("tokens", "labels")}
-        losses = _fused_train_step(cfg, members, batch, temps)
+        losses = _fused_train_step(cfg, members, batch, lr)
+    if mesh is not None:
+        losses = spmd.gather(spmd.to_dtensors(losses, mesh, pl))
     new_temps, n_acc = metropolis_swap_device(
         losses, temps, ens_state["cycle"], u)
     ens_state["temps"] = new_temps
@@ -144,14 +171,17 @@ def draw_uniforms(n: int, gen: torch.Generator) -> torch.Tensor:
 
 
 class FusedEnsemble:
-    """Homogeneous replica-exchange ensemble as one vmapped program on one
-    device (``device``: cuda unless the caller asks for the CPU)."""
+    """Homogeneous replica-exchange ensemble as one vmapped program
+    (``device``: cuda unless the caller asks for the CPU; ``mesh``: the
+    member axis sharded over its ``"data"`` axis, ``mesh=None`` one
+    device)."""
 
     def __init__(self, cfg: ModelConfig, n_members: int, *,
-                 device: DeviceLike = None, base_temp: float = 3e-4,
-                 temp_ratio: float = 1.3):
+                 device: DeviceLike = None, mesh=None,
+                 base_temp: float = 3e-4, temp_ratio: float = 1.3):
         self.cfg = cfg
         self.n = n_members
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.temps0 = torch.tensor(
             [base_temp * temp_ratio ** i for i in range(n_members)],
@@ -185,6 +215,11 @@ class FusedEnsemble:
                            "v": tree_map(zeros, stacked),
                            "count": n_zeros.clone()},
                    "step": n_zeros}
+        if self.mesh is not None:
+            from repro_torch.dist import spmd
+            pl = member_placements(self.mesh)
+            members = tree_map(lambda t: spmd.distribute(t, self.mesh, pl),
+                               members)
         return {"members": members, "temps": self.temps0.clone(),
                 "cycle": torch.zeros((), dtype=torch.int32,
                                      device=self.device)}
@@ -201,7 +236,7 @@ class FusedEnsemble:
 
         def cycle(ens_state, batches, u):
             losses, n_acc = device_cycle(cfg, steps_per_cycle, ens_state,
-                                         batches, u)
+                                         batches, u, self.mesh)
             return ens_state, {"losses": losses.cpu().numpy(),
                                "accepted": int(n_acc),
                                "temps": ens_state["temps"].cpu().numpy()}

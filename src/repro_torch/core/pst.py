@@ -46,11 +46,11 @@ The legacy patterns (Pipeline, BagOfTasks, ReplicaExchange,
 SimulationAnalysisLoop) still work: their execution plugins are now thin
 compilers from the hook API to port-annotated PST (core/execution_plugin.py).
 
-Placement: tasks land on the pilot's abstract slots; each task kernel
-places its own work (the port's ``lm.*`` kernels take a ``device``
-argument).  ``ctx["submesh"]``, the device submesh of the slots granted to
-a task, needs a runtime built with a device topology, which the port does
-not have yet (ROADMAP A9; ``PilotRuntime(topology=...)`` raises).
+Placement: tasks land on mesh slots via ``PilotRuntime.submesh_for`` — in
+real mode a kernel's ``ctx["submesh"]`` is the ``DeviceMesh`` over the
+ranks of the slots the scheduler granted it (a runtime built with a
+``topology``); on abstract slots each task kernel places its own work
+(the port's ``lm.*`` kernels take a ``device`` argument).
 
 Federation: ``AppManager`` also accepts a
 :class:`repro_torch.federation.Fleet` as its runtime — the same application then late-binds every task across N

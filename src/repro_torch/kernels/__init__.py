@@ -114,11 +114,16 @@ FAKE_DEVICES = ("cuda", "meta")
 def check_device(fake: bool, **tensors) -> None:
     """Raise unless every tensor given (None skipped) lies on one CUDA
     device; with ``fake``, on one of ``FAKE_DEVICES``.  A CPU tensor
-    always raises."""
+    always raises, and so does a DTensor: the kernels take a rank's local
+    shards (``repro_torch.dist.spmd``)."""
+    from torch.distributed.tensor import DTensor
     dev = None
     for name, t in tensors.items():
         if t is None:
             continue
+        if isinstance(t, DTensor):
+            raise TypeError(f"{name} is a DTensor; a kernel takes local "
+                            "tensors (to_local() / spmd.gather)")
         if t.device.type != "cuda" and not (
                 fake and t.device.type in FAKE_DEVICES):
             raise ValueError(f"{name} is on {t.device}; the kernel needs CUDA")

@@ -37,17 +37,39 @@ launchers take fake tensors on either, so the cell's ops, calls and bytes
 are the card's (gemma2-2b's train cell: the same calls, a peak 512 bytes
 lower, its one constant scalar).
 
+Production meshes (``--multi-pod``, ``--both-meshes``): the cell is
+reckoned for ONE rank of ``pod16x16`` (256 ranks) or ``pod2x16x16`` (512),
+as the reference lowers it for its meshes.  This process joins a fake
+process group of that many ranks (``torch.testing._internal.distributed.
+fake_pg``: every collective returns at once), builds the production mesh
+over it, and lays the state out by ``dist.sharding.state_shardings`` as
+DTensors whose local tensors have this rank's shard shapes; the step is
+the path's own mesh step (``build_train_step(cfg, mesh=...)``,
+``build_prefill_step(..., mesh=...)``, ``build_serve_step(...,
+mesh=...)``) on the cell's global batch.  ``state_bytes`` is this rank's
+(``state_bytes_exact``: the shards' bytes unrounded, each leaf's numel
+over its shard count times its item size) and ``peak_bytes`` its step's
+peak; ``fits`` holds that against one card.  The roofline's per-device
+terms are this rank's ops; the model-FLOP share divides the model's FLOPs
+by all ranks'.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b \\
       --shape train_4k [--batch 4 --seq 1024]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b \\
+      --shape decode_32k [--multi-pod | --both-meshes]
 Results accumulate in $DRYRUN_DIR (default dryrun_results/) as
-<arch>_<shape>_h100.json.
+<arch>_<shape>_<mesh>.json (mesh ``h100``, ``pod16x16`` or
+``pod2x16x16``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
+import math
 import os
 import time
 import traceback
@@ -71,7 +93,12 @@ from repro_torch.configs import (
 )
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.kernels.flash_attention.ops import bwd_host_alloc_bytes
-from repro_torch.launch.mesh import HW
+from repro_torch.dist.sharding import state_shardings, tree_map_with_path
+from repro_torch.launch.mesh import (
+    HW,
+    PRODUCTION_MESHES,
+    make_production_mesh,
+)
 from repro_torch.optim.adamw import adamw_init, tree_map
 from repro_torch.roofline.op_costs import OpCounter
 from repro_torch.roofline.report import make_row
@@ -130,20 +157,105 @@ class MemoryTracker(TorchDispatchMode):
         return out
 
 
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def _nbytes(tree) -> int:
-    return sum(block_bytes(t.untyped_storage().nbytes())
+    return sum(block_bytes(_local(t).untyped_storage().nbytes())
                for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
 
 
-def _params(cfg: ModelConfig, dev: torch.device, lead=()):
-    """``init_params``' leaves (shapes, dtypes) as empty tensors on
-    ``dev`` with ``lead`` axes in front: the params are made on the fake
-    CPU from a CPU generator (a fake tensor cannot draw from a CUDA one),
-    then laid out on ``dev``."""
+def _exact_bytes(tree) -> int:
+    return sum(_local(t).numel() * t.element_size()
+               for t in tree_leaves(tree) if isinstance(t, torch.Tensor))
+
+
+def _sharded(t, sharding, dev, dtype=None):
+    """Zeros of this rank's shard of ``t``'s shape on ``dev`` as a DTensor
+    with ``sharding``'s placements (no tensor of the whole is made)."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = sharding.mesh
+    shape = list(t.shape)
+    sizes = [int(n) for n in tuple(mesh.shape)]
+    for i, pl in enumerate(sharding.placements):
+        if isinstance(pl, Shard):
+            if shape[pl.dim] % sizes[i]:
+                raise ValueError(f"uneven shard of {tuple(t.shape)}")
+            shape[pl.dim] //= sizes[i]
+    local = torch.zeros(shape, dtype=dtype or t.dtype, device=dev)
+    full = torch.Size(t.shape)
+    return DTensor.from_local(
+        local, mesh, sharding.placements, run_check=False, shape=full,
+        stride=torch.empty(full, device="meta").stride())
+
+
+class _Leaf:
+    """A parameter's shape and dtype (what the specs and shards read)."""
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = torch.Size(shape), dtype
+
+
+@functools.lru_cache(maxsize=32)
+def _param_shapes(cfg: ModelConfig):
+    """``init_params``' leaves as ``_Leaf``s, made once per config on fake
+    tensors from a CPU generator (a fake tensor cannot draw from a CUDA
+    one)."""
     from repro_torch.models import init_params
-    shapes = init_params(cfg, torch.Generator().manual_seed(0))
+    with FakeTensorMode():
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        return tree_map(lambda t: _Leaf(t.shape, t.dtype), params)
+
+
+def _params(cfg: ModelConfig, dev: torch.device, lead=(), mesh=None,
+            dtype=None):
+    """``init_params``' leaves (shapes, dtypes) as empty tensors on
+    ``dev`` with ``lead`` axes in front; with ``mesh``, this rank's shards
+    as DTensors by ``state_shardings`` (``dtype``: another dtype for every
+    leaf, an optimizer moment's)."""
+    shapes = _param_shapes(cfg)
+    if mesh is not None:
+        sh = {}
+        tree_map_with_path(lambda p, s: sh.__setitem__(p, s),
+                           state_shardings(cfg, mesh, shapes))
+        return tree_map_with_path(
+            lambda p, t: _sharded(t, sh[p], dev, dtype), shapes)
     return tree_map(lambda t: torch.empty(tuple(lead) + tuple(t.shape),
-                                          dtype=t.dtype, device=dev), shapes)
+                                          dtype=dtype or t.dtype,
+                                          device=dev), shapes)
+
+
+def _scalar(mesh, dev, dtype=torch.int32):
+    """A replicated 0-d zero: a DTensor on ``mesh``, or a tensor."""
+    z = torch.zeros((), dtype=dtype, device=dev)
+    if mesh is None:
+        return z
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(z, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+@contextlib.contextmanager
+def fake_world(n: int):
+    """A fake process group of ``n`` ranks, this process rank 0 (every
+    collective returns at once); a group already initialised with ``n``
+    ranks is used as it is."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        if dist.get_world_size() != n:
+            raise RuntimeError(f"a group of {dist.get_world_size()} ranks "
+                               f"is initialised; this needs {n}")
+        yield
+        return
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def _batch(cfg, shape, dev, lead=()):
@@ -177,10 +289,14 @@ class _HostAlloc:
 
 def reckon(cfg: ModelConfig, shape: ShapeSpec, *,
            microbatches: Optional[int] = None, members: int = 0,
-           steps_per_cycle: int = 1) -> dict:
+           steps_per_cycle: int = 1, mesh=None) -> dict:
     """Reckon one cell; ``shape.kind`` picks the path (train, prefill,
     decode), ``members`` > 0 the fused ensemble of that many members at
-    batch ``shape.global_batch`` each.  Allocates nothing on the card."""
+    batch ``shape.global_batch`` each.  Allocates nothing on the card.
+    ``mesh``: a ``DeviceMesh`` holding this rank (a fake group's): the
+    cell is reckoned for this rank of it."""
+    if mesh is not None and members:
+        raise ValueError("a fused population is reckoned on one device")
     from repro_torch.core.ensemble import device_cycle
     from repro_torch.serve import build_prefill_step, build_serve_step
     from repro_torch.train import TrainHyper, build_train_step
@@ -221,23 +337,30 @@ def reckon(cfg: ModelConfig, shape: ShapeSpec, *,
             def step():
                 device_cycle(cfg, steps_per_cycle, state, batches, u)
         elif shape.kind == "train":
-            params = _params(cfg, dev)
-            state = {"params": params,
-                     "opt": adamw_init(params, cfg.optstate_dtype),
-                     "step": torch.zeros((), dtype=torch.int32, device=dev)}
+            params = _params(cfg, dev, mesh=mesh)
+            if mesh is None:
+                opt = adamw_init(params, cfg.optstate_dtype)
+            else:
+                md = {"float32": torch.float32,
+                      "bfloat16": torch.bfloat16}[cfg.optstate_dtype]
+                opt = {"m": _params(cfg, dev, mesh=mesh, dtype=md),
+                       "v": _params(cfg, dev, mesh=mesh, dtype=md),
+                       "count": _scalar(mesh, dev)}
+            state = {"params": params, "opt": opt,
+                     "step": _scalar(mesh, dev)}
             batch = _batch(cfg, shape, dev)
             param_bytes = _nbytes(params)
             train_step = build_train_step(
-                cfg, TrainHyper(warmup=2, total_steps=1000))
+                cfg, TrainHyper(warmup=2, total_steps=1000), mesh=mesh)
 
             def step():
                 train_step(state, batch)
         else:
-            params = _params(cfg, dev)
+            params = _params(cfg, dev, mesh=mesh)
             state = {"params": params}
             param_bytes = _nbytes(params)
             if shape.kind == "prefill":
-                prefill = build_prefill_step(cfg, cache_len=S)
+                prefill = build_prefill_step(cfg, cache_len=S, mesh=mesh)
                 batch = _batch(cfg, shape, dev)
 
                 def step():
@@ -252,18 +375,19 @@ def reckon(cfg: ModelConfig, shape: ShapeSpec, *,
                     batch["enc_frames"] = torch.zeros(
                         (B, cfg.encoder_seq, cfg.d_model),
                         dtype=torch.bfloat16, device=dev)
-                cache = build_prefill_step(cfg, cache_len=S)(
+                cache = build_prefill_step(cfg, cache_len=S, mesh=mesh)(
                     params, batch)["cache"]
                 tokens = prompt[:, :1]
                 state["cache"] = cache
                 cache_bytes = _nbytes(cache)
                 positions = torch.full((B,), S - 1, dtype=torch.int32,
                                        device=dev)
-                serve_step = build_serve_step(cfg)
+                serve_step = build_serve_step(cfg, mesh=mesh)
 
                 def step():
                     serve_step(params, cache, tokens, positions)
         state_bytes = _nbytes(state)
+        state_exact = _exact_bytes(state)
         kernels.reset_fake_calls()   # the decode cache's prefill aside
         with OpCounter() as counter:
             step()
@@ -273,7 +397,11 @@ def reckon(cfg: ModelConfig, shape: ShapeSpec, *,
     calls = {k: v for k, v in kernels.FAKE_CALLS.items() if v}
     flops_shape = (ShapeSpec(shape.name, shape.kind, S, B * members)
                    if members else shape)
-    row = make_row(cfg, flops_shape, MESH, 1, counter.costs,
+    mesh_name, chips = MESH, 1
+    if mesh is not None:
+        mesh_name = mesh_label(mesh)
+        chips = math.prod(int(n) for n in tuple(mesh.shape))
+    row = make_row(cfg, flops_shape, mesh_name, chips, counter.costs,
                    memory_stats={"peak_bytes": float(peak),
                                  "param_bytes": float(param_bytes),
                                  "state_bytes": float(state_bytes),
@@ -281,9 +409,10 @@ def reckon(cfg: ModelConfig, shape: ShapeSpec, *,
     host_alloc = host.result()
     return {"arch": cfg.name, "shape": shape.name, "kind": shape.kind,
             "batch": B, "seq": S, "microbatches": cfg.microbatches,
-            "members": members, "device": str(dev),
-            "peak_bytes": peak, "param_bytes": param_bytes,
-            "state_bytes": state_bytes, "cache_bytes": cache_bytes,
+            "members": members, "device": str(dev), "mesh": mesh_name,
+            "chips": chips, "peak_bytes": peak, "param_bytes": param_bytes,
+            "state_bytes": state_bytes, "state_bytes_exact": state_exact,
+            "cache_bytes": cache_bytes,
             "host_alloc": host_alloc,
             "fits": peak + host_alloc["total"] <= HW.hbm_bytes,
             "hbm_bytes": HW.hbm_bytes, "kernel_calls": calls,
@@ -291,13 +420,26 @@ def reckon(cfg: ModelConfig, shape: ShapeSpec, *,
             "roofline": row.to_dict()}
 
 
+def mesh_label(mesh) -> str:
+    """``pod16x16`` / ``pod2x16x16`` for the production meshes' shapes and
+    axes, else the shape joined by ``x``."""
+    shape = tuple(int(n) for n in tuple(mesh.shape))
+    for name, (s, axes) in PRODUCTION_MESHES.items():
+        if s == shape and tuple(axes) == tuple(mesh.mesh_dim_names):
+            return name
+    return "x".join(map(str, shape))
+
+
 def run_cell(arch: str, shape_name: str, *, batch: int = 0, seq: int = 0,
-             save: bool = True) -> dict:
+             save: bool = True, mesh: Optional[str] = None) -> dict:
+    """One cell on one device, or (``mesh`` "pod16x16" / "pod2x16x16")
+    for one rank of a production mesh over a fake group."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
+    name = mesh or MESH
     ok, why = cell_applicable(cfg, shape)
     if not ok:
-        res = {"arch": arch, "shape": shape_name, "mesh": MESH,
+        res = {"arch": arch, "shape": shape_name, "mesh": name,
                "status": "skipped", "reason": why}
         _save(res, save)
         return res
@@ -306,11 +448,15 @@ def run_cell(arch: str, shape_name: str, *, batch: int = 0, seq: int = 0,
                           batch or shape.global_batch)
     t0 = time.time()
     try:
-        res = {"status": "ok", "mesh": MESH,
-               **reckon(cfg, shape),
-               "t_reckon_s": time.time() - t0}
+        if mesh is None:
+            got = reckon(cfg, shape)
+        else:
+            with fake_world(math.prod(PRODUCTION_MESHES[mesh][0])):
+                got = reckon(cfg, shape, mesh=make_production_mesh(
+                    multi_pod=mesh == "pod2x16x16"))
+        res = {"status": "ok", **got, "t_reckon_s": time.time() - t0}
     except Exception as e:  # a failing cell is a bug in the system
-        res = {"arch": arch, "shape": shape_name, "mesh": MESH,
+        res = {"arch": arch, "shape": shape_name, "mesh": name,
                "status": "error", "error": f"{type(e).__name__}: {e}",
                "traceback": traceback.format_exc()[-4000:]}
     _save(res, save)
@@ -335,33 +481,43 @@ def main(argv=None):
                     help="one-device batch instead of the cell's")
     ap.add_argument("--seq", type=int, default=0,
                     help="sequence length instead of the cell's")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="one rank of pod2x16x16 (512 ranks)")
+    ap.add_argument("--both-meshes", action="store_true",
+                    help="one rank of pod16x16 and of pod2x16x16")
     args = ap.parse_args(argv)
 
     archs = list_configs() if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
+    meshes = [None]
+    if args.both_meshes:
+        meshes = ["pod16x16", "pod2x16x16"]
+    elif args.multi_pod:
+        meshes = ["pod2x16x16"]
     n_ok = n_skip = n_err = 0
-    for a in archs:
-        for s in shapes:
-            res = run_cell(a, s, batch=args.batch, seq=args.seq)
-            tag = res["status"]
-            n_ok += tag == "ok"
-            n_skip += tag == "skipped"
-            n_err += tag == "error"
-            if tag == "ok":
-                r = res["roofline"]
-                print(f"[ok]   {a:24s} {s:12s} {MESH:10s} "
-                      f"comp={r['t_compute']*1e3:10.2f}ms "
-                      f"mem={r['t_memory']*1e3:10.2f}ms "
-                      f"bound={r['bottleneck']:10s} "
-                      f"peak={res['peak_bytes']/1e9:9.2f}GB "
-                      f"fits={str(res['fits']).lower()} "
-                      f"({res['t_reckon_s']:.0f}s)", flush=True)
-            elif tag == "skipped":
-                print(f"[skip] {a:24s} {s:12s} {MESH:10s} {res['reason']}",
-                      flush=True)
-            else:
-                print(f"[ERR]  {a:24s} {s:12s} {MESH:10s} {res['error']}",
-                      flush=True)
+    for a, s, m in [(a, s, m) for a in archs for s in shapes
+                    for m in meshes]:
+        res = run_cell(a, s, batch=args.batch, seq=args.seq, mesh=m)
+        tag, name = res["status"], res["mesh"]
+        n_ok += tag == "ok"
+        n_skip += tag == "skipped"
+        n_err += tag == "error"
+        if tag == "ok":
+            r = res["roofline"]
+            print(f"[ok]   {a:24s} {s:12s} {name:10s} "
+                  f"comp={r['t_compute']*1e3:10.2f}ms "
+                  f"mem={r['t_memory']*1e3:10.2f}ms "
+                  f"bound={r['bottleneck']:10s} "
+                  f"peak={res['peak_bytes']/1e9:9.2f}GB "
+                  f"state={res['state_bytes']/1e9:9.3f}GB "
+                  f"fits={str(res['fits']).lower()} "
+                  f"({res['t_reckon_s']:.0f}s)", flush=True)
+        elif tag == "skipped":
+            print(f"[skip] {a:24s} {s:12s} {name:10s} {res['reason']}",
+                  flush=True)
+        else:
+            print(f"[ERR]  {a:24s} {s:12s} {name:10s} {res['error']}",
+                  flush=True)
     print(f"\n{n_ok} ok, {n_skip} skipped, {n_err} errors")
     return 1 if n_err else 0
 

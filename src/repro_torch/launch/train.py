@@ -1,5 +1,4 @@
-"""Training entry point on one device (the port of
-``repro.launch.train``).
+"""Training entry point (the port of ``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
         --batch 4 --seq 1024 --steps 4 [--ckpt-dir DIR]
@@ -18,7 +17,14 @@ As in the reference, the state after step i is saved under label i, and a
 resumed run starts at that label: it trains batch i again, its state's
 step one ahead of the label, and ends one optimizer step past ``--steps``
 (ROADMAP C12; kept so that the two packages stay comparable).
-``--mesh prod`` and ``--multi-pod`` wait for device meshes (ROADMAP A9).
+
+``--mesh prod`` trains on the production mesh (``pod16x16``, or
+``pod2x16x16`` with ``--multi-pod``) over the default process group, which
+the launcher of each rank initialises first (``torch.distributed.
+init_process_group`` with its store, rank and world size of 256 or 512):
+the state is laid out by ``state_shardings``, every rank steps on the same
+global batches and takes its own rows (``build_train_step(cfg,
+mesh=...)``), and a checkpoint gathers each leaf whole.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from repro_torch.configs import SHAPES, get_config, reduced
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.data import SyntheticLM
 from repro_torch.flags import resolve_device
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models.convert import (
     train_state_from_numpy,
     train_state_to_flat,
@@ -57,12 +64,23 @@ def train_loop(cfg: ModelConfig, shape: ShapeSpec, state, *, steps: int,
                hyper: TrainHyper, start: int = 0, device=None,
                ckpt: Optional[Checkpointer] = None, ckpt_every: int = 100,
                on_step: Optional[Callable[[int, dict], None]] = None,
-               log: Callable[[str], None] = print) -> List[dict]:
+               log: Callable[[str], None] = print, mesh=None) -> List[dict]:
     """Steps ``start`` .. ``steps - 1`` of ``build_train_step(cfg, hyper)``
     on ``state`` (updated in place) from ``SyntheticLM``'s seed-0 batches,
     with the reference's lines and checkpoints.  Returns each step's
-    {"step", "loss", "lr"}; ``on_step(i, metrics)`` sees every step."""
-    step_fn = build_train_step(cfg, hyper)
+    {"step", "loss", "lr"}; ``on_step(i, metrics)`` sees every step.
+    ``mesh``: the state (plain tensors, the same on every rank) is laid
+    out by ``state_shardings`` on it first."""
+    step_fn = build_train_step(cfg, hyper, mesh=mesh)
+    flat = (lambda st: train_state_to_flat(st, cfg))
+    if mesh is not None:
+        from repro_torch.dist import spmd
+        from repro_torch.dist.sharding import state_shardings
+        from repro_torch.optim.adamw import tree_map
+        state = spmd.distribute_tree(state, state_shardings(cfg, mesh,
+                                                            state))
+        flat = (lambda st: train_state_to_flat(
+            tree_map(lambda x: x.full_tensor(), st), cfg))
     data = SyntheticLM(cfg, shape, seed=0, device=device)
     history = []
     t0 = time.time()
@@ -78,11 +96,11 @@ def train_loop(cfg: ModelConfig, shape: ShapeSpec, state, *, steps: int,
                 log(f"step {i:5d} loss {float(m['loss']):.4f} "
                     f"lr {float(m['lr']):.2e}")
             if ckpt and i and i % ckpt_every == 0:
-                ckpt.save(train_state_to_flat(state, cfg), i, blocking=False)
+                ckpt.save(flat(state), i, blocking=False)
     finally:
         batches.close()
     if ckpt:
-        ckpt.save(train_state_to_flat(state, cfg), steps)
+        ckpt.save(flat(state), steps)
         ckpt.wait()
     n = steps - start
     log(f"{n} steps in {time.time()-t0:.1f}s "
@@ -109,12 +127,11 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None):
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh == "prod" or args.multi_pod:
-        raise NotImplementedError(
-            "--mesh prod and --multi-pod need device meshes, which the port "
-            "does not have yet (ROADMAP A9)")
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh == "prod":
+        mesh = make_production_mesh(multi_pod=args.multi_pod)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -137,7 +154,7 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None):
     return train_loop(cfg, shape, state, steps=args.steps, hyper=hyper,
                       start=start, device=device, ckpt=ck,
                       ckpt_every=args.ckpt_every, on_step=on_step,
-                      log=lambda s: print(s, flush=True))
+                      log=lambda s: print(s, flush=True), mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -196,9 +196,12 @@ def cross_qkv(cfg: ModelConfig, p: Params, x, mem):
 
 
 def apply_attn(cfg: ModelConfig, p: Params, x, *, kind: str, positions,
-               seg_ids=None, mem=None, impl: Optional[str] = None):
+               seg_ids=None, mem=None, mesh=None,
+               impl: Optional[str] = None):
     """Self- or cross-attention.  kind: global | local | enc | cross
-    (q from x, k and v from ``mem``, every pair attended, no segments)."""
+    (q from x, k and v from ``mem``, every pair attended, no segments).
+    ``mesh``: as in the reference, the tensors are a rank's local shard
+    and the kernel runs on them (no collective here)."""
     B, S, _ = x.shape
     if kind == "cross":
         q, k, v = cross_qkv(cfg, p, x, mem)
@@ -306,23 +309,43 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator) -> Params:
     return p
 
 
-def _moe_local(cfg: ModelConfig, p: Params, xt, capacity_factor: float,
-               impl: Optional[str] = None):
-    """Sort+scatter dispatch over every expert, as
-    ``repro.models.layers._moe_local`` with the whole expert population
-    local (``e_base=0``, ``E_local=E``: its ``mesh=None`` branch).
+def _route(cfg: ModelConfig, p: Params, xt):
+    """The router over every expert: (wts (T, k) renormalised top-k
+    weights, eids (T*k,) their experts, aux switch-style load-balance
+    loss over the counts of assignments per expert).  The router runs in f32;
+    ``counts`` (integers, the reference's ``f``) carries no gradient,
+    ``probs.mean`` does."""
+    T = xt.shape[0]
+    E, k = cfg.num_experts, cfg.experts_per_tok
+    logits = xt.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)                        # (T, E)
+    wts, idx = torch.topk(probs, k, dim=-1, sorted=True)         # (T, k)
+    wts = wts / wts.sum(-1, keepdim=True).clamp_min(1e-9)
+    eids = idx.reshape(-1)                                       # (T*k,)
+    counts = torch.zeros((E,), dtype=torch.int32,
+                         device=xt.device).scatter_add(
+        0, eids, torch.ones_like(eids, dtype=torch.int32))
+    aux = E * (counts.float() / (T * k) * probs.mean(dim=0)).sum()
+    return wts, eids, aux
 
-    xt: (T, D) tokens.  Returns (y (T, D), aux load-balance loss).  The
-    router runs in f32; top-k weights are renormalised; assignments past an
-    expert's capacity C go to a spare row and are dropped.  Nothing here
-    waits for the device: counts are built with ``scatter_add`` and C
-    depends only on T, k, E and ``capacity_factor``.  Every write is out of
-    place (``scatter_add``, ``index_put``, ``scatter``), so the dispatch
-    runs under ``torch.func.vmap`` (a fused ensemble's member axis).  The
-    aux loss differentiates as the reference's: ``counts`` (integers, its
-    ``f``) carries no gradient, ``probs.mean`` does.  Under autograd or
-    vmap the three ``gmm`` calls go through ``GroupedMatmul`` (the
-    backward kernels on CUDA).
+
+def _dispatch(cfg: ModelConfig, p: Params, xt, wts, eids, e_base: int,
+              E_local: int, capacity_factor: float,
+              impl: Optional[str] = None):
+    """Sort+scatter dispatch to the local experts [e_base, e_base+E_local)
+    (``repro.models.layers._moe_local``'s dispatch): ``p["wi"/"wg"/"wo"]``
+    hold those E_local experts.  Returns y (T, D), the sum of the local
+    experts' weighted outputs (0 for a token none of whose experts is
+    local).
+
+    Assignments to other experts sort behind the local ones and are
+    dropped, as are those past an expert's capacity C, which is reckoned
+    from the local tokens T over all E experts.  Nothing here waits for
+    the device: counts are built with ``scatter_add``.  Every write is out
+    of place (``scatter_add``, ``index_put``, ``scatter``), so the dispatch
+    runs under ``torch.func.vmap`` (a fused ensemble's member axis).  Under
+    autograd or vmap the three ``gmm`` calls go through ``GroupedMatmul``
+    (the backward kernels on CUDA).
 
     The combine is deterministic (no atomics): each token's k contributions
     ``back * w`` (rounded to ``ye``'s dtype) are added one after another in
@@ -333,35 +356,32 @@ def _moe_local(cfg: ModelConfig, p: Params, xt, capacity_factor: float,
     T, D = xt.shape
     E, k = cfg.num_experts, cfg.experts_per_tok
     dev = xt.device
-    logits = xt.float() @ p["router"].float()
-    probs = torch.softmax(logits, dim=-1)                        # (T, E)
-    wts, idx = torch.topk(probs, k, dim=-1, sorted=True)         # (T, k)
-    wts = wts / wts.sum(-1, keepdim=True).clamp_min(1e-9)
-
-    eids = idx.reshape(-1)                                       # (T*k,)
     tids = torch.arange(T, device=dev).repeat_interleave(k)
-    counts = torch.zeros((E,), dtype=torch.int32, device=dev).scatter_add(
-        0, eids, torch.ones_like(eids, dtype=torch.int32))
-    # aux loss (switch-style)
-    aux = E * (counts.float() / (T * k) * probs.mean(dim=0)).sum()
-
-    order = torch.argsort(eids, stable=True)
-    e_s = eids[order]
+    el = eids - e_base
+    inrange = (el >= 0) & (el < E_local)
+    sort_key = torch.where(inrange, el, torch.full_like(el, E_local))
+    order = torch.argsort(sort_key, stable=True)
+    e_s = sort_key[order]
     tid_s = tids[order]
     w_s = wts.reshape(-1)[order]
+    counts = torch.zeros((E_local + 1,), dtype=torch.int32,
+                         device=dev).scatter_add(
+        0, sort_key, torch.ones_like(sort_key, dtype=torch.int32))
     pos_in_e = (torch.arange(T * k, device=dev)
                 - (torch.cumsum(counts, 0) - counts)[e_s])
 
-    cap_block = 128 if T * k // E >= 128 else 8
+    cap_block = 128 if T * k // max(E_local, 1) >= 128 else 8
     C = max(cap_block,
             _round_up(int(math.ceil(T * k / E * capacity_factor)), cap_block))
-    keep = pos_in_e < C
-    slot = torch.where(keep, e_s * C + pos_in_e, torch.full_like(e_s, E * C))
+    keep = (pos_in_e < C) & (e_s < E_local)
+    slot = torch.where(keep, e_s * C + pos_in_e,
+                       torch.full_like(e_s, E_local * C))
 
-    xe = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=dev).index_put(
+    xe = torch.zeros((E_local * C + 1, D), dtype=xt.dtype,
+                     device=dev).index_put(
         (slot,), xt[tid_s] * keep[:, None].to(xt.dtype))
-    xe = xe[:-1].reshape(E, C, D)
-    group_sizes = torch.clamp(counts, max=C)
+    xe = xe[:-1].reshape(E_local, C, D)
+    group_sizes = torch.clamp(counts[:E_local], max=C)
 
     hi = gmm(xe, cast(cfg, p["wi"]), group_sizes, impl=impl)
     hg = (gmm(xe, cast(cfg, p["wg"]), group_sizes, impl=impl)
@@ -369,7 +389,7 @@ def _moe_local(cfg: ModelConfig, p: Params, xt, capacity_factor: float,
     h = _mlp_act(cfg, hi, hg)
     ye = gmm(h, cast(cfg, p["wo"]), group_sizes, impl=impl)
 
-    flat = torch.cat([ye.reshape(E * C, D),
+    flat = torch.cat([ye.reshape(E_local * C, D),
                       torch.zeros((1, D), dtype=ye.dtype, device=dev)])
     contrib = flat[slot] * keep[:, None].to(ye.dtype) * w_s[:, None].to(
         ye.dtype)
@@ -380,21 +400,71 @@ def _moe_local(cfg: ModelConfig, p: Params, xt, capacity_factor: float,
     y = torch.zeros((T, D), dtype=xt.dtype, device=dev)
     for j in range(k):
         y = y + contrib[rank[:, j]]
+    return y
+
+
+def _moe_local(cfg: ModelConfig, p: Params, xt, capacity_factor: float,
+               impl: Optional[str] = None):
+    """Route and dispatch over every expert, as
+    ``repro.models.layers._moe_local`` with the whole expert population
+    local (``e_base=0``, ``E_local=E``: its ``mesh=None`` branch).
+
+    xt: (T, D) tokens.  Returns (y (T, D), aux load-balance loss).
+    """
+    wts, eids, aux = _route(cfg, p, xt)
+    y = _dispatch(cfg, p, xt, wts, eids, 0, cfg.num_experts,
+                  capacity_factor, impl)
     return y, aux
 
 
 def apply_moe(cfg: ModelConfig, p: Params, x, *, mesh=None,
               capacity_factor: float = 1.25, impl: Optional[str] = None):
-    """Returns (y, aux_loss).  The local dispatch (``mesh=None``) only:
-    expert parallelism over a device mesh is not ported yet.  ``impl`` goes
-    to ``gmm`` (None or "ref")."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "apply_moe over a device mesh (expert parallelism) is not "
-            "ported yet")
+    """Returns (y, aux_loss).  ``impl`` goes to ``gmm`` (None or "ref").
+
+    With a ``mesh``, ``x`` holds this rank's tokens (its data shard) and
+    the layer is the reference's shard_map:
+
+    * ``tp_ep`` with a "model" axis: expert parallelism.  ``p``'s expert
+      weights are this rank's ``E_local = E // model`` experts (their
+      shard on the expert dim), model rank j owning experts ``[j *
+      E_local, (j+1) * E_local)``.  Every model rank routes its tokens over
+      all E experts (the router is replicated), dispatches to its own
+      experts through the hand gmm kernel, and the outputs are summed over
+      the model group (``lax.psum``; backward: each rank's region adds its
+      part of the tokens' and weights' gradients, summed over the group).
+    * ``tp`` (or no "model" axis): the dispatch is local per data shard,
+      over every expert.
+
+    Capacity is reckoned from the local tokens, so a data-sharded run
+    equals ``mesh=None`` runs on each data shard.  ``aux`` is averaged
+    over the data axes (``lax.pmean``).
+    """
+    from repro_torch.dist import spmd
     B, S, D = x.shape
-    y, aux = _moe_local(cfg, p, x.reshape(-1, D), capacity_factor,
-                        impl=impl)
+    xt = x.reshape(-1, D)
+    if mesh is None:
+        y, aux = _moe_local(cfg, p, xt, capacity_factor, impl=impl)
+        return y.reshape(B, S, D), aux
+    E = cfg.num_experts
+    mdim = spmd.model_dim(mesh)
+    if cfg.sharding_profile == "tp_ep" and mdim is not None:
+        mdl = int(mesh.shape[mdim])
+        if E % mdl:
+            raise ValueError(f"{E} experts do not split over {mdl} model "
+                             "ranks")
+        E_local = E // mdl
+        if p["wi"].shape[0] != E_local:
+            raise ValueError(f"expert weights hold {p['wi'].shape[0]} "
+                             f"experts; model rank's shard is {E_local}")
+        j = spmd.coordinate(mesh)[mdim]
+        wts, eids, aux = _route(cfg, p, xt)
+        y = _dispatch(cfg, p, spmd.copy_into(xt, mesh, [mdim]),
+                      spmd.copy_into(wts, mesh, [mdim]), eids, j * E_local,
+                      E_local, capacity_factor, impl)
+        y = spmd.sum_across(y, mesh, [mdim])
+    else:
+        y, aux = _moe_local(cfg, p, xt, capacity_factor, impl=impl)
+    aux = spmd.mean_across(aux, mesh, spmd.data_dims(mesh))
     return y.reshape(B, S, D), aux
 
 
@@ -462,10 +532,11 @@ def _rglru_gates(p: Params, xb):
     return a, mult * i * xf
 
 
-def apply_rglru(cfg: ModelConfig, p: Params, x, *, h0=None, conv_buf=None,
-                return_state: bool = False, impl: Optional[str] = None):
-    """Griffin recurrent mixer.  x: (B,S,D).  ``impl`` goes to
-    ``linear_scan`` (None or "ref")."""
+def apply_rglru(cfg: ModelConfig, p: Params, x, *, mesh=None, h0=None,
+                conv_buf=None, return_state: bool = False,
+                impl: Optional[str] = None):
+    """Griffin recurrent mixer.  x: (B,S,D), a rank's local shard under
+    ``mesh``.  ``impl`` goes to ``linear_scan`` (None or "ref")."""
     B = x.shape[0]
     W = cfg.lru_width_
     xb = x @ cast(cfg, p["wx"])
@@ -531,10 +602,10 @@ def _mamba_bcdt(cfg: ModelConfig, p: Params, xin):
     return dt, Bm, Cc
 
 
-def apply_mamba(cfg: ModelConfig, p: Params, x, *,
+def apply_mamba(cfg: ModelConfig, p: Params, x, *, mesh=None,
                 return_state: bool = False, impl: Optional[str] = None):
-    """Mamba-1 mixer.  x: (B,S,D).  ``impl`` goes to ``selective_scan``
-    (None or "ref")."""
+    """Mamba-1 mixer.  x: (B,S,D), a rank's local shard under ``mesh``.
+    ``impl`` goes to ``selective_scan`` (None or "ref")."""
     B = x.shape[0]
     di, n = cfg.d_inner, cfg.ssm_state
     xin, z = (x @ cast(cfg, p["in_proj"])).chunk(2, dim=-1)

@@ -19,6 +19,14 @@ caches those k, v as ``xk`` / ``xv`` (B, encoder_seq, KH, D), and a decode
 step attends them where its layer's cache holds them.  VLM configs
 (``cfg.vision_tokens``, internvl) splice ``vision_embeds`` over the first
 positions of the token embeddings.
+
+``mesh`` is threaded explicitly, as in the reference; ``None`` means one
+device.  Under a mesh the tensors are a rank's local shards
+(``repro_torch.dist.spmd``): the batch its data shard, the expert weights
+under ``tp_ep`` its experts; ``constrain_batch`` / ``constrain_logits``
+stand where the reference constrains its layout (they redistribute a
+DTensor and pass a local shard through), and the MoE layer does the
+reference's collectives.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constrain_batch, constrain_logits
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models import layers as L
 from repro_torch.models.remat import remat as _remat
@@ -106,7 +115,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 # ---------------------------------------------------------------- blocks
 
 def forward_block(cfg: ModelConfig, bp: Params, h, kind: str, *, positions,
-                  seg_ids, cache_len: Optional[int], mem=None,
+                  seg_ids, cache_len: Optional[int], mem=None, mesh=None,
                   impl: Optional[str] = None):
     """Returns (h, aux, cache_or_None); aux is the MoE load-balance loss
     (0 without experts).  ``mem``: the encoder's output, which a block with
@@ -117,9 +126,10 @@ def forward_block(cfg: ModelConfig, bp: Params, h, kind: str, *, positions,
     if kind in _REC_KINDS:
         mixer = L.apply_rglru if kind == "rec" else L.apply_mamba
         if cache_len:
-            m, cache = mixer(cfg, bp[kind], xin, return_state=True, impl=impl)
+            m, cache = mixer(cfg, bp[kind], xin, mesh=mesh,
+                             return_state=True, impl=impl)
         else:
-            m = mixer(cfg, bp[kind], xin, impl=impl)
+            m = mixer(cfg, bp[kind], xin, mesh=mesh, impl=impl)
         return _rec_mlp(cfg, bp, h + m), 0.0, cache
     if cache_len:
         a, cache = _attn_with_cache(cfg, bp["attn"], xin, kind=kind,
@@ -127,7 +137,7 @@ def forward_block(cfg: ModelConfig, bp: Params, h, kind: str, *, positions,
                                     cache_len=cache_len, impl=impl)
     else:
         a = L.apply_attn(cfg, bp["attn"], xin, kind=kind, positions=positions,
-                         seg_ids=seg_ids, impl=impl)
+                         seg_ids=seg_ids, mesh=mesh, impl=impl)
     if cfg.post_norms:
         a = L.apply_norm(cfg, bp["ln1_post"], a)
     h = h + a
@@ -138,18 +148,19 @@ def forward_block(cfg: ModelConfig, bp: Params, h, kind: str, *, positions,
             cache.update(xkv)
         else:
             xa = L.apply_attn(cfg, bp["xattn"], xin, kind="cross",
-                              positions=positions, mem=mem, impl=impl)
+                              positions=positions, mem=mem, mesh=mesh,
+                              impl=impl)
         h = h + xa
-    y, aux = _ffn(cfg, bp, L.apply_norm(cfg, bp["ln2"], h), impl)
+    y, aux = _ffn(cfg, bp, L.apply_norm(cfg, bp["ln2"], h), impl, mesh)
     if cfg.post_norms:
         y = L.apply_norm(cfg, bp["ln2_post"], y)
     return h + y, aux, cache
 
 
-def _ffn(cfg: ModelConfig, bp: Params, x, impl: Optional[str]):
+def _ffn(cfg: ModelConfig, bp: Params, x, impl: Optional[str], mesh=None):
     """The FFN half of an attention block: (y, aux), aux 0 for a dense MLP."""
     if "moe" in bp:
-        return L.apply_moe(cfg, bp["moe"], x, impl=impl)
+        return L.apply_moe(cfg, bp["moe"], x, mesh=mesh, impl=impl)
     return L.apply_mlp(cfg, bp["mlp"], x), 0.0
 
 
@@ -201,7 +212,7 @@ def _cross_with_cache(cfg, p, x, mem, impl=None):
 
 
 def decode_block(cfg: ModelConfig, bp: Params, h, cache: Params, kind: str,
-                 *, positions, impl: Optional[str] = None):
+                 *, positions, mesh=None, impl: Optional[str] = None):
     """Single-token step.  h: (B,1,D).  Returns (h, cache).  ``impl`` goes
     to the block's kernels (the MoE FFN's ``gmm``)."""
     xin = L.apply_norm(cfg, bp["ln1"], h)
@@ -218,7 +229,7 @@ def decode_block(cfg: ModelConfig, bp: Params, h, cache: Params, kind: str,
     if "xattn" in bp and "xk" in cache:
         xin = L.apply_norm(cfg, bp["lnx"], h)
         h = h + L.attn_decode_cross(cfg, bp["xattn"], xin, cache)
-    y, _ = _ffn(cfg, bp, L.apply_norm(cfg, bp["ln2"], h), impl)
+    y, _ = _ffn(cfg, bp, L.apply_norm(cfg, bp["ln2"], h), impl, mesh)
     if cfg.post_norms:
         y = L.apply_norm(cfg, bp["ln2_post"], y)
     return h + y, cache
@@ -236,12 +247,13 @@ def embed_tokens(cfg: ModelConfig, params: Params, tokens, positions):
     return e
 
 
-def lm_logits(cfg: ModelConfig, params: Params, h):
+def lm_logits(cfg: ModelConfig, params: Params, h, *, mesh=None):
     """Full f32 logits (serve path)."""
     if cfg.tie_embeddings:
         logits = h.float() @ params["embed"]["tok"].float().T
     else:
         logits = h.float() @ params["head"].float()
+    logits = constrain_logits(cfg, mesh, logits)
     if cfg.final_softcap:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     return logits
@@ -262,31 +274,34 @@ def embed_frames(cfg: ModelConfig, enc_frames):
     return h, pos
 
 
-def encode(cfg: ModelConfig, params: Params, enc_frames, *,
-           impl: Optional[str] = None, remat: bool = False):
+def encode(cfg: ModelConfig, params: Params, enc_frames, *, mesh=None,
+           impl: Optional[str] = None, remat: bool = False,
+           batch_kind: str = "train"):
     """The encoder: ``embed_frames``, non-causal "enc" blocks, then the
     encoder's final norm."""
     h, pos = embed_frames(cfg, enc_frames)
+    h = constrain_batch(cfg, mesh, h, batch_kind)
     for bp in params["enc"]["layers"]:
         h = _run_block(cfg, bp, h, "enc", positions=pos, seg_ids=None,
-                       mem=None, impl=impl, remat=remat)[0]
+                       mem=None, mesh=mesh, impl=impl, remat=remat)[0]
+        h = constrain_batch(cfg, mesh, h, batch_kind)
     return L.apply_norm(cfg, params["enc"]["final_norm"], h)
 
 
 def _run_block(cfg, bp, h, kind, *, positions, seg_ids, mem, impl, remat,
-               cache_len=None):
+               cache_len=None, mesh=None):
     """``forward_block``, recomputed in the backward pass under ``remat``
     (every tensor it reads passed as an argument, ``mem`` too, so that the
     recompute's gradients reach the encoder)."""
     if not remat:
         return forward_block(cfg, bp, h, kind, positions=positions,
                              seg_ids=seg_ids, cache_len=cache_len, mem=mem,
-                             impl=impl)
+                             mesh=mesh, impl=impl)
 
     def block(hh, bp, positions, seg_ids, mem):
         out, a, _ = forward_block(cfg, bp, hh, kind, positions=positions,
                                   seg_ids=seg_ids, cache_len=None, mem=mem,
-                                  impl=impl)
+                                  mesh=mesh, impl=impl)
         return out, torch.as_tensor(a, dtype=torch.float32,
                                     device=out.device)
     out, a = _remat(block, h, bp, positions, seg_ids, mem)
@@ -298,7 +313,7 @@ def _run_block(cfg, bp, h, kind, *, positions, seg_ids, mem, impl, remat,
 def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
             seg_ids=None, vision_embeds=None, enc_frames=None,
             cache_len: Optional[int] = None, impl: Optional[str] = None,
-            remat: bool = False):
+            remat: bool = False, mesh=None, batch_kind: str = "train"):
     """Returns dict with h (B,S,D final-normed), aux (scalar), cache (or None).
 
     ``vision_embeds`` (B, vt, d_model) replace the first vt positions'
@@ -313,6 +328,9 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     ``remat``: recompute each block in the backward pass instead of keeping
     its activations (``models.remat``, which ``torch.func.vmap`` reaches),
     as the JAX package's ``remat="full"`` saves nothing inside a block.
+    ``mesh``: the device mesh the call's tensors are local shards of (see
+    the module docstring); ``batch_kind`` names the layout
+    ``constrain_batch`` keeps ("train", "serve").
     """
     if remat and cache_len is not None:
         raise ValueError("remat is for training; prefill collects a cache")
@@ -324,15 +342,19 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     if vision_embeds is not None and cfg.vision_tokens:
         vt = vision_embeds.shape[1]
         h = torch.cat([vision_embeds.to(h.dtype), h[:, vt:]], dim=1)
+    h = constrain_batch(cfg, mesh, h, batch_kind)
     mem = None
     if enc_frames is not None and cfg.encoder_layers:
-        mem = encode(cfg, params, enc_frames, impl=impl, remat=remat)
+        mem = encode(cfg, params, enc_frames, mesh=mesh, impl=impl,
+                     remat=remat, batch_kind=batch_kind)
     cache: Cache = []
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, bp in enumerate(params["layers"]):
         h, a, c = _run_block(cfg, bp, h, cfg.layer_kind(i),
                              positions=positions, seg_ids=seg_ids, mem=mem,
-                             impl=impl, remat=remat, cache_len=cache_len)
+                             impl=impl, remat=remat, cache_len=cache_len,
+                             mesh=mesh)
+        h = constrain_batch(cfg, mesh, h, batch_kind)
         aux = aux + a
         cache.append(c)
     h = L.apply_norm(cfg, params["final_norm"], h)
@@ -343,18 +365,20 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
 # ---------------------------------------------------------------- decode
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Cache, tokens,
-                positions, impl: Optional[str] = None):
+                positions, impl: Optional[str] = None, *, mesh=None):
     """One token for the whole batch.  tokens: (B,1); positions: (B,)
     per-row offsets.  Returns (logits (B,1,V), cache updated in place).
-    ``impl`` as in ``forward``."""
+    ``impl`` and ``mesh`` as in ``forward``."""
     h = embed_tokens(cfg, params, tokens, positions[:, None])
+    h = constrain_batch(cfg, mesh, h, "serve")
     new_cache: Cache = []
     for i, bp in enumerate(params["layers"]):
         h, c = decode_block(cfg, bp, h, cache[i], cfg.layer_kind(i),
-                            positions=positions, impl=impl)
+                            positions=positions, mesh=mesh, impl=impl)
+        h = constrain_batch(cfg, mesh, h, "serve")
         new_cache.append(c)
     h = L.apply_norm(cfg, params["final_norm"], h)
-    return lm_logits(cfg, params, h), new_cache
+    return lm_logits(cfg, params, h, mesh=mesh), new_cache
 
 
 # ---------------------------------------------------------------- cache init

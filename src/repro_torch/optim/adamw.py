@@ -107,10 +107,12 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """Scales every leaf by min(1, max_norm / norm), in place; returns
-    (grads, norm)."""
-    norm = global_norm(grads)
+    (grads, norm).  ``norm``: the global norm where the caller reckons it
+    (local shards of a mesh, ``dist.spmd.global_norm``)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
         g.copy_(g.float() * scale)

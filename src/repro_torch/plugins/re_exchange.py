@@ -12,8 +12,10 @@ Placement: by default the swap runs on the host (numpy).  With
 (``flags.resolve_device(None)``, cuda; it raises without one).  The
 uniforms come from a ``torch.Generator`` on that device seeded from
 (seed, cycle); the decision comes back to the host, which applies it to the
-float64 temperatures.  A mesh-aware pilot's ``ctx["submesh"]`` (the JAX
-package places the swap on it) is not ported: ROADMAP A9.
+float64 temperatures.  Under a mesh-aware pilot (``PilotRuntime(
+topology=...)``) the PST AppManager passes ``ctx["submesh"]``, the
+``DeviceMesh`` of the task's granted slots, and the swap is placed on the
+device of its first rank instead (``submesh_device``).
 
 Staging: under a ``repro_torch.staging`` pilot the member traffic arrives staged
 instead of passed by value — bulk member fields (trajectories, states) are
@@ -64,6 +66,18 @@ def exchange_uniforms(n: int, seed: int, cycle: int, device):
     gen = torch.Generator(device=device).manual_seed(
         int(np.random.SeedSequence((seed, cycle)).generate_state(1)[0]))
     return draw_uniforms(n, gen)
+
+
+def submesh_device(submesh):
+    """The torch device of a ``DeviceMesh``'s first rank: ``cpu`` on a CPU
+    mesh, else that rank's card on its host
+    (``rank % torch.cuda.device_count()``)."""
+    import torch
+    rank = int(submesh.mesh.reshape(-1)[0])
+    if submesh.device_type == "cpu":
+        return torch.device("cpu")
+    return torch.device(submesh.device_type,
+                        rank % max(torch.cuda.device_count(), 1))
 
 
 def _device_swaps(losses, temps, cycle: int, seed: int, device):
@@ -133,12 +147,11 @@ def re_exchange(args, ctx):
         if losses[i] is None:
             losses[i] = float("nan")
     if args.get("device"):
+        device = args["device"]
         if ctx.get("submesh") is not None:
-            raise NotImplementedError(
-                "re.exchange on a granted submesh: mesh-aware pilots are "
-                "not ported (ROADMAP A9)")
+            device = submesh_device(ctx["submesh"])
         new_temps, accepted = _device_swaps(
-            losses, temps, cycle, int(args.get("seed", 0)), args["device"])
+            losses, temps, cycle, int(args.get("seed", 0)), device)
     else:
         new_temps, accepted = metropolis_swaps(losses, temps, cycle,
                                                int(args.get("seed", 0)))

@@ -43,12 +43,13 @@ disjoint.  Elastic pilot resize mid-run; journal for restart (dynamically
 injected tasks are journaled with a ``submitted`` record so a restarted
 session can tell replayed structure from new work).
 
-Mesh-aware slots: in the JAX package a ``topology``
-(``repro.dist.topology.SlotTopology``) makes the pilot's slots device
-submeshes.  The port has no device topology yet (ROADMAP A9): a
-``topology`` argument and ``submesh_for`` raise ``NotImplementedError``,
-and the topology branches below stay as in the reference for when it
-lands.  Slots are abstract; each task kernel takes its own ``device``.
+Mesh-aware slots: with a ``topology`` (``repro_torch.dist.topology.
+SlotTopology``) the pilot's slots are *device submeshes* — a task
+occupying ``slots`` pilot slots is granted that many slot ids
+(``task.meta["slot_ids"]``) and can build its ``DeviceMesh`` via
+``runtime.submesh_for(task)``.  This ties the paper's pilot-slot
+abstraction to device placement: e.g. one replica-exchange member per pod
+of the 2x16x16 production mesh.
 
 Data staging: with a ``staging`` layer (repro_torch.staging.StagingLayer) tasks
 carrying staged refs (``task.meta["staged_refs"]``) have their transfers
@@ -74,9 +75,6 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 from repro_torch.runtime.faults import REVIVE, FailureDetector
 from repro_torch.runtime.journal import Journal
 from repro_torch.runtime.states import Task, TaskGraph, TaskState
-
-_NO_TOPOLOGY = ("device topologies (slot submeshes) are not ported yet: "
-                "ROADMAP A9")
 
 
 def _staged_extra(t: Task) -> Dict[str, Any]:
@@ -124,8 +122,6 @@ class PilotRuntime:
                  tracer=None,
                  on_schedule: Optional[Callable] = None):
         assert mode in ("real", "sim")
-        if topology is not None:
-            raise NotImplementedError(_NO_TOPOLOGY)
         if slots is None:
             if topology is None:
                 raise ValueError("need slots= or topology=")
@@ -390,9 +386,10 @@ class PilotRuntime:
                               if i not in self._dead_ids)
 
     def submesh_for(self, t: Task):
-        """The device submesh of the slots granted to ``t``: waits for a
-        device topology (ROADMAP A9)."""
-        raise NotImplementedError(_NO_TOPOLOGY)
+        """``DeviceMesh`` over the ranks of the slots granted to ``t``."""
+        if self.topology is None:
+            raise ValueError("runtime has no device topology")
+        return self.topology.submesh(t.meta["slot_ids"])
 
     # ------------------------------------------------------------ sessions
     def session(self, *, on_task_done: Optional[Callable] = None

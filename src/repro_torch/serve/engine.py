@@ -1,6 +1,16 @@
 """Serving substrate: prefill/decode step functions and a host-side
 continuous-batching scheduler (per-step admit/evict over a live decode
 wave), the port of ``repro.serve.engine``.
+
+Under a ``mesh`` the params are DTensors laid out by
+``dist.sharding.state_shardings`` and the decode cache DTensors laid out
+by ``cache_shardings`` (batch over the data axes, kv heads over
+``model``); token and position batches and the logits are global (every
+rank the same).  A step gathers the params for compute
+(``dist.spmd.gather_params``), takes this rank's rows, gathers its rows'
+cache over ``model`` (no copy on a one-rank mesh), runs the step on those
+local tensors and lays the cache back out; the logits are gathered over
+the data axes for the host's sampling.
 """
 from __future__ import annotations
 
@@ -12,32 +22,87 @@ from typing import Any, List, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import cache_spec, spec_placements
 from repro_torch.flags import resolve_device
 from repro_torch.models import decode_step, forward, lm_logits
 
 
+def _place_cache(cfg: ModelConfig, mesh, cache, B: int):
+    """A rank's cache (its rows, every head) as DTensors laid out by
+    ``cache_shardings`` for a batch of ``B``: each rank keeps its model
+    shard (no communication)."""
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import tree_map_with_path
+    from torch.distributed.tensor import Replicate
+    md = spmd.model_dim(mesh)
+
+    def one(path, t):
+        shape = tuple(t.shape) if path[-1] == "pos" else (B,) + tuple(
+            t.shape[1:])
+        target = spec_placements(mesh, cache_spec(cfg, mesh, path, shape))
+        rows = tuple(Replicate() if i == md else pl
+                     for i, pl in enumerate(target))
+        dt = spmd.to_dtensors(t, mesh, rows)
+        return spmd.redistribute(dt, target)
+    return tree_map_with_path(one, cache)
+
+
+def _cache_rows(mesh, cache):
+    """A rank's rows of a DTensor cache with every head: gathered over
+    ``model`` only (views where that dim has size 1)."""
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import tree_map_with_path
+    keep = spmd.data_dims(mesh)
+    return tree_map_with_path(lambda _, x: spmd.gather(x, keep), cache)
+
+
 def build_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None,
-                       impl: Optional[str] = None):
+                       impl: Optional[str] = None, *, mesh=None):
     """``impl`` goes to every kernel wrapper of the forward pass (None: the
     device decides; "ref": the plain versions).  A batch may carry the
-    frontends' stub inputs, ``vision_embeds`` and ``enc_frames``."""
+    frontends' stub inputs, ``vision_embeds`` and ``enc_frames``.
+    ``mesh``: see the module docstring."""
     def prefill_step(params, batch):
+        B = batch["tokens"].shape[0]
+        if mesh is not None:
+            from repro_torch.dist import spmd
+            params, _ = spmd.gather_params(cfg, mesh, params)
+            batch = {k: spmd.local_rows(v, mesh) for k, v in batch.items()}
         out = forward(cfg, params, batch["tokens"],
                       vision_embeds=batch.get("vision_embeds"),
                       enc_frames=batch.get("enc_frames"),
-                      cache_len=cache_len, impl=impl)
-        logits = lm_logits(cfg, params, out["h"][:, -1:])
+                      cache_len=cache_len, impl=impl, mesh=mesh,
+                      batch_kind="serve")
+        logits = lm_logits(cfg, params, out["h"][:, -1:], mesh=mesh)
+        cache = out["cache"]
+        if mesh is not None:
+            logits = spmd.gather_rows(logits, mesh, B)
+            if cache is not None:
+                cache = _place_cache(cfg, mesh, cache, B)
         if cache_len is None:
             return {"logits": logits}
-        return {"logits": logits, "cache": out["cache"]}
+        return {"logits": logits, "cache": cache}
     return prefill_step
 
 
-def build_serve_step(cfg: ModelConfig, impl: Optional[str] = None):
+def build_serve_step(cfg: ModelConfig, impl: Optional[str] = None, *,
+                     mesh=None):
     """decode: one new token for the whole batch against the cache.
-    ``impl`` goes to every kernel wrapper of the step, as in prefill."""
+    ``impl`` goes to every kernel wrapper of the step, as in prefill;
+    ``mesh``: see the module docstring."""
     def serve_step(params, cache, tokens, positions):
-        return decode_step(cfg, params, cache, tokens, positions, impl=impl)
+        if mesh is None:
+            return decode_step(cfg, params, cache, tokens, positions,
+                               impl=impl)
+        from repro_torch.dist import spmd
+        B = tokens.shape[0]
+        params, _ = spmd.gather_params(cfg, mesh, params)
+        logits, rows = decode_step(
+            cfg, params, _cache_rows(mesh, cache),
+            spmd.local_rows(tokens, mesh), spmd.local_rows(positions, mesh),
+            impl=impl, mesh=mesh)
+        return (spmd.gather_rows(logits, mesh, B),
+                _place_cache(cfg, mesh, rows, B))
     return serve_step
 
 
@@ -58,11 +123,23 @@ def _merge_rows(old, new, mask):
     """Select ``new``'s batch rows where ``mask`` is set, ``old``'s
     elsewhere, for every tensor of a cache (nested lists and dicts, the
     batch on axis 0 of every leaf: attention k/v, and the recurrent ``h``
-    and ``conv`` states of rec and mamba layers)."""
+    and ``conv`` states of rec and mamba layers).  A DTensor leaf merges
+    its local rows by the rows of ``mask`` it holds."""
     if isinstance(old, dict):
         return {k: _merge_rows(old[k], new[k], mask) for k in old}
     if isinstance(old, (list, tuple)):
         return [_merge_rows(o, n, mask) for o, n in zip(old, new)]
+    if hasattr(old, "device_mesh"):          # a DTensor
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        from repro_torch.dist import spmd
+        rows = tuple(pl if isinstance(pl, Shard) and pl.dim == 0
+                     else Replicate() for pl in old.placements)
+        merged = _merge_rows(old.to_local(), new.to_local(),
+                             spmd.local_shard(mask, old.device_mesh, rows))
+        return DTensor.from_local(merged, old.device_mesh, old.placements,
+                                  run_check=False, shape=old.shape,
+                                  stride=old.stride())
     shape = [old.shape[0]] + [1] * (old.dim() - 1)
     return torch.where(mask.reshape(shape), new, old)
 
@@ -82,22 +159,33 @@ class BatchedServer:
     ``impl`` goes to every kernel of prefill and decode (attention, the
     scans and the MoE grouped matmul; None: the device decides; "ref": the
     plain versions).  ``clock`` stamps ``Request.submitted_at`` and
-    ``done_at``.
+    ``done_at``.  ``mesh``: params and caches stay laid out by
+    ``state_shardings`` / ``cache_shardings`` across the steps (plain
+    params are placed so: each rank keeps its shard); the logits are
+    gathered for sampling, so every rank decodes the same tokens.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, batch: int,
-                 prompt_len: int, max_len: int, device=None,
+                 prompt_len: int, max_len: int, device=None, mesh=None,
                  impl: Optional[str] = None, clock=time.perf_counter):
-        self.cfg, self.params = cfg, params
+        self.cfg, self.mesh = cfg, mesh
         self.device = resolve_device(device)
+        if mesh is not None:
+            from repro_torch.dist import spmd
+            from repro_torch.dist.sharding import state_shardings
+            from repro_torch.optim.adamw import tree_leaves
+            if not any(spmd.is_dtensor(t) for t in tree_leaves(params)):
+                params = spmd.distribute_tree(
+                    params, state_shardings(cfg, mesh, params))
+        self.params = params
         self.B, self.S0, self.Smax = batch, prompt_len, max_len
         self.clock = clock
         # sliding-window ring caches are batch-synchronized -> wave mode
         self.continuous = not (cfg.sliding_window and any(
             cfg.layer_kind(i) == "local" for i in range(cfg.num_layers)))
         self.prefill = build_prefill_step(cfg, cache_len=max_len,
-                                          impl=impl)
-        self.step = build_serve_step(cfg, impl=impl)
+                                          impl=impl, mesh=mesh)
+        self.step = build_serve_step(cfg, impl=impl, mesh=mesh)
         self.queue: collections.deque = collections.deque()
         self.stats = {"served": 0, "decode_steps": 0, "prefills": 0,
                       "slot_steps": 0}

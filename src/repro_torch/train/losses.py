@@ -5,6 +5,11 @@ The (B, S, V) logits are never held whole: each sequence chunk's f32 logits
 are computed from the final hidden states, reduced at once, and recomputed
 in the backward pass (``models.remat``, as the JAX package
 ``jax.checkpoint``s its chunk body).
+
+Under a ``mesh`` the hidden states and labels are a rank's rows (its data
+shard, ``dist.spmd``): the masked NLL sum and the label count are summed
+over the data axes, so every rank holds the mean over the whole batch, and
+each rank's gradient is its rows' part of it (``spmd.sum_across``).
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ from typing import Tuple
 
 import torch
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constrain_batch
 from repro_torch.models.remat import remat
 
 
@@ -32,10 +38,14 @@ def _chunk_nll(hc, lc, wf, transpose: bool, final_softcap: float):
     return torch.sum((lse - corr) * mask), torch.sum(mask)
 
 
-def chunked_softmax_xent(cfg: ModelConfig, params, h, labels
+def chunked_softmax_xent(cfg: ModelConfig, params, h, labels, *, mesh=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """h: (B, S, D) final-normed; labels: (B, S) (-1 = masked).
-    Returns (mean nll, token count)."""
+    Returns (mean nll, token count), over every rank's rows under
+    ``mesh``."""
+    if mesh is not None:
+        h = constrain_batch(cfg, mesh, h, "train")
+        labels = constrain_batch(cfg, mesh, labels, "train")
     B, S, D = h.shape
     w, transpose = _head_weight(cfg, params)
     wf = w.float()
@@ -52,4 +62,9 @@ def chunked_softmax_xent(cfg: ModelConfig, params, h, labels
             nll, n = _chunk_nll(*args)
         tot = tot + nll
         cnt = cnt + n
+    if mesh is not None:
+        from repro_torch.dist import spmd
+        dims = spmd.data_dims(mesh)
+        tot = spmd.sum_across(tot, mesh, dims)
+        cnt = spmd.all_reduce_(cnt.detach(), mesh, dims)
     return tot / torch.clamp(cnt, min=1.0), cnt

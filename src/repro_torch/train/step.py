@@ -9,6 +9,17 @@ gradients accumulate into the master params' ``.grad`` (f32 for f32
 masters, the JAX package's ``zeros + g_1 + g_2 ...``), are divided by the
 microbatch count, clipped, and applied by AdamW; the params require grad
 only inside the step, and their ``.grad`` is dropped at its end.
+
+Under a ``mesh`` (``build_train_step(cfg, mesh=...)``) the state is a tree
+of DTensors laid out by ``dist.sharding.state_shardings`` and the batch
+holds the global rows (every rank the same).  Each step gathers the
+parameters for compute (``dist.spmd.gather_params``: the full tensors,
+the expert-parallel weights their ``model`` shard), takes this rank's rows
+of every microbatch (the reference's microbatch, then its data shard),
+sums the gradients over the data axes, constrains them to the parameters'
+placements (``constrain_like_params``: each rank keeps its shard), clips
+them by their global norm over the mesh, and runs AdamW on the local
+shards of parameters, moments and gradients.
 """
 from __future__ import annotations
 
@@ -18,6 +29,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constrain_like_params
 from repro_torch.models.transformer import _layout, forward, init_params
 from repro_torch.optim.adamw import (
     adamw_init,
@@ -111,54 +123,78 @@ def _remat(cfg: ModelConfig) -> bool:
 
 
 def lm_loss(cfg: ModelConfig, params, batch, impl: Optional[str] = None,
-            remat: bool = False):
+            remat: bool = False, mesh=None):
     """(mean nll, token count, aux loss) of one batch: the forward pass and
-    the chunked LM-head loss, differentiable in ``params``."""
+    the chunked LM-head loss, differentiable in ``params``; under ``mesh``
+    the batch is this rank's rows and the mean is over every rank's."""
     out = forward(cfg, params, batch["tokens"], seg_ids=batch.get("seg_ids"),
                   vision_embeds=batch.get("vision_embeds"),
-                  enc_frames=batch.get("enc_frames"), impl=impl, remat=remat)
-    loss, ntok = chunked_softmax_xent(cfg, params, out["h"], batch["labels"])
+                  enc_frames=batch.get("enc_frames"), impl=impl, remat=remat,
+                  mesh=mesh)
+    loss, ntok = chunked_softmax_xent(cfg, params, out["h"], batch["labels"],
+                                      mesh=mesh)
     return loss, ntok, out["aux"]
 
 
+def _microbatches(batch, nmb: int, mesh):
+    """The ``nmb`` microbatches of ``batch`` (rows split in order); under
+    ``mesh``, this rank's rows of each."""
+    B = batch["tokens"].shape[0]
+    if B % nmb:
+        raise ValueError(f"batch {B} does not split into {nmb} "
+                         "microbatches")
+    for i in range(nmb):
+        mb = {k: v[i * B // nmb:(i + 1) * B // nmb] for k, v in batch.items()}
+        if mesh is not None:
+            from repro_torch.dist import spmd
+            mb = {k: spmd.local_rows(v, mesh) for k, v in mb.items()}
+        yield mb
+
+
+def _accumulate(cfg, params, batch, hyper, impl, remat, mesh):
+    """Forward and backward of every microbatch into ``params``' ``.grad``
+    (the leaves require grad only here); returns (grads, loss sum, aux
+    sum)."""
+    leaves = list(tree_leaves(params))
+    nmb = cfg.microbatches
+    loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    aux_sum = torch.zeros_like(loss_sum)
+    for p in leaves:
+        p.grad = None
+        p.requires_grad_(True)
+    try:
+        for mb in _microbatches(batch, nmb, mesh):
+            loss, _, aux = lm_loss(cfg, compute_cast(cfg, params), mb,
+                                   impl, remat, mesh)
+            total = loss + hyper.aux_weight * aux
+            total.backward()
+            loss_sum += total.detach()
+            aux_sum += aux.detach()
+        grads = tree_map(lambda p: p.grad if p.grad is not None
+                         else torch.zeros_like(p), params)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    for p in leaves:
+        p.grad = None
+    return grads, loss_sum, aux_sum
+
+
 def build_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(),
-                     impl: Optional[str] = None):
+                     impl: Optional[str] = None, *, mesh=None):
     """``train_step(state, batch) -> (state, metrics)``; ``impl`` goes to
     every kernel wrapper of the forward and backward passes (None or
-    "ref")."""
+    "ref"); ``mesh``: a ``DeviceMesh`` the state's DTensors lie on (see
+    the module docstring)."""
     sched = make_schedule(hyper.schedule, base_lr=hyper.base_lr,
                           warmup=hyper.warmup, total_steps=hyper.total_steps)
     remat = _remat(cfg)
+    nmb = cfg.microbatches
 
     def train_step(state: TrainState, batch) -> tuple:
         params = state["params"]
-        leaves = list(tree_leaves(params))
-        nmb = cfg.microbatches
-        B = batch["tokens"].shape[0]
-        if B % nmb:
-            raise ValueError(f"batch {B} does not split into {nmb} "
-                             "microbatches")
-        loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=leaves[0].device)
-        aux_sum = torch.zeros_like(loss_sum)
-        for p in leaves:
-            p.grad = None
-            p.requires_grad_(True)
-        try:
-            for i in range(nmb):
-                mb = {k: v[i * B // nmb:(i + 1) * B // nmb]
-                      for k, v in batch.items()}
-                loss, _, aux = lm_loss(cfg, compute_cast(cfg, params), mb,
-                                       impl, remat)
-                total = loss + hyper.aux_weight * aux
-                total.backward()
-                loss_sum += total.detach()
-                aux_sum += aux.detach()
-            grads = tree_map(lambda p: p.grad if p.grad is not None
-                             else torch.zeros_like(p), params)
-        finally:
-            for p in leaves:
-                p.requires_grad_(False)
+        grads, loss_sum, aux_sum = _accumulate(cfg, params, batch, hyper,
+                                               impl, remat, None)
         with torch.no_grad():
             if nmb > 1:
                 for g in tree_leaves(grads):
@@ -168,21 +204,58 @@ def build_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(),
             adamw_update(grads, state["opt"], params, lr=lr, b1=hyper.b1,
                          b2=hyper.b2, wd=hyper.wd,
                          decay=decay_mask(cfg, params))
-        for p in leaves:
-            p.grad = None
         state["step"] = state["step"] + 1
         metrics = {"loss": loss_sum / nmb, "aux": aux_sum / nmb,
                    "grad_norm": gnorm, "lr": lr}
         return state, metrics
 
-    return train_step
+    def mesh_step(state: TrainState, batch) -> tuple:
+        from repro_torch.dist import spmd
+        compute, placements = spmd.gather_params(cfg, mesh, state["params"])
+        grads, loss_sum, aux_sum = _accumulate(cfg, compute, batch, hyper,
+                                               impl, remat, mesh)
+        with torch.no_grad():
+            for g in tree_leaves(grads):
+                spmd.all_reduce_(g, mesh, spmd.data_dims(mesh))
+            sharded = constrain_like_params(
+                cfg, mesh, spmd.to_dtensors(grads, mesh, placements))
+            grads = spmd.local(sharded)
+            if nmb > 1:
+                for g in tree_leaves(grads):
+                    g.div_(nmb)
+            gnorm = spmd.global_norm(list(tree_leaves(sharded)))
+            grads, _ = clip_by_global_norm(grads, hyper.clip, norm=gnorm)
+            params = spmd.local(state["params"])
+            opt = spmd.local(state["opt"])
+            step = spmd.local(state["step"])
+            lr = sched(step)
+            adamw_update(grads, opt, params, lr=lr, b1=hyper.b1,
+                         b2=hyper.b2, wd=hyper.wd,
+                         decay=decay_mask(cfg, params))
+            count = state["opt"]["count"]
+            state["opt"]["count"] = spmd.to_dtensors(
+                opt["count"], mesh, count.placements)
+            state["step"] = spmd.to_dtensors(step + 1, mesh,
+                                             state["step"].placements)
+        metrics = {"loss": loss_sum / nmb, "aux": aux_sum / nmb,
+                   "grad_norm": gnorm, "lr": lr}
+        return state, metrics
+
+    return train_step if mesh is None else mesh_step
 
 
-def build_eval_step(cfg: ModelConfig, impl: Optional[str] = None):
+def build_eval_step(cfg: ModelConfig, impl: Optional[str] = None, *,
+                    mesh=None):
     """``eval_step(params, batch) -> {"loss", "ntok"}``, no gradients, the
-    master params as they are (no ``compute_cast``), as the JAX package."""
+    master params as they are (no ``compute_cast``), as the JAX package;
+    under ``mesh`` the params are DTensors, gathered for the call, and the
+    batch the global rows."""
     @torch.no_grad()
     def eval_step(params, batch):
-        loss, ntok, _ = lm_loss(cfg, params, batch, impl)
+        if mesh is not None:
+            from repro_torch.dist import spmd
+            params, _ = spmd.gather_params(cfg, mesh, params)
+            batch = {k: spmd.local_rows(v, mesh) for k, v in batch.items()}
+        loss, ntok, _ = lm_loss(cfg, params, batch, impl, mesh=mesh)
         return {"loss": loss, "ntok": ntok}
     return eval_step

@@ -6,9 +6,9 @@ is written as JSON to the path in ``$TORCH_ALIAS_RESULTS``.
     python -m pytest -p _torch_alias tests/test_flow.py
 
 Load it only in a process of its own (``-p`` before any ``repro`` import):
-the alias stays for the life of the interpreter.  ``repro.dist`` is left
-to the JAX package, so tests that build a device topology reach the port's
-``NotImplementedError`` (ROADMAP A9).
+the alias stays for the life of the interpreter.  ``repro.dist`` is the
+port's too, so a test's device topology is ``repro_torch.dist.topology.
+SlotTopology`` and its recarve rules the port's sharding contract.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import os
 import sys
 
 ALIASED = ("core", "runtime", "staging", "analysis", "serving", "plugins",
-           "federation", "obs")
+           "federation", "obs", "dist")
 
 
 class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):

@@ -153,11 +153,20 @@ def test_resave_of_a_published_step_replaces_it(tmp_path):
         jck.save({"x": jnp.ones(2)}, 4)
 
 
-def test_restore_onto_shardings_waits_for_a9(tmp_path):
+def test_restore_onto_shardings_needs_the_template(tmp_path):
+    """``restore(shardings=...)`` places each leaf by its sharding, so it
+    needs the state's template (the placement itself, on gloo meshes:
+    ``tests/test_torch_dist_gloo.py::
+    test_checkpoint_restores_onto_shardings``); a leaf whose sharding is
+    None stays a plain tensor."""
     ck = Checkpointer(str(tmp_path))
-    ck.save({"x": torch.zeros(2)}, 1)
-    with pytest.raises(NotImplementedError, match="A9"):
-        ck.restore(None, shardings={"x": object()}, device="cpu")
+    ck.save({"x": torch.zeros(2), "y": torch.ones(3)}, 1)
+    with pytest.raises(ValueError, match="template"):
+        ck.restore(None, shardings={"x": None, "y": None}, device="cpu")
+    got, step = ck.restore({"x": 0, "y": 0}, shardings={"x": None, "y": None},
+                           device="cpu")
+    assert step == 1 and got["y"].tolist() == [1.0, 1.0, 1.0]
+    assert type(got["x"]) is torch.Tensor
     with pytest.raises(FileNotFoundError):
         Checkpointer(str(tmp_path / "empty")).restore(None, device="cpu")
 

@@ -161,16 +161,26 @@ def test_exchange_kernel_on_device_matches_reference(losses, temps, cycle):
 
 def test_exchange_on_device_true_means_cuda(monkeypatch):
     """``device=True`` resolves to the port's default device, cuda, and
-    raises where there is none; a granted submesh raises naming A9."""
+    raises where there is none; on a granted submesh the swap is placed on
+    its first rank's device instead (a CPU mesh: the CPU), with the
+    reference's swaps."""
+    import types
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     k = Kernel("re.exchange")
-    k.arguments = {"replicas": 2, "temps": [1.0, 2.0], "losses": [1.0, 2.0],
-                   "device": True}
+    k.arguments = {"replicas": 4, "temps": [1.0, 2.0, 3.0, 4.0],
+                   "losses": [1.0, 2.0, 0.5, 3.0], "device": True, "seed": 7,
+                   "cycle": 1}
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         k.execute()
-    from repro_torch.plugins.re_exchange import re_exchange
-    with pytest.raises(NotImplementedError, match="A9"):
-        re_exchange(dict(k.arguments, device="cpu"), {"submesh": object()})
+    from repro_torch.plugins.re_exchange import re_exchange, submesh_device
+    sub = types.SimpleNamespace(mesh=torch.tensor([[3, 4]]),
+                                device_type="cpu")
+    assert submesh_device(sub) == torch.device("cpu")
+    out = re_exchange(dict(k.arguments), {"submesh": sub})
+    want_t, want_acc = jax_device_swaps(k.arguments["losses"],
+                                        k.arguments["temps"], 1, 7, None)
+    assert out["temps"] == [float(t) for t in want_t]
+    assert [tuple(p) for p in out["accepted"]] == want_acc
 
 
 def _jax_cycles(jfe, key, cycles, shape):

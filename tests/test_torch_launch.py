@@ -191,9 +191,13 @@ def test_hardware_is_the_h100_data_sheet():
             hw.peak_flops_f32) == (989e12, 3.35e12, 80e9, 450e9, 67e12)
     assert [f.name for f in dataclasses.fields(JaxHardwareSpec)] == \
         [f.name for f in dataclasses.fields(mesh.HardwareSpec)][:5]
-    for fn in (mesh.make_production_mesh, mesh.make_host_mesh):
-        with pytest.raises(NotImplementedError, match="A9"):
-            fn()
+    # the meshes are over an initialised process group, never made up
+    # without one (fake and gloo groups: tests/test_torch_dist_*.py)
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        for fn in (mesh.make_production_mesh, mesh.make_host_mesh):
+            with pytest.raises(RuntimeError, match="init_process_group"):
+                fn()
 
 
 @pytest.mark.parametrize("arch,shape", [("gemma2-2b", "train_4k"),
@@ -686,10 +690,53 @@ def test_resume_replays_a_step_in_both_packages(tmp_path, monkeypatch,
 
 
 def test_train_cli_refuses_meshes():
-    for flag in (["--mesh", "prod"], ["--multi-pod"]):
-        with pytest.raises(NotImplementedError, match="A9"):
+    """``--mesh prod`` builds the production mesh over the default process
+    group and refuses to run without one (a mesh the group cannot hold:
+    ``test_production_meshes_need_their_world``; the loop on gloo meshes:
+    ``tests/test_torch_dist_gloo.py``)."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    for flag in (["--mesh", "prod"], ["--mesh", "prod", "--multi-pod"]):
+        with pytest.raises(RuntimeError, match="init_process_group"):
             launch_train.main(["--arch", "gemma2-2b", "--device", "cpu",
                                *flag])
+
+
+def test_production_meshes_need_their_world():
+    """In a process group of one rank the production meshes raise, naming
+    the world each needs, and ``make_host_mesh`` builds only the shapes
+    the group holds: a mesh is never shrunk."""
+    code = (
+        "import torch.distributed as dist, tempfile, os\n"
+        "from repro_torch.launch import mesh\n"
+        "f = os.path.join(tempfile.mkdtemp(), 's')\n"
+        "dist.init_process_group('gloo', store=dist.FileStore(f, 1), "
+        "rank=0, world_size=1)\n"
+        "for mp, n in ((False, 256), (True, 512)):\n"
+        "    try:\n"
+        "        mesh.make_production_mesh(multi_pod=mp)\n"
+        "    except ValueError as e:\n"
+        "        assert f'world of {n} ranks' in str(e), e\n"
+        "    else:\n"
+        "        raise AssertionError('no error')\n"
+        "m = mesh.make_host_mesh((1, 1))\n"
+        "assert tuple(m.mesh_dim_names) == ('data', 'model')\n"
+        "assert m.device_type == 'cpu' and m.size() == 1\n"
+        "try:\n"
+        "    mesh.make_host_mesh((2, 1))\n"
+        "except ValueError as e:\n"
+        "    assert 'world of 2 ranks' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('no error')\n"
+        "dist.destroy_process_group()\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PYTEST_", "MASTER_"))}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    import subprocess
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.stdout.strip() == "ok", proc.stdout + proc.stderr
 
 
 # ------------------------------------------- chip_smoke.py rehearsals

@@ -244,6 +244,14 @@ def test_moe_no_drop_matches_dense_reference():
 
 
 def test_apply_moe_over_a_mesh_raises():
+    """Expert parallelism needs the experts to split evenly over the model
+    ranks (the reference's ``E // model``); a mesh where they do not raises
+    before any collective (the layer over real meshes:
+    ``tests/test_torch_dist_gloo.py``)."""
+    from repro_torch.dist.sharding import abstract_mesh
     _, cfg, _, p = _moe_setup()
-    with pytest.raises(NotImplementedError):
-        L.apply_moe(cfg, p, torch.zeros(1, 4, cfg.d_model), mesh=object())
+    cfg = cfg.replace(sharding_profile="tp_ep")
+    mdl = cfg.num_experts + 1
+    with pytest.raises(ValueError, match="do not split"):
+        L.apply_moe(cfg, p, torch.zeros(1, 4, cfg.d_model),
+                    mesh=abstract_mesh((1, mdl), ("data", "model")))

@@ -3,7 +3,8 @@
 Each suite below runs in a pytest process of its own with the plugin
 ``tests/_torch_alias.py``, which resolves ``repro.core``, ``repro.runtime``,
 ``repro.staging``, ``repro.analysis``, ``repro.serving``, ``repro.plugins``,
-``repro.federation`` and ``repro.obs`` to the port's modules (the alias
+``repro.federation``, ``repro.obs`` and ``repro.dist`` to the port's
+modules (the alias
 never enters this process).  Every reference test is a case here, named by
 its own id; a case passes when that test passed against the port.
 
@@ -32,27 +33,15 @@ GROUPS = (("serving",), ("flow", "pst", "analysis"),
           ("staging", "faults", "strategy", "patterns", "runtime",
            "federation", "obs"))
 
-_A9 = ("ROADMAP A9: device topologies; the port's PilotRuntime(topology=...) "
-       "raises")
 _SWAP = ("the port's on-device swap takes a uniforms tensor and "
          "device=True means cuda; held against the reference by "
          "tests/test_torch_ensemble.py::{}")
 EXCLUDED = {
-    "tests/test_flow.py::test_runtime_grow_recarves_topology": _A9,
-    "tests/test_flow.py::test_recarve_defers_until_slots_free": _A9,
-    "tests/test_flow.py::test_strategy_holds_width_on_unrecarvable_grow":
-        _A9,
-    "tests/test_faults.py::test_topology_shrink_recarve_after_pod_loss": _A9,
-    "tests/test_pst.py::test_exchange_kernel_swaps_on_granted_submesh": _A9,
-    "tests/test_runtime.py::"
-    "test_speculative_supersession_frees_slot_exactly_once": _A9,
-    "tests/test_runtime.py::test_canceled_twin_bookkeeping": _A9,
-    "tests/test_runtime.py::"
-    "test_multislot_with_topology_grants_disjoint_submeshes": _A9,
-    "tests/test_analysis.py::test_e108_slots_unsatisfiable_vs_w202_recarve":
-        _A9,
-    "tests/test_analysis.py::test_e108_sharding_blocks_model_axis_split":
-        _A9,
+    "tests/test_pst.py::test_exchange_kernel_swaps_on_granted_submesh":
+        "its topology's devices are jax.devices(); the port's slots are "
+        "process ranks, whose submesh is a DeviceMesh; held by "
+        "tests/test_torch_dist_gloo.py::"
+        "test_exchange_swaps_on_the_granted_submesh",
     "tests/test_pst.py::test_device_swap_keeps_float64_temps_exact":
         _SWAP.format("test_device_swaps_keep_float64_temps_exact"),
     "tests/test_pst.py::test_device_swap_preserves_temps_and_pair_symmetry":
@@ -129,8 +118,6 @@ def test_suites_run_every_reference_test(results):
 
 
 def test_excluded_tests_fail_for_their_stated_reason(results):
-    for test_id, why in EXCLUDED.items():
+    for test_id in EXCLUDED:
         got = results[test_id]
         assert got["outcome"] == "failed", (test_id, got)
-        if why == _A9:
-            assert "ROADMAP A9" in got["longrepr"], (test_id, got["longrepr"])

@@ -484,14 +484,33 @@ def test_serve_ensemble_example_real_mode_on_serve_tiny():
                 assert out["tokens"] == sum(r.max_new_tokens for r in reqs)
 
 
-def test_topology_waits_for_a9():
+def test_topology_slots_and_submesh_for(monkeypatch):
+    """A topology makes the pilot's slots: its slot count, one slot id a
+    task; ``submesh_for`` needs a topology, and a submesh needs an
+    initialised process group of ranks (real submeshes:
+    ``tests/test_torch_dist_gloo.py``)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.dist.topology import SlotTopology
     from repro_torch.runtime.executor import PilotRuntime
-    from repro_torch.runtime.states import Task
-    with pytest.raises(NotImplementedError, match="A9"):
-        PilotRuntime(topology=object(), mode="sim")
-    rt = PilotRuntime(slots=2, mode="sim")
-    with pytest.raises(NotImplementedError, match="A9"):
-        rt.submesh_for(Task(name="t"))
+    from repro_torch.runtime.states import Task, TaskGraph
+    rt = PilotRuntime(topology=SlotTopology.even(np.arange(4), 4),
+                      mode="sim")
+    assert rt.slots == 4
+    g = TaskGraph()
+    for i in range(6):
+        g.add(Task(name=f"t{i}", duration=1.0))
+    prof = rt.run(g)
+    assert prof.ttc == 2.0 and sorted(rt._free_ids) == [0, 1, 2, 3]
+    assert all(len(t.meta["slot_ids"]) == 1 for t in g.tasks.values())
+    with pytest.raises(ValueError, match="no device topology"):
+        PilotRuntime(slots=2, mode="sim").submesh_for(Task(name="t"))
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    t = Task(name="u")
+    t.meta["slot_ids"] = [1]
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        rt.submesh_for(t)
 
 
 def test_kernel_attributes_match_reference():
