@@ -217,6 +217,28 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  losses and the card's uniforms.
                  Step ms, peak GB and launches beside the unsharded
                  phases'
+  mesh tp        tensor-parallel compute over "model" on two processes
+                 spawned on the one card (both ranks on cuda:0 in a gloo
+                 group through a FileStore; the collectives on CUDA
+                 tensors staged through host memory, listed), mesh
+                 (1, 2): each rank trains gemma2-2b-L4 (2 x 1024, 2 steps:
+                 4 of 8 heads, 2 of 4 kv heads) and qwen3-moe-30b-a3b-L1
+                 (tp_ep: 64 experts, 16 q and 2 kv heads; 4 x 512 in 4
+                 microbatches, 1 step) on its model shards of the seed-0
+                 state, and serves full gemma2-2b through
+                 ``BatchedServer(mesh=...)``; rank 0 then runs each
+                 unsharded: losses within TRAIN_LOSS_TOL, the first batch's
+                 gradients (shards joined) within TRAIN_GRAD_RTOL, the
+                 first wave's last-position logits within LOGIT_TOL,
+                 tokens agreeing with ``serve gemma2-2b``'s (reported);
+                 each rank's peak below the unsharded step's and within
+                 MESH_TP_PEAK_RTOL of ``launch.dryrun --mesh 1x2``'s
+                 reckoning, its ms a step and launches of each kernel
+  examples       ``python -m repro_torch.examples.train_100m`` (20 steps,
+                 then a restart that resumes from its checkpoint to 30),
+                 ``serve_batched`` and ``replica_exchange_pbt`` at their
+                 defaults, in this process through runpy: finite losses,
+                 the restored step, exact flash launches
 Then a ``{"kernels": [...]}`` line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Exits non-zero without a result
 when CUDA is missing or the port's package is not beside this script.
@@ -1693,17 +1715,25 @@ def _dryrun_init(src: str) -> None:
         sys.path.insert(0, src)
 
 
-def _reckon(arch, batch, seq, microbatches=None, members=0, steps=1):
+def _reckon(arch, batch, seq, microbatches=None, members=0, steps=1,
+            mesh=None):
     """``launch.dryrun.reckon`` of a phase's cell: ``arch`` a registered
-    name or ``<base>-L<n>`` (``profile_train.train_config``)."""
+    name or ``<base>-L<n>`` (``profile_train.train_config``); ``mesh``
+    ("DxM") one rank of that mesh on a fake group (``--mesh DxM``)."""
     from repro_torch.configs.base import ShapeSpec
-    from repro_torch.launch.dryrun import reckon
+    from repro_torch.launch.dryrun import fake_world, parse_mesh, reckon
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.profile_train import train_config
     t = time.perf_counter()
-    out = reckon(train_config(arch),
-                 ShapeSpec("chip_smoke", "train", seq, batch),
-                 microbatches=microbatches, members=members,
-                 steps_per_cycle=steps)
+    args = (train_config(arch), ShapeSpec("chip_smoke", "train", seq, batch))
+    if mesh is None:
+        out = reckon(*args, microbatches=microbatches, members=members,
+                     steps_per_cycle=steps)
+    else:
+        dims, axes = parse_mesh(mesh)
+        with fake_world(math.prod(dims)):
+            out = reckon(*args, microbatches=microbatches,
+                         mesh=make_host_mesh(dims, axes))
     return {**out, "reckon_s": time.perf_counter() - t}
 
 
@@ -1722,6 +1752,11 @@ def _reckon_cells():
     for b in (LAUNCH_TRAIN["batch"], LAUNCH_TRAIN["fallback_batch"]):
         cells[f"launch train {b}"] = dict(arch=LAUNCH_TRAIN["arch"], batch=b,
                                           seq=LAUNCH_TRAIN["seq"])
+    mesh = "x".join(map(str, MESH_TP["shape"]))
+    for spec in MESH_TP["train"]:
+        cells[f"mesh tp {spec['arch']}"] = dict(
+            arch=spec["arch"], batch=spec["batch"], seq=spec["seq"],
+            microbatches=spec["microbatches"], mesh=mesh)
     return cells
 
 
@@ -4331,6 +4366,433 @@ def phase_mesh(dev, refs):
     return out
 
 
+# mesh tp part: tensor-parallel compute over "model" on two processes that
+# share the one card, a gloo group (NCCL refuses two ranks on one device;
+# spmd stages the group's collectives on CUDA tensors through host
+# memory).  Each rank trains and serves on its model shards; rank 0 then
+# runs the same work unsharded (``mesh=None``) for the holds.
+MESH_TP = dict(
+    shape=(1, 2), axes=("data", "model"),
+    train=[
+        # 4 of 8 heads and 2 of 4 kv heads a rank: case (a)
+        dict(arch="gemma2-2b-L4", base="gemma2-2b", layers=4, batch=2,
+             seq=1024, microbatches=1, steps=2,
+             launches=_launches(flash=(4, 1))),
+        # 64 of 128 experts (tp_ep), 16 q heads and 2 kv heads a rank;
+        # 512 tokens a microbatch keep the capacity block at 8 rows both
+        # at 64 and at 128 local experts (T * k // E_local < 128), so the
+        # two runs drop the same assignments
+        dict(arch="qwen3-moe-30b-a3b-L1", base="qwen3-moe-30b-a3b", layers=1,
+             batch=4, seq=512, microbatches=4, steps=1,
+             launches=_launches(flash=(1, 4), moe=(1, 4)))],
+    picked=("embed/tok", "layers/0/attn/wq", "layers/0/attn/wk",
+            "layers/0/attn/wv", "layers/0/attn/wo", "layers/0/mlp/wi",
+            "layers/0/mlp/wo", "layers/0/moe/wi", "layers/0/moe/wo",
+            "layers/0/moe/router"))
+MESH_TP_PEAK_RTOL = 0.03
+
+
+def _tp_setup(rank, store):
+    """A rank of the mesh tp part: the card, the script's float settings,
+    a gloo group of 2 through a FileStore."""
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.zeros((), device=dev)     # the context first: DeviceMesh keeps it
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    return dev
+
+
+def _tp_whole(mesh, tree, placements):
+    """Host copies of a tree of ``model`` shards, joined whole (every rank
+    takes part; every rank gets them)."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import tree_map_with_path
+    md = spmd.model_dim(mesh)
+
+    def one(path, t):
+        pl = placements[path][md]
+        t = t.detach().float().cpu()
+        return (spmd.all_gather(t, mesh, md, pl.dim)
+                if isinstance(pl, Shard) else t)
+    return tree_map_with_path(one, tree)
+
+
+def _tp_train(dev, mesh, rank, spec):
+    """``spec["steps"]`` steps of ``build_train_step(cfg, mesh=mesh)`` on
+    this rank's shards of the seed-0 state, and the first batch's
+    gradient; rank 0 then runs the unsharded step and gradient (the
+    gradient on the mesh run's MoE routes, as the train phases' plain
+    comparison replays the kernel run's).  The rank's row."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import state_shardings, tree_map_with_path
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train import TrainHyper, build_train_step
+    from repro_torch.train import make_train_state
+    from repro_torch.train.step import _accumulate
+
+    t0 = time.perf_counter()
+    cfg = _cut_cfg(spec["arch"], spec["base"], spec["layers"]).replace(
+        microbatches=spec["microbatches"])
+    hyper = TrainHyper(base_lr=3e-4, warmup=2, total_steps=1000)
+    nmb, remat = cfg.microbatches, cfg.remat != "none"
+    data = SyntheticLM(cfg, ShapeSpec("train", "train", spec["seq"],
+                                      spec["batch"]), seed=0, device=dev)
+
+    routes = []
+
+    def run(state, mesh_):
+        """(gradient of batch 0 on the host, steps' rows, peak GB, GB
+        allocated as the steps start).  The unsharded gradient replays
+        the mesh run's MoE routes (``_routing``)."""
+        params, placements = state["params"], None
+        if mesh_ is not None:
+            params, placements = spmd.gather_params(cfg, mesh_, params)
+        with _routing(routes, replay=mesh_ is None):
+            grads, _, _ = _accumulate(cfg, params, data.batch_at(0), hyper,
+                                      None, remat, mesh_)
+        grads = tree_map(lambda g: g / nmb, grads)
+        grads = (tree_map(lambda g: g.float().cpu(), grads)
+                 if mesh_ is None else _tp_whole(mesh_, grads, placements))
+        del params
+        _release()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start_gb = torch.cuda.memory_allocated(dev) / 1e9
+        step = build_train_step(cfg, hyper, mesh=mesh_)
+        runs = []
+        for i in range(spec["steps"]):
+            batch = data.batch_at(i)
+            torch.cuda.synchronize(dev)
+            reset_launches()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize(dev)
+            runs.append({"loss": loss, "ms": 1e3 * (time.perf_counter() - t),
+                         "launches": {n: c for n, c in LAUNCHES.items()
+                                      if c}})
+        return (grads, runs, torch.cuda.max_memory_allocated(dev) / 1e9,
+                start_gb)
+
+    state = make_train_state(cfg, torch.Generator(device=dev).manual_seed(0))
+    state = spmd.distribute_tree(state, state_shardings(cfg, mesh, state))
+    _release()
+    grads, runs, peak, start_gb = run(state, mesh)
+    del state
+    _release()
+    row = {"part": f"train {spec['arch']}", "rank": rank,
+           "batch": spec["batch"], "seq": spec["seq"],
+           "microbatches": nmb, "losses": [r["loss"] for r in runs],
+           "step_ms": [r["ms"] for r in runs], "peak_gb": peak,
+           "allocated_gb_at_start": start_gb,
+           "routes_replayed": len(routes),
+           "launches_per_step": [r["launches"] for r in runs],
+           "launches_expected": spec["launches"]}
+    row["ok"] = (all(r["launches"] == spec["launches"] for r in runs)
+                 and all(map(math.isfinite, row["losses"])))
+    dist.barrier()
+    if rank == 0:          # the same work without a mesh, on the card alone
+        state = make_train_state(cfg,
+                                 torch.Generator(device=dev).manual_seed(0))
+        want, ref_runs, ref_peak, _ = run(state, None)
+        del state
+        _release()
+        flat_g, flat_w = {}, {}
+        tree_map_with_path(lambda p, x: flat_g.__setitem__("/".join(p), x),
+                           grads)
+        tree_map_with_path(lambda p, x: flat_w.__setitem__("/".join(p), x),
+                           want)
+        dist_all, num, den = {}, 0.0, 0.0
+        for k in flat_w:             # leaf by leaf on the card, in f64
+            a, r = flat_g[k].to(dev).double(), flat_w[k].to(dev).double()
+            d2, r2 = float((a - r).square().sum()), float(r.square().sum())
+            dist_all[k] = math.sqrt(d2 / r2) if r2 else math.sqrt(d2)
+            num, den = num + d2, den + r2
+            del a, r
+        total = math.sqrt(num / den)
+        picked = {k: dist_all[k] for k in MESH_TP["picked"] if k in dist_all}
+        rel = [abs(a - b) / abs(b) for a, b in zip(
+            row["losses"], [r["loss"] for r in ref_runs])]
+        worst = max(dist_all, key=dist_all.get)
+        row.update({
+            "losses_unsharded": [r["loss"] for r in ref_runs],
+            "loss_rel": rel, "loss_tol": TRAIN_LOSS_TOL,
+            "grad_rel_fro": picked, "grad_rel_fro_total": total,
+            "grad_rel_fro_worst": [worst, dist_all[worst]],
+            "grad_rtol": TRAIN_GRAD_RTOL,
+            "step_ms_unsharded": [r["ms"] for r in ref_runs],
+            "peak_gb_unsharded": ref_peak,
+            "launches_per_step_unsharded": [r["launches"]
+                                            for r in ref_runs]})
+        row["ok"] = (row["ok"] and all(r <= TRAIN_LOSS_TOL for r in rel)
+                     and total <= TRAIN_GRAD_RTOL
+                     and all(v <= TRAIN_GRAD_RTOL for v in picked.values())
+                     and peak < ref_peak)
+    dist.barrier()
+    row["seconds"] = time.perf_counter() - t0
+    return row
+
+
+def _tp_serve(dev, mesh, rank, served):
+    """``BatchedServer(mesh=mesh)`` of full-width gemma2-2b on this rank's
+    shards: the ``serve gemma2-2b`` phase's requests; then the first
+    wave's last-position prefill logits, which rank 0 holds against the
+    unsharded prefill's.  The rank's row."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import init_params
+    from repro_torch.serve import BatchedServer, build_prefill_step
+
+    t0 = time.perf_counter()
+    cfg = get_config("gemma2-2b").replace(param_dtype="bfloat16")
+    B, S0, NEW, NREQ = (SERVE_SHAPE[k] for k in ("batch", "prompt", "new",
+                                                 "requests"))
+    srv = BatchedServer(cfg, init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0)), batch=B,
+        prompt_len=S0, max_len=S0 + NEW + 1, device=dev, mesh=mesh)
+    _release()
+    reqs = _requests(cfg, NREQ, S0, NEW)
+    srv.submit(reqs)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    tokens = {str(r.rid): r.out_tokens for r in done}
+    agree = sum(a == b for k, v in tokens.items()
+                for a, b in zip(v, served[k]))
+    wave = {"tokens": srv._tokens([r.prompt for r in reqs[:B]])}
+    with torch.inference_mode():
+        got = srv.prefill(srv.params, wave)["logits"][:, 0].float()
+    del srv
+    _release()
+    per = SERVE[0][2]
+    want_launches = {k: 2 * v for k, v in per.items()}   # two waves
+    row = {"part": "serve gemma2-2b", "rank": rank, "requests": len(done),
+           "wall_s": wall, "tokens_per_s": sum(map(len, tokens.values()))
+           / wall, "peak_gb": peak, "launches": launches,
+           "launches_expected": want_launches,
+           "tokens_agree": agree, "tokens": NREQ * NEW}
+    row["ok"] = len(done) == NREQ and launches == want_launches
+    dist.barrier()
+    if rank == 0:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        with torch.inference_mode():
+            want = build_prefill_step(cfg, cache_len=S0 + NEW + 1)(
+                params, wave)["logits"][:, 0].float()
+        del params
+        _release()
+        err = float((got - want).abs().max())
+        row.update({"logit_max_abs_err": err, "logit_tol": LOGIT_TOL})
+        row["ok"] = row["ok"] and err <= LOGIT_TOL
+    dist.barrier()
+    row["seconds"] = time.perf_counter() - t0
+    return row
+
+
+def _tp_rank(rank, store, out, served):
+    """One rank of the mesh tp part (``torch.multiprocessing`` target):
+    its rows, the collectives it staged through host memory, to
+    ``out % rank``."""
+    t0 = time.perf_counter()
+    dev = _tp_setup(rank, store)
+    import torch.distributed as dist
+
+    from repro_torch.dist import spmd
+    from repro_torch.launch.mesh import make_host_mesh
+    try:
+        # a mesh of the card's type over the gloo group: DTensor moves a
+        # local tensor to its mesh's device type
+        mesh = make_host_mesh(MESH_TP["shape"], MESH_TP["axes"],
+                              device_type=dev.type)
+        rows = [_tp_train(dev, mesh, rank, spec) for spec in MESH_TP["train"]]
+        rows.append(_tp_serve(dev, mesh, rank, served))
+    finally:
+        dist.destroy_process_group()
+    staged = {f"{op} {dtype}": n for (op, dtype), n in spmd.STAGED.items()}
+    with open(out % rank, "w") as f:
+        json.dump({"rows": rows, "staged": staged,
+                   "seconds": time.perf_counter() - t0}, f)
+
+
+def phase_mesh_tp(dev, refs, reckonings):
+    """The ``mesh tp`` part: two spawned ranks on the card (see
+    ``MESH_TP``); each train row's peak held below the unsharded step's
+    and within MESH_TP_PEAK_RTOL of ``launch.dryrun --mesh 1x2``'s
+    reckoning of its cell.  Returns the ranks' launches of each kernel,
+    by part and rank."""
+    import os
+    import tempfile
+
+    import torch.multiprocessing as mp
+    _release()
+    served = {str(k): v for k, v in
+              refs["serve gemma2-2b"]["served_tokens"].items()}
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank%d.json")
+        mp.start_processes(_tp_rank, args=(os.path.join(tmp, "store"), out,
+                                           served),
+                           nprocs=2, join=True, start_method="spawn")
+        ranks = []
+        for r in range(2):
+            with open(out % r) as f:
+                ranks.append(json.load(f))
+    wall = time.perf_counter() - t
+    rows = [row for rk in ranks for row in rk["rows"]]
+    for row in rows:
+        if not row["part"].startswith("train "):
+            continue
+        arch = row["part"].removeprefix("train ")
+        rec = reckonings.get(f"mesh tp {arch}")
+        rel = rec["peak_bytes"] / 1e9 / row["peak_gb"] - 1
+        row.update({"reckoned_peak_gb": rec["peak_bytes"] / 1e9,
+                    "reckoned_mesh": rec["mesh"],
+                    "reckoned_calls": rec["kernel_calls"],
+                    "peak_rel_diff": rel, "peak_rtol": MESH_TP_PEAK_RTOL})
+        one = next(r for r in rows if r["part"] == row["part"]
+                   and "peak_gb_unsharded" in r)["peak_gb_unsharded"]
+        row["ok"] = (row["ok"] and abs(rel) <= MESH_TP_PEAK_RTOL
+                     and row["peak_gb"] < one
+                     and rec["kernel_calls"] == row["launches_expected"])
+    emit({"phase": "mesh tp", "backend": "gloo", "world": 2,
+          "mesh": dict(zip(MESH_TP["axes"], MESH_TP["shape"])),
+          "card": _card(), "wall_s": wall,
+          "rank_seconds": [rk["seconds"] for rk in ranks],
+          "staged": [rk["staged"] for rk in ranks], "parts": rows,
+          "ok": all(r["ok"] for r in rows)})
+    if not all(r["ok"] for r in rows):
+        raise AssertionError("mesh tp part failed")
+    launches = {}
+    for r in rows:
+        per = r.get("launches_per_step") or [r["launches"]]
+        for name in {k for p in per for k in p}:
+            launches.setdefault(name, {})[
+                f"mesh tp {r['part']} rank {r['rank']}"] = sum(
+                    p.get(name, 0) for p in per)
+    return launches
+
+
+# examples part: the port's counterparts of the examples that call JAX,
+# each as ``python -m repro_torch.examples.<name>`` runs it (runpy, in this
+# process, so that its launches count), on the card
+EXAMPLES = dict(train_steps=20, resume_steps=30)
+
+
+def _run_example(name, *argv):
+    """(printed text, launches, seconds) of ``python -m
+    repro_torch.examples.<name> argv...`` in this process."""
+    import io
+    import runpy
+
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    reset_launches()
+    out, old = io.StringIO(), sys.argv
+    sys.argv = [name, *argv]
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module(f"repro_torch.examples.{name}",
+                             run_name="__main__")
+    finally:
+        sys.argv = old
+    torch.cuda.synchronize()
+    return (out.getvalue(), {n: c for n, c in LAUNCHES.items() if c},
+            time.perf_counter() - t)
+
+
+def _losses(text, key="loss"):
+    return [float(m) for m in re.findall(rf"{key} ([-\d.naninf]+)", text)]
+
+
+def phase_examples(dev):
+    """train_100m (EXAMPLES["train_steps"] steps, then a restart that
+    resumes from its checkpoint to EXAMPLES["resume_steps"]),
+    serve_batched and replica_exchange_pbt at their defaults, on the
+    card: their lines, finite losses, the restart's restored step, and
+    flash launches (float32 models: the f32 kernels).  Returns the
+    launches of each kernel, by example."""
+    import tempfile
+
+    from repro_torch.plugins import lm
+    rows = []
+    n, m = EXAMPLES["train_steps"], EXAMPLES["resume_steps"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, steps in (("train_100m", n), ("train_100m resume", m)):
+            text, launches, s = _run_example(
+                "train_100m", "--steps", str(steps), "--ckpt-dir", tmp)
+            ran = steps - (n if "resume" in tag else 0)
+            losses = _losses(text)
+            want = {"flash_attention": 10 * ran,
+                    "flash_attention_bwd": 10 * ran}
+            row = {"part": tag, "seconds": s, "losses": losses,
+                   "lines": text.splitlines(), "launches": launches,
+                   "launches_expected": want}
+            row["ok"] = (bool(losses) and all(map(math.isfinite, losses))
+                         and all(launches.get(k) == v
+                                 for k, v in want.items())
+                         and (f"restored checkpoint at step {n}" in text)
+                         == ("resume" in tag))
+            rows.append(row)
+    text, launches, s = _run_example("serve_batched")
+    want = {"flash_attention": 6}        # 2 layers x 3 waves
+    rows.append({"part": "serve_batched", "seconds": s,
+                 "lines": text.splitlines(), "launches": launches,
+                 "launches_expected": want,
+                 "ok": "served 12 requests, 96 tokens" in text
+                 and all(launches.get(k) == v for k, v in want.items())})
+    text, launches, s = _run_example("replica_exchange_pbt")
+    for i in range(4):
+        lm.STATE_STORE.pop(("ex_pbt", i), None)
+    losses = [float(x) for x in re.findall(r"[\[ ]([-\d.naninf]+)[,\]]",
+                                           " ".join(
+        ln for ln in text.splitlines() if "losses=" in ln))]
+    # 4 members x 3 cycles x 2 steps (task mode) + 3 cycles x 2 steps of the
+    # fused population (one launch for all members), 2 layers a step
+    want = {"flash_attention": 60, "flash_attention_bwd": 60}
+    rows.append({"part": "replica_exchange_pbt", "seconds": s,
+                 "lines": text.splitlines(), "launches": launches,
+                 "launches_expected": want,
+                 "ok": len(losses) == 24 and all(map(math.isfinite, losses))
+                 and all(launches.get(k) == v for k, v in want.items())})
+    _release()
+    row = {"phase": "examples", "parts": rows,
+           "ok": all(r["ok"] for r in rows)}
+    emit(row)
+    if not row["ok"]:
+        raise AssertionError("examples phase failed")
+    out = {}
+    for r in rows:
+        for name, c in r["launches"].items():
+            out.setdefault(name, {})[f"examples {r['part']}"] = c
+    return out
+
+
 def _release():
     import torch
     gc.collect()
@@ -4411,6 +4873,12 @@ def _phases(dev, baselines, reckonings):
         phase_task(dev)
         phase_continuous(dev)
     for name, paths in phase_mesh(dev, refs).items():
+        if name in launches:
+            launches[name].update(paths)
+    for name, paths in phase_mesh_tp(dev, refs, reckonings).items():
+        if name in launches:
+            launches[name].update(paths)
+    for name, paths in phase_examples(dev).items():
         if name in launches:
             launches[name].update(paths)
     return launches, cases

@@ -3,12 +3,13 @@ compute on plain local tensors, collectives where the shards meet.
 
 * At rest every leaf is a ``DTensor`` with its ``sharding`` placements
   (``distribute_tree``): each rank holds only its shard.
-* For a step, ``gather`` makes a rank's compute copy of a leaf: the full
-  tensor (an all-gather over the mesh dims that shard it, as FSDP gathers
-  on use), or with ``keep`` the local shard over those mesh dims (the
-  expert-parallel weights stay split over ``model``).  Model code, and so
-  every hand kernel, sees plain local tensors: no DTensor reaches a
-  kernel's extension call (``kernels.check_device`` raises on one).
+* For a step, ``gather_params`` makes a rank's compute copy of each
+  leaf: gathered over the data axes (as FSDP gathers on use) and kept as
+  its ``model`` shard, on which the layers compute tensor-parallel
+  (``TensorParallel``, the JAX package's GSPMD split of each product over
+  ``model``).  Model code, and so every hand kernel, sees plain local
+  tensors: no DTensor reaches a kernel's extension call
+  (``kernels.check_device`` raises on one).
 * The data axes (``sharding.DATA_AXES`` present in the mesh) split the
   batch: each rank takes its rows (``local_rows``) by the batch spec, and
   every sum over the batch (the loss, its token count, the MoE aux mean,
@@ -22,13 +23,19 @@ compute on plain local tensors, collectives where the shards meet.
   of is summed where it leaves their region.
 * A mesh dim of size 1 needs no communication: ``redistribute`` relabels
   its placements, so a one-rank mesh moves no bytes and copies nothing.
+  A ``model`` axis of one rank takes the unsharded ops
+  (``tensor_parallel`` gives ``ONE``, whose every op is the identity).
+* A gloo group carries a CUDA tensor's collective through host memory
+  (``STAGED`` counts them by op and dtype).
 
 All ranks run the same program in the same order (SPMD); a collective is
 made over the process group of one mesh dim at a time.
 """
 from __future__ import annotations
 
+import functools
 import math
+from collections import Counter
 from typing import Any, Iterable, List, Optional, Sequence
 
 import torch
@@ -39,6 +46,8 @@ from repro_torch.dist.sharding import (
     MODEL_AXIS,
     axis_names,
     batch_spec,
+    cache_spec,
+    param_spec,
     spec_placements,
     tree_map_with_path,
 )
@@ -116,10 +125,12 @@ def local_shard(full, mesh, placements):
 
 def distribute(full, mesh, placements):
     """A DTensor of ``full`` (the same on every rank) with ``placements``:
-    each rank keeps its own shard, contiguous (the tensor itself where
-    the shard is all of it)."""
+    each rank keeps its own shard in storage of its own (the tensor itself
+    where the shard is all of it), so that ``full`` can be freed."""
     from torch.distributed.tensor import DTensor
-    local = local_shard(full, mesh, placements).contiguous()
+    local = local_shard(full, mesh, placements)
+    local = (local.contiguous() if local.numel() == full.numel()
+             else local.clone(memory_format=torch.contiguous_format))
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=full.shape, stride=full.stride())
 
@@ -184,25 +195,21 @@ def gather_rows(x, mesh, full_batch: int):
     return gather(dt)
 
 
-def expert_parallel(cfg, mesh, path) -> bool:
-    """Whether the leaf at ``path`` is an expert weight that stays split
-    over ``model`` for compute (``tp_ep`` on a mesh with a model axis)."""
-    names = tuple(path)
-    return (cfg.sharding_profile == "tp_ep" and model_dim(mesh) is not None
-            and len(names) >= 2 and names[-2] == "moe"
-            and names[-1] in ("wi", "wg", "wo"))
-
-
 def gather_params(cfg, mesh, params):
-    """(compute, placements): each DTensor leaf of ``params`` gathered for
-    compute (``gather``; the expert-parallel weights keep their ``model``
-    shard), detached, and {path: the placements of that compute copy}."""
+    """(compute, placements): each DTensor leaf of ``params`` as a rank's
+    compute copy, detached, and {path: the placements of that copy}.
+
+    The compute rule: a leaf keeps its shard over ``model`` (the layers
+    compute on it, Megatron-style: ``TensorParallel``) and is gathered over
+    the data axes only, as FSDP gathers on use; a leaf the spec leaves
+    whole over ``model`` stays whole.  The gradient of a compute copy is
+    therefore the gradient of this rank's ``model`` shard."""
     from torch.distributed.tensor import Replicate
     md = model_dim(mesh)
+    keep = [] if md is None else [md]
     placements = {}
 
     def one(path, x):
-        keep = [md] if expert_parallel(cfg, mesh, path) else []
         placements[path] = tuple(pl if i in keep else Replicate()
                                  for i, pl in enumerate(x.placements))
         return gather(x, keep).detach()
@@ -232,21 +239,74 @@ def _group(mesh, dim: int):
     return mesh.get_group(dim)
 
 
-def all_reduce_(t, mesh, dims: Sequence[int]):
-    """Sum ``t`` in place over the mesh dims ``dims`` (one group after
-    another); gloo reduces 16-bit floats through a float32 copy."""
+# (op, dtype) -> how many collectives went through host memory: a gloo
+# group's collectives on CUDA tensors (``_host_staged``)
+STAGED: Counter = Counter()
+
+
+def _host_staged(t, g, op: str):
+    """``t`` on the host for a collective on group ``g``: a gloo group
+    carries CUDA tensors through host memory here (counted in ``STAGED``),
+    and sums 16-bit floats in float32.  Returns (tensor to hand the
+    collective, whether it is a copy of ``t``)."""
+    if dist.get_backend(g) != "gloo":
+        return t, False
+    h = t
+    if t.is_cuda:
+        STAGED[(op, str(t.dtype).removeprefix("torch."))] += 1
+        h = t.cpu()
+    if op in ("all_reduce", "reduce_scatter") and t.dtype in (
+            torch.bfloat16, torch.float16):
+        h = h.float()
+    return h, h is not t
+
+
+def all_reduce_(t, mesh, dims: Sequence[int], op=None):
+    """Reduce ``t`` in place over the mesh dims ``dims`` (one group after
+    another; a sum unless ``op``); gloo reduces 16-bit floats through a
+    float32 copy and CUDA tensors through host memory."""
+    op = dist.ReduceOp.SUM if op is None else op
     for d in dims:
         if _sizes(mesh)[d] == 1:
             continue
         g = _group(mesh, d)
-        if t.dtype in (torch.bfloat16, torch.float16) and \
-                dist.get_backend(g) == "gloo":
-            f = t.float()
-            dist.all_reduce(f, group=g)
-            t.copy_(f)
-        else:
-            dist.all_reduce(t, group=g)
+        h, copied = _host_staged(t, g, "all_reduce")
+        dist.all_reduce(h, op=op, group=g)
+        if copied:
+            t.copy_(h)
     return t
+
+
+def all_gather(t, mesh, dim: int, tensor_dim: int):
+    """The ranks' ``t`` over mesh dim ``dim`` joined along ``tensor_dim``,
+    in rank order (no gradient; ``TensorParallel.gather`` has one)."""
+    n = _sizes(mesh)[dim]
+    if n == 1:
+        return t
+    g = _group(mesh, dim)
+    h, copied = _host_staged(t.contiguous(), g, "all_gather")
+    parts = [torch.empty_like(h) for _ in range(n)]
+    dist.all_gather(parts, h, group=g)
+    out = torch.cat(parts, tensor_dim)
+    return out.to(t.device) if copied else out
+
+
+def reduce_scatter(t, mesh, dim: int, tensor_dim: int):
+    """This rank's block along ``tensor_dim`` of the sum over mesh dim
+    ``dim``'s ranks of ``t`` (no gradient): ``all_reduce_`` and a narrow,
+    at a 1/m share of the bytes."""
+    n = _sizes(mesh)[dim]
+    if n == 1:
+        return t
+    g = _group(mesh, dim)
+    h, _ = _host_staged(t.movedim(tensor_dim, 0).contiguous(), g,
+                        "reduce_scatter")
+    out = h.new_empty((h.shape[0] // n,) + tuple(h.shape[1:]))
+    # ``reduce_scatter_single`` is the newer name of the same collective
+    rs = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    rs(out, h, group=g)
+    return out.to(device=t.device, dtype=t.dtype).movedim(0, tensor_dim)
 
 
 class _SumAcross(torch.autograd.Function):
@@ -293,6 +353,129 @@ def copy_into(x, mesh, dims: Sequence[int]):
     if not dims:
         return x
     return _CopyInto.apply(x, mesh, dims)
+
+
+class _GatherAcross(torch.autograd.Function):
+    """Forward: the ranks' ``x`` over ``dim`` joined along ``tensor_dim``;
+    backward: this rank's slice of the cotangent, summed over the ranks
+    first where each holds only its part of it (``partial``)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, tensor_dim, partial):
+        ctx.mesh, ctx.dim, ctx.partial = mesh, dim, partial
+        ctx.tensor_dim, ctx.n = tensor_dim, x.shape[tensor_dim]
+        return all_gather(x, mesh, dim, tensor_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = reduce_scatter(g, ctx.mesh, ctx.dim, ctx.tensor_dim)
+        else:
+            j = coordinate(ctx.mesh)[ctx.dim]
+            g = g.narrow(ctx.tensor_dim, j * ctx.n, ctx.n)
+        return g, None, None, None, None
+
+
+class TensorParallel:
+    """This rank's place on a mesh's ``model`` axis: the Megatron
+    collectives of a layer whose weights are ``model`` shards
+    (``gather_params``' compute copies).  Without a mesh, or with one rank
+    on ``model``, every op is the identity (``ONE``), so a layer written
+    once takes the unsharded ops there.
+
+    A tensor-parallel region starts with ``copy`` of its replicated input
+    (forward identity, backward the sum of the ranks' partial gradients)
+    and ends with ``sum`` of the ranks' partial outputs (forward sum,
+    backward identity).  Inside it, each rank's cotangents are its part of
+    the whole: a replicated leaf used there goes through ``copy`` too (its
+    gradient comes out whole on every rank), and ``gather`` joins the
+    ranks' column blocks of an activation (backward: the reduce-scatter
+    of the cotangent).  ``whole`` gathers where the consumer is
+    replicated (backward: the own block alone).
+
+    Which leaves are split is read from the specs alone
+    (``param_dim``, ``cache_dim``, ``over``)."""
+
+    def __init__(self, mesh=None):
+        md = None if mesh is None else model_dim(mesh)
+        self.size = 1 if md is None else _sizes(mesh)[md]
+        if self.size == 1:
+            mesh = md = None
+        self.mesh, self.dim = mesh, md
+
+    @functools.cached_property
+    def rank(self) -> int:
+        """This rank's place on ``model`` (read on first use: the specs
+        alone can be asked of an ``AbstractMesh``, which has no ranks)."""
+        return 0 if self.mesh is None else coordinate(self.mesh)[self.dim]
+
+    def _model_entry(self, spec) -> Optional[int]:
+        for d, e in enumerate(spec):
+            if MODEL_AXIS in (e if isinstance(e, tuple) else (e,)):
+                return d
+        return None
+
+    def param_dim(self, cfg, path, shape) -> Optional[int]:
+        """The dim of a parameter of whole ``shape`` at ``path`` (its last
+        two names are what ``sharding.param_spec`` reads) that the spec
+        splits over ``model``; None where it stays whole."""
+        if self.mesh is None:
+            return None
+        return self._model_entry(param_spec(cfg, self.mesh, path, shape))
+
+    def cache_dim(self, cfg, path, shape) -> Optional[int]:
+        """As ``param_dim``, for a decode-cache leaf (``cache_spec``)."""
+        if self.mesh is None:
+            return None
+        return self._model_entry(cache_spec(cfg, self.mesh, path, shape))
+
+    def over(self, cfg, path, shape) -> "TensorParallel":
+        """This one where the spec splits the parameter at ``path`` over
+        ``model``, else ``ONE``: the layer's weights are whole."""
+        return ONE if self.param_dim(cfg, path, shape) is None else self
+
+    def copy(self, x):
+        return x if self.mesh is None else copy_into(x, self.mesh,
+                                                     [self.dim])
+
+    def sum(self, x):
+        return x if self.mesh is None else sum_across(x, self.mesh,
+                                                      [self.dim])
+
+    def gather(self, x, d: int = -1):
+        if self.mesh is None:
+            return x
+        return _GatherAcross.apply(x, self.mesh, self.dim, d % x.dim(), True)
+
+    def whole(self, x, d: int = -1):
+        if self.mesh is None:
+            return x
+        return _GatherAcross.apply(x, self.mesh, self.dim, d % x.dim(),
+                                   False)
+
+    def shard(self, x, d: int = -1):
+        """This rank's block of ``x`` along ``d`` (a view)."""
+        if self.mesh is None:
+            return x
+        n = x.shape[d] // self.size
+        return x.narrow(d, self.rank * n, n)
+
+    def max(self, x):
+        """The elementwise maximum over the ranks (no gradient)."""
+        if self.mesh is None:
+            return x.detach()
+        return all_reduce_(x.detach().clone(), self.mesh, [self.dim],
+                           dist.ReduceOp.MAX)
+
+
+ONE = TensorParallel()
+
+
+def tensor_parallel(mesh) -> TensorParallel:
+    """The ``TensorParallel`` of ``mesh``: ``ONE`` where there is no mesh
+    or its ``model`` axis has one rank."""
+    tp = ONE if mesh is None else TensorParallel(mesh)
+    return ONE if tp.mesh is None else tp
 
 
 # ---------------------------------------------------------------- norms

@@ -39,7 +39,9 @@ lower, its one constant scalar).
 
 Production meshes (``--multi-pod``, ``--both-meshes``): the cell is
 reckoned for ONE rank of ``pod16x16`` (256 ranks) or ``pod2x16x16`` (512),
-as the reference lowers it for its meshes.  This process joins a fake
+as the reference lowers it for its meshes; ``--mesh DxM`` reckons one rank
+of a ("data", "model") mesh of D x M ranks (the card's two-rank
+tensor-parallel runs: ``--mesh 1x2``).  This process joins a fake
 process group of that many ranks (``torch.testing._internal.distributed.
 fake_pg``: every collective returns at once), builds the production mesh
 over it, and lays the state out by ``dist.sharding.state_shardings`` as
@@ -49,7 +51,9 @@ the path's own mesh step (``build_train_step(cfg, mesh=...)``,
 mesh=...)``) on the cell's global batch.  ``state_bytes`` is this rank's
 (``state_bytes_exact``: the shards' bytes unrounded, each leaf's numel
 over its shard count times its item size) and ``peak_bytes`` its step's
-peak; ``fits`` holds that against one card.  The roofline's per-device
+peak; ``fits`` holds that against one card.  The step computes on each
+rank's ``model`` shards (tensor-parallel: ``dist.spmd.gather_params``), as
+the reference's GSPMD step does.  The roofline's per-device
 terms are this rank's ops; the model-FLOP share divides the model's FLOPs
 by all ranks'.
 
@@ -58,10 +62,10 @@ Usage:
       --shape train_4k [--batch 4 --seq 1024]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b \\
-      --shape decode_32k [--multi-pod | --both-meshes]
+      --shape decode_32k [--multi-pod | --both-meshes | --mesh 1x2]
 Results accumulate in $DRYRUN_DIR (default dryrun_results/) as
-<arch>_<shape>_<mesh>.json (mesh ``h100``, ``pod16x16`` or
-``pod2x16x16``).
+<arch>_<shape>_<mesh>.json (mesh ``h100``, ``pod16x16``, ``pod2x16x16``
+or ``DxM``).
 """
 from __future__ import annotations
 
@@ -94,11 +98,7 @@ from repro_torch.configs import (
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.kernels.flash_attention.ops import bwd_host_alloc_bytes
 from repro_torch.dist.sharding import state_shardings, tree_map_with_path
-from repro_torch.launch.mesh import (
-    HW,
-    PRODUCTION_MESHES,
-    make_production_mesh,
-)
+from repro_torch.launch.mesh import HW, PRODUCTION_MESHES, make_host_mesh
 from repro_torch.optim.adamw import adamw_init, tree_map
 from repro_torch.roofline.op_costs import OpCounter
 from repro_torch.roofline.report import make_row
@@ -122,7 +122,15 @@ class MemoryTracker(TorchDispatchMode):
     """Live bytes of the storages on ``device_type`` that ops make while it
     is active (and of tensors handed to ``track``): each counted from the
     op that makes it until its last reference goes, rounded by
-    ``block_bytes``.  ``peak`` is the most at once."""
+    ``block_bytes``.  ``peak`` is the most at once.
+
+    ``gather``'s backward (``new_zeros`` then ``scatter_add_``) scatters
+    in place in eager mode; under a fake tensor or a dispatch mode
+    PyTorch takes the out-of-place ``scatter_add`` instead, which would
+    count a second tensor of the gathered input's size (a chunk's logits
+    in the loss).  So a ``scatter_add`` into the zeros the op before made
+    is counted as the in-place op: its result takes over the zeros'
+    bytes."""
 
     def __init__(self, device_type: str):
         super().__init__()
@@ -131,6 +139,7 @@ class MemoryTracker(TorchDispatchMode):
         self.peak = 0
         self._sizes = WeakIdKeyDictionary()
         self._refs: Dict[int, Any] = {}
+        self._zeros = None     # the storage the last op made by new_zeros
 
     def track(self, *trees) -> None:
         for t in tree_leaves(trees):
@@ -151,8 +160,25 @@ class MemoryTracker(TorchDispatchMode):
         self.live -= n
         self._refs.pop(key, None)
 
+    def _adopt(self, old, new) -> None:
+        """``new`` holds ``old``'s bytes from now on (an in-place op)."""
+        ref = self._refs.pop(id(old), None)
+        if ref is None:
+            return
+        n = self._sizes[old]
+        self._sizes[new] = n
+        self._refs[id(new)] = weakref.ref(new, partial(self._free, n,
+                                                       id(new)))
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        zeros, self._zeros = self._zeros, None
+        if func is torch.ops.aten.new_zeros.default:
+            self._zeros = out.untyped_storage()
+        elif (func is torch.ops.aten.scatter_add.default
+              and zeros is not None
+              and args[0].untyped_storage() is zeros):
+            self._adopt(zeros, out.untyped_storage())
         self.track(out)
         return out
 
@@ -430,10 +456,25 @@ def mesh_label(mesh) -> str:
     return "x".join(map(str, shape))
 
 
+def parse_mesh(name: str):
+    """(shape, axes) of a mesh name: a production mesh, or ``DxM`` for a
+    ("data", "model") mesh of D x M ranks."""
+    if name in PRODUCTION_MESHES:
+        return PRODUCTION_MESHES[name]
+    try:
+        shape = tuple(int(n) for n in name.split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) != 2 or min(shape) < 1:
+        raise ValueError(f"mesh {name!r}: want {sorted(PRODUCTION_MESHES)} "
+                         "or DxM (data x model ranks)")
+    return shape, ("data", "model")
+
+
 def run_cell(arch: str, shape_name: str, *, batch: int = 0, seq: int = 0,
              save: bool = True, mesh: Optional[str] = None) -> dict:
-    """One cell on one device, or (``mesh`` "pod16x16" / "pod2x16x16")
-    for one rank of a production mesh over a fake group."""
+    """One cell on one device, or (``mesh`` "pod16x16" / "pod2x16x16", or
+    "DxM") for one rank of that mesh over a fake group."""
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     name = mesh or MESH
@@ -451,9 +492,9 @@ def run_cell(arch: str, shape_name: str, *, batch: int = 0, seq: int = 0,
         if mesh is None:
             got = reckon(cfg, shape)
         else:
-            with fake_world(math.prod(PRODUCTION_MESHES[mesh][0])):
-                got = reckon(cfg, shape, mesh=make_production_mesh(
-                    multi_pod=mesh == "pod2x16x16"))
+            dims, axes = parse_mesh(mesh)
+            with fake_world(math.prod(dims)):
+                got = reckon(cfg, shape, mesh=make_host_mesh(dims, axes))
         res = {"status": "ok", **got, "t_reckon_s": time.time() - t0}
     except Exception as e:  # a failing cell is a bug in the system
         res = {"arch": arch, "shape": shape_name, "mesh": name,
@@ -485,7 +526,11 @@ def main(argv=None):
                     help="one rank of pod2x16x16 (512 ranks)")
     ap.add_argument("--both-meshes", action="store_true",
                     help="one rank of pod16x16 and of pod2x16x16")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="one rank of a (data, model) mesh of D x M ranks")
     args = ap.parse_args(argv)
+    if args.mesh:
+        parse_mesh(args.mesh)
 
     archs = list_configs() if (args.all or not args.arch) else [args.arch]
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
@@ -494,6 +539,8 @@ def main(argv=None):
         meshes = ["pod16x16", "pod2x16x16"]
     elif args.multi_pod:
         meshes = ["pod2x16x16"]
+    elif args.mesh:
+        meshes = [args.mesh]
     n_ok = n_skip = n_err = 0
     for a, s, m in [(a, s, m) for a in archs for s in shapes
                     for m in meshes]:

@@ -11,6 +11,15 @@ Conventions (as in ``repro.models.layers``):
   * params are plain dicts of tensors; randomness comes from an explicit
     ``torch.Generator`` on the device the tensors are made on.  The MoE
     router stays float32 too.
+  * ``mesh``: the params are a rank's compute copies (``dist.spmd.
+    gather_params``), each leaf the spec shards over ``model`` as its
+    shard.  A layer whose weights are such shards computes on them
+    Megatron-style (``spmd.TensorParallel``: column-parallel products
+    after ``copy``, row-parallel ones before ``sum``).  Each layer is
+    written once: with a ``model`` axis of one rank, or weights the spec
+    leaves whole, its ``TensorParallel`` is ``spmd.ONE``, whose ops are
+    identities, so it takes the unsharded ops.  Which leaves are shards
+    is read from the specs (``TensorParallel.param_dim`` / ``over``).
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.spmd import ONE, tensor_parallel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.mamba.ops import selective_scan, selective_step
 from repro_torch.kernels.moe_gmm.ops import gmm
@@ -136,10 +146,15 @@ def _mlp_act(cfg: ModelConfig, hi, hg):
     raise ValueError(cfg.mlp)
 
 
-def apply_mlp(cfg: ModelConfig, p: Params, x):
+def apply_mlp(cfg: ModelConfig, p: Params, x, mesh=None):
+    """Under ``mesh`` with ``d_ff`` split over ``model``: ``wi`` and ``wg``
+    column-parallel, ``wo`` row-parallel."""
+    tp = tensor_parallel(mesh).over(cfg, ("mlp", "wo"),
+                                    (cfg.d_ff, cfg.d_model))
+    x = tp.copy(x)
     hi = x @ cast(cfg, p["wi"])
     hg = x @ cast(cfg, p["wg"]) if "wg" in p else None
-    return _mlp_act(cfg, hi, hg) @ cast(cfg, p["wo"])
+    return tp.sum(_mlp_act(cfg, hi, hg) @ cast(cfg, p["wo"]))
 
 
 # ---------------------------------------------------------------- attention
@@ -167,67 +182,146 @@ def _theta_for(cfg: ModelConfig, kind: str) -> float:
     return cfg.rope_theta
 
 
-def _qkv(cfg: ModelConfig, p: Params, x, positions, kind: str):
-    B, S, _ = x.shape
-    q = (x @ cast(cfg, p["wq"])).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (x @ cast(cfg, p["wk"])).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ cast(cfg, p["wv"])).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    if cfg.qk_norm:
-        q = rms_head_norm(q, p["q_norm"])
-        k = rms_head_norm(k, p["k_norm"])
-    theta = _theta_for(cfg, kind)
-    if theta:  # theta == 0 -> absolute sinusoidal positions (added upstream)
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
-    return q, k, v
+# ``wq``/``wk``/``wv`` are split over ``model`` on contiguous output columns
+# and ``wo`` on its rows, whether or not heads divide.  With m model ranks:
+#   (a) H % m == 0 and KH % m == 0: every head this rank computes is local;
+#   (b) H % m == 0, KH % m != 0: the q heads are local; k and v (kv_dim
+#       wide) are gathered and each rank keeps the kv heads its q heads
+#       read (repeated per q head where its q heads straddle kv groups);
+#   (c) H % m != 0: q, k and v are gathered and attention runs on every
+#       head, replicated over ``model``; each rank takes its q_dim / m
+#       columns of the output for the row-parallel ``wo``.
+# m = 1 (``ONE``) is case (a) with every op the identity.
+
+def _attn_tp(cfg: ModelConfig, mesh):
+    """The ``TensorParallel`` an attention layer computes under: ``ONE``
+    where the spec leaves ``wq`` whole (then ``wo`` is too)."""
+    return tensor_parallel(mesh).over(cfg, ("attn", "wq"),
+                                      (cfg.d_model, cfg.q_dim))
 
 
-def cross_qkv(cfg: ModelConfig, p: Params, x, mem):
-    """Cross-attention's q from x (B,S,D) and k, v from the encoder output
-    mem (B,Sm,D): no rope, no qk-norm."""
-    B, S, _ = x.shape
-    Sm = mem.shape[1]
-    q = (x @ cast(cfg, p["wq"])).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (mem @ cast(cfg, p["wk"])).reshape(B, Sm, cfg.num_kv_heads,
-                                           cfg.head_dim)
-    v = (mem @ cast(cfg, p["wv"])).reshape(B, Sm, cfg.num_kv_heads,
-                                           cfg.head_dim)
-    return q, k, v
+def _col(tp, x, w, split: bool, keep: bool):
+    """``x @ w`` inside a tensor-parallel region: of a column shard ``w``
+    (``split``) this rank's columns where ``keep``, else every column,
+    gathered; a whole ``w`` joins the region through ``copy``."""
+    if not split:
+        return x @ tp.copy(w)
+    y = x @ w
+    return y if keep else tp.gather(y, -1)
+
+
+def _kv_for_local_q(cfg: ModelConfig, tp, k):
+    """Case (b): of every kv head ``k`` (B, S, KH, D), the ones this rank's
+    H / m q heads read, so that the local heads fold as GQA."""
+    H, KH, m = cfg.num_heads, cfg.num_kv_heads, tp.size
+    Hl, G = H // m, H // KH
+    first = tp.rank * Hl
+    if Hl % G == 0:
+        return k.narrow(2, first // G, Hl // G).contiguous()
+    if G % Hl == 0:
+        return k.narrow(2, first // G, 1).contiguous()
+    idx = torch.div(torch.arange(first, first + Hl, device=k.device), G,
+                    rounding_mode="floor")
+    return k.index_select(2, idx)
+
+
+def _qkv(cfg: ModelConfig, p: Params, xq, xkv, positions, kind: str, tp,
+         local: bool):
+    """(q, k, v, k_all, v_all) of this rank (``xq``, ``xkv`` already
+    inside the region; a cross layer's k and v come from ``xkv``, without
+    rope or qk-norm).  ``local``: q holds this rank's H / m heads and k, v
+    the kv heads they read (cases (a), (b)); else every head (case (c)).
+    ``k_all`` and ``v_all`` hold this rank's kv heads in case (a), every
+    kv head otherwise (what a cache keeps its part of)."""
+    B, S, _ = xq.shape
+    Sk, hd = xkv.shape[1], cfg.head_dim
+    kv_local = local and cfg.num_kv_heads % tp.size == 0
+    kv_split = tp.param_dim(cfg, ("attn", "wk"),
+                            (cfg.d_model, cfg.kv_dim)) is not None
+    q = _col(tp, xq, cast(cfg, p["wq"]), tp is not ONE, local)
+    q = q.reshape(B, S, -1, hd)
+    k = _col(tp, xkv, cast(cfg, p["wk"]), kv_split, kv_local)
+    v = _col(tp, xkv, cast(cfg, p["wv"]), kv_split, kv_local)
+    k, v = k.reshape(B, Sk, -1, hd), v.reshape(B, Sk, -1, hd)
+    if kind != "cross":
+        if cfg.qk_norm:
+            q = rms_head_norm(q, tp.copy(p["q_norm"]))
+            k = rms_head_norm(k, tp.copy(p["k_norm"]))
+        theta = _theta_for(cfg, kind)
+        if theta:  # theta == 0 -> absolute sinusoidal positions (upstream)
+            q = apply_rope(q, positions, theta)
+            k = apply_rope(k, positions, theta)
+    if local and not kv_local:
+        return (q, _kv_for_local_q(cfg, tp, k), _kv_for_local_q(cfg, tp, v),
+                k, v)
+    return q, k, v, k, v
+
+
+def _attn_out(cfg: ModelConfig, p: Params, o, tp, local: bool):
+    """The row-parallel ``wo`` of attention output ``o`` (B, S, heads, D):
+    this rank's q_dim / m columns of it (all of it for local heads),
+    summed over ``model``."""
+    B, S = o.shape[:2]
+    o = o.reshape(B, S, -1)
+    if not local:
+        o = tp.shard(o, -1)
+    return tp.sum(o @ cast(cfg, p["wo"]))
+
+
+def _kv_cache_dim(cfg: ModelConfig, tp) -> Optional[int]:
+    """The dim of a (B, S, KH, D) kv cache that ``cache_spec`` splits over
+    ``model``: 2 (kv heads), 3 (head_dim) or None (whole)."""
+    return tp.cache_dim(cfg, ("k",), (1, 1, cfg.num_kv_heads,
+                                       cfg.head_dim))
+
+
+def cache_part(cfg: ModelConfig, tp, k_all):
+    """A rank's part of k or v by ``cache_spec``: its kv heads (``k_all``
+    is already so: case (a)), else its head_dim slice of every head, else
+    all of it."""
+    return tp.shard(k_all, -1) if _kv_cache_dim(cfg, tp) == 3 else k_all
 
 
 def apply_attn(cfg: ModelConfig, p: Params, x, *, kind: str, positions,
                seg_ids=None, mem=None, mesh=None,
-               impl: Optional[str] = None):
+               impl: Optional[str] = None, return_kv: bool = False):
     """Self- or cross-attention.  kind: global | local | enc | cross
     (q from x, k and v from ``mem``, every pair attended, no segments).
-    ``mesh``: as in the reference, the tensors are a rank's local shard
-    and the kernel runs on them (no collective here)."""
-    B, S, _ = x.shape
-    if kind == "cross":
-        q, k, v = cross_qkv(cfg, p, x, mem)
-        o = flash_attention(q, k, v, causal=False, window=0,
-                            softcap=cfg.attn_softcap,
-                            scale=cfg.attn_scale or None, impl=impl)
-    else:
-        q, k, v = _qkv(cfg, p, x, positions, kind)
-        window = cfg.sliding_window if kind == "local" else 0
-        o = flash_attention(q, k, v, causal=kind != "enc", window=window,
-                            softcap=cfg.attn_softcap,
-                            scale=cfg.attn_scale or None,
-                            seg_q=seg_ids, seg_kv=seg_ids, impl=impl)
-    return o.reshape(B, S, cfg.q_dim) @ cast(cfg, p["wo"])
+    ``mesh``: the tensors are a rank's local shard and the kernel runs on
+    them; with ``wq`` split over ``model``, tensor-parallel (cases (a) to
+    (c) above).  ``return_kv``: (out, (k, v)), the roped k and v as a
+    prefill's cache keeps them (this rank's part, ``cache_part``)."""
+    tp = _attn_tp(cfg, mesh)
+    local = cfg.num_heads % tp.size == 0
+    cross = kind == "cross"
+    xc = tp.copy(x)
+    q, k, v, k_all, v_all = _qkv(cfg, p, xc, tp.copy(mem) if cross else xc,
+                                 positions, kind, tp, local)
+    o = flash_attention(q, k, v, causal=kind not in ("enc", "cross"),
+                        window=cfg.sliding_window if kind == "local" else 0,
+                        softcap=cfg.attn_softcap,
+                        scale=cfg.attn_scale or None,
+                        seg_q=None if cross else seg_ids,
+                        seg_kv=None if cross else seg_ids, impl=impl)
+    out = _attn_out(cfg, p, o, tp, local)
+    if return_kv:
+        return out, (cache_part(cfg, tp, k_all), cache_part(cfg, tp, v_all))
+    return out
 
 
 # -- decode (single new token against a cache) ------------------------------
 
-def _decode_attention(cfg: ModelConfig, q, kc, vc, mask):
-    """q: (B,1,H,D); kc/vc: (B,Sc,KH,D); mask: broadcastable to (B,Sc)."""
+def _decode_attention(cfg: ModelConfig, q, kc, vc, mask, tp=ONE):
+    """q: (B,1,H,D); kc/vc: (B,Sc,KH,D); mask: broadcastable to (B,Sc).
+    ``tp`` (not ``ONE``): q, kc and vc are this rank's head_dim slice of
+    every head (the cache's head_dim split), so the scores are summed
+    over ``model``; the output is then each head's slice."""
     B, _, H, Dh = q.shape
     KH = kc.shape[2]
     G = H // KH
-    scale = cfg.attn_scale or Dh ** -0.5
+    scale = cfg.attn_scale or cfg.head_dim ** -0.5
     qf = q.float().reshape(B, KH, G, Dh) * scale
-    s = torch.einsum("bhgd,bshd->bhgs", qf, kc.float())
+    s = tp.sum(torch.einsum("bhgd,bshd->bhgs", qf, kc.float()))
     if cfg.attn_softcap:
         s = torch.tanh(s / cfg.attn_softcap) * cfg.attn_softcap
     s = torch.where(mask[:, None, None, :], s, torch.full_like(s, -1e30))
@@ -238,8 +332,22 @@ def _decode_attention(cfg: ModelConfig, q, kc, vc, mask):
     return o.reshape(B, 1, H * Dh).to(q.dtype)
 
 
+def _decode_out(cfg: ModelConfig, p: Params, q, kc, vc, mask, tp):
+    """Decode attention of q (B,1,H or H/m,D) against a rank's cache part
+    (``cache_part``), through the row-parallel ``wo``: with kv heads
+    split, on the local heads; with head_dim split, partial scores summed
+    and each head's output slice gathered; with the cache whole, on every
+    head."""
+    if _kv_cache_dim(cfg, tp) == 3:
+        o = _decode_attention(cfg, tp.shard(q, -1), kc, vc, mask, tp)
+        o = tp.gather(o.reshape(q.shape[0], 1, cfg.num_heads, -1), -1)
+    else:
+        o = _decode_attention(cfg, q, kc, vc, mask)
+    return _attn_out(cfg, p, o, tp, cfg.num_kv_heads % tp.size == 0)
+
+
 def attn_decode(cfg: ModelConfig, p: Params, x, cache: Params, positions,
-                *, kind: str) -> Tuple[torch.Tensor, Params]:
+                *, kind: str, mesh=None) -> Tuple[torch.Tensor, Params]:
     """x: (B,1,D); positions: (B,) per-row cache positions.  Each row writes
     its k/v at its own offset and attends under its own causal mask.
     Sliding-window local layers stay batch-synchronized (positions[0]):
@@ -247,11 +355,16 @@ def attn_decode(cfg: ModelConfig, p: Params, x, cache: Params, positions,
 
     Unlike the JAX version, the cache tensors are updated IN PLACE (the
     returned dict holds the same tensors), which saves a copy of the whole
-    cache per layer and step.  Returns (out (B,1,D), cache)."""
+    cache per layer and step.  Under ``mesh`` the cache holds this rank's
+    part (``cache_part``) and attention is tensor-parallel
+    (``_decode_out``).  Returns (out (B,1,D), cache)."""
     B = x.shape[0]
     if kind == "cross":
         raise ValueError("use attn_decode_cross")
-    q, k, v = _qkv(cfg, p, x, positions[:, None], kind)
+    tp = _attn_tp(cfg, mesh)
+    q, _, _, k, v = _qkv(cfg, p, x, x, positions[:, None], kind, tp,
+                         cfg.num_kv_heads % tp.size == 0)
+    k, v = cache_part(cfg, tp, k), cache_part(cfg, tp, v)
     kc, vc = cache["k"], cache["v"]
     if kind == "local" and cfg.sliding_window:
         pos = positions[:1].long()             # ring cache: batch-synchronized
@@ -276,19 +389,22 @@ def attn_decode(cfg: ModelConfig, p: Params, x, cache: Params, positions,
         vc.index_put_((rows, at), v[:, 0])
         mask = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
         new_cache = {"k": kc, "v": vc}
-    out = _decode_attention(cfg, q, kc, vc, mask)
-    return out @ cast(cfg, p["wo"]), new_cache
+    return _decode_out(cfg, p, q, kc, vc, mask, tp), new_cache
 
 
-def attn_decode_cross(cfg: ModelConfig, p: Params, x, cache: Params):
+def attn_decode_cross(cfg: ModelConfig, p: Params, x, cache: Params,
+                      mesh=None):
     """Cross-attention decode: the encoder's k, v were cached at prefill
-    (``xk``, ``xv``: (B,Sm,KH,D)) and every one of them is attended."""
+    (``xk``, ``xv``: (B,Sm,KH,D), a rank's part under ``mesh``) and every
+    one of them is attended."""
     B = x.shape[0]
-    q = (x @ cast(cfg, p["wq"])).reshape(B, 1, cfg.num_heads, cfg.head_dim)
     xk = cache["xk"]
     mask = torch.ones((B, xk.shape[1]), dtype=torch.bool, device=x.device)
-    out = _decode_attention(cfg, q, xk, cache["xv"], mask)
-    return out @ cast(cfg, p["wo"])
+    tp = _attn_tp(cfg, mesh)
+    q = _col(tp, x, cast(cfg, p["wq"]), tp is not ONE,
+             cfg.num_kv_heads % tp.size == 0)
+    q = q.reshape(B, 1, -1, cfg.head_dim)
+    return _decode_out(cfg, p, q, xk, cache["xv"], mask, tp)
 
 
 # ---------------------------------------------------------------- MoE
@@ -432,8 +548,14 @@ def apply_moe(cfg: ModelConfig, p: Params, x, *, mesh=None,
       experts through the hand gmm kernel, and the outputs are summed over
       the model group (``lax.psum``; backward: each rank's region adds its
       part of the tokens' and weights' gradients, summed over the group).
-    * ``tp`` (or no "model" axis): the dispatch is local per data shard,
-      over every expert.
+    * ``tp`` with the expert FFN's F split over ``model``: every model
+      rank routes its tokens over all E experts and dispatches them to
+      every expert's F / m slice of ``wi``/``wg`` (E, D, F/m) and ``wo``
+      (E, F/m, D) through the hand gmm; the partial outputs are summed
+      over ``model`` (where F does not divide, the spec splits E: expert
+      parallelism as ``tp_ep``).
+    * no "model" axis, or one rank on it under ``tp``: the dispatch is
+      local per data shard, over every expert.
 
     Capacity is reckoned from the local tokens, so a data-sharded run
     equals ``mesh=None`` runs on each data shard.  ``aux`` is averaged
@@ -447,7 +569,9 @@ def apply_moe(cfg: ModelConfig, p: Params, x, *, mesh=None,
         return y.reshape(B, S, D), aux
     E = cfg.num_experts
     mdim = spmd.model_dim(mesh)
-    if cfg.sharding_profile == "tp_ep" and mdim is not None:
+    tp = tensor_parallel(mesh)
+    split = tp.param_dim(cfg, ("moe", "wi"), (E, D, cfg.expert_ff))
+    if mdim is not None and (cfg.sharding_profile == "tp_ep" or split == 0):
         mdl = int(mesh.shape[mdim])
         if E % mdl:
             raise ValueError(f"{E} experts do not split over {mdl} model "
@@ -462,6 +586,10 @@ def apply_moe(cfg: ModelConfig, p: Params, x, *, mesh=None,
                       spmd.copy_into(wts, mesh, [mdim]), eids, j * E_local,
                       E_local, capacity_factor, impl)
         y = spmd.sum_across(y, mesh, [mdim])
+    elif split == 2:                             # a model shard of F
+        wts, eids, aux = _route(cfg, p, xt)
+        y = tp.sum(_dispatch(cfg, p, tp.copy(xt), tp.copy(wts), eids, 0, E,
+                             capacity_factor, impl))
     else:
         y, aux = _moe_local(cfg, p, xt, capacity_factor, impl=impl)
     aux = spmd.mean_across(aux, mesh, spmd.data_dims(mesh))
@@ -521,35 +649,58 @@ def init_rglru(cfg: ModelConfig, gen: torch.Generator) -> Params:
     }
 
 
-def _rglru_gates(p: Params, xb):
-    """Returns (a, x_eff) for h_t = a_t h_{t-1} + x_eff_t (float32)."""
+def _rglru_gates(p: Params, xb, xb_all, a_param):
+    """Returns (a, x_eff) for h_t = a_t h_{t-1} + x_eff_t (float32).
+    ``xb`` is this rank's channels, ``xb_all`` every channel (the gates'
+    input; ``xb`` itself where the layer is whole), ``a_param`` this
+    rank's slice."""
     xf = xb.float()
-    r = torch.sigmoid(xf @ p["wa"].float())
-    i = torch.sigmoid(xf @ p["wi_g"].float())
-    log_a = RGLRU_C * r * F.logsigmoid(p["a_param"])[None]
+    xa = xf if xb_all is xb else xb_all.float()
+    r = torch.sigmoid(xa @ p["wa"].float())
+    i = torch.sigmoid(xa @ p["wi_g"].float())
+    log_a = RGLRU_C * r * F.logsigmoid(a_param)[None]
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
     return a, mult * i * xf
+
+
+def _rglru_tp(cfg: ModelConfig, mesh):
+    """The ``TensorParallel`` an RG-LRU layer computes under: ``ONE``
+    unless the spec splits lru_width over ``model``."""
+    return tensor_parallel(mesh).over(cfg, ("rec", "wx"),
+                                      (cfg.d_model, cfg.lru_width_))
 
 
 def apply_rglru(cfg: ModelConfig, p: Params, x, *, mesh=None, h0=None,
                 conv_buf=None, return_state: bool = False,
                 impl: Optional[str] = None):
     """Griffin recurrent mixer.  x: (B,S,D), a rank's local shard under
-    ``mesh``.  ``impl`` goes to ``linear_scan`` (None or "ref")."""
+    ``mesh``.  ``impl`` goes to ``linear_scan`` (None or "ref").
+
+    Tensor-parallel (lru_width split over ``model``): ``wx``, ``wy`` and
+    ``conv_w`` column-parallel, so the rank computes its W / m channels
+    (``conv_b`` and ``a_param`` sliced); the gates' ``wa`` and ``wi_g`` are
+    column shards of a product over all W channels, so the conv output
+    is gathered for them; ``linear_scan`` runs on the local channels and
+    ``wo`` is row-parallel."""
     B = x.shape[0]
-    W = cfg.lru_width_
+    tp = _rglru_tp(cfg, mesh)
+    x = tp.copy(x)
+    conv_b = tp.shard(tp.copy(p["conv_b"]))
+    a_param = tp.shard(tp.copy(p["a_param"]))
+    W = p["wx"].shape[-1]
     xb = x @ cast(cfg, p["wx"])
     yb = F.gelu(x @ cast(cfg, p["wy"]), approximate="tanh")
     if conv_buf is not None:
         raise NotImplementedError(
             "stateful RG-LRU prefill (a conv buffer carried in): the JAX "
             "package does not have it either")
-    a, x_eff = _rglru_gates(p, causal_conv1d(xb, p["conv_w"], p["conv_b"]))
+    xc = causal_conv1d(xb, p["conv_w"], conv_b)
+    a, x_eff = _rglru_gates(p, xc, tp.gather(xc), a_param)
     if h0 is None:
         h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
     h, h_last = linear_scan(x_eff, a, h0, impl=impl)
-    out = (h.to(_dt(cfg)) * yb) @ cast(cfg, p["wo"])
+    out = tp.sum((h.to(_dt(cfg)) * yb) @ cast(cfg, p["wo"]))
     if return_state:
         # conv state: the last (cw-1) pre-conv inputs, copied out of xb
         buf = xb[:, -(cfg.ssm_conv - 1):, :].contiguous()
@@ -557,15 +708,19 @@ def apply_rglru(cfg: ModelConfig, p: Params, x, *, mesh=None, h0=None,
     return out
 
 
-def rglru_decode(cfg: ModelConfig, p: Params, x, cache: Params):
-    """x: (B,1,D).  cache: {"h": (B,W) f32, "conv": (B,cw-1,W)}."""
+def rglru_decode(cfg: ModelConfig, p: Params, x, cache: Params, mesh=None):
+    """x: (B,1,D).  cache: {"h": (B,W) f32, "conv": (B,cw-1,W)}, this
+    rank's W / m channels when ``apply_rglru`` is tensor-parallel."""
+    tp = _rglru_tp(cfg, mesh)
+    conv_b, a_param = tp.shard(p["conv_b"]), tp.shard(p["a_param"])
     x1 = x[:, 0, :]
     xb1 = x1 @ cast(cfg, p["wx"])
     yb1 = F.gelu(x1 @ cast(cfg, p["wy"]), approximate="tanh")
-    xc, new_buf = conv1d_step(xb1, cache["conv"], p["conv_w"], p["conv_b"])
-    a, x_eff = _rglru_gates(p, xc[:, None, :])
+    xc, new_buf = conv1d_step(xb1, cache["conv"], p["conv_w"], conv_b)
+    xc = xc[:, None, :]
+    a, x_eff = _rglru_gates(p, xc, tp.gather(xc), a_param)
     h = a[:, 0] * cache["h"] + x_eff[:, 0]
-    out = (h.to(_dt(cfg)) * yb1) @ cast(cfg, p["wo"])
+    out = tp.sum((h.to(_dt(cfg)) * yb1) @ cast(cfg, p["wo"]))
     return out[:, None, :], {"h": h, "conv": new_buf}
 
 
@@ -592,29 +747,71 @@ def init_mamba(cfg: ModelConfig, gen: torch.Generator) -> Params:
     }
 
 
-def _mamba_bcdt(cfg: ModelConfig, p: Params, xin):
+def _mamba_bcdt(cfg: ModelConfig, p: Params, xin, tp):
     """(dt f32, Bm, C) of the scan.  Bm and C are column slices of the
-    ``x_proj`` output (not contiguous; the scan kernel reads them in place)."""
+    ``x_proj`` output (not contiguous; the scan kernel reads them in place).
+    ``tp``: ``xin`` is this rank's channels and ``x_proj`` its rows, so the
+    product is summed over ``model`` (and rejoins the region through
+    ``copy``); ``dt_proj`` is column-parallel, ``dt_bias`` sliced."""
     n, dr = cfg.ssm_state, cfg.dt_rank_
-    xdbc = xin @ cast(cfg, p["x_proj"])
+    xdbc = tp.copy(tp.sum(xin @ cast(cfg, p["x_proj"])))
+    dt_bias = tp.shard(tp.copy(p["dt_bias"]))
     dt_r, Bm, Cc = torch.split(xdbc, [dr, n, n], dim=-1)
-    dt = F.softplus(dt_r.float() @ p["dt_proj"].float() + p["dt_bias"][None])
+    dt = F.softplus(dt_r.float() @ p["dt_proj"].float() + dt_bias[None])
     return dt, Bm, Cc
+
+
+def _mamba_tp(cfg: ModelConfig, mesh):
+    """The ``TensorParallel`` a Mamba layer computes under: ``ONE`` unless
+    the spec splits d_inner over ``model``."""
+    return tensor_parallel(mesh).over(cfg, ("mamba", "conv_w"),
+                                      (cfg.ssm_conv, cfg.d_inner))
+
+
+def _mamba_in(cfg: ModelConfig, p: Params, x, tp):
+    """(x, z) of ``in_proj``.  Tensor-parallel, ``in_proj``'s contiguous
+    column shard holds x's channels on the first half of the ranks and
+    z's on the rest, so this rank's d_inner / m channels of both come
+    from a gather: of the product where it has no more rows than
+    ``d_model`` (decode), else of the weight."""
+    w = cast(cfg, p["in_proj"])
+    if tp is ONE:
+        return (x @ w).chunk(2, dim=-1)
+    di = cfg.d_inner
+    n = di // tp.size
+    lo = tp.rank * n
+    if x.numel() // x.shape[-1] <= x.shape[-1]:
+        xz = tp.gather(x @ w, -1)
+        return xz.narrow(-1, lo, n), xz.narrow(-1, di + lo, n)
+    wf = tp.gather(w, -1)
+    w = torch.cat([wf.narrow(-1, lo, n), wf.narrow(-1, di + lo, n)], -1)
+    return (x @ w).chunk(2, dim=-1)
 
 
 def apply_mamba(cfg: ModelConfig, p: Params, x, *, mesh=None,
                 return_state: bool = False, impl: Optional[str] = None):
     """Mamba-1 mixer.  x: (B,S,D), a rank's local shard under ``mesh``.
-    ``impl`` goes to ``selective_scan`` (None or "ref")."""
+    ``impl`` goes to ``selective_scan`` (None or "ref").
+
+    Tensor-parallel (d_inner split over ``model``): the rank computes its
+    d_inner / m channels (``_mamba_in``, ``conv_w`` and ``dt_proj``
+    column-parallel, ``A_log`` its rows, ``conv_b``, ``dt_bias`` and ``D``
+    sliced), ``x_proj`` is row-parallel (``_mamba_bcdt``),
+    ``selective_scan`` runs on the local channels and ``out_proj`` is
+    row-parallel."""
     B = x.shape[0]
-    di, n = cfg.d_inner, cfg.ssm_state
-    xin, z = (x @ cast(cfg, p["in_proj"])).chunk(2, dim=-1)
-    xc = F.silu(causal_conv1d(xin, p["conv_w"], p["conv_b"]))
-    dt, Bm, Cc = _mamba_bcdt(cfg, p, xc)
+    n = cfg.ssm_state
+    tp = _mamba_tp(cfg, mesh)
+    x = tp.copy(x)
+    conv_b, D = tp.shard(tp.copy(p["conv_b"])), tp.shard(tp.copy(p["D"]))
+    di = p["conv_w"].shape[-1]
+    xin, z = _mamba_in(cfg, p, x, tp)
+    xc = F.silu(causal_conv1d(xin, p["conv_w"], conv_b))
+    dt, Bm, Cc = _mamba_bcdt(cfg, p, xc, tp)
     A = -torch.exp(p["A_log"])
     h0 = torch.zeros((B, di, n), dtype=torch.float32, device=x.device)
-    y, h_last = selective_scan(xc, dt, A, Bm, Cc, p["D"], h0, impl=impl)
-    out = (y * F.silu(z)) @ cast(cfg, p["out_proj"])
+    y, h_last = selective_scan(xc, dt, A, Bm, Cc, D, h0, impl=impl)
+    out = tp.sum((y * F.silu(z)) @ cast(cfg, p["out_proj"]))
     if return_state:
         # conv state: the last (cw-1) pre-conv inputs, copied out of xin
         buf = xin[:, -(cfg.ssm_conv - 1):, :].contiguous()
@@ -622,13 +819,16 @@ def apply_mamba(cfg: ModelConfig, p: Params, x, *, mesh=None,
     return out
 
 
-def mamba_decode(cfg: ModelConfig, p: Params, x, cache: Params):
-    """x: (B,1,D).  cache: {"h": (B,di,n) f32, "conv": (B,cw-1,di)}."""
-    xin, z = (x[:, 0, :] @ cast(cfg, p["in_proj"])).chunk(2, dim=-1)
-    xc, new_buf = conv1d_step(xin, cache["conv"], p["conv_w"], p["conv_b"])
+def mamba_decode(cfg: ModelConfig, p: Params, x, cache: Params, mesh=None):
+    """x: (B,1,D).  cache: {"h": (B,di,n) f32, "conv": (B,cw-1,di)}, this
+    rank's d_inner / m channels when ``apply_mamba`` is tensor-parallel."""
+    tp = _mamba_tp(cfg, mesh)
+    conv_b, D = tp.shard(p["conv_b"]), tp.shard(p["D"])
+    xin, z = _mamba_in(cfg, p, x[:, 0, :], tp)
+    xc, new_buf = conv1d_step(xin, cache["conv"], p["conv_w"], conv_b)
     xc = F.silu(xc)
-    dt, Bm, Cc = _mamba_bcdt(cfg, p, xc)
+    dt, Bm, Cc = _mamba_bcdt(cfg, p, xc, tp)
     A = -torch.exp(p["A_log"])
-    y, h = selective_step(xc, dt, A, Bm, Cc, p["D"], cache["h"])
-    out = ((y * F.silu(z)) @ cast(cfg, p["out_proj"]))[:, None, :]
-    return out, {"h": h, "conv": new_buf}
+    y, h = selective_step(xc, dt, A, Bm, Cc, D, cache["h"])
+    out = tp.sum((y * F.silu(z)) @ cast(cfg, p["out_proj"]))
+    return out[:, None, :], {"h": h, "conv": new_buf}

@@ -22,11 +22,15 @@ positions of the token embeddings.
 
 ``mesh`` is threaded explicitly, as in the reference; ``None`` means one
 device.  Under a mesh the tensors are a rank's local shards
-(``repro_torch.dist.spmd``): the batch its data shard, the expert weights
-under ``tp_ep`` its experts; ``constrain_batch`` / ``constrain_logits``
-stand where the reference constrains its layout (they redistribute a
-DTensor and pass a local shard through), and the MoE layer does the
-reference's collectives.
+(``repro_torch.dist.spmd``): the batch its data shard, every weight the
+spec splits over ``model`` its ``model`` shard, on which the layers
+compute tensor-parallel (``models.layers``), as the reference's GSPMD
+splits each product over ``model``; the embedding lookup is
+vocab-parallel (or, where the vocabulary does not divide, split on
+d_model), and a prefill's cache holds this rank's part by ``cache_spec``.
+``constrain_batch`` / ``constrain_logits`` stand where the reference
+constrains its layout (they redistribute a DTensor and pass a local shard
+through).
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.sharding import constrain_batch, constrain_logits
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.dist.spmd import tensor_parallel
 from repro_torch.models import layers as L
 from repro_torch.models.remat import remat as _remat
 
@@ -130,11 +134,12 @@ def forward_block(cfg: ModelConfig, bp: Params, h, kind: str, *, positions,
                              return_state=True, impl=impl)
         else:
             m = mixer(cfg, bp[kind], xin, mesh=mesh, impl=impl)
-        return _rec_mlp(cfg, bp, h + m), 0.0, cache
+        return _rec_mlp(cfg, bp, h + m, mesh), 0.0, cache
     if cache_len:
         a, cache = _attn_with_cache(cfg, bp["attn"], xin, kind=kind,
                                     positions=positions, seg_ids=seg_ids,
-                                    cache_len=cache_len, impl=impl)
+                                    cache_len=cache_len, impl=impl,
+                                    mesh=mesh)
     else:
         a = L.apply_attn(cfg, bp["attn"], xin, kind=kind, positions=positions,
                          seg_ids=seg_ids, mesh=mesh, impl=impl)
@@ -144,7 +149,8 @@ def forward_block(cfg: ModelConfig, bp: Params, h, kind: str, *, positions,
     if "xattn" in bp and mem is not None:
         xin = L.apply_norm(cfg, bp["lnx"], h)
         if cache_len:
-            xa, xkv = _cross_with_cache(cfg, bp["xattn"], xin, mem, impl)
+            xa, xkv = _cross_with_cache(cfg, bp["xattn"], xin, mem, impl,
+                                        mesh)
             cache.update(xkv)
         else:
             xa = L.apply_attn(cfg, bp["xattn"], xin, kind="cross",
@@ -161,27 +167,25 @@ def _ffn(cfg: ModelConfig, bp: Params, x, impl: Optional[str], mesh=None):
     """The FFN half of an attention block: (y, aux), aux 0 for a dense MLP."""
     if "moe" in bp:
         return L.apply_moe(cfg, bp["moe"], x, mesh=mesh, impl=impl)
-    return L.apply_mlp(cfg, bp["mlp"], x), 0.0
+    return L.apply_mlp(cfg, bp["mlp"], x, mesh), 0.0
 
 
-def _rec_mlp(cfg: ModelConfig, bp: Params, h):
+def _rec_mlp(cfg: ModelConfig, bp: Params, h, mesh=None):
     """The MLP half of a Griffin residual block; Mamba blocks have none."""
     if "mlp" not in bp:
         return h
-    return h + L.apply_mlp(cfg, bp["mlp"], L.apply_norm(cfg, bp["ln2"], h))
+    return h + L.apply_mlp(cfg, bp["mlp"], L.apply_norm(cfg, bp["ln2"], h),
+                           mesh)
 
 
 def _attn_with_cache(cfg, p, x, *, kind, positions, seg_ids, cache_len,
-                     impl=None):
-    """Prefill: compute attention AND return the kv cache (roped keys)."""
+                     impl=None, mesh=None):
+    """Prefill: compute attention AND return the kv cache (roped keys);
+    under ``mesh`` the cache holds this rank's part (``L.cache_part``)."""
     B, S, _ = x.shape
-    q, k, v = L._qkv(cfg, p, x, positions, kind)
-    window = cfg.sliding_window if kind == "local" else 0
-    o = flash_attention(q, k, v, causal=kind != "enc", window=window,
-                        softcap=cfg.attn_softcap,
-                        scale=cfg.attn_scale or None,
-                        seg_q=seg_ids, seg_kv=seg_ids, impl=impl)
-    out = o.reshape(B, S, cfg.q_dim) @ L.cast(cfg, p["wo"])
+    out, (k, v) = L.apply_attn(cfg, p, x, kind=kind, positions=positions,
+                               seg_ids=seg_ids, mesh=mesh, impl=impl,
+                               return_kv=True)
     if kind == "local" and cfg.sliding_window:
         W = cfg.sliding_window
         take = min(W, S)
@@ -201,13 +205,12 @@ def _attn_with_cache(cfg, p, x, *, kind, positions, seg_ids, cache_len,
     return out, {"k": kc, "v": vc}
 
 
-def _cross_with_cache(cfg, p, x, mem, impl=None):
-    """Prefill: cross-attention AND its k, v for the decode cache."""
-    B, S, _ = x.shape
-    q, k, v = L.cross_qkv(cfg, p, x, mem)
-    o = flash_attention(q, k, v, causal=False, softcap=cfg.attn_softcap,
-                        scale=cfg.attn_scale or None, impl=impl)
-    out = o.reshape(B, S, cfg.q_dim) @ L.cast(cfg, p["wo"])
+def _cross_with_cache(cfg, p, x, mem, impl=None, mesh=None):
+    """Prefill: cross-attention AND its k, v for the decode cache (this
+    rank's part under ``mesh``)."""
+    out, (k, v) = L.apply_attn(cfg, p, x, kind="cross", positions=None,
+                               mem=mem, mesh=mesh, impl=impl,
+                               return_kv=True)
     return out, {"xk": k, "xv": v}
 
 
@@ -218,17 +221,17 @@ def decode_block(cfg: ModelConfig, bp: Params, h, cache: Params, kind: str,
     xin = L.apply_norm(cfg, bp["ln1"], h)
     if kind in _REC_KINDS:
         step = L.rglru_decode if kind == "rec" else L.mamba_decode
-        m, cache = step(cfg, bp[kind], xin, cache)
-        return _rec_mlp(cfg, bp, h + m), cache
+        m, cache = step(cfg, bp[kind], xin, cache, mesh)
+        return _rec_mlp(cfg, bp, h + m, mesh), cache
     a, upd = L.attn_decode(cfg, bp["attn"], xin, cache, positions,
-                           kind=kind)
+                           kind=kind, mesh=mesh)
     cache = {**cache, **upd}
     if cfg.post_norms:
         a = L.apply_norm(cfg, bp["ln1_post"], a)
     h = h + a
     if "xattn" in bp and "xk" in cache:
         xin = L.apply_norm(cfg, bp["lnx"], h)
-        h = h + L.attn_decode_cross(cfg, bp["xattn"], xin, cache)
+        h = h + L.attn_decode_cross(cfg, bp["xattn"], xin, cache, mesh)
     y, _ = _ffn(cfg, bp, L.apply_norm(cfg, bp["ln2"], h), impl, mesh)
     if cfg.post_norms:
         y = L.apply_norm(cfg, bp["ln2_post"], y)
@@ -237,8 +240,25 @@ def decode_block(cfg: ModelConfig, bp: Params, h, cache: Params, kind: str,
 
 # ---------------------------------------------------------------- embed/head
 
-def embed_tokens(cfg: ModelConfig, params: Params, tokens, positions):
-    e = params["embed"]["tok"][tokens].to(L._dt(cfg))
+def embed_tokens(cfg: ModelConfig, params: Params, tokens, positions,
+                 mesh=None):
+    """The token embeddings (and sinusoidal positions).  Under ``mesh``
+    with the table split over ``model``: vocab-parallel where its rows
+    are split (ids outside this rank's rows give 0, summed over
+    ``model``), else its d_model columns, gathered."""
+    w = params["embed"]["tok"]
+    tp = tensor_parallel(mesh)
+    split = tp.param_dim(cfg, ("embed", "tok"), (cfg.vocab_size, cfg.d_model))
+    if split == 0:
+        n = w.shape[0]
+        local = tokens.long() - tp.rank * n
+        inside = (local >= 0) & (local < n)
+        e = tp.sum(w[local.clamp(0, n - 1)]
+                   * inside[..., None].to(w.dtype)).to(L._dt(cfg))
+    elif split == 1:
+        e = tp.whole(w[tokens], -1).to(L._dt(cfg))
+    else:
+        e = w[tokens].to(L._dt(cfg))
     if cfg.emb_scale:
         e = e * torch.tensor(math.sqrt(cfg.d_model), dtype=L._dt(cfg),
                              device=e.device)
@@ -248,11 +268,24 @@ def embed_tokens(cfg: ModelConfig, params: Params, tokens, positions):
 
 
 def lm_logits(cfg: ModelConfig, params: Params, h, *, mesh=None):
-    """Full f32 logits (serve path)."""
+    """Full f32 logits (serve path).  Under ``mesh`` with the head split
+    over ``model``: this rank's vocab columns gathered, or (d_model split)
+    its part of the product summed."""
+    tp = tensor_parallel(mesh)
     if cfg.tie_embeddings:
-        logits = h.float() @ params["embed"]["tok"].float().T
+        wf = params["embed"]["tok"].float().T                   # (D, V)
+        split = tp.param_dim(cfg, ("embed", "tok"),
+                             (cfg.vocab_size, cfg.d_model))
+        split = None if split is None else 1 - split
     else:
-        logits = h.float() @ params["head"].float()
+        wf = params["head"].float()
+        split = tp.param_dim(cfg, ("head",), (cfg.d_model, cfg.vocab_size))
+    if split == 1:                                   # vocab columns
+        logits = tp.gather(h.float() @ wf, -1)
+    elif split == 0:                                 # d_model rows
+        logits = tp.sum(tp.shard(h.float(), -1) @ wf)
+    else:
+        logits = h.float() @ wf
     logits = constrain_logits(cfg, mesh, logits)
     if cfg.final_softcap:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
@@ -338,7 +371,7 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None].expand(B, S)
-    h = embed_tokens(cfg, params, tokens, positions)
+    h = embed_tokens(cfg, params, tokens, positions, mesh)
     if vision_embeds is not None and cfg.vision_tokens:
         vt = vision_embeds.shape[1]
         h = torch.cat([vision_embeds.to(h.dtype), h[:, vt:]], dim=1)
@@ -369,7 +402,7 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Cache, tokens,
     """One token for the whole batch.  tokens: (B,1); positions: (B,)
     per-row offsets.  Returns (logits (B,1,V), cache updated in place).
     ``impl`` and ``mesh`` as in ``forward``."""
-    h = embed_tokens(cfg, params, tokens, positions[:, None])
+    h = embed_tokens(cfg, params, tokens, positions[:, None], mesh)
     h = constrain_batch(cfg, mesh, h, "serve")
     new_cache: Cache = []
     for i, bp in enumerate(params["layers"]):

@@ -6,11 +6,12 @@ Under a ``mesh`` the params are DTensors laid out by
 ``dist.sharding.state_shardings`` and the decode cache DTensors laid out
 by ``cache_shardings`` (batch over the data axes, kv heads over
 ``model``); token and position batches and the logits are global (every
-rank the same).  A step gathers the params for compute
-(``dist.spmd.gather_params``), takes this rank's rows, gathers its rows'
-cache over ``model`` (no copy on a one-rank mesh), runs the step on those
-local tensors and lays the cache back out; the logits are gathered over
-the data axes for the host's sampling.
+rank the same).  A step takes the params' compute copies
+(``dist.spmd.gather_params``: each ``model`` shard kept, the layers
+tensor-parallel), this rank's rows and its part of the cache (its local
+tensors, laid out as the layers read and write them), and runs the step
+on those local tensors; the logits (every vocab column on every ``model``
+rank) are gathered over the data axes for the host's sampling.
 """
 from __future__ import annotations
 
@@ -27,33 +28,44 @@ from repro_torch.flags import resolve_device
 from repro_torch.models import decode_step, forward, lm_logits
 
 
+def _cache_leaf_shape(cfg: ModelConfig, path, t, B: int):
+    """The whole shape of cache leaf ``t`` at ``path`` (layer index, key)
+    for a batch of ``B``."""
+    leaf = path[-1]
+    if leaf == "pos":
+        return tuple(t.shape)
+    if leaf in ("k", "v", "xk", "xv"):
+        return (B, t.shape[1], cfg.num_kv_heads, cfg.head_dim)
+    rec = cfg.layer_kind(int(path[0])) == "rec"
+    W = cfg.lru_width_ if rec else cfg.d_inner
+    if leaf == "h":
+        return (B, W) if rec else (B, W, cfg.ssm_state)
+    return (B, cfg.ssm_conv - 1, W)
+
+
 def _place_cache(cfg: ModelConfig, mesh, cache, B: int):
-    """A rank's cache (its rows, every head) as DTensors laid out by
-    ``cache_shardings`` for a batch of ``B``: each rank keeps its model
-    shard (no communication)."""
+    """A rank's part of the cache (its rows, its ``model`` part: what the
+    tensor-parallel layers make) as DTensors laid out by
+    ``cache_shardings`` for a batch of ``B``; no communication.  Raises
+    where a leaf is not its shard's shape."""
+    from torch.distributed.tensor import Shard
+
     from repro_torch.dist import spmd
     from repro_torch.dist.sharding import tree_map_with_path
-    from torch.distributed.tensor import Replicate
-    md = spmd.model_dim(mesh)
+    sizes = [int(n) for n in tuple(mesh.shape)]
 
     def one(path, t):
-        shape = tuple(t.shape) if path[-1] == "pos" else (B,) + tuple(
-            t.shape[1:])
+        shape = _cache_leaf_shape(cfg, path, t, B)
         target = spec_placements(mesh, cache_spec(cfg, mesh, path, shape))
-        rows = tuple(Replicate() if i == md else pl
-                     for i, pl in enumerate(target))
-        dt = spmd.to_dtensors(t, mesh, rows)
-        return spmd.redistribute(dt, target)
+        want = list(shape)
+        for i, pl in enumerate(target):
+            if isinstance(pl, Shard):
+                want[pl.dim] //= sizes[i]
+        if list(t.shape) != want:
+            raise ValueError(f"cache leaf {path}: {tuple(t.shape)} is not "
+                             f"its shard {tuple(want)} of {shape}")
+        return spmd.to_dtensors(t, mesh, target)
     return tree_map_with_path(one, cache)
-
-
-def _cache_rows(mesh, cache):
-    """A rank's rows of a DTensor cache with every head: gathered over
-    ``model`` only (views where that dim has size 1)."""
-    from repro_torch.dist import spmd
-    from repro_torch.dist.sharding import tree_map_with_path
-    keep = spmd.data_dims(mesh)
-    return tree_map_with_path(lambda _, x: spmd.gather(x, keep), cache)
 
 
 def build_prefill_step(cfg: ModelConfig, cache_len: Optional[int] = None,
@@ -98,7 +110,7 @@ def build_serve_step(cfg: ModelConfig, impl: Optional[str] = None, *,
         B = tokens.shape[0]
         params, _ = spmd.gather_params(cfg, mesh, params)
         logits, rows = decode_step(
-            cfg, params, _cache_rows(mesh, cache),
+            cfg, params, spmd.local(cache),
             spmd.local_rows(tokens, mesh), spmd.local_rows(positions, mesh),
             impl=impl, mesh=mesh)
         return (spmd.gather_rows(logits, mesh, B),

@@ -12,14 +12,17 @@ only inside the step, and their ``.grad`` is dropped at its end.
 
 Under a ``mesh`` (``build_train_step(cfg, mesh=...)``) the state is a tree
 of DTensors laid out by ``dist.sharding.state_shardings`` and the batch
-holds the global rows (every rank the same).  Each step gathers the
-parameters for compute (``dist.spmd.gather_params``: the full tensors,
-the expert-parallel weights their ``model`` shard), takes this rank's rows
-of every microbatch (the reference's microbatch, then its data shard),
-sums the gradients over the data axes, constrains them to the parameters'
-placements (``constrain_like_params``: each rank keeps its shard), clips
-them by their global norm over the mesh, and runs AdamW on the local
-shards of parameters, moments and gradients.
+holds the global rows (every rank the same).  Each step takes the
+parameters' compute copies (``dist.spmd.gather_params``: gathered over the
+data axes, each ``model`` shard kept, on which the layers compute
+tensor-parallel), takes this rank's rows of every microbatch (the
+reference's microbatch, then its data shard), sums the gradients over the
+data axes (a ``model`` shard's gradient is that shard's; a replicated
+leaf's comes out whole on every ``model`` rank through the layers'
+``copy`` / ``sum``), constrains them to the parameters' placements
+(``constrain_like_params``: each rank keeps its shard), clips them by their
+global norm over the mesh, and runs AdamW on the local shards of
+parameters, moments and gradients.
 """
 from __future__ import annotations
 
@@ -248,8 +251,9 @@ def build_eval_step(cfg: ModelConfig, impl: Optional[str] = None, *,
                     mesh=None):
     """``eval_step(params, batch) -> {"loss", "ntok"}``, no gradients, the
     master params as they are (no ``compute_cast``), as the JAX package;
-    under ``mesh`` the params are DTensors, gathered for the call, and the
-    batch the global rows."""
+    under ``mesh`` the params are DTensors (the step computes on their
+    compute copies, as the train step does) and the batch the global
+    rows."""
     @torch.no_grad()
     def eval_step(params, batch):
         if mesh is not None:

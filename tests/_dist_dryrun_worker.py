@@ -6,8 +6,12 @@
 ``bytes``: for each production mesh and every registered arch, lays the params out
 as ``launch.dryrun.reckon`` does (DTensors of this rank's shard shapes, on
 fake tensors) and records this rank's bytes of them.  ``cells``: reckons
-gemma2-2b's train_4k cell on both meshes and qwen3-moe-30b-a3b's
-decode_32k on ``pod16x16`` through ``launch.dryrun.run_cell``.
+gemma2-2b's train_4k cell on both meshes, qwen3-moe-30b-a3b's
+decode_32k on ``pod16x16``, and gemma2-2b's train_4k at batch 2 x 1024 on
+a 1x2 mesh (``--mesh 1x2``) and on one device, through
+``launch.dryrun.run_cell``.  ``mamba``: falcon-mamba-7b's train_4k on
+``pod16x16`` (tensor-parallel Mamba, ``in_proj`` gathered over
+``model``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,21 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.configs import get_config, list_configs
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import PRODUCTION_MESHES, make_production_mesh
+
+
+# the card's two-rank cell (``launch.dryrun --mesh 1x2``) and the same
+# cell on one device
+SMALL = dict(batch=2, seq=1024)
+
+CELLS = {
+    "bytes": [],
+    "cells": [("gemma2-2b", "train_4k", "pod16x16", {}),
+              ("gemma2-2b", "train_4k", "pod2x16x16", {}),
+              ("qwen3-moe-30b-a3b", "decode_32k", "pod16x16", {}),
+              ("gemma2-2b", "train_4k", "1x2", SMALL),
+              ("gemma2-2b", "train_4k", None, SMALL)],
+    "mamba": [("falcon-mamba-7b", "train_4k", "pod16x16", {})],
+}
 
 
 def param_bytes(cfg, mesh) -> int:
@@ -39,12 +58,9 @@ def main(part, out):
                 for arch in list_configs():
                     res[f"{arch}/{name}"] = param_bytes(get_config(arch),
                                                         mesh)
-    for arch, shape, mesh in ([] if part == "bytes" else [
-            ("gemma2-2b", "train_4k", "pod16x16"),
-            ("gemma2-2b", "train_4k", "pod2x16x16"),
-            ("qwen3-moe-30b-a3b", "decode_32k", "pod16x16")]):
-        r = dryrun.run_cell(arch, shape, mesh=mesh, save=False)
-        res[f"{arch}/{shape}/{mesh}"] = {
+    for arch, shape, mesh, size in CELLS[part]:
+        r = dryrun.run_cell(arch, shape, mesh=mesh, save=False, **size)
+        res[f"{arch}/{shape}/{mesh or 'h100'}"] = {
             k: r.get(k) for k in ("status", "error", "mesh", "chips",
                                   "state_bytes_exact", "peak_bytes",
                                   "kernel_calls", "fits")}

@@ -84,6 +84,23 @@ def _maxdiff(a, b) -> float:
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
+# AdamW's first step maps a gradient element g to about lr * g / (|g| +
+# eps), eps = 1e-8: near eps the update turns on g's last bits, which a
+# sum over ranks rounds otherwise than one device does.  The parameters
+# after the step are held against the reference end to end over every
+# element whose reference gradient is at least FAR_FROM_EPS, where the
+# update no longer depends on them.
+FAR_FROM_EPS = 1e3 * 1e-8
+
+
+def maxdiff_far(a, b, grads) -> float:
+    """max |a - b| over the elements where |grads| >= FAR_FROM_EPS."""
+    return max(float(torch.where(g.abs() >= FAR_FROM_EPS,
+                                 (x.float() - y.float()).abs(), 0.0).max())
+               for x, y, g in zip(tree_leaves(a), tree_leaves(b),
+                                  tree_leaves(grads)))
+
+
 def _full(tree):
     return tree_map(lambda x: x.full_tensor() if spmd.is_dtensor(x) else x,
                     tree)
@@ -118,6 +135,14 @@ def _reference(cfg, state, batch, shards: int):
     for p in leaves:
         p.requires_grad_(False)
         p.grad = None
+    return float(total.detach()), grads, adamw_step(cfg, state, grads)
+
+
+def adamw_step(cfg, state, grads):
+    """``state`` after the train step's clip and AdamW update (no mesh) on
+    the gradients ``grads`` (a copy of ``state``; ``grads`` unchanged)."""
+    state = copy.deepcopy(state)
+    params = state["params"]
     with torch.no_grad():
         g, _ = clip_by_global_norm(tree_map(torch.clone, grads), HYPER.clip)
         from repro_torch.optim.schedules import make_schedule
@@ -127,7 +152,7 @@ def _reference(cfg, state, batch, shards: int):
         adamw_update(g, state["opt"], params, lr=lr, b1=HYPER.b1,
                      b2=HYPER.b2, wd=HYPER.wd, decay=decay_mask(cfg, params))
     state["step"] = state["step"] + 1
-    return float(total.detach()), grads, state
+    return state
 
 
 def train_checks(cfg, mesh, shards: int) -> dict:
@@ -152,12 +177,21 @@ def train_checks(cfg, mesh, shards: int) -> dict:
         if not cfg.num_experts else None
     local_bytes = sum(x.to_local().numel() * x.element_size()
                       for x in tree_leaves(dstate))
+    # the step's update against the unsharded AdamW on the same gradients
+    # (their parity with the reference's is grad_err): tensor-parallel
+    # sums round otherwise than one device's, and AdamW's first step maps
+    # a gradient element near its eps to an update anywhere in +-lr
+    after_same = adamw_step(cfg, state, grads)
     out = {"loss": float(m["loss"]), "loss_ref": loss_ref,
            "grad_err": _maxdiff(grads, grads_ref),
            "grad_scale": max(float(g.abs().max())
                              for g in tree_leaves(grads_ref)),
            "param_err": _maxdiff(_full(dstate["params"]),
-                                 after_ref["params"]),
+                                 after_same["params"]),
+           "param_err_reference": _maxdiff(_full(dstate["params"]),
+                                           after_ref["params"]),
+           "param_err_far": maxdiff_far(_full(dstate["params"]),
+                                        after_ref["params"], grads_ref),
            "moment_err": _maxdiff(_full(dstate["opt"]), after_ref["opt"]),
            "step": int(_full(dstate["step"])),
            "local_state_bytes": local_bytes,

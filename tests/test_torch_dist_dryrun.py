@@ -12,6 +12,10 @@ package's specs.
 * The reckoned cells run the mesh steps through the hand kernels' fake
   route: gemma2-2b's train step 52 flash forward and 26 backward calls
   (remat, one microbatch per rank's rows), qwen3's decode step 144 gmm.
+  The steps compute tensor-parallel over ``model``: gemma2-2b's train_4k
+  fits one card on both meshes, a 1x2 mesh's rank (``--mesh 1x2``)
+  peaks below the one-device step, and falcon-mamba-7b's train_4k (the
+  ``in_proj`` gather over ``model``) fits one card on ``pod16x16``.
 * ``launch.ensemble_dryrun`` prints the JAX example's lines: a 512-rank
   pilot, 2 pod slots of 256 ranks, each member on its own pod.
 """
@@ -66,6 +70,8 @@ def runs(tmp_path_factory):
                       str(tmp / "bytes.json")],
             "cells": [sys.executable, worker, "cells",
                       str(tmp / "cells.json")],
+            "mamba": [sys.executable, worker, "mamba",
+                      str(tmp / "mamba.json")],
             "ensemble": [sys.executable, "-m",
                          "repro_torch.launch.ensemble_dryrun"]}
     with ThreadPoolExecutor(len(cmds)) as pool:
@@ -73,6 +79,7 @@ def runs(tmp_path_factory):
         outs = {k: f.result() for k, f in outs.items()}
     return {"bytes": json.loads((tmp / "bytes.json").read_text()),
             "cells": json.loads((tmp / "cells.json").read_text()),
+            "mamba": json.loads((tmp / "mamba.json").read_text()),
             "ensemble": outs["ensemble"]}
 
 
@@ -103,6 +110,9 @@ def test_rank_param_bytes_follow_the_jax_spec(runs, arch, mesh_name):
 
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 def test_reckoned_train_cell_on_a_production_mesh(runs, mesh_name):
+    """The tensor-parallel step fits one card on both meshes: gemma2-2b's
+    train_4k reckoned 129.84 GB a rank on pod16x16 while its compute
+    gathered every parameter and ran replicated over ``model``."""
     r = runs["cells"][f"gemma2-2b/train_4k/{mesh_name}"]
     assert r["status"] == "ok", r["error"]
     assert r["mesh"] == mesh_name
@@ -114,6 +124,47 @@ def test_reckoned_train_cell_on_a_production_mesh(runs, mesh_name):
         "flash_attention": 52, "flash_attention.wgmma": 52,
         "flash_attention_bwd": 26, "flash_attention_bwd.wgmma": 26}
     assert r["peak_bytes"] > r["state_bytes_exact"]
+    assert r["fits"] is True
+    assert r["peak_bytes"] < 40e9
+
+
+def test_reckoned_mamba_train_cell_on_pod16x16(runs):
+    """falcon-mamba-7b's train_4k on one rank of pod16x16: Mamba computes
+    tensor-parallel, its ``in_proj`` compute copy gathered over ``model``
+    (the contiguous split gives the first half of the ranks only x's
+    columns, ``layers._mamba_in``) and its gradient reduce-scattered back;
+    the step fits one card and runs the scans as the one-rank step does
+    (forward, remat recompute, backward: 64 layers)."""
+    r = runs["mamba"]["falcon-mamba-7b/train_4k/pod16x16"]
+    assert r["status"] == "ok", r["error"]
+    assert r["mesh"] == "pod16x16" and r["chips"] == 256
+    assert r["kernel_calls"] == {"selective_scan": 128,
+                                 "selective_scan_bwd": 64}
+    assert r["fits"] is True
+    assert r["state_bytes_exact"] < r["peak_bytes"] < 80e9
+
+
+def test_reckoned_train_cell_on_a_two_rank_mesh(runs):
+    """``launch.dryrun --mesh 1x2``: one rank of a (data, model) mesh of
+    1 x 2 (the card's two-rank part): its state is its shards by the JAX
+    specs on that mesh, its flash calls are the one-device step's (at half
+    the heads), and its peak is below the one-device step's."""
+    r = runs["cells"]["gemma2-2b/train_4k/1x2"]
+    one = runs["cells"]["gemma2-2b/train_4k/h100"]
+    assert r["status"] == "ok", r["error"]
+    assert one["status"] == "ok", one["error"]
+    assert r["mesh"] == "1x2" and r["chips"] == 2
+    cfg = jax_get_config("gemma2-2b")
+    MESHES["1x2"] = ((1, 2), ("data", "model"))
+    try:
+        want = _shard_bytes(cfg, "1x2", train_state_specs(cfg))
+    finally:
+        del MESHES["1x2"]
+    assert r["state_bytes_exact"] == want
+    assert r["kernel_calls"] == one["kernel_calls"] == {
+        "flash_attention": 52, "flash_attention.wgmma": 52,
+        "flash_attention_bwd": 26, "flash_attention_bwd.wgmma": 26}
+    assert r["fits"] and r["peak_bytes"] < one["peak_bytes"]
 
 
 def test_reckoned_expert_parallel_decode_cell(runs):

@@ -562,6 +562,33 @@ def test_dryrun_peak_is_the_trackers_to_the_byte():
     assert got["peak_bytes"] == mem.peak
 
 
+def test_memory_tracker_counts_gathers_backward_scatter_in_place():
+    """``gather``'s backward scatters into fresh zeros in place in eager
+    mode (``scatter_add_``); under fake tensors PyTorch takes the
+    out-of-place ``scatter_add``, which the tracker counts as the in-place
+    op: the backward of a gather from x holds one x-sized gradient, not
+    two, and an out-of-place ``scatter_add`` into zeros made by
+    ``torch.zeros`` (the MoE dispatch's counts) stays a tensor of its
+    own."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    dev = dryrun.FAKE_DEVICE
+    with FakeTensorMode(), dryrun.MemoryTracker(dev.type) as mem:
+        x = torch.empty((4, 1024), device=dev, requires_grad=True)  # 16384
+        idx = torch.zeros((4, 1), dtype=torch.int64, device=dev)    # 512
+        base = mem.live
+        torch.gather(x, -1, idx).sum().backward()
+        assert x.grad.shape == x.shape
+        assert mem.live == base + 16384          # x.grad, adopted
+        assert mem.peak <= base + 16384 + 3 * 512
+        z = torch.zeros(1024, device=dev)                           # 4096
+        before = mem.live
+        w = z.scatter_add(0, idx[:, 0], torch.ones(4, device=dev))
+        assert mem.live == before + 4096         # the result, its own
+        del z
+        assert mem.live == before
+        del w
+
+
 @pytest.mark.parametrize("name", ["prefill_32k", "decode_32k", "long_500k"])
 def test_dryrun_cli_reports_pod_cells(name, tmp_path, monkeypatch, capsys):
     """Serving cells of ``SHAPES`` at pod scale on one device: reported
