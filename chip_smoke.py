@@ -33,9 +33,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  flash, selective_scan and gmm give the wrapper's
                  host-inclusive time per call beside the device time.
                  ``--baseline NAME=PATH`` (NAME one of
-                 flash_attention, flash_attention_bwd, selective_scan,
-                 gmm, linear_scan_bwd, selective_scan_bwd, gmm_bwd;
-                 repeatable)
+                 flash_attention, flash_attention_bwd, linear_scan,
+                 selective_scan, gmm, linear_scan_bwd, selective_scan_bwd,
+                 gmm_bwd; repeatable)
                  builds an earlier version of that
                  kernel's ``.cu`` (same C entry) and times it on every
                  case of its phase in the same run, with its error against
@@ -47,15 +47,20 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  first shape again, bitwise, after its plan was evicted;
                  gmm_bwd: every case, through the entry gmm_bwd, with the
                  phase's own checks).
-                 The selective_scan phase includes a
+                 The linear_scan phase's cases include recurrentgemma-2b's
+                 serve shape and its train microbatch, each call repeated
+                 bitwise.  The selective_scan phase includes a
                  case with T * d > 2^32 (64-bit offsets in a batch row):
                  its last 256 steps must equal, bitwise, a run on them
                  alone from the state the first T - 256 steps leave.  The
                  scans' backward phases hold their gradients by the flash
                  backward's measures with bitwise repeats;
-                 selective_scan_bwd's includes a batch row of T * d >=
-                 2^31, whose last 256 steps' gradients must equal, bitwise,
-                 a backward of those steps alone.  gmm's cases include
+                 linear_scan_bwd's bf16 case also checks that its state
+                 pass's float32 states, rounded to bf16, are the forward's
+                 y bit for bit; selective_scan_bwd's includes a batch row
+                 of T * d >= 2^31, whose last 256 steps' gradients must
+                 equal, bitwise, a backward of those steps alone.  gmm's
+                 cases include
                  group sizes from qwen3-moe-30b-a3b's own layer-0 router
                  (seed-0 weights, a SyntheticLM batch) at the serve shape
                  (C = 384) and the train microbatch's (C = 80); gmm_bwd's
@@ -477,8 +482,10 @@ def grad_check(a, r, dtype: str) -> dict:
 # bf16 step of its largest value, 2**-7 * max(1, max |ref|), since kernel and
 # plain version round f32 values that agree to ~1e-6 and may land on the two
 # sides of a rounding boundary.
-LS_CASES = [   # the serve shape of recurrentgemma-2b: x_eff and a in f32
+LS_CASES = [   # the serve shape of recurrentgemma-2b and its train
+               # microbatch: x_eff and a in f32
     dict(name="serve", B=4, T=1024, C=2560, dtype="float32"),
+    dict(name="train", B=2, T=1024, C=2560, dtype="float32"),
     dict(name="ragged", B=2, T=1000, C=1000, dtype="float32"),
     dict(name="single_step", B=4, T=1, C=2560, dtype="float32"),
     dict(name="bf16", B=4, T=1024, C=2560, dtype="bfloat16"),
@@ -886,7 +893,8 @@ def ptxas_report(log: str) -> dict:
             m = re.search(r"(flash_attention_fwd_(?:wgmma|tc|cc)|"
                           r"flash_attention_bwd_(?:dkdv_tc|dq_tc|dkdv_cc|"
                           r"dq_cc|delta|wgmma)|"
-                          r"linear_scan_kernel|selective_scan_kernel|gmm_tc|"
+                          r"linear_scan_kernel|linear_scan_bwd_reverse|"
+                          r"selective_scan_kernel|gmm_tc|"
                           r"gmm_bwd_d[xw]_tc|gmm_bwd_dx_wgmma)"
                           r"I(?:Li)?(.+?)EE+v", entry[1])
             plain = [k for k in ("gmm_cc", "gmm_wgmma", "gmm_bwd_dx_cc",
@@ -950,6 +958,8 @@ BASELINES = {
     "gmm": ("gmm", "repro_torch.kernels.moe_gmm.ops", "gmm_cuda", {}),
     "gmm_bwd": ("gmm_bwd", "repro_torch.kernels.moe_gmm.ops", "gmm_bwd_cuda",
                 {}),
+    "linear_scan": ("linear_scan", "repro_torch.kernels.rglru.ops",
+                    "linear_scan_cuda", {}),
     "linear_scan_bwd": ("linear_scan_bwd", "repro_torch.kernels.rglru.ops",
                         "linear_scan_bwd_cuda", {}),
     "selective_scan_bwd": ("selective_scan_bwd",
@@ -3014,12 +3024,16 @@ def _scan_check(name, case, kernel, plain, y_dtype, nbytes, flops, extra,
     return row
 
 
-def phase_kernel_linear_scan(dev):
+def phase_kernel_linear_scan(dev, baseline=None):
+    """(y, h_last) of the chunked-scan kernel against linear_scan_ref on
+    every case, two calls bitwise equal; device time against the bound (and
+    an older source's time and error where ``baseline`` names one)."""
     import torch
 
     from repro_torch.kernels.rglru import linear_scan, linear_scan_ref
     from repro_torch.kernels.rglru.ops import cost
     gen = torch.Generator(device=dev).manual_seed(1)
+    old = _baseline("linear_scan", baseline)
     results = {}
     for c in LS_CASES:
         dt = getattr(torch, c["dtype"])
@@ -3029,11 +3043,19 @@ def phase_kernel_linear_scan(dev):
                                      device=dev)).to(dt)
         h0 = torch.randn((B, C), generator=gen, device=dev)
         flops, nbytes = cost(B, T, C, x.element_size())
+        first, again = linear_scan(x, a, h0), linear_scan(x, a, h0)
+        bitwise = all(map(torch.equal, first, again))
+        del first, again
         results[c["name"]] = _scan_check(
             "linear_scan", c, lambda: linear_scan(x, a, h0),
             lambda: linear_scan_ref(x, a, h0), c["dtype"], nbytes,
-            flops, {})
+            flops, {"bitwise_equal_calls": bitwise,
+                    "blocks": -(-B * C // 32)},
+            old=(lambda: old(x, a, h0)) if old else None)
         del x, a, h0
+        if not bitwise:
+            raise AssertionError(f"linear_scan case {c['name']}: two calls "
+                                 "differ")
         torch.cuda.empty_cache()
     return results
 
@@ -3205,8 +3227,9 @@ def _bwd_row(name, c, grads, again, refs, names, dtypes, nbytes, flops,
 def phase_kernel_linear_scan_bwd(dev, baseline=None):
     """dx, da, dh0 of the reverse-scan kernel against linear_scan_bwd_ref
     on the same inputs, the forward kernel's y and random output
-    gradients; bitwise repeats; device time against the bound (and an
-    older source's time and checks where ``baseline`` names one)."""
+    gradients; bitwise repeats; for bf16 inputs, the state pass's hs
+    rounded to bf16 against y bitwise; device time against the bound (and
+    an older source's time and checks where ``baseline`` names one)."""
     import torch
 
     from repro_torch.kernels import LAUNCHES
@@ -3238,16 +3261,43 @@ def phase_kernel_linear_scan_bwd(dev, baseline=None):
             raise AssertionError("linear_scan_bwd did not count its launches")
         refs = linear_scan_bwd_ref(x, a, h0, dy, dh)
         flops, nbytes = bwd_cost(B, T, C, x.element_size())
+        extra = {"blocks": -(-B * C // 32)}
+        if dt == torch.bfloat16:   # the states the gradient is taken at
+            extra["states_equal_forward_y"] = torch.equal(
+                _bwd_states(*args).to(dt), y)
         results[c["name"]] = _bwd_row(
             "linear_scan_bwd", c, grads, again, refs, ("dx", "da", "dh0"),
             (c["dtype"], c["dtype"], "float32"), nbytes, flops,
             lambda: linear_scan_bwd_cuda(*args),
-            lambda: linear_scan_bwd_ref(x, a, h0, dy, dh),
-            {"blocks": -(-B * C // 32)},
+            lambda: linear_scan_bwd_ref(x, a, h0, dy, dh), extra,
             old=(lambda: old(*args)) if old else None)
         del x, a, h0, dy, dh, y, args, grads, again, refs
         torch.cuda.empty_cache()
+        if extra.get("states_equal_forward_y") is False:
+            raise AssertionError("linear_scan_bwd: bf16 of the state pass's "
+                                 "hs differs from the forward's y")
     return results
+
+
+def _bwd_states(x, a, h0, y, dy, dh_last):
+    """hs, the float32 states the backward's state pass writes for bf16
+    inputs, through the library's C entry (the wrapper keeps its hs)."""
+    import torch
+
+    from repro_torch.kernels.rglru.ops import _DTYPES, _library
+    lib = _library("linear_scan_bwd")
+    hs = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    dx, da, dh0 = torch.empty_like(x), torch.empty_like(a), torch.empty_like(
+        h0)
+    err = lib.linear_scan_bwd(
+        x.data_ptr(), a.data_ptr(), h0.data_ptr(), y.data_ptr(),
+        dy.data_ptr(), dh_last.data_ptr(), hs.data_ptr(), dx.data_ptr(),
+        da.data_ptr(), dh0.data_ptr(), _DTYPES[x.dtype], *x.shape,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"linear_scan_bwd failed ({err})")
+    torch.cuda.synchronize()
+    return hs
 
 
 def _patched_ms(old, fn):
@@ -4808,7 +4858,8 @@ def _phases(dev, baselines, reckonings):
         router = _router_sizes(dev)
         cases = {"flash_attention": phase_kernel_flash_attention(
                      dev, baselines.get("flash_attention")),
-                 "linear_scan": phase_kernel_linear_scan(dev),
+                 "linear_scan": phase_kernel_linear_scan(
+                     dev, baselines.get("linear_scan")),
                  "selective_scan": phase_kernel_selective_scan(
                      dev, baselines.get("selective_scan")),
                  "gmm": phase_kernel_gmm(dev, router, baselines.get("gmm")),
@@ -4890,8 +4941,8 @@ def main() -> int:
     ap.add_argument("--baseline", action="append", default=[],
                     metavar="NAME=PATH",
                     help="an earlier .cu of kernel NAME (flash_attention, "
-                         "flash_attention_bwd, selective_scan, gmm, "
-                         "linear_scan_bwd, selective_scan_bwd, gmm_bwd; "
+                         "flash_attention_bwd, linear_scan, selective_scan, "
+                         "gmm, linear_scan_bwd, selective_scan_bwd, gmm_bwd; "
                          "same C entry) to time beside the kernel on its "
                          "cases; repeatable")
     args = ap.parse_args()

@@ -12,14 +12,16 @@
 //
 // Where h_{t-1} comes from.  For float32 inputs the forward's y is h
 // itself, and the reverse pass reads it.  For bfloat16 inputs y was rounded,
-// so a first kernel recomputes the states in float32 (the forward's
-// arithmetic) into a scratch buffer hs that the wrapper allocates, and the
-// reverse pass reads that.
+// so a first kernel recomputes the states in float32 into a scratch buffer
+// hs that the wrapper allocates, and the reverse pass reads that.  That
+// kernel is the forward's own chunked scan (linear_scan_chunked.cuh, the
+// same grouping and fold order) writing float32: bf16(hs) is the forward's
+// y bit for bit, so the gradient is that of the states the forward made.
 //
 // What bounds it on an H100.  One FMA and one multiply per element: bound
 // by bytes.  At recurrentgemma-2b's train shape (a microbatch of B=2,
 // T=1024, C=2560, float32) the reverse pass reads dy, a and y and writes dx
-// and da, 5 x 21 MB = 105 MB, 31 us at 3.35 TB/s.  bf16 adds the recompute:
+// and da, 5 x 21 MB = 105 MB, 31 us at 3.35 TB/s.  bf16 adds the state pass:
 // x and a read, hs written and read again.  Reaching the bound takes some
 // 5 MB of loads in flight (3.35 TB/s times a microsecond of latency); B * C
 // = 5,120 threads walking T one step at a time hold too few.
@@ -55,56 +57,16 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "linear_scan_chunked.cuh"
+
 namespace {
 
-constexpr int kCh = 32;                  // channels a block: a lane each
-constexpr int kChunks = 8;               // chunks a segment: a warp each
-constexpr int kL = 16;                   // steps a chunk
-constexpr int kThreads = kCh * kChunks;  // reverse kernel
+// The reverse pass groups T as the forward does (one set of constants).
+using chunked::kCh;
+using chunked::kChunks;
+using chunked::kL;
+using chunked::kThreads;
 constexpr int kSeg = kL * kChunks;       // steps a segment
-constexpr int kStateThreads = 64;        // states kernel: channels a block
-constexpr int kU = 16;                   // states kernel: steps a batch
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// The forward's states in float32: hs[b, t, c] = h_t (bf16 inputs).
-template <typename T>
-__global__ void __launch_bounds__(kStateThreads)
-linear_scan_bwd_states(const T* __restrict__ x, const T* __restrict__ a,
-              const float* __restrict__ h0, float* __restrict__ hs, int B,
-              int T_, int C) {
-  const long long ch = (long long)blockIdx.x * kStateThreads + threadIdx.x;
-  if (ch >= (long long)B * C) return;
-  const long long b = ch / C, c = ch % C;
-  const size_t base = (size_t)b * T_ * C + c;
-  float h = h0[ch];
-  for (int t0 = 0; t0 < T_; t0 += kU) {
-    T xr[kU], ar[kU];
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      const size_t off = base + (size_t)min(t0 + u, T_ - 1) * C;
-      xr[u] = x[off];
-      ar[u] = a[off];
-    }
-#pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      h = fmaf(to_f32(ar[u]), h, to_f32(xr[u]));   // the forward's FMA
-      if (t0 + u < T_) hs[base + (size_t)(t0 + u) * C] = h;
-    }
-  }
-}
 
 // The chunked reverse scan; hs (B, T, C) float32 holds h_t.
 template <typename T>
@@ -203,9 +165,8 @@ int linear_scan_bwd(const void* x, const void* a, const void* h0,
                     void* hs, void* dx, void* da, void* dh0, int dtype, int B,
                     int T, int C, void* stream) {
   if (B <= 0 || C <= 0 || T < 1) return (int)cudaErrorInvalidValue;
-  unsigned blocks, sblocks;
+  unsigned blocks;
   if (int err = grid_of(B, C, kCh, &blocks)) return err;
-  if (int err = grid_of(B, C, kStateThreads, &sblocks)) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* fh0 = static_cast<const float*>(h0);
   const float* fdh = static_cast<const float*>(dh_last);
@@ -220,9 +181,10 @@ int linear_scan_bwd(const void* x, const void* a, const void* h0,
   if (dtype == 1) {
     using bf = __nv_bfloat16;
     if (hs == nullptr) return (int)cudaErrorInvalidValue;
-    linear_scan_bwd_states<bf><<<sblocks, kStateThreads, 0, s>>>(
+    chunked::linear_scan_kernel<bf, float>
+        <<<blocks, kCh * chunked::warps_for(T), 0, s>>>(
         static_cast<const bf*>(x), static_cast<const bf*>(a), fh0,
-        static_cast<float*>(hs), B, T, C);
+        static_cast<float*>(hs), nullptr, B, T, C);
     if (int err = (int)cudaGetLastError()) return err;
     linear_scan_bwd_reverse<bf><<<blocks, kThreads, 0, s>>>(
         static_cast<const bf*>(a), fh0, static_cast<const float*>(hs),

@@ -15,6 +15,7 @@ initial ones carried across with ``models.convert`` and patched into the
 port's module (its ``init_params``, ``FusedEnsemble.init``,
 ``make_train_state``, or ``lm.train``'s member states).
 """
+import ast
 import re
 
 import pytest
@@ -34,6 +35,24 @@ def _both(name, *args):
 
 def _masked(text):
     return [_NUMBER.sub("#", line) for line in text.splitlines()]
+
+
+_PER_TASK = "  per-task t_data (charged tasks): "
+
+
+def _per_task_sorted(text):
+    """(``text`` with its per-task t_data line's entries in task-name
+    order, those task names).  The example prints the tasks in the order
+    they entered the graph, and in real mode that order follows which of
+    the previous round's analyses finished first: thread timing."""
+    lines, names = text.splitlines(), []
+    for i, line in enumerate(lines):
+        if line.startswith(_PER_TASK):
+            charged = dict(sorted(ast.literal_eval(
+                line[len(_PER_TASK):]).items()))
+            lines[i] = _PER_TASK + repr(charged)
+            names.append(list(charged))
+    return "\n".join(lines), names
 
 
 def test_quickstart_matches_reference():
@@ -73,7 +92,10 @@ def test_pst_staged_matches_reference(mode):
         assert out["repro_torch"] == out["repro"]
     else:
         assert "identical payloads: ok" in out["repro_torch"]
-        assert _masked(out["repro_torch"]) == _masked(out["repro"])
+        (got, got_names), (want, want_names) = (
+            _per_task_sorted(out[pkg]) for pkg in ("repro_torch", "repro"))
+        assert len(want_names) == 1 and got_names == want_names
+        assert _masked(got) == _masked(want)
 
 
 def test_elastic_faults_matches_reference(tmp_path):

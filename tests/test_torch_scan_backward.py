@@ -281,7 +281,7 @@ def test_backward_wrappers_need_cuda_tensors():
 # main path calls them), so the algebra of each schedule is held here
 # against the plain gradients and the JAX package's.
 
-LS_CHUNK, LS_CHUNKS = 16, 8      # linear_scan_bwd.cu: kL, kChunks
+LS_CHUNK, LS_CHUNKS = 16, 8      # linear_scan_chunked.cuh: kL, kChunks
 
 
 def _linear_scan_bwd_chunked(x, a, h0, dy, dh_last):

@@ -9,6 +9,8 @@ generator and go to both packages.  Tolerances: 1e-4 for float32 (the
 summation order of the state update and of ``C . h``), 5e-2 for bfloat16
 inputs and outputs (one rounding of an O(1) output).
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -24,7 +26,7 @@ from repro_torch.kernels.mamba import selective_scan, selective_step  # noqa: E4
 from repro_torch.kernels.mamba.ops import check_inputs as mamba_check  # noqa: E402
 from repro_torch.kernels.mamba.ops import selective_scan_cuda  # noqa: E402
 from repro_torch.kernels.mamba.ops import variant as mamba_variant  # noqa: E402
-from repro_torch.kernels.rglru import linear_scan  # noqa: E402
+from repro_torch.kernels.rglru import linear_scan, linear_scan_ref  # noqa: E402
 from repro_torch.kernels.rglru.ops import check_inputs as rglru_check  # noqa: E402
 from repro_torch.kernels.rglru.ops import linear_scan_cuda  # noqa: E402
 
@@ -90,6 +92,116 @@ def test_linear_scan_rejects_what_the_kernel_does_not_take():
     for args in bad:
         with pytest.raises(ValueError):
             rglru_check(*args)
+
+
+# The forward kernel's schedule.  linear_scan.cu runs only on the card; this
+# mirror follows its chunked scan step for step in float32 (test code;
+# nothing on the main path calls it), so its grouping is held here against
+# the plain version and the JAX package's.
+
+LS_CHUNK, LS_CHUNKS = 16, 8      # linear_scan_chunked.cuh: kL, kChunks
+
+
+def _fmaf(a, b, c):
+    """float32 fmaf(a, b, c): the product exact in float64, one rounding
+    (a double rounding off by an ulp is possible, and immaterial here)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _linear_scan_fwd_chunked(x, a, h0, out_dtype=None):
+    """linear_scan_chunked.cuh's scan: segments of LS_CHUNKS chunks of
+    LS_CHUNK steps, the first segment first; each chunk's carry out L from
+    a carry of 0 and its product of a's P; each chunk's carry in folded
+    from the segment's carry over the earlier chunks, first first, and the
+    next segment's carry over all; the chunk rerun from its carry in.
+    Returns (y in ``out_dtype``, x's by default; h_last)."""
+    xf, af = x.float(), a.float()
+    T = x.shape[1]
+    ys = torch.empty_like(xf)
+    carry = h0.float().clone()
+    seg = LS_CHUNK * LS_CHUNKS
+    for s0 in range(0, T, seg):
+        chunks = [(t0, min(t0 + LS_CHUNK, T))
+                  for t0 in range(s0, min(s0 + seg, T), LS_CHUNK)]
+        LP = []
+        for t0, t1 in chunks:                       # 1. from a carry of 0
+            L, P = torch.zeros_like(carry), torch.ones_like(carry)
+            for t in range(t0, t1):
+                L = _fmaf(af[:, t], L, xf[:, t])
+                P = P * af[:, t]
+            LP.append((L, P))
+        c = carry
+        for (t0, t1), (L, P) in zip(chunks, LP):    # 2. fold; 3. rerun
+            h = c
+            for t in range(t0, t1):
+                h = _fmaf(af[:, t], h, xf[:, t])
+                ys[:, t] = h
+            c = _fmaf(P, c, L)
+        carry = c
+    return ys.to(out_dtype or x.dtype), carry
+
+
+def test_chunked_schedule_constants_match_the_kernel():
+    src = (_build._KERNELS_DIR / "rglru/csrc/linear_scan_chunked.cuh"
+           ).read_text()
+    got = {k: int(re.search(rf"constexpr int {k} = (\d+);", src)[1])
+           for k in ("kL", "kChunks")}
+    assert got == {"kL": LS_CHUNK, "kChunks": LS_CHUNKS}
+
+
+LS_FWD_SHAPES = [(2, 300, 40),   # ragged: a partial last segment and chunk
+                 (1, 256, 33),   # T two whole segments; B * C = 33
+                 (3, 1, 5),      # T = 1
+                 (2, 50, 24)]    # one partial segment of whole chunks and
+                                 # a partial one; B * C = 48
+
+
+def _ls_fwd_tol(ref, dtype):
+    """float32: 1e-4, the fold regroups the products (about 1e-6
+    relative); bfloat16: one bf16 step of the largest value, since states
+    that agree to 1e-6 may round to the two sides of a boundary."""
+    if dtype == "float32":
+        return 1e-4
+    return 2.0 ** -7 * max(1.0, float(np.abs(np.asarray(ref,
+                                                        np.float32)).max()))
+
+
+@pytest.mark.parametrize("jax_impl", JAX_IMPLS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,C", LS_FWD_SHAPES)
+def test_linear_scan_fwd_chunked_schedule(B, T, C, dtype, jax_impl):
+    """The chunked forward scan against linear_scan_ref and the JAX
+    package's linear_scan (its reference and the Pallas kernel in
+    interpret mode), y and h_last."""
+    x, a, h0 = _rglru_inputs(7, B, T, C)
+    (jx, tx), (ja, ta) = _both(x, dtype), _both(a, dtype)
+    jh0, th0 = _both(h0, "float32")
+    y, h = _linear_scan_fwd_chunked(tx, ta, th0)
+    assert y.dtype == tx.dtype and h.dtype == torch.float32
+    y_ref, h_ref = linear_scan_ref(tx, ta, th0)
+    yj, hj = jax_linear_scan(jx, ja, jh0, impl=jax_impl)
+    for want in (y_ref.float().numpy(), yj):
+        _close(y, want, _ls_fwd_tol(want, dtype))
+    for want in (h_ref.numpy(), hj):
+        _close(h, want, 1e-4)
+
+
+@pytest.mark.parametrize("B,T,C", LS_FWD_SHAPES)
+def test_linear_scan_bwd_states_round_to_forward_y(B, T, C):
+    """The backward's bf16 state pass is the forward's scan writing
+    float32: rounded to bf16, its states are the forward's y bit for bit.
+    Both sides run the one emulation, so this checks only that its states
+    stay float32 and are rounded at the store; that the two kernels agree
+    is checked on the card, through the library's C entry, by
+    chip_smoke.py's bf16 linear_scan_bwd case."""
+    x, a, h0 = _rglru_inputs(11, B, T, C)
+    tx, ta = (_both(v, "bfloat16")[1] for v in (x, a))
+    th0 = _both(h0, "float32")[1]
+    y, h = _linear_scan_fwd_chunked(tx, ta, th0)
+    hs, h_states = _linear_scan_fwd_chunked(tx, ta, th0, torch.float32)
+    assert hs.dtype == torch.float32 and y.dtype == torch.bfloat16
+    assert torch.equal(hs.to(torch.bfloat16), y)
+    assert torch.equal(h_states, h)
 
 
 # ---------------------------------------------------------------- Mamba
