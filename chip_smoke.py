@@ -384,6 +384,11 @@ FA_CASES = [
     dict(name="whisper_cross", B=4, Sq=1024, Sk=1500, H=20, KH=20, D=64,
          causal=False, window=0, softcap=0.0, scale=None, q_offset=0,
          dtype="bfloat16", tol=3e-2),
+    # grok-1-314b's serve prefill: G = 6 (126 of an item's 128 rows) under
+    # its attention softcap of 30
+    dict(name="grok_serve", B=4, Sq=1024, Sk=1024, H=48, KH=8, D=128,
+         causal=True, window=0, softcap=30.0, scale=128 ** -0.5, q_offset=0,
+         dtype="bfloat16", tol=3e-2),
 ]
 # rows of a wgmma forward work item: the G heads of a kv head folded, 128 / G
 # positions each (flash_attention_fwd.cu); an item holds G x min(Sq, 128 / G)
@@ -436,6 +441,20 @@ FA_BWD_CASES = [
     dict(name="whisper_cross", B=4, Sq=1024, Sk=1500, H=20, KH=20, D=64,
          causal=False, window=0, softcap=0.0, scale=None, q_offset=0,
          dtype="bfloat16", seg=0),
+    # the train microbatches of minicpm-2b (4 x 1024 in one microbatch; MHA,
+    # G = 1, D = 64, causal), nemotron-4-15b and internvl2-26b (1 x 1024 in
+    # each of 4; G = 6: a folded tile of 64 rows holds 10 positions, 60
+    # rows) and gemma3-4b (4 x 1024; D = 256, window 1024, no softcap),
+    # with packed segment ids
+    dict(name="minicpm_train", B=4, Sq=1024, Sk=1024, H=36, KH=36, D=64,
+         causal=True, window=0, softcap=0.0, scale=1.0 / 8, q_offset=0,
+         dtype="bfloat16", seg=3),
+    dict(name="nemotron_train", B=1, Sq=1024, Sk=1024, H=48, KH=8, D=128,
+         causal=True, window=0, softcap=0.0, scale=128 ** -0.5, q_offset=0,
+         dtype="bfloat16", seg=3),
+    dict(name="gemma3_train", B=4, Sq=1024, Sk=1024, H=8, KH=4, D=256,
+         causal=True, window=1024, softcap=0.0, scale=1.0 / 16, q_offset=0,
+         dtype="bfloat16", seg=3),
 ]
 # Backward tolerances, (relative, largest) for each of dq, dk, dv against
 # attention_bwd_ref: the relative Frobenius distance |a - r| / |r| and the
@@ -538,6 +557,15 @@ GMM_CASES = [
          dtype="bfloat16"),
     dict(name="f32", E=8, C=256, D=512, F=384, route=(512, 2),
          dtype="float32"),
+    # grok-1-314b's experts (8 of d_ff 32768, top-2) at its serve prefill
+    # (T = 4096: C = 1280, wgmma), wi / wg and wo, and a decode step (T = 4:
+    # C = 8, mma_sync)
+    dict(name="grok_serve_wi", E=8, C=1280, D=6144, F=32768, route=(4096, 2),
+         dtype="bfloat16"),
+    dict(name="grok_serve_wo", E=8, C=1280, D=32768, F=6144, route=(4096, 2),
+         dtype="bfloat16"),
+    dict(name="grok_decode", E=8, C=8, D=6144, F=32768, route=(4, 2),
+         dtype="bfloat16"),
 ]
 
 # Grouped-matmul backward cases (dx and dw), as GMM_CASES; dy ~ N(0, 1) on
@@ -583,6 +611,7 @@ GMM_BWD_CASES = [
 
 # serve phases: batch, prompt length, new tokens a request, requests
 SERVE_SHAPE = dict(batch=4, prompt=1024, new=16, requests=8)
+GROK_LAYERS = 4
 # serve phases: arch, the loop it must run, kernel launches per prefill and
 # per decode step ("flash_attention.wgmma": the launches of flash attention's
 # wgmma kernel, which must be all of them; "gmm.wgmma" / "gmm.mma_sync":
@@ -611,6 +640,14 @@ SERVE = [
      {"flash_attention": 32, "flash_attention.wgmma": 32}, {}),
     ("internvl2-26b", "continuous",
      {"flash_attention": 48, "flash_attention.wgmma": 48}, {}),
+    # grok-1-314b at full width cut to GROK_LAYERS of its 64 layers (21.3 B
+    # params, 42.6 GB in bf16): a prefill's flash call and 3 gmm calls (wi,
+    # wg, wo) a layer, C = 1280 (wgmma); a decode step's 3 a layer, C = 8
+    # (mma_sync)
+    (f"grok-1-314b-L{GROK_LAYERS}", "continuous",
+     {"flash_attention": GROK_LAYERS, "flash_attention.wgmma": GROK_LAYERS,
+      "gmm": 3 * GROK_LAYERS, "gmm.wgmma": 3 * GROK_LAYERS},
+     {"gmm": 3 * GROK_LAYERS, "gmm.mma_sync": 3 * GROK_LAYERS}),
 ]
 # The checked prefill of an arch with a stubbed frontend takes its stub
 # inputs (random, 0.02 std, seed 0) through build_prefill_step: whisper's
@@ -640,7 +677,8 @@ STUB_PREFILL = {
 LOGIT_TOL = 0.25
 LOGIT_CONTROL = {"flash_attention": (1, 2),        # k, v
                  "linear_scan": (0, 1),            # x, a
-                 "selective_scan": (0, 1, 3, 4)}   # x, dt, B, C
+                 "selective_scan": (0, 1, 3, 4),   # x, dt, B, C
+                 "gmm": (0,)}                      # x (E, C, D): a row late
 # Over every key of a non-causal call, k and v read late change one pair of
 # ~1500 (the set of keys barely moves), so that control is blind to
 # whisper's encoder and cross-attention; theirs reads q late (each query
@@ -650,16 +688,21 @@ NONCAUSAL_Q_CONTROL = "flash_attention_q"
 # smallest control reading on an H100 (sound / control, deterministic
 # from call to call): gemma2-2b 0.0187 / 0.378, recurrentgemma-2b 0.0115 /
 # 0.0132 (linear_scan; flash 0.0217), falcon-mamba-7b 0.0146 / 1.121,
-# qwen3-moe 0.0153 / 0.339, gemma3-4b 0.0208 / 0.388, minicpm-2b 0.0402 /
-# 0.509, nemotron-4-15b 0.0256 / 0.188, whisper-large-v3 0.0122 / 0.0178
-# (q; flash 0.0185), internvl2-26b 0.0854 / 0.775.  recurrentgemma-2b's
-# linear_scan control is 15% above its sound reading: an RG-LRU state
-# decays slowly, so h read a step late is close to h.
+# qwen3-moe 0.0106 / 0.0889 (gmm; flash 0.339), gemma3-4b 0.0208 / 0.388,
+# minicpm-2b 0.0402 / 0.509, nemotron-4-15b 0.0256 / 0.188,
+# whisper-large-v3 0.0122 / 0.0178 (q; flash 0.0185), internvl2-26b
+# 0.0854 / 0.775, grok-1-314b-L4 0.0139 / 0.231 (flash; gmm 1.277).  An
+# MoE arch's sound reading replays the kernels' routes: routed freely, a
+# few near-ties of the router go elsewhere (grok 117 of 32,768
+# assignments, reading 0.0794; qwen3 8,020 of 1,572,864, 0.0153).
+# recurrentgemma-2b's linear_scan control is 15% above its sound reading:
+# an RG-LRU state decays slowly, so h read a step late is close to h.
 PREFILL_H_LIMIT = {"gemma2-2b": 0.08, "recurrentgemma-2b": 0.0123,
-                   "falcon-mamba-7b": 0.13, "qwen3-moe-30b-a3b": 0.07,
+                   "falcon-mamba-7b": 0.13, "qwen3-moe-30b-a3b": 0.03,
                    "gemma3-4b": 0.09, "minicpm-2b": 0.14,
                    "nemotron-4-15b": 0.07, "whisper-large-v3": 0.0147,
-                   "internvl2-26b": 0.26}
+                   "internvl2-26b": 0.26,
+                   f"grok-1-314b-L{GROK_LAYERS}": 0.06}
 # (3) Where a control reads close to the sound reading at the end of the
 # model, the first block's update of the residual stream as well (its
 # output less the embeddings it took in), under a limit of its own,
@@ -1390,6 +1433,10 @@ FALCON_LAYERS = 24
 # full-width qwen3-moe-30b-a3b cut in depth (30.5B params at 14 B a param,
 # 427 GB, would not fit): QWEN_LAYERS of 48 layers, 3.115B params
 QWEN_LAYERS = 4
+# depth cuts of the train phases that follow whisper's (see there)
+GEMMA3_LAYERS = 30
+NEMOTRON_LAYERS = 4
+INTERNVL_LAYERS = 10
 TRAIN_PHASES = [
     # gemma2-2b at profile_train.TRAIN (batch 4 x 1024 in 2 microbatches),
     # the shape that profile_train times; then lm.eval and lm.decode
@@ -1425,6 +1472,42 @@ TRAIN_PHASES = [
          picked=("wq", "wv", "xattn/wv", "xattn/wo", "enc:attn/wq",
                  "enc:attn/wk", "enc:attn/wv", "enc:attn/wo", "enc:mlp/wi"),
          f32_held=("xattn/wq", "xattn/wk")),
+    # The configurations served above that the port had not trained on the
+    # card, each at full width and cut in depth to the deepest
+    # <base>-L<n> whose dry-run peak at this shape and its config's
+    # microbatches stays under ENS_PEAK_LIMIT_GB (PERF.md has the
+    # reckonings).  gemma3-4b: 34 layers reckon 78.0 GB, 30 (five of its
+    # 5:1 local:global groups) 72.6; qk-norm, rope thetas 10k local and
+    # 1M global
+    dict(arch=f"gemma3-4b-L{GEMMA3_LAYERS}", base="gemma3-4b",
+         layers=GEMMA3_LAYERS, steps=2, decode=False, microbatches=1,
+         launches=_launches(flash=(GEMMA3_LAYERS, 1)), mixer="attn",
+         picked=("wq", "wk", "wv", "wo", "q_norm", "k_norm", "mlp/wg")),
+    # minicpm-2b at full depth (49.7 GB reckoned) under its config's WSD
+    # schedule (configs/minicpm_2b.py SCHEDULE), MHA at D = 64
+    dict(arch="minicpm-2b", steps=2, decode=False, microbatches=1,
+         schedule="wsd", launches=_launches(flash=(40, 1)), mixer="attn",
+         picked=("wq", "wk", "wv", "wo", "mlp/wi", "mlp/wg")),
+    # nemotron-4-15b-L<n>: LayerNorm with a bias, the squared-ReLU MLP (not
+    # gated), the untied 256,000-row LM head ("head"), bf16 moments; its
+    # config's 4 microbatches (5 layers reckon 78.9 GB, 4 73.4)
+    dict(arch=f"nemotron-4-15b-L{NEMOTRON_LAYERS}", base="nemotron-4-15b",
+         layers=NEMOTRON_LAYERS, steps=2, decode=False, microbatches=4,
+         launches=_launches(flash=(NEMOTRON_LAYERS, 4)), mixer="attn",
+         picked=("wq", "wk", "wv", "wo", "ln1/scale", "ln1/bias", "mlp/wi",
+                 "mlp/wo", "head")),
+    # internvl2-26b-L<n>, with SyntheticLM's stub vision embeddings (4 x
+    # 256 of d_model) in place of the first positions, through lm.train;
+    # 4 microbatches (11 layers reckon 78.9 GB, 10 73.4).  Its layer-0
+    # gradients read 0.053 between the kernels and the plain versions
+    # (grad norm 76.6), and both lie 0.095 from an f32 plain run (ratio
+    # 1.0000-1.0027 on an H100): bf16 through d_model 6144, as its
+    # serving drifts with depth, so they are f32_held (whisper's rule)
+    dict(arch=f"internvl2-26b-L{INTERNVL_LAYERS}", base="internvl2-26b",
+         layers=INTERNVL_LAYERS, steps=2, decode=False, microbatches=4,
+         launches=_launches(flash=(INTERNVL_LAYERS, 4)), mixer="attn",
+         picked=("wq", "wk", "wv", "wo", "mlp/wi", "mlp/wo", "head"),
+         f32_held=("wq", "wk", "wv", "wo", "mlp/wi", "mlp/wo")),
 ]
 
 
@@ -1504,7 +1587,8 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
     mbs = spec.get("microbatches", TRAIN["microbatches"])
     args = {"arch": spec["arch"], "device": str(dev), "steps": 1,
             "batch": TRAIN["batch"], "seq": TRAIN["seq"],
-            "microbatches": mbs, "ensemble": "chip_smoke", "member": 0}
+            "microbatches": mbs, "ensemble": "chip_smoke", "member": 0,
+            "schedule": spec.get("schedule", "cosine")}
     steps_n, want_step = spec["steps"], spec["launches"]
     cfg = lm.resolve_cfg(args["arch"])
     torch.cuda.synchronize(dev)   # initialises CUDA when this phase is first
@@ -1552,8 +1636,12 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
     # one microbatch, kernels against the plain versions, in turn, of the
     # eval's batch (data seed 1): the steps trained on seed 0's batches 0
     # and 1, and after two steps falcon-mamba-7b-L24's loss on its batch 0
-    # read 1.1e-6, with a grad norm of 2e-4 (H100 80GB HBM3)
+    # read 1.1e-6, with a grad norm of 2e-4 (H100 80GB HBM3).  It needs
+    # the params alone: the moments go first, since beside them
+    # nemotron-4-15b-L4's f32 gradients and its f32 LM head do not fit
     params = state["params"]
+    del state["opt"]
+    _release()
     mb = SyntheticLM(cfg, ShapeSpec("train", "train", TRAIN["seq"],
                                     TRAIN["batch"]), seed=1,
                      device=dev).batch_at(0)
@@ -1561,6 +1649,8 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
     layer0 = params["layers"][0]
 
     def leaf(w):
+        if w == "head":   # an untied LM head
+            return params["head"]
         first = layer0
         if w.startswith("enc:"):
             first, w = params["enc"]["layers"][0], w[len("enc:"):]
@@ -1568,7 +1658,8 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
         return first[a or spec["mixer"]][b]
     held = [f"layer0/{w}" for w in spec.get("f32_held", ())]
     picked = {"embed": params["embed"]["tok"],
-              **{f"layer0/{w}": leaf(w) for w in spec["picked"]},
+              **{w if w == "head" else f"layer0/{w}": leaf(w)
+                 for w in spec["picked"]},
               **{n: leaf(n[len("layer0/"):]) for n in held}}
     # an MoE arch's group sizes, gmm call by call, of each run: top-k
     # near-ties can route a few assignments differently in the two
@@ -1659,6 +1750,7 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
            "params": n_params, "state_gb": held_gb,
            "batch": TRAIN["batch"], "seq": TRAIN["seq"],
            "microbatches": mbs, "steps": steps_n,
+           "schedule": args["schedule"],
            "train_tasks": "lm.train, one step a task",
            "steps_run": steps, "losses": losses,
            "step_ms_steady": sum(s_["ms"] for s_ in steps[1:])
@@ -3725,9 +3817,10 @@ def phase_kernel_gmm_bwd(dev, router, baseline=None):
 @contextlib.contextmanager
 def _off_by_one(name):
     """The model's calls of kernel wrapper ``name`` read their arguments at
-    ``LOGIT_CONTROL[name]`` ((B, T, ...) each) one position late, as a
-    kernel whose tile loads are off by one would; NONCAUSAL_Q_CONTROL: the
-    flash calls with causal=False read q late."""
+    ``LOGIT_CONTROL[name]`` ((B, T, ...) each; gmm's x (E, C, D): each
+    expert's rows) one position late, as a kernel whose tile loads are off
+    by one would; NONCAUSAL_Q_CONTROL: the flash calls with causal=False
+    read q late."""
     import torch
 
     from repro_torch.models import layers, transformer
@@ -3844,10 +3937,13 @@ def _greedy(step, params, out, S0, new, dev):
 
 
 def phase_serve(dev, arch, loop, per_prefill, per_decode):
+    """``arch`` (a registered config or ``<base>-L<n>``) served by
+    BatchedServer at SERVE_SHAPE with exact launches, then one prefill
+    checked against ``impl="ref"`` (see PREFILL_H_LIMIT)."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.profile_train import train_config
     from repro_torch.models import forward, init_params
     from repro_torch.models.transformer import (
         embed_tokens,
@@ -3860,7 +3956,7 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
         build_serve_step,
     )
 
-    cfg = get_config(arch).replace(param_dtype="bfloat16")
+    cfg = train_config(arch).replace(param_dtype="bfloat16")
     B, S0, NEW, NREQ = (SERVE_SHAPE[k] for k in ("batch", "prompt", "new",
                                                  "requests"))
     max_len = S0 + NEW + 1
@@ -3931,17 +4027,39 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
         torch.cuda.synchronize()
         check_launches = {n: c for n, c in LAUNCHES.items() if c}
         del out
+        # an MoE arch's plain prefill routes as the kernels' did (the
+        # routers' top-k replayed, as the train phases do): near-ties of
+        # the router must not read as a kernel's error; the free-routing
+        # reading is printed beside it
+        routes, routed = [], {}
+        with _routing(routes), _recording_sizes(routed.setdefault("kernels",
+                                                                  [])):
+            out_k, h_k = prefill()
+        lk = out_k["logits"]
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out_r, h_r = prefill("ref")
+        with _routing(routes, replay=True), _recording_sizes(
+                routed.setdefault("ref", [])):
+            out_r, h_r = prefill("ref")
         torch.cuda.synchronize()
         prefill_ref_ms = 1e3 * (time.perf_counter() - t)
         lr = out_r["logits"]
         ref_tokens = _greedy(build_serve_step(cfg, impl="ref"), params,
                              out_r, S0, NEW, dev)
         del out_r
-        out_k, h_k = prefill()
-        lk = out_k["logits"]
+        free = None
+        if cfg.num_experts:
+            with _recording_sizes(routed.setdefault("ref_free", [])):
+                out_f, h_f = prefill("ref", cache=False)
+            free = {"h_rel_frobenius": rel_fro(h_k, h_f),
+                    "last_logit_max_abs_err":
+                        float((lk - out_f["logits"]).abs().max()),
+                    # half the summed changes of the group sizes
+                    "assignments_routed_elsewhere": sum(
+                        int((a - b).abs().sum()) for a, b in
+                        zip(routed["kernels"], routed["ref_free"])) // 2,
+                    "assignments": sum(r.numel() for r in routes)}
+            del out_f, h_f
         # the served tokens; with stub inputs, serve_step's decode from the
         # checked prefill's cache
         served = ([tokens[i] for i in range(B)] if not stubs else
@@ -4054,6 +4172,12 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
            "prefill_h_compared": "final hidden states of every position of "
                                  "the first wave, kernels against "
                                  "impl='ref'",
+           "routing": None if not cfg.num_experts else {
+               "compared": "the plain prefill replays the kernels' top-k",
+               "gmm_calls": len(routed["kernels"]),
+               "same_group_sizes": all(torch.equal(a, b) for a, b in zip(
+                   routed["kernels"], routed["ref"])),
+               "free_routing": free},
            "controls": controls, "first_block": first,
            "first_attention_sublayers": attn1,
            "f32_held": f32, "f32_held_ratio": F32_HELD_RATIO,

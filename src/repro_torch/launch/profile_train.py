@@ -9,9 +9,13 @@ the GPU, and print one JSON line.
 ``ARCHS`` the archs those phases train, with their microbatches:
 gemma2-2b (the default), recurrentgemma-2b, falcon-mamba-7b-L24
 (falcon-mamba-7b cut to 24 of its 64 layers: 7.27 B params and their Adam
-moments do not fit on one card) and qwen3-moe-30b-a3b-L4 (4 of its 48
-layers, in the config's 4 microbatches); ``--microbatches`` splits the
-batch otherwise.  The line holds the host wall time of the step (ending in a synchronize), the
+moments do not fit on one card), qwen3-moe-30b-a3b-L4 (4 of its 48
+layers, in the config's 4 microbatches), whisper-large-v3 (with its 4 x
+1500 stub frames), gemma3-4b-L30, minicpm-2b, nemotron-4-15b-L4 and
+internvl2-26b-L10 (with its stub vision embeddings; the last two in their
+configs' 4 microbatches), each cut to the deepest depth whose dry-run
+peak stays under 76 GB; ``--microbatches`` splits the batch otherwise.  The
+line holds the host wall time of the step (ending in a synchronize), the
 summed device time of its kernels, the device's idle share, the device
 time by kernel group (``profile_serve``'s groups: the hand kernels'
 forwards and backwards (gmm's among them), bf16 and f32 matmuls (the f32 ones are the LM
@@ -36,7 +40,8 @@ from repro_torch.train import TrainHyper, build_train_step, make_train_state
 
 TRAIN = dict(arch="gemma2-2b", batch=4, seq=1024, microbatches=2)
 ARCHS = {"gemma2-2b": 2, "recurrentgemma-2b": 2, "falcon-mamba-7b-L24": 1,
-         "qwen3-moe-30b-a3b-L4": 4}
+         "qwen3-moe-30b-a3b-L4": 4, "whisper-large-v3": 1, "gemma3-4b-L30": 1,
+         "minicpm-2b": 1, "nemotron-4-15b-L4": 4, "internvl2-26b-L10": 4}
 
 
 def train_config(arch: str):

@@ -339,6 +339,9 @@ def _emulated_and_jax(H, KH, D, cap, scale, window, **emulate):
     (8, 1, 128, 0.0, 128 ** -0.5, 0),    # G = 8
     (4, 2, 64, 30.0, None, 40),
     (10, 1, 256, 0.0, 1.0 / 16, 0),      # G = 10: recurrentgemma's grouping
+    (12, 2, 128, 0.0, 128 ** -0.5, 0),   # G = 6: nemotron / internvl / grok
+    (4, 4, 64, 0.0, 1.0 / 8, 0),         # G = 1, D = 64: minicpm-2b
+    (4, 2, 256, 0.0, 1.0 / 16, 48),      # gemma3-4b: window, no softcap
 ])
 def test_bwd_kernel_arithmetic_holds_bf16_tolerance(H, KH, D, cap, scale,
                                                     window):

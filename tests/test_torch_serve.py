@@ -28,6 +28,7 @@ from repro.serve import Request as JaxRequest  # noqa: E402
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.launch.profile_train import train_config  # noqa: E402
 from repro_torch.core.kernel_plugin import Kernel, kernel_names  # noqa: E402
 from repro_torch.kernels.moe_gmm import gmm_ref  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
@@ -250,7 +251,8 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 SERVE_ARCHS = ["gemma2-2b", "recurrentgemma-2b", "falcon-mamba-7b",
                "qwen3-moe-30b-a3b", "gemma3-4b", "minicpm-2b",
-               "nemotron-4-15b", "whisper-large-v3", "internvl2-26b"]
+               "nemotron-4-15b", "whisper-large-v3", "internvl2-26b",
+               "grok-1-314b"]
 # the rehearsal's limit on the relative distance of the final hidden states:
 # plain against plain is exactly 0 on the CPU, and the weakest control at
 # these widths (recurrentgemma-2b's linear_scan) reads ~4e-4
@@ -268,6 +270,12 @@ def _per_layer(counts, full, cfg):
         return sum(c.layer_kind(i) in kinds for i in range(c.num_layers))
     return {k: v * layers(cfg, k) // layers(full, k)
             for k, v in counts.items()}
+
+
+def _serve_entry(chip_smoke, arch):
+    """``arch``'s SERVE entry: named ``arch`` or ``<arch>-L<n>``."""
+    return next(e for e in chip_smoke.SERVE
+                if re.fullmatch(re.escape(arch) + r"(-L\d+)?", e[0]))
 
 
 def _flash_calls(c):
@@ -303,9 +311,12 @@ def test_chip_smoke_serve_phase_rehearsal(arch, monkeypatch):
                                                   ROOT / "chip_smoke.py")
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
-    full = get_config(arch)
-    cfg = reduced(full).replace(name=arch, dtype="bfloat16", head_dim=64)
-    monkeypatch.setitem(cfg_base._REGISTRY, arch, cfg)
+    # the arch's SERVE entry: its name, or <arch>-L<n>, the arch cut in depth
+    entry, loop, per_prefill, per_decode = _serve_entry(chip_smoke, arch)
+    full = train_config(entry)
+    cfg = reduced(get_config(arch)).replace(name=entry, dtype="bfloat16",
+                                            head_dim=64)
+    monkeypatch.setitem(cfg_base._REGISTRY, entry, cfg)
     variants = {
         "flash_attention": lambda q, *_: fops.variant(q.dtype, q.shape[-1]),
         "gmm": lambda x, w, *_: gops.variant(x.dtype, x.shape[0], x.shape[1],
@@ -329,7 +340,7 @@ def test_chip_smoke_serve_phase_rehearsal(arch, monkeypatch):
     monkeypatch.setattr(chip_smoke, "time_ms",
                         lambda fn, iters, warmup=1: (fn(), 0.0)[1])
     monkeypatch.setitem(chip_smoke.SERVE_SHAPE, "prompt", 64)
-    monkeypatch.setitem(chip_smoke.PREFILL_H_LIMIT, arch, CPU_H_LIMIT)
+    monkeypatch.setitem(chip_smoke.PREFILL_H_LIMIT, entry, CPU_H_LIMIT)
     if arch in chip_smoke.PREFILL_H1:
         monkeypatch.setitem(chip_smoke.PREFILL_H1, arch,
                             (chip_smoke.PREFILL_H1[arch][0], CPU_H_LIMIT))
@@ -339,9 +350,7 @@ def test_chip_smoke_serve_phase_rehearsal(arch, monkeypatch):
         monkeypatch.setitem(chip_smoke.STUB_PREFILL, arch, {
             k: v * _flash_calls(cfg) // _flash_calls(full)
             for k, v in chip_smoke.STUB_PREFILL[arch].items()})
-    _, loop, per_prefill, per_decode = next(
-        e for e in chip_smoke.SERVE if e[0] == arch)
-    row = chip_smoke.phase_serve(torch.device("cpu"), arch, loop,
+    row = chip_smoke.phase_serve(torch.device("cpu"), entry, loop,
                                  _per_layer(per_prefill, full, cfg),
                                  _per_layer(per_decode, full, cfg))
     limit = CPU_H_LIMIT
@@ -363,3 +372,44 @@ def test_chip_smoke_serve_phase_rehearsal(arch, monkeypatch):
     for sub in subs.values():   # whisper's first attention sublayers
         assert sub["h_rel_frobenius"] == 0.0
         assert all(c > limit for c in sub["controls"].values()), subs
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_chip_smoke_serve_entry_states_its_configs_launches(arch):
+    """Each ``SERVE`` entry's launches per prefill and per decode step are
+    the ones its config implies: the server prefills tokens alone (no
+    encoder, no vision embeddings), one flash call per attention layer (all
+    wgmma), one linear_scan per RG-LRU layer, one selective_scan per Mamba
+    layer, and 3 gmm calls per MoE layer (wi, wg, wo: wgmma at the prefill's
+    C > 16, mma_sync at a decode step's C = 8); decode attention launches
+    no kernel.  Every arch of the registry but the CPU-only ones is served."""
+    import importlib
+    import importlib.util
+    import pkgutil
+
+    import repro_torch.configs as configs
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    name, _, per_prefill, per_decode = _serve_entry(chip_smoke, arch)
+    cfg = train_config(name)
+    kinds = cfg.layer_kinds
+    attn = sum(k in ("global", "local") for k in kinds)
+    prefill = {"flash_attention": attn, "flash_attention.wgmma": attn,
+               "linear_scan": kinds.count("rec"),
+               "selective_scan": kinds.count("mamba")}
+    decode = {}
+    if cfg.num_experts:
+        prefill.update({"gmm": 3 * attn, "gmm.wgmma": 3 * attn})
+        decode.update({"gmm": 3 * attn, "gmm.mma_sync": 3 * attn})
+    assert per_prefill == {k: v for k, v in prefill.items() if v}
+    assert per_decode == decode
+    assert name in chip_smoke.PREFILL_H_LIMIT
+    served = {re.sub(r"-L\d+$", "", e[0]) for e in chip_smoke.SERVE}
+    assert served == set(SERVE_ARCHS)
+    defined = {getattr(importlib.import_module(f"{configs.__name__}.{m.name}"),
+                       "CONFIG", None) for m in pkgutil.iter_modules(
+                           configs.__path__)}
+    assert {c.name for c in defined if isinstance(c, ModelConfig)} == served

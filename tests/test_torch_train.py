@@ -62,10 +62,24 @@ from repro_torch.train.step import decay_mask  # noqa: E402
 
 ARCHS = ["gemma2-2b", "recurrentgemma-2b", "falcon-mamba-7b",
          "qwen3-moe-30b-a3b", "grok-1-314b", "whisper-large-v3",
-         "internvl2-26b"]
+         "internvl2-26b", "gemma3-4b", "minicpm-2b", "nemotron-4-15b"]
 STUB_ARCHS = ["whisper-large-v3", "internvl2-26b"]   # frontends stubbed
 STEP_ATOL = 1e-5
 STEP_RTOL = 1e-5
+# AdamW's defaults in both packages (repro.optim.adamw.adamw_update)
+ADAM_B1 = 0.9
+ADAM_EPS = 1e-8
+# Archs whose one step holds parameters where the reference's gradient is
+# within 10 eps of 0 (|m| < 10 (1 - b1) eps after the step), as
+# tests/test_torch_ensemble.py::test_fused_ensemble_matches_jax finds for
+# reduced qwen3-moe: there lr g / (|g| + eps) turns float32 rounding of g
+# (the two packages' gradients agree within 3e-6 of each leaf's largest)
+# into a step difference of the order of lr.  Reduced gemma3-4b has
+# gradients of ~5e-10 whose sign the summation order decides (its mlp/wg
+# of layer 0 at (10, 65): reference m 5.5e-11, port -4.8e-11), so steps
+# 3e-5 apart at lr 3e-4.  Those elements are held within lr; every other
+# element, and every moment, at STEP_ATOL.
+NEAR_EPS_STEP = ("gemma3-4b",)
 
 
 @pytest.fixture(autouse=True)
@@ -302,12 +316,61 @@ def test_one_train_step_matches_jax(arch):
     want = {k: np.asarray(v, np.float32) for k, v in _flatten(jstate).items()}
     got = to_numpy(train_state_to_flat(state, cfg))
     assert set(got) == set(want)
+    n_near = n_all = 0
     for k in want:
-        np.testing.assert_allclose(got[k], want[k], atol=STEP_ATOL,
-                                   err_msg=k)
+        near = np.zeros(want[k].shape, bool)
+        if arch in NEAR_EPS_STEP and k.startswith("params/"):
+            near = (np.abs(want["opt/m/" + k[len("params/"):]])
+                    < 10 * (1 - ADAM_B1) * ADAM_EPS)
+            assert (np.abs(got[k] - want[k]) <= float(jm["lr"]))[near].all()
+            n_near, n_all = n_near + int(near.sum()), n_all + near.size
+        np.testing.assert_allclose(np.where(near, want[k], got[k]), want[k],
+                                   atol=STEP_ATOL, err_msg=k)
+    assert n_near <= 1e-3 * max(n_all, 1)   # a tail: gemma3-4b 40 of 239,424
     assert int(state["step"]) == 1
     assert all(not p.requires_grad and p.grad is None
                for p in jax.tree.leaves(state["params"]))
+
+
+def test_wsd_train_step_matches_jax():
+    """minicpm-2b's config module names the WSD schedule (``SCHEDULE``, which
+    the JAX package's train launcher picks, ``repro/launch/train.py``;
+    ``lm.train`` takes it as ``args["schedule"]``): one step of reduced
+    minicpm-2b under it from step 19 of 20, inside the decay (lr = base_lr
+    0.1^0.5, where the cosine schedule gives another), against the JAX
+    step from the same state and batch: loss, grad_norm, lr, every param
+    and moment."""
+    import importlib
+    names = {importlib.import_module(f"{pkg}.configs.minicpm_2b").SCHEDULE
+             for pkg in ("repro", "repro_torch")}
+    assert names == {"wsd"}
+    jcfg, jstate, flat = _jax_state("minicpm-2b", 2)
+    cfg = port_cfg(jcfg)
+    hyper = dict(warmup=1, total_steps=20, schedule="wsd")
+    jstate = {**jstate, "step": jnp.asarray(19, jnp.int32)}
+    flat["step"] = np.asarray(19, np.int32)
+    jstep = jax.jit(jax_build_train_step(jcfg,
+                                         hyper=JaxTrainHyper(**hyper)))
+    jbatch = JaxSyntheticLM(jcfg, JaxShapeSpec("t", "train", 32,
+                                               4)).batch_at(0)
+    jstate, jm = jstep(jstate, jbatch)
+    state = train_state_from_numpy(flat, cfg)
+    batch = SyntheticLM(cfg, ShapeSpec("t", "train", 32, 4),
+                        device="cpu").batch_at(0)
+    state, m = build_train_step(cfg, TrainHyper(**hyper))(state, batch)
+    np.testing.assert_allclose(float(m["lr"]), 3e-4 * 0.1 ** 0.5, rtol=1e-6)
+    cosine = make_schedule("cosine", base_lr=3e-4, warmup=1, total_steps=20)
+    assert abs(float(cosine(torch.tensor(19))) - float(m["lr"])) > 1e-5
+    for key in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(m[key]), float(jm[key]),
+                                   rtol=STEP_RTOL, atol=1e-7, err_msg=key)
+    want = {k: np.asarray(v, np.float32) for k, v in _flatten(jstate).items()}
+    got = to_numpy(train_state_to_flat(state, cfg))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], atol=STEP_ATOL,
+                                   err_msg=k)
+    assert int(state["step"]) == 20
 
 
 def test_eval_step_matches_jax():
@@ -582,3 +645,108 @@ def test_chip_smoke_whisper_train_phase_rehearsal(monkeypatch):
     held = row["vs_ref"]["f32_held"]
     assert set(held) == {"layer0/xattn/wq", "layer0/xattn/wk"}
     assert all(h["ratio"] == 1.0 for h in held.values())   # plain = plain
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    spec_ = importlib.util.spec_from_file_location("chip_smoke",
+                                                   root / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(mod)
+    return mod
+
+
+def _flash_calls(cfg):
+    """Flash calls of a forward: each attention layer's, a decoder layer's
+    cross-attention and each encoder layer's."""
+    attn = sum(k in ("global", "local") for k in cfg.layer_kinds)
+    return attn * (2 if cfg.encoder_layers else 1) + cfg.encoder_layers
+
+
+_CHIP_SMOKE = _chip_smoke()
+TRAIN_PHASE_ARCHS = [s["arch"] for s in _CHIP_SMOKE.TRAIN_PHASES]
+# the train phases added beside the five earlier ones (rehearsed here; the
+# earlier ones have rehearsals of their own)
+NEW_TRAIN_PHASES = [f"gemma3-4b-L{_CHIP_SMOKE.GEMMA3_LAYERS}", "minicpm-2b",
+                    f"nemotron-4-15b-L{_CHIP_SMOKE.NEMOTRON_LAYERS}",
+                    f"internvl2-26b-L{_CHIP_SMOKE.INTERNVL_LAYERS}"]
+
+
+@pytest.mark.parametrize("arch", TRAIN_PHASE_ARCHS)
+def test_chip_smoke_train_phase_states_its_configs_launches(arch):
+    """Each ``TRAIN_PHASES`` entry's launches a step are the ones its config
+    implies at its microbatches (forward twice under remat, backward once):
+    flash per attention call, linear_scan per RG-LRU layer, selective_scan
+    per Mamba layer, 3 gmm calls per MoE layer; and profile_train times
+    the same cell."""
+    from repro_torch.launch import profile_train
+    cs = _CHIP_SMOKE
+    spec = next(s for s in cs.TRAIN_PHASES if s["arch"] == arch)
+    if "base" in spec:   # registered by the phase as _cut_cfg cuts it
+        assert arch == f"{spec['base']}-L{spec['layers']}"
+    cfg = profile_train.train_config(arch)
+    mbs = spec.get("microbatches", profile_train.TRAIN["microbatches"])
+    kinds = cfg.layer_kinds
+    per = {"flash": _flash_calls(cfg), "rec": kinds.count("rec"),
+           "mamba": kinds.count("mamba"),
+           "moe": cfg.num_layers if cfg.num_experts else 0}
+    want = cs._launches(**{f: (n, mbs) for f, n in per.items() if n})
+    assert spec["launches"] == want
+    assert profile_train.ARCHS[arch] == mbs
+    if cfg.num_experts:
+        assert want["gmm"] == 2 * 3 * cfg.num_layers * mbs
+
+
+@pytest.mark.parametrize("arch", NEW_TRAIN_PHASES)
+def test_chip_smoke_train_phase_rehearsal(arch, monkeypatch):
+    """``chip_smoke.py``'s ``train <arch>`` phases of the configurations
+    first trained on the card here (gemma3-4b's qk-norm and two rope
+    thetas, minicpm-2b under WSD, nemotron-4-15b's LayerNorm, squared ReLU
+    and untied head, internvl2-26b's stub vision embeddings) on the CPU at
+    reduced widths (remat, bf16 compute, head_dim 64; 64 tokens): the plain
+    attention calls are counted as the flash wrappers count launches, so
+    the phase's exact counts a step and its check of one microbatch against
+    ``impl="ref"`` pass."""
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.kernels import count_launch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch import profile_train
+
+    chip_smoke = _chip_smoke()
+    spec = dict(next(s for s in chip_smoke.TRAIN_PHASES
+                     if s["arch"] == arch))
+    cfg = reduced(get_config(spec.get("base", arch))).replace(
+        name=arch, remat="full", dtype="bfloat16", head_dim=64)
+    monkeypatch.setitem(cfg_base._REGISTRY, arch, cfg)
+    mbs = spec["microbatches"]
+    spec["launches"] = chip_smoke._launches(flash=(_flash_calls(cfg), mbs))
+    monkeypatch.setitem(profile_train.TRAIN, "seq", 64)
+
+    def counted(attr, *names):
+        fn = getattr(fops, attr)
+
+        def run(*a, **kw):
+            count_launch(*names, f"{names[0]}.{fops.variant(a[0].dtype, 64)}")
+            return fn(*a, **kw)
+        monkeypatch.setattr(fops, attr, run)
+    counted("attention_fwd_ref", "flash_attention")
+    counted("attention_ref", "flash_attention")
+    counted("attention_bwd_ref", "flash_attention_bwd")
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    row = chip_smoke.phase_train(torch.device("cpu"), spec)
+    assert row["ok"] and row["layers"] == cfg.num_layers
+    assert all(s["launches"] == spec["launches"] for s in row["steps_run"])
+    assert row["schedule"] == spec.get("schedule", "cosine")
+    grads = row["vs_ref"]["grad_rel_frobenius"]
+    held = {f"layer0/{w}" for w in spec.get("f32_held", ())}
+    assert set(grads) == {"embed"} | {
+        w if w == "head" else f"layer0/{w}" for w in spec["picked"]} - held
+    assert all(g == 0.0 for g in grads.values())   # plain against plain
+    f32 = row["vs_ref"]["f32_held"] or {}
+    assert set(f32) == held
+    assert all(h["ratio"] == 1.0 for h in f32.values())
+    assert all(np.isfinite(row["losses"]))
