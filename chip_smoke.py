@@ -255,6 +255,7 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -389,7 +390,21 @@ FA_CASES = [
     dict(name="grok_serve", B=4, Sq=1024, Sk=1024, H=48, KH=8, D=128,
          causal=True, window=0, softcap=30.0, scale=128 ** -0.5, q_offset=0,
          dtype="bfloat16", tol=3e-2),
+    # a prefill_32k row of the long phases (32,768 positions, one batch
+    # row): gemma2-2b's global and local (window 4096) layers, qwen3-moe's
+    dict(name="gemma2_32k", B=1, Sq=32768, Sk=32768, causal=True, window=0,
+         q_offset=0, dtype="bfloat16", tol=3e-2, **G2),
+    dict(name="gemma2_32k_local", B=1, Sq=32768, Sk=32768, causal=True,
+         window=4096, q_offset=0, dtype="bfloat16", tol=3e-2, **G2),
+    dict(name="qwen3_32k", B=1, Sq=32768, Sk=32768, H=32, KH=4, D=128,
+         causal=True, window=0, softcap=0.0, scale=128 ** -0.5, q_offset=0,
+         dtype="bfloat16", tol=3e-2),
 ]
+# SDPA takes a mask that its own flags cannot state (a window, segments) as
+# attn_mask; where no fused kernel takes it, PyTorch's math path forms f32
+# scores and probabilities, B * H * Sq * Sk * 4 bytes each.  A case whose
+# two would pass this many bytes has no library time.
+SDPA_MASK_BYTES = 32e9
 # rows of a wgmma forward work item: the G heads of a kv head folded, 128 / G
 # positions each (flash_attention_fwd.cu); an item holds G x min(Sq, 128 / G)
 # live rows
@@ -508,6 +523,8 @@ LS_CASES = [   # the serve shape of recurrentgemma-2b and its train
     dict(name="ragged", B=2, T=1000, C=1000, dtype="float32"),
     dict(name="single_step", B=4, T=1, C=2560, dtype="float32"),
     dict(name="bf16", B=4, T=1024, C=2560, dtype="bfloat16"),
+    # the prefill_32k wave of the long phases (LONG: 16 rows of 32,768)
+    dict(name="rg_32k", B=16, T=32768, C=2560, dtype="float32"),
 ]
 SS_CASES = [   # the serve shape of falcon-mamba-7b: x, Bm, C bf16, Bm and C
                # column slices of one (B, T, dt_rank + 2n) x_proj output
@@ -515,6 +532,8 @@ SS_CASES = [   # the serve shape of falcon-mamba-7b: x, Bm, C bf16, Bm and C
     dict(name="ragged", B=2, T=1000, d=1000, n=12, dtype="bfloat16"),
     dict(name="single_step", B=4, T=1, d=8192, n=16, dtype="bfloat16"),
     dict(name="f32", B=2, T=512, d=1024, n=16, dtype="float32"),
+    # the prefill_32k wave of the long phases (LONG: 8 rows of 32,768)
+    dict(name="falcon_32k", B=8, T=32768, d=8192, n=16, dtype="bfloat16"),
 ]
 DT_RANK = 256
 # A batch row past 2^32 elements (falcon-mamba's d, T = 2^32 / d + 256:
@@ -566,6 +585,10 @@ GMM_CASES = [
          dtype="bfloat16"),
     dict(name="grok_decode", E=8, C=8, D=6144, F=32768, route=(4, 2),
          dtype="bfloat16"),
+    # qwen3-moe-30b-a3b's wi / wg at a 32,768-token prefill (one row, top-8:
+    # C = 1.25 * 32768 * 8 / 128 = 2560)
+    dict(name="qwen3_32k_wi", E=128, C=2560, D=2048, F=768,
+         route=(32768, 8), dtype="bfloat16"),
 ]
 
 # Grouped-matmul backward cases (dx and dw), as GMM_CASES; dy ~ N(0, 1) on
@@ -818,8 +841,23 @@ def _f32_depth_drift(cfg, params, wave, stubs, depths):
 
 def rel_fro(a, r) -> float:
     """||a - r||_F / ||r||_F, in float64."""
-    a, r = a.double(), r.double()
-    return float((a - r).norm() / r.norm())
+    diff, ref = _fro_parts(a, r)
+    if not ref:
+        return float("inf") if diff else float("nan")
+    return (diff / ref) ** 0.5
+
+
+def _fro_parts(a, r):
+    """(||a - r||_F^2, ||r||_F^2), summed in float64 over chunks of 2^27
+    elements, so that a 32k-token prefill's hidden states need no float64
+    copy of themselves."""
+    diff = ref = 0.0
+    for a_, r_ in zip(a.reshape(-1).split(2 ** 27),
+                      r.reshape(-1).split(2 ** 27)):
+        a_, r_ = a_.double(), r_.double()
+        diff += float(((a_ - r_) ** 2).sum())
+        ref += float((r_ * r_).sum())
+    return diff, ref
 
 
 def emit(obj) -> None:
@@ -965,7 +1003,7 @@ def _mask(c, device, seg_q=None, seg_kv=None):
     if c["causal"]:
         m &= kpos <= qpos
     if c["window"]:
-        m &= qpos - kpos < c["window"]
+        m &= kpos > qpos - c["window"]
     if seg_q is not None:
         m = m & (seg_q[:, None, :, None] == seg_kv[:, None, None, :])
     return m
@@ -1154,15 +1192,16 @@ def phase_kernel_flash_attention(dev, baseline=None):
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(H // KH, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(H // KH, dim=2).transpose(1, 2).contiguous()
+        lib = None
         if _sdpa_unmasked(c, seg_q):
             def lib():
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=c["causal"], scale=c["scale"])
-        else:
+        elif 2 * 4 * B * H * Sq * Sk <= SDPA_MASK_BYTES:
             def lib():
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=mask, scale=c["scale"])
-        library_ms = device_ms(lib, 3 if big else 10)
+        library_ms = device_ms(lib, 3 if big else 10) if lib else None
 
         pairs = int(mask.sum()) * (1 if seg_q is not None else B)
         flops, nbytes = cost(B, Sq, Sk, H, KH, D, q.element_size(),
@@ -1188,9 +1227,11 @@ def phase_kernel_flash_attention(dev, baseline=None):
                "baseline_ms": baseline_ms,
                "baseline_max_abs_err": baseline_err, "plain_ms": plain_ms,
                "library_ms": library_ms,
-               "library": "scaled_dot_product_attention, no softcap"
-                          + (", segment mask as attn_mask" if seg_q is not None
-                             else ""),
+               "library": ("scaled_dot_product_attention, no softcap"
+                           + (", segment mask as attn_mask"
+                              if seg_q is not None else "")) if lib else
+                          "none: the window's mask does not fit "
+                          "SDPA_MASK_BYTES",
                "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms,
                "bound_by": bound_by,
@@ -1484,10 +1525,16 @@ TRAIN_PHASES = [
          launches=_launches(flash=(GEMMA3_LAYERS, 1)), mixer="attn",
          picked=("wq", "wk", "wv", "wo", "q_norm", "k_norm", "mlp/wg")),
     # minicpm-2b at full depth (49.7 GB reckoned) under its config's WSD
-    # schedule (configs/minicpm_2b.py SCHEDULE), MHA at D = 64
+    # schedule (configs/minicpm_2b.py SCHEDULE), MHA at D = 64.  Its layer-0
+    # gradients read 0.0285 from impl="ref" on an H100, and 0.047-0.078
+    # once RoPE's inverse frequency was rounded as the JAX package's
+    # compiled step rounds it (an ulp at most; the two steps' states then
+    # differ at the fourth digit of the loss): bf16 through 40 layers
+    # cannot resolve them, so they are f32_held (whisper's rule)
     dict(arch="minicpm-2b", steps=2, decode=False, microbatches=1,
          schedule="wsd", launches=_launches(flash=(40, 1)), mixer="attn",
-         picked=("wq", "wk", "wv", "wo", "mlp/wi", "mlp/wg")),
+         picked=("wq", "wk", "wv", "wo", "mlp/wi", "mlp/wg"),
+         f32_held=("wq", "wk", "wv", "wo", "mlp/wi", "mlp/wg")),
     # nemotron-4-15b-L<n>: LayerNorm with a bias, the squared-ReLU MLP (not
     # gated), the untied 256,000-row LM head ("head"), bf16 moments; its
     # config's 4 microbatches (5 layers reckon 78.9 GB, 4 73.4)
@@ -1818,16 +1865,17 @@ def _dryrun_init(src: str) -> None:
 
 
 def _reckon(arch, batch, seq, microbatches=None, members=0, steps=1,
-            mesh=None):
+            mesh=None, kind="train"):
     """``launch.dryrun.reckon`` of a phase's cell: ``arch`` a registered
-    name or ``<base>-L<n>`` (``profile_train.train_config``); ``mesh``
-    ("DxM") one rank of that mesh on a fake group (``--mesh DxM``)."""
+    name or ``<base>-L<n>`` (``configs.resolve_config``), ``kind`` the
+    path (train, prefill, decode); ``mesh`` ("DxM") one rank of that mesh
+    on a fake group (``--mesh DxM``)."""
+    from repro_torch.configs import resolve_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.dryrun import fake_world, parse_mesh, reckon
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.profile_train import train_config
     t = time.perf_counter()
-    args = (train_config(arch), ShapeSpec("chip_smoke", "train", seq, batch))
+    args = (resolve_config(arch), ShapeSpec("chip_smoke", kind, seq, batch))
     if mesh is None:
         out = reckon(*args, microbatches=microbatches, members=members,
                      steps_per_cycle=steps)
@@ -1859,6 +1907,7 @@ def _reckon_cells():
         cells[f"mesh tp {spec['arch']}"] = dict(
             arch=spec["arch"], batch=spec["batch"], seq=spec["seq"],
             microbatches=spec["microbatches"], mesh=mesh)
+    cells.update(_long_cells())
     return cells
 
 
@@ -3097,7 +3146,9 @@ def _scan_check(name, case, kernel, plain, y_dtype, nbytes, flops, extra,
     ms = device_ms(kernel, 20)
     host_ms = time_ms(kernel, 20)
     baseline_ms = device_ms(old, 20) if old else None
-    plain_ms = time_ms(plain, 2)
+    # a 32k case's plain loop takes seconds a call: one, already warm
+    plain_ms = (time_ms(plain, 1, warmup=0) if case["T"] >= 32768
+                else time_ms(plain, 2))
     bound_ms, bound_by = _bound(flops, nbytes, "float32")
     row = {"phase": f"kernel {name}", "case": case["name"],
            "shape": {k: v for k, v in case.items() if k != "name"},
@@ -3942,8 +3993,8 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
     checked against ``impl="ref"`` (see PREFILL_H_LIMIT)."""
     import torch
 
+    from repro_torch.configs import resolve_config
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.launch.profile_train import train_config
     from repro_torch.models import forward, init_params
     from repro_torch.models.transformer import (
         embed_tokens,
@@ -3956,7 +4007,7 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
         build_serve_step,
     )
 
-    cfg = train_config(arch).replace(param_dtype="bfloat16")
+    cfg = resolve_config(arch).replace(param_dtype="bfloat16")
     B, S0, NEW, NREQ = (SERVE_SHAPE[k] for k in ("batch", "prompt", "new",
                                                  "requests"))
     max_len = S0 + NEW + 1
@@ -4223,6 +4274,484 @@ def phase_serve(dev, arch, loop, per_prefill, per_decode):
                              f"the kernels lie further from it than "
                              f"{F32_HELD_RATIO} x the plain versions: {far}")
     return row
+
+
+# Long-context phases: the reference's serving cells (configs.SHAPES:
+# prefill_32k, decode_32k and long_500k) at full width and depth.  An
+# arch's batch of a cell (profile_serve.LONG_BATCH) is the largest power of
+# two, up to the cell's global batch, whose launch.dryrun peak stays under
+# ENS_PEAK_LIMIT_GB; the phase checks that rule on the run's own
+# reckonings of the batch and of twice it.  prefill_32k serves one wave of
+# that many prompts of 32,768 - LONG_NEW - 1 tokens through BatchedServer
+# (LONG_NEW new tokens each, max_len 32,768), then checks the wave's prefill
+# against impl="ref" as the serve phases do (PREFILL_H_LIMIT, each control,
+# LOGIT_TOL, exact launches, MoE routes replayed).  "check": that
+# comparison's depth ("layers": a full-width cut, None for the whole
+# model) and the wave's rows it takes: the plain versions take 10-20 s a
+# row of 32,768 positions on an H100 (gemma2-2b's f32 attention over
+# 32,768 keys in 13 layers; the plain scans' loops step through the
+# positions one launch at a time, ~0.1 ms a step and layer), and
+# recurrentgemma-2b's whole wave of 16 rows ran out of memory beside the
+# kernels' run.  falcon-mamba-7b is compared at 4 of its 64 layers,
+# qwen3-moe-30b-a3b at 8 of its 48 (its deeper layers' 51 GB of
+# parameters dropped first).  "f32_rows": that many rows also held
+# against an f32 plain run (F32_HELD_RATIO), recurrentgemma-2b's, whose
+# 1,024-token limit sits close to its sound reading.  decode_32k and
+# long_500k run in the dry run's form (a PROMPT-token prompt's cache at
+# the cell's positions, then decode at its end), the measured peak held to
+# the reckoned one; long_500k's LONG_NEW steps at the cache's last
+# positions are held against the same steps under impl="ref".
+LONG_NEW = 16
+LONG_CELLS = ("prefill_32k", "decode_32k", "long_500k")
+LONG = [
+    dict(arch="gemma2-2b", check=dict(layers=None, rows=2)),
+    dict(arch="recurrentgemma-2b", check=dict(layers=None, rows=4,
+                                              f32_rows=1)),
+    dict(arch="falcon-mamba-7b", check=dict(layers=4, rows=2)),
+    dict(arch="qwen3-moe-30b-a3b", check=dict(layers=8, rows=1)),
+    dict(arch="gemma3-4b", cells=("long_500k",)),
+]
+# A 32k prefill's own limit on its hidden states, where its reading needs
+# one (PERF.md section 2's rule: near the geometric mean of its sound
+# reading and its smallest control); else the arch's PREFILL_H_LIMIT.
+# recurrentgemma-2b at 32,751 positions (4 rows, an H100): sound 0.01129,
+# its flash control 0.01208 (window 2048: a key read late moves a row's
+# attention less than at 1,024 positions, 0.0217 there), linear_scan
+# 0.01303; the kernels lie no further from an f32 plain run than the plain
+# versions (ratio 0.99985).
+LONG_H_LIMIT = {"recurrentgemma-2b": 0.0117}
+_MIXER_KINDS = {"flash_attention": ("global", "local"),
+                "gmm": ("global", "local"), "linear_scan": ("rec",),
+                "selective_scan": ("mamba",)}
+
+
+def _long_batch(spec, cell):
+    """The arch's batch of ``cell`` (``profile_serve.LONG_BATCH``; 1 for
+    long_500k)."""
+    from repro_torch.launch.profile_serve import LONG_BATCH
+    return LONG_BATCH[cell][spec["arch"]] if cell in LONG_BATCH else 1
+
+
+def _long_cells():
+    """The long phases' reckonings: ``_reckon``'s arguments of each arch's
+    cell at its batch and at twice it (where the cell's global batch
+    allows)."""
+    from repro_torch.configs import SHAPES, cell_applicable, resolve_config
+    cells = {}
+    for spec in LONG:
+        cfg = resolve_config(spec["arch"])
+        for cell in spec.get("cells", LONG_CELLS):
+            shape = SHAPES[cell]
+            if not cell_applicable(cfg, shape)[0]:
+                continue
+            B = _long_batch(spec, cell)
+            for b in (B, 2 * B):
+                if b <= shape.global_batch:
+                    cells[f"long {spec['arch']} {cell} {b}"] = dict(
+                        arch=spec["arch"], batch=b, seq=shape.seq_len,
+                        kind=shape.kind)
+    return cells
+
+
+def _long_rule(reckonings, arch, cell, B):
+    """The batch rule of ``arch``'s ``cell`` at batch ``B``."""
+    from repro_torch.configs import SHAPES
+    got = reckonings.get(f"long {arch} {cell} {B}")
+    nxt = (reckonings.get(f"long {arch} {cell} {2 * B}")["peak_bytes"] / 1e9
+           if 2 * B <= SHAPES[cell].global_batch else None)
+    gb = got["peak_bytes"] / 1e9
+    return {"batch": B, "global_batch": SHAPES[cell].global_batch,
+            "reckoned_peak_gb": gb, "next_batch_reckoned_peak_gb": nxt,
+            "peak_limit_gb": ENS_PEAK_LIMIT_GB,
+            "ok": gb < ENS_PEAK_LIMIT_GB
+            and (nxt is None or nxt >= ENS_PEAK_LIMIT_GB)}
+
+
+def _layer_counts(counts, full, cut):
+    """Launch counts of ``full``'s prefill rescaled to ``cut``'s layers of
+    each wrapper's kind."""
+    def n(c, name):
+        kinds = _MIXER_KINDS[name.split(".")[0]]
+        return sum(c.layer_kind(i) in kinds for i in range(c.num_layers))
+    return {k: v * n(cut, k) // n(full, k) for k, v in counts.items()}
+
+
+def _sync_timed(fn, log):
+    """``fn``, each call's milliseconds (synchronized) appended to ``log``."""
+    import torch
+
+    def run(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        log.append(1e3 * (time.perf_counter() - t))
+        return out
+    return run
+
+
+def _long_serve(dev, cfg, params, B, S, loop, per_prefill, per_decode):
+    """prefill_32k's BatchedServer run: one wave of B prompts of S -
+    LONG_NEW - 1 tokens, LONG_NEW new tokens each, max_len S; exact
+    launches, peak, each prefill's and decode step's milliseconds."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import BatchedServer
+    S0 = S - LONG_NEW - 1
+    srv = BatchedServer(cfg, params, batch=B, prompt_len=S0, max_len=S,
+                        device=dev)
+    ms = {"prefill": [], "decode": []}
+    srv.prefill = _sync_timed(srv.prefill, ms["prefill"])
+    srv.step = _sync_timed(srv.step, ms["decode"])
+    srv.submit(_requests(cfg, B, S0, LONG_NEW))
+    _release()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t = time.perf_counter()
+    done = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    prefills, steps = srv.stats["prefills"], srv.stats["decode_steps"]
+    want = {k: per_prefill.get(k, 0) * prefills + per_decode.get(k, 0) * steps
+            for k in set(per_prefill) | set(per_decode)}
+    tokens = {r.rid: r.out_tokens for r in done}
+    ok = (srv.continuous == (loop == "continuous") and prefills == 1
+          and steps == LONG_NEW and launches == want and len(tokens) == B
+          and all(len(t) == LONG_NEW and 0 <= min(t) and
+                  max(t) < cfg.vocab_size for t in tokens.values()))
+    decode = ms["decode"][1:]
+    return {"batch": B, "prompt_len": S0, "new_tokens": LONG_NEW,
+            "max_len": S, "loop": "continuous" if srv.continuous else "wave",
+            "stats": srv.stats, "launches": launches,
+            "launches_expected": want, "served_tokens": tokens,
+            "wall_s": wall, "tokens_per_s": B * LONG_NEW / wall,
+            "prefill_ms": ms["prefill"][0],
+            "prefill_tokens_per_s": B * S0 / (ms["prefill"][0] / 1e3),
+            "decode_step_ms": sum(decode) / len(decode),
+            "decode_step_ms_first": ms["decode"][0],
+            "decode_step_ms_max": max(decode),
+            "peak_mem_gb": peak_gb, "ok": ok}
+
+
+def _long_check(dev, cfg, params, B, S, check, per_prefill):
+    """prefill_32k's plain comparison: the wave's first ``check["rows"]``
+    prompts through the kernels' and the plain versions' prefill of
+    ``cfg`` cut to ``check["layers"]``, as phase_serve compares them: the
+    relative Frobenius distance of every position's final hidden states,
+    each control's, the last logits, the checked prefill's launches,
+    greedy tokens from each run's cache; with ``check["f32_rows"]``, that
+    many rows' readings held against an f32 plain run (``_f32_held``)."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import forward, lm_logits
+    from repro_torch.serve import build_serve_step
+    layers = check["layers"] or cfg.num_layers
+    ccfg = (cfg if layers == cfg.num_layers else
+            cfg.replace(name=f"{cfg.name}-L{layers}", num_layers=layers))
+    cparams = {**params, "layers": params["layers"][:layers]}
+    n = check["rows"]
+    S0 = S - LONG_NEW - 1
+    rows = torch.stack([torch.as_tensor(r.prompt) for r in
+                        _requests(cfg, B, S0, LONG_NEW)[:n]]).to(dev)
+
+    def prefill(impl=None, cache=True):
+        out = forward(ccfg, cparams, rows, cache_len=S if cache else None,
+                      impl=impl)
+        return ({"logits": lm_logits(ccfg, cparams, out["h"][:, -1:]),
+                 "cache": out["cache"]}, out["h"])
+    routes, routed = [], {"kernels": [], "ref": [], "free": []}
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with _routing(routes), _recording_sizes(routed["kernels"]):
+        out_k, h_k = prefill()
+    torch.cuda.synchronize()
+    kernels_ms = 1e3 * (time.perf_counter() - t)
+    launches = {k: c for k, c in LAUNCHES.items() if c}
+    tokens_k = _greedy(build_serve_step(ccfg), cparams, out_k, S0, LONG_NEW,
+                       dev)
+    lk = out_k["logits"]
+    del out_k
+    _release()
+    t = time.perf_counter()
+    with _routing(routes, replay=True), _recording_sizes(routed["ref"]):
+        out_r, h_r = prefill("ref")
+    torch.cuda.synchronize()
+    ref_ms = 1e3 * (time.perf_counter() - t)
+    tokens_r = _greedy(build_serve_step(ccfg, impl="ref"), cparams, out_r,
+                       S0, LONG_NEW, dev)
+    lr = out_r["logits"]
+    del out_r
+    _release()
+    routing = f32 = None
+    if cfg.num_experts:
+        with _recording_sizes(routed["free"]):
+            _, h_f = prefill("ref", cache=False)
+        routing = {
+            "compared": "the plain prefill replays the kernels' top-k",
+            "same_group_sizes": all(torch.equal(a, b) for a, b in zip(
+                routed["kernels"], routed["ref"])),
+            "free_routing_h_rel_frobenius": rel_fro(h_k, h_f),
+            "assignments_routed_elsewhere": sum(
+                int((a - b).abs().sum()) for a, b in
+                zip(routed["kernels"], routed["free"])) // 2,
+            "assignments": sum(x.numel() for x in routes)}
+        del h_f
+    if check.get("f32_rows"):
+        m = check["f32_rows"]
+        c32 = ccfg.replace(dtype="float32", param_dtype="float32")
+        h32 = forward(c32, _to_f32(cparams), rows[:m], impl="ref")["h"]
+        f32 = {"rows": m, **_f32_held({"kernels": h_k[:m], "ref": h_r[:m],
+                                       "f32": h32})}
+        del h32
+        _release()
+    top2 = lk[:, 0].topk(2, dim=-1).values
+    out = {"depth": layers, "config": ccfg.name, "rows": n,
+           "h_rel_frobenius": rel_fro(h_k, h_r),
+           "h_max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                for a, b in zip(h_k, h_r)),
+           "h_ref_max_abs": max(float(b.float().abs().max()) for b in h_r),
+           "last_logit_max_abs_err": float((lk - lr).abs().max()),
+           "last_logit_ref_max_abs": float(lr.abs().max()),
+           "argmax_agreement": float((lk[:, 0].argmax(-1) ==
+                                      lr[:, 0].argmax(-1)).float().mean()),
+           "top2_gap_min": float((top2[:, 0] - top2[:, 1]).min()),
+           "finite": bool(torch.isfinite(lk).all()
+                          and torch.isfinite(h_k).all()),
+           "launches": launches,
+           "launches_expected": _layer_counts(per_prefill, cfg, ccfg),
+           "kernels_ms": kernels_ms, "ref_ms": ref_ms,
+           "greedy_tokens": tokens_k,
+           "greedy_token_agreement": sum(
+               a == b for s_, r_ in zip(tokens_k, tokens_r)
+               for a, b in zip(s_, r_)) / (n * LONG_NEW),
+           "routing": routing, "f32_held": f32, "controls": {}}
+    del h_k
+    _release()
+    for control in _controls(cfg, per_prefill):
+        with _off_by_one(control):
+            out_c, h_c = prefill(cache=False)
+        out["controls"][control] = {
+            "inputs_delayed": LOGIT_CONTROL.get(control, (0,)),
+            "h_rel_frobenius": rel_fro(h_c, h_r),
+            "last_logit_max_abs_err":
+                float((out_c["logits"] - lr).abs().max())}
+        del out_c, h_c
+        _release()
+    return out
+
+
+def _long_decode(dev, cfg, params, B, S, steps):
+    """The dry run's form of a decode cell: the cache of a PROMPT-token
+    prompt at S positions (build_prefill_step), one build_serve_step step
+    at position S - 1, its launches and the peak (less what the process
+    held beside the parameters before), then ``steps`` more timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.dryrun import PROMPT
+    from repro_torch.serve import build_prefill_step, build_serve_step
+    _release()
+    other = torch.cuda.memory_allocated(dev) - sum(
+        t.numel() * t.element_size() for t in _leaves(params))
+    torch.cuda.reset_peak_memory_stats(dev)
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, PROMPT))).to(dev)
+    reset_launches()
+    out = build_prefill_step(cfg, cache_len=S)(params, {"tokens": prompt})
+    cache, last = out["cache"], out["logits"][:, 0].argmax(-1)[:, None]
+    del out
+    step = build_serve_step(cfg)
+    pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+    logits, cache = step(params, cache, last, pos)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    peak = torch.cuda.max_memory_allocated(dev)
+    finite = bool(torch.isfinite(logits).all())
+    ms = time_ms(lambda: step(params, cache, last, pos), steps)
+    del cache, logits
+    return {"batch": B, "cache_len": S, "prompt": PROMPT, "position": S - 1,
+            "launches": launches, "measured_peak_gb": peak / 1e9,
+            "other_gb": other / 1e9, "cell_peak_gb": (peak - other) / 1e9,
+            "decode_step_ms": ms, "finite": finite}
+
+
+def _long_500k_steps(dev, cfg, params, S):
+    """long_500k's LONG_NEW decode steps at positions S - LONG_NEW .. S - 1
+    from a PROMPT-token prompt's cache, kernels (greedy) then impl="ref"
+    fed the same tokens: each step's logits and greedy token."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.dryrun import PROMPT
+    from repro_torch.serve import build_prefill_step, build_serve_step
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, PROMPT))).to(dev)
+    runs = {}
+    fed = None
+    for impl in (None, "ref"):
+        _release()
+        other = torch.cuda.memory_allocated(dev) - sum(
+            t.numel() * t.element_size() for t in _leaves(params))
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        out = build_prefill_step(cfg, cache_len=S, impl=impl)(
+            params, {"tokens": prompt})
+        cache, last = out["cache"], out["logits"][:, 0].argmax(-1)[:, None]
+        del out
+        ms = []
+        step = _sync_timed(build_serve_step(cfg, impl=impl), ms)
+        logits, inputs = [], []
+        for t in range(LONG_NEW):
+            if fed is not None:
+                last = fed[t]
+            inputs.append(last)
+            pos = torch.full((1,), S - LONG_NEW + t, dtype=torch.int32,
+                             device=dev)
+            lg, cache = step(params, cache, last, pos)
+            logits.append(lg[:, 0])
+            last = lg[:, 0].argmax(-1)[:, None]
+        runs[impl or "kernels"] = {
+            "logits": torch.cat(logits), "inputs": inputs, "ms": ms,
+            "launches": {n: c for n, c in LAUNCHES.items() if c},
+            "peak": torch.cuda.max_memory_allocated(dev), "other": other}
+        fed = inputs
+        del cache
+    return runs
+
+
+def phase_long(dev, spec, reckonings):
+    """The long-context cells of ``spec``'s arch (LONG), one row each;
+    returns each kernel's launches by path."""
+    import torch
+
+    from repro_torch.configs import SHAPES, cell_applicable, resolve_config
+    from repro_torch.launch.dryrun import PROMPT
+    from repro_torch.models import init_params
+    arch = spec["arch"]
+    cfg = resolve_config(arch).replace(param_dtype="bfloat16")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    _, loop, per_prefill, per_decode = next(e for e in SERVE
+                                            if e[0] == arch)
+    cells = [c for c in spec.get("cells", LONG_CELLS)
+             if cell_applicable(cfg, SHAPES[c])[0]]
+    paths = {}
+    served = None
+    if "prefill_32k" in cells:
+        B = _long_batch(spec, "prefill_32k")
+        S = SHAPES["prefill_32k"].seq_len
+        served = _long_serve(dev, cfg, params, B, S, loop, per_prefill,
+                             per_decode)
+        paths[f"long {arch} prefill_32k"] = served["launches"]
+    for cell in ("decode_32k", "long_500k"):
+        if cell not in cells:
+            continue
+        B, S = _long_batch(spec, cell), SHAPES[cell].seq_len
+        rule = _long_rule(reckonings, arch, cell, B)
+        reckoned = rule["reckoned_peak_gb"]
+        row = {"phase": f"long {arch} {cell}", "arch": cfg.name,
+               "layers": cfg.num_layers, "cell": cell, "batch_rule": rule,
+               "cuts": {"batch": f"{B} of the cell's global "
+                                 f"{SHAPES[cell].global_batch}"}}
+        if cell == "decode_32k":
+            got = _long_decode(dev, cfg, params, B, S, 5)
+            peak = got["cell_peak_gb"]
+            row.update(got)
+            if served:   # the server run's decode steps over its 32k cache
+                row["server_decode"] = {
+                    k: served[k] for k in ("batch", "decode_step_ms",
+                                           "decode_step_ms_first",
+                                           "decode_step_ms_max")}
+            ok = got["finite"]
+            paths[row["phase"]] = got["launches"]
+        else:
+            runs = _long_500k_steps(dev, cfg, params, S)
+            k, r = runs["kernels"], runs["ref"]
+            err = (k["logits"] - r["logits"]).abs().amax(-1)
+            tk, tr = k["logits"].argmax(-1), r["logits"].argmax(-1)
+            top2 = r["logits"].topk(2, dim=-1).values
+            gap = top2[:, 0] - top2[:, 1]
+            # a token may differ only on a near-tie that the step's logit
+            # error can flip
+            flips = [(t, float(gap[t]), float(err[t]))
+                     for t in range(LONG_NEW) if tk[t] != tr[t]]
+            peak = (k["peak"] - k["other"]) / 1e9
+            row.update({
+                "batch": 1, "cache_len": S, "prompt": PROMPT,
+                "positions": [S - LONG_NEW, S - 1],
+                "launches": k["launches"], "ref_launches": r["launches"],
+                "measured_peak_gb": k["peak"] / 1e9,
+                "other_gb": k["other"] / 1e9, "cell_peak_gb": peak,
+                "decode_step_ms": sum(k["ms"][1:]) / (LONG_NEW - 1),
+                "decode_step_ms_first": k["ms"][0],
+                "ref_decode_step_ms": sum(r["ms"][1:]) / (LONG_NEW - 1),
+                "tokens": tk.tolist(), "ref_tokens": tr.tolist(),
+                "tokens_equal": not flips, "token_flips": flips,
+                "logit_max_abs_err": float(err.max()),
+                "logit_tol": LOGIT_TOL,
+                "logit_ref_max_abs": float(r["logits"].abs().max()),
+                "compared": "kernels' greedy steps against impl='ref' "
+                            "steps fed the same tokens, each from its own "
+                            "prefill of the prompt"})
+            ok = (bool(torch.isfinite(k["logits"]).all())
+                  and float(err.max()) <= LOGIT_TOL
+                  and all(g <= 2 * e for _, g, e in flips))
+            paths[row["phase"]] = k["launches"]
+            del runs
+        rel = peak / reckoned - 1
+        row.update({"reckoned_peak_gb": reckoned, "peak_rel_diff": rel,
+                    "peak_rtol": DRYRUN_PEAK_RTOL, "card": _card()})
+        row["ok"] = ok and rule["ok"] and abs(rel) <= DRYRUN_PEAK_RTOL
+        emit(row)
+        if not row["ok"]:
+            raise AssertionError(f"long {arch} {cell}: {row}")
+        _release()
+    if served:
+        B = _long_batch(spec, "prefill_32k")
+        S = SHAPES["prefill_32k"].seq_len
+        rule = _long_rule(reckonings, arch, "prefill_32k", B)
+        # the comparison's cut keeps the first layers only: the deeper
+        # layers' parameters are dropped first
+        params["layers"] = params["layers"][:spec["check"]["layers"]
+                                            or cfg.num_layers]
+        _release()
+        check = _long_check(dev, cfg, params, B, S, spec["check"],
+                            per_prefill)
+        del params
+        limit = LONG_H_LIMIT.get(arch, PREFILL_H_LIMIT[arch])
+        blind = [n for n, c in check["controls"].items()
+                 if c["h_rel_frobenius"] <= limit]
+        f32 = check["f32_held"]
+        ok = (served["ok"] and rule["ok"] and check["finite"]
+              and check["launches"] == check["launches_expected"]
+              and (not check["routing"]
+                   or check["routing"]["same_group_sizes"])
+              and (not f32 or f32["ratio"] <= F32_HELD_RATIO)
+              and check["h_rel_frobenius"] <= limit
+              and check["last_logit_max_abs_err"] <= LOGIT_TOL
+              and check["controls"] and not blind)
+        row = {"phase": f"long {arch} prefill_32k", "arch": cfg.name,
+               "layers": cfg.num_layers, "cell": "prefill_32k",
+               "batch_rule": rule, **served,
+               "reckoned_peak_gb": rule["reckoned_peak_gb"],
+               "peak_rel_diff": served["peak_mem_gb"]
+               / rule["reckoned_peak_gb"] - 1,
+               "check": check, "h_limit": limit, "logit_tol": LOGIT_TOL,
+               "cuts": {"batch": f"{B} of the cell's global "
+                                 f"{SHAPES['prefill_32k'].global_batch}",
+                        "check": f"{check['config']}, the wave's first "
+                                 f"{check['rows']} of {B} rows"},
+               "card": _card(), "ok": ok}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"long {arch} prefill_32k: {row}")
+    return paths
 
 
 def _leaves(tree):
@@ -5045,6 +5574,12 @@ def _phases(dev, baselines, reckonings):
                     if name in launches:
                         launches[name][f"{arch} prefill, stub inputs"] = n
             _release()
+        for spec in LONG:
+            for path, counts in phase_long(dev, spec, reckonings).items():
+                for name, n in counts.items():
+                    if name in launches:
+                        launches[name][path] = n
+            _release()
         phase_task(dev)
         phase_continuous(dev)
     for name, paths in phase_mesh(dev, refs).items():
@@ -5077,6 +5612,13 @@ def main() -> int:
             ap.error(f"--baseline {spec!r}: want NAME=PATH with NAME in "
                      f"{sorted(BASELINES)} and PATH an existing file")
         baselines[name] = Path(path)
+    # The long phases' peaks (up to 72.7 GB of the card's 79.2 GiB) come
+    # after some forty phases: with fixed-size segments, blocks freed
+    # between live ones left 14 GiB reserved that no 8 GiB request could
+    # take (falcon-mamba-7b's 32k prefill on an H100).  Segments that grow
+    # in place do not strand it.  Set before torch first touches the card.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)

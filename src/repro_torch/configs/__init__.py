@@ -14,6 +14,7 @@ from repro_torch.configs.base import (  # noqa: F401
     list_configs,
     reduced,
     register,
+    resolve_config,
 )
 
 from repro_torch.configs import (  # noqa: F401

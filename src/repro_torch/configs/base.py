@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -270,6 +271,18 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; available: {list_configs()}")
     return _REGISTRY[name]
+
+
+def resolve_config(name: str) -> ModelConfig:
+    """The config ``name``: a registered arch, or ``<base>-L<n>``, the
+    full-width ``base`` config cut to its first n layers (not registered)."""
+    try:
+        return get_config(name)
+    except KeyError:
+        m = re.fullmatch(r"(.+)-L(\d+)", name)
+        if m is None:
+            raise
+        return get_config(m[1]).replace(name=name, num_layers=int(m[2]))
 
 
 def list_configs() -> Tuple[str, ...]:

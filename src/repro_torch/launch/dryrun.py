@@ -91,9 +91,9 @@ from repro_torch import kernels
 from repro_torch.configs import (
     SHAPES,
     cell_applicable,
-    get_config,
     input_specs,
     list_configs,
+    resolve_config,
 )
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.kernels.flash_attention.ops import bwd_host_alloc_bytes
@@ -474,8 +474,9 @@ def parse_mesh(name: str):
 def run_cell(arch: str, shape_name: str, *, batch: int = 0, seq: int = 0,
              save: bool = True, mesh: Optional[str] = None) -> dict:
     """One cell on one device, or (``mesh`` "pod16x16" / "pod2x16x16", or
-    "DxM") for one rank of that mesh over a fake group."""
-    cfg = get_config(arch)
+    "DxM") for one rank of that mesh over a fake group.  ``arch`` is a
+    registered name or ``<base>-L<n>`` (``configs.resolve_config``)."""
+    cfg = resolve_config(arch)
     shape = SHAPES[shape_name]
     name = mesh or MESH
     ok, why = cell_applicable(cfg, shape)

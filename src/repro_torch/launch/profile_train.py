@@ -28,11 +28,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import resolve_config as train_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data import SyntheticLM
 from repro_torch.launch.profile_serve import _profile
@@ -42,18 +41,6 @@ TRAIN = dict(arch="gemma2-2b", batch=4, seq=1024, microbatches=2)
 ARCHS = {"gemma2-2b": 2, "recurrentgemma-2b": 2, "falcon-mamba-7b-L24": 1,
          "qwen3-moe-30b-a3b-L4": 4, "whisper-large-v3": 1, "gemma3-4b-L30": 1,
          "minicpm-2b": 1, "nemotron-4-15b-L4": 4, "internvl2-26b-L10": 4}
-
-
-def train_config(arch: str):
-    """The config of ``arch``: a registered name, or ``<base>-L<n>``, the
-    full-width ``base`` config cut to its first n layers."""
-    try:
-        return get_config(arch)
-    except KeyError:
-        m = re.fullmatch(r"(.+)-L(\d+)", arch)
-        if m is None:
-            raise
-        return get_config(m[1]).replace(name=arch, num_layers=int(m[2]))
 
 
 def main(argv=None):

@@ -98,8 +98,14 @@ def apply_rope(x, positions, theta: float):
     """x: (B, S, H, D); positions: (B, S)."""
     D = x.shape[-1]
     half = D // 2
-    exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
-    inv = 1.0 / (theta ** exps)
+    # The JAX package's compiled step computes 1 / theta ** (i / half) as
+    # theta ** -(i * (1 / half)), one correctly rounded f32 power (XLA's
+    # algebraic simplifier); past position 2^19 an ulp of the inverse
+    # frequency moves the f32 angle by up to 0.03 rad, so the port rounds
+    # the same value: the power in f64, rounded once.
+    exps = torch.arange(half, dtype=torch.float32, device=x.device) \
+        * (1.0 / half)
+    inv = (theta ** -exps.double()).float()
     ang = positions.float()[..., None] * inv             # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
