@@ -71,7 +71,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  expert shape (E=8, D=6144, F=32768), every tail of the
                  wgmma kernels (``ragged_wgmma``), NaN in x's and dy's
                  padding rows (``nan_padding``), ragged (F % 8 != 0),
-                 empty and f32, against the bound and a torch.bmm pair
+                 empty and f32, against the bound and a torch.bmm pair.
+                 The backward phases also hold the train_4k phases' own
+                 problems (4,096-token rows: flash at gemma2-2b's,
+                 recurrentgemma-2b's, gemma3-4b's and qwen3's shapes,
+                 both scans at their microbatches, gmm_bwd at C = 384
+                 with the router's sizes on such a row)
   train gemma2-2b
                  ``lm.train`` of full-width gemma2-2b (f32 master params
                  and Adam moments, bf16 compute, remat, batch 4 of 1024
@@ -99,8 +104,22 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  decoder self- and cross-attention); the comparison with
                  impl="ref" includes the first encoder layer's and the
                  cross-attention's gradients
-  dryrun         after each train phase, launch train and each fused
-                 population: repro_torch.launch.dryrun's reckoning of that
+  train_4k <arch>
+                 the reference's training cell, train_4k (4,096-token
+                 rows), through repro_torch.launch.train's main: full-width
+                 gemma2-2b, recurrentgemma-2b, falcon-mamba-7b-L24,
+                 qwen3-moe-30b-a3b-L4 and gemma3-4b-L30, each at the
+                 largest batch of at most 4 rows whose dry run reckons it
+                 under 76 GB (checked on this run's reckonings of it and of
+                 twice it), 2 steps: finite losses, exact launches a step
+                 (flash, gmm and gmm_bwd all on wgmma), first and warm
+                 step ms, tokens/s; one row of 4,096 tokens against
+                 impl="ref" (falcon-mamba at 4 layers), past
+                 recurrentgemma-2b's and gemma3-4b's windows; then its
+                 dryrun row
+  dryrun         after each train and train_4k phase, launch train and
+                 each fused population: repro_torch.launch.dryrun's
+                 reckoning of that
                  cell (its config, shape, microbatches or members; fake
                  tensors on the meta device, nothing allocated, computed
                  in worker processes that see no card while the kernel
@@ -470,6 +489,22 @@ FA_BWD_CASES = [
     dict(name="gemma3_train", B=4, Sq=1024, Sk=1024, H=8, KH=4, D=256,
          causal=True, window=1024, softcap=0.0, scale=1.0 / 16, q_offset=0,
          dtype="bfloat16", seg=3),
+    # the train_4k phases' problems (TRAIN_4K: 4,096-token rows, one
+    # segment of all-zero ids as SyntheticLM gives, each arch's batch and
+    # microbatches): gemma2-2b's, recurrentgemma-2b's and gemma3-4b's
+    # windows of 4,096, 2,048 and 1,024, the last two shorter than the row,
+    # so that tiles on both sides of the window's edge are live; qwen3's
+    # microbatch of one row
+    dict(name="gemma2_4k", B=4, Sq=4096, Sk=4096, causal=True, window=4096,
+         q_offset=0, dtype="bfloat16", seg=1, **G2),
+    dict(name="recurrentgemma_4k", B=4, Sq=4096, Sk=4096, causal=True,
+         window=2048, q_offset=0, dtype="bfloat16", seg=1, **RG),
+    dict(name="gemma3_4k", B=2, Sq=4096, Sk=4096, H=8, KH=4, D=256,
+         causal=True, window=1024, softcap=0.0, scale=1.0 / 16, q_offset=0,
+         dtype="bfloat16", seg=1),
+    dict(name="qwen3_4k", B=1, Sq=4096, Sk=4096, H=32, KH=4, D=128,
+         causal=True, window=0, softcap=0.0, scale=128 ** -0.5, q_offset=0,
+         dtype="bfloat16", seg=1),
 ]
 # Backward tolerances, (relative, largest) for each of dq, dk, dv against
 # attention_bwd_ref: the relative Frobenius distance |a - r| / |r| and the
@@ -608,6 +643,11 @@ GMM_BWD_CASES = [
     dict(name="train_router", E=128, C=80, D=2048, F=768, router="train",
          dtype="bfloat16", variant="wgmma"),
     dict(name="eval", E=128, C=384, D=2048, F=768, route=(4096, 8),
+         dtype="bfloat16", variant="wgmma"),
+    # the train_4k microbatch (one row of 4,096 tokens: T k / E = 256, so
+    # C = 1.25 x 256 = 320 rounded up to the 128-row block, 384) with the
+    # group sizes of layer 0's router on such a row (``_router_sizes``)
+    dict(name="qwen3_4k_wi", E=128, C=384, D=2048, F=768, router="train_4k",
          dtype="bfloat16", variant="wgmma"),
     dict(name="fused", E=256, C=80, D=2048, F=768, route=(1024, 8),
          members=2, dtype="bfloat16", variant="wgmma"),
@@ -1611,6 +1651,120 @@ def _recording_sizes(out):
         layers.gmm = real
 
 
+def _vs_ref(cfg, params, mb, spec):
+    """The batch ``mb`` through ``cfg``'s train loss (remat) with the
+    kernels and with ``impl="ref"``, in turn, on ``params`` (f32 masters):
+    the loss within TRAIN_LOSS_TOL, the grad norm and the gradients of the
+    embedding and ``spec["picked"]`` leaves within TRAIN_GRAD_RTOL, and the
+    ``spec["f32_held"]`` leaves held against an f32 plain run
+    (F32_HELD_RATIO).  A picked name is a leaf of layer 0's mixer
+    (``spec["mixer"]``), ``a/b`` leaf b of its subtree a, ``enc:a/b`` of
+    the first encoder layer's, ``L<i>:a/b`` of layer i's, or ``head``.
+    Returns (the row's ``vs_ref`` fields, ok)."""
+    import torch
+
+    from repro_torch.optim.adamw import global_norm, tree_leaves
+    from repro_torch.train import compute_cast
+    from repro_torch.train.step import lm_loss
+
+    def pick(w):
+        """(its name in the row, the leaf) of a picked name."""
+        if w == "head":   # an untied LM head
+            return w, params["head"]
+        layer, name = params["layers"][0], f"layer0/{w}"
+        if w.startswith("enc:"):
+            layer, w = params["enc"]["layers"][0], w[len("enc:"):]
+        elif m := re.fullmatch(r"L(\d+):(.+)", w):
+            layer, w = params["layers"][int(m[1])], m[2]
+            name = f"layer{m[1]}/{w}"
+        a, _, b = w.rpartition("/")
+        return name, layer[a or spec["mixer"]][b]
+    held = [f"layer0/{w}" for w in spec.get("f32_held", ())]
+    picked = {"embed": params["embed"]["tok"],
+              **dict(pick(w) for w in (*spec["picked"],
+                                       *spec.get("f32_held", ())))}
+    # an MoE arch's group sizes, gmm call by call, of each run: top-k
+    # near-ties can route a few assignments differently in the two
+    routed = {}
+
+    def grads_of(impl, tag, routes, replay=False, c=cfg, batch=mb):
+        leaves = list(tree_leaves(params))
+        for p in leaves:
+            p.requires_grad_(True)
+            p.grad = None
+        try:
+            with _routing(routes, replay):   # the recompute's top-k too
+                with _recording_sizes(routed.setdefault(tag, [])):
+                    loss, _, _ = lm_loss(c, compute_cast(c, params), batch,
+                                         impl, remat=True)
+                loss.backward()
+            with torch.no_grad():
+                norm = float(global_norm([p.grad for p in leaves]))
+                out = {n: t.grad.clone() for n, t in picked.items()}
+        finally:
+            for p in leaves:
+                p.grad = None
+                p.requires_grad_(False)
+        _release()
+        return float(loss.detach()), norm, out
+
+    def rel(a, b):
+        return {n: float((a[n] - b[n]).norm() / b[n].norm()) for n in picked}
+    # the plain versions route as the kernels did (the MoE routers' top-k
+    # replayed): the comparison holds the kernels, not bf16 near-ties of
+    # the f32 router
+    routes = []
+    loss_k, norm_k, g_k = grads_of(None, "kernels", routes)
+    loss_r, norm_r, g_r = grads_of("ref", "ref", routes, replay=True)
+    grad_rel = rel(g_k, g_r)
+    f32_held = None
+    if held:   # and an f32 plain run for the leaves bf16 cannot resolve
+        mb32 = {n: t.float() if t.is_floating_point() else t
+                for n, t in mb.items()}
+        _, _, g_f = grads_of("ref", "ref_f32", [], c=cfg.replace(
+            dtype="float32"), batch=mb32)
+        to_f32 = {"kernels": rel(g_k, g_f), "ref": rel(g_r, g_f)}
+        f32_held = {n: {"kernels_vs_ref": grad_rel.pop(n),
+                        "kernels_vs_f32": to_f32["kernels"][n],
+                        "ref_vs_f32": to_f32["ref"][n],
+                        "f32_norm": float(g_f[n].norm()),
+                        "ratio": to_f32["kernels"][n] / to_f32["ref"][n]}
+                    for n in held}
+        del g_f
+    del g_r
+    free = None
+    if cfg.num_experts:   # and routing freely, for the record
+        loss_f, norm_f, g_f = grads_of("ref", "ref_free", [])
+        # assignments routed to another expert: half the summed changes of
+        # the group sizes (the forward's gmm calls)
+        moved = sum(int((a - b).abs().sum()) for a, b in
+                    zip(routed["kernels"], routed["ref_free"])) // 2
+        free = {"loss_ref": loss_f, "grad_norm_ref": norm_f,
+                "grad_rel_frobenius": rel(g_k, g_f),
+                "assignments_routed_elsewhere": moved,
+                # the forward's, of the recorded top-k (forward and
+                # recompute each route every assignment once)
+                "assignments": sum(r.numel() for r in routes) // 2}
+        del g_f
+    del g_k
+    vs = {"loss_kernels": loss_k, "loss_ref": loss_r,
+          "loss_tol": TRAIN_LOSS_TOL, "grad_norm_kernels": norm_k,
+          "grad_norm_ref": norm_r, "grad_rel_frobenius": grad_rel,
+          "grad_rtol": TRAIN_GRAD_RTOL, "f32_held": f32_held,
+          "f32_held_ratio": F32_HELD_RATIO,
+          "routing": "the plain run replays the kernel run's top-k",
+          "gmm_calls": len(routed["kernels"]),
+          "same_group_sizes": all(torch.equal(a, b) for a, b in
+                                  zip(routed["kernels"], routed["ref"])),
+          "free_routing": free}
+    ok = (abs(loss_k - loss_r) <= TRAIN_LOSS_TOL
+          and abs(norm_k - norm_r) <= TRAIN_GRAD_RTOL * norm_r
+          and all(r <= TRAIN_GRAD_RTOL for r in grad_rel.values())
+          and all(h["ratio"] <= F32_HELD_RATIO
+                  for h in (f32_held or {}).values()))
+    return vs, ok
+
+
 def phase_train(dev, spec=TRAIN_PHASES[0]):
     """``spec["steps"]`` lm.train tasks of one step each at
     profile_train.TRAIN's batch and sequence (``spec`` may set its own
@@ -1624,10 +1778,8 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.profile_train import TRAIN
-    from repro_torch.optim.adamw import global_norm, tree_leaves
+    from repro_torch.optim.adamw import tree_leaves
     from repro_torch.plugins import lm
-    from repro_torch.train import compute_cast
-    from repro_torch.train.step import lm_loss
 
     if "base" in spec:
         _cut_cfg(spec["arch"], spec["base"], spec["layers"])
@@ -1693,85 +1845,7 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
                                     TRAIN["batch"]), seed=1,
                      device=dev).batch_at(0)
     mb = {n: t[:TRAIN["batch"] // mbs] for n, t in mb.items()}
-    layer0 = params["layers"][0]
-
-    def leaf(w):
-        if w == "head":   # an untied LM head
-            return params["head"]
-        first = layer0
-        if w.startswith("enc:"):
-            first, w = params["enc"]["layers"][0], w[len("enc:"):]
-        a, _, b = w.rpartition("/")
-        return first[a or spec["mixer"]][b]
-    held = [f"layer0/{w}" for w in spec.get("f32_held", ())]
-    picked = {"embed": params["embed"]["tok"],
-              **{w if w == "head" else f"layer0/{w}": leaf(w)
-                 for w in spec["picked"]},
-              **{n: leaf(n[len("layer0/"):]) for n in held}}
-    # an MoE arch's group sizes, gmm call by call, of each run: top-k
-    # near-ties can route a few assignments differently in the two
-    routed = {}
-
-    def grads_of(impl, tag, routes, replay=False, c=cfg, batch=mb):
-        leaves = list(tree_leaves(params))
-        for p in leaves:
-            p.requires_grad_(True)
-            p.grad = None
-        try:
-            with _routing(routes, replay):   # the recompute's top-k too
-                with _recording_sizes(routed.setdefault(tag, [])):
-                    loss, _, _ = lm_loss(c, compute_cast(c, params), batch,
-                                         impl, remat=True)
-                loss.backward()
-            with torch.no_grad():
-                norm = float(global_norm([p.grad for p in leaves]))
-                out = {n: t.grad.clone() for n, t in picked.items()}
-        finally:
-            for p in leaves:
-                p.grad = None
-                p.requires_grad_(False)
-        _release()
-        return float(loss.detach()), norm, out
-
-    def rel(a, b):
-        return {n: float((a[n] - b[n]).norm() / b[n].norm()) for n in picked}
-    # the plain versions route as the kernels did (the MoE routers' top-k
-    # replayed): the comparison holds the kernels, not bf16 near-ties of
-    # the f32 router
-    routes = []
-    loss_k, norm_k, g_k = grads_of(None, "kernels", routes)
-    loss_r, norm_r, g_r = grads_of("ref", "ref", routes, replay=True)
-    grad_rel = rel(g_k, g_r)
-    f32_held = None
-    if held:   # and an f32 plain run for the leaves bf16 cannot resolve
-        mb32 = {n: t.float() if t.is_floating_point() else t
-                for n, t in mb.items()}
-        _, _, g_f = grads_of("ref", "ref_f32", [], c=cfg.replace(
-            dtype="float32"), batch=mb32)
-        to_f32 = {"kernels": rel(g_k, g_f), "ref": rel(g_r, g_f)}
-        f32_held = {n: {"kernels_vs_ref": grad_rel.pop(n),
-                        "kernels_vs_f32": to_f32["kernels"][n],
-                        "ref_vs_f32": to_f32["ref"][n],
-                        "f32_norm": float(g_f[n].norm()),
-                        "ratio": to_f32["kernels"][n] / to_f32["ref"][n]}
-                    for n in held}
-        del g_f
-    del g_r
-    free = None
-    if cfg.num_experts:   # and routing freely, for the record
-        loss_f, norm_f, g_f = grads_of("ref", "ref_free", [])
-        # assignments routed to another expert: half the summed changes of
-        # the group sizes (the forward's gmm calls)
-        moved = sum(int((a - b).abs().sum()) for a, b in
-                    zip(routed["kernels"], routed["ref_free"])) // 2
-        free = {"loss_ref": loss_f, "grad_norm_ref": norm_f,
-                "grad_rel_frobenius": rel(g_k, g_f),
-                "assignments_routed_elsewhere": moved,
-                # the forward's, of the recorded top-k (forward and
-                # recompute each route every assignment once)
-                "assignments": sum(r.numel() for r in routes) // 2}
-        del g_f
-    del g_k
+    vs_ref, vs_ok = _vs_ref(cfg, params, mb, spec)
 
     losses = [s_["loss"] for s_ in steps]
     per_step_ok = all(s_["launches"] == want_step for s_ in steps)
@@ -1779,12 +1853,7 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
         dec_out["params"] == f"member state at step {steps_n}"
         and dec_out["served"] == 2)
     ok = (all(map(math.isfinite, losses)) and per_step_ok and decode_ok
-          and math.isfinite(eval_out["loss"])
-          and abs(loss_k - loss_r) <= TRAIN_LOSS_TOL
-          and abs(norm_k - norm_r) <= TRAIN_GRAD_RTOL * norm_r
-          and all(r <= TRAIN_GRAD_RTOL for r in grad_rel.values())
-          and all(h["ratio"] <= F32_HELD_RATIO
-                  for h in (f32_held or {}).values())
+          and math.isfinite(eval_out["loss"]) and vs_ok
           and peak_gb <= ENS_PEAK_LIMIT_GB)
     row = {"phase": f"train {spec['arch']}", "arch": cfg.name,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -1808,27 +1877,13 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
            "eval": eval_out,
            "decode": dec_out and {n: dec_out[n]
                                   for n in ("served", "params", "tokens")},
-           "vs_ref": {"microbatch": TRAIN["batch"] // mbs,
-                      "loss_kernels": loss_k, "loss_ref": loss_r,
-                      "loss_tol": TRAIN_LOSS_TOL, "grad_norm_kernels": norm_k,
-                      "grad_norm_ref": norm_r,
-                      "grad_rel_frobenius": grad_rel,
-                      "grad_rtol": TRAIN_GRAD_RTOL,
-                      "f32_held": f32_held,
-                      "f32_held_ratio": F32_HELD_RATIO,
-                      "routing": "the plain run replays the kernel run's "
-                                 "top-k",
-                      "gmm_calls": len(routed["kernels"]),
-                      "same_group_sizes": all(
-                          torch.equal(a, b) for a, b in
-                          zip(routed["kernels"], routed["ref"])),
-                      "free_routing": free},
+           "vs_ref": {"microbatch": TRAIN["batch"] // mbs, **vs_ref},
            "ok": ok}
     emit(row)
     lm.STATE_STORE.clear()
     lm.CONFIG_STORE.clear()
     lm._STEP_CACHE.clear()
-    del state, params, picked, layer0
+    del state, params
     _release()
     if not ok:
         raise AssertionError(f"train phase failed: {row}")
@@ -1907,6 +1962,7 @@ def _reckon_cells():
         cells[f"mesh tp {spec['arch']}"] = dict(
             arch=spec["arch"], batch=spec["batch"], seq=spec["seq"],
             microbatches=spec["microbatches"], mesh=mesh)
+    cells.update(_train_4k_cells())
     cells.update(_long_cells())
     return cells
 
@@ -1993,28 +2049,15 @@ def phase_dryrun(of, reckoning, peak_gb, measured, hand, step_ms=None):
     return row
 
 
-def phase_launch_train(dev, reckonings):
-    """``repro_torch.launch.train``'s ``main`` in this process: full-width
-    gemma2-2b, LAUNCH_TRAIN's steps at the config's one microbatch, on the
-    card (batch LAUNCH_TRAIN["batch"] where the dry run reckons it under
-    ENS_PEAK_LIMIT_GB); finite losses, the flash launches of every step
-    (all wgmma), steps and tokens a second; then its dryrun row.  Returns
-    the launches."""
+def _launch_train_run(dev, argv):
+    """``repro_torch.launch.train.main(argv)`` on ``dev`` in this process:
+    its history, each step's loss, milliseconds (synchronized; the first
+    from main's call, the state's init in it) and launches, the peak of
+    allocated memory (GB) and every launch of the run."""
     import torch
 
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import train as launch_train
-    L = LAUNCH_TRAIN
-    batch = L["batch"]
-    why = None
-    reckoning = reckonings.get(f"launch train {batch}")
-    if reckoning["peak_bytes"] / 1e9 > ENS_PEAK_LIMIT_GB:
-        why = (f"batch {batch} reckoned at {reckoning['peak_bytes'] / 1e9:.2f}"
-               f" GB, over {ENS_PEAK_LIMIT_GB} GB")
-        batch = L["fallback_batch"]
-        reckoning = reckonings.get(f"launch train {batch}")
-    from repro_torch.configs import get_config
-    want = _launches(flash=(get_config(L["arch"]).num_layers, 1))
     steps = []
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2030,13 +2073,36 @@ def phase_launch_train(dev, reckonings):
                                    for n in LAUNCHES
                                    if LAUNCHES[n] != mark["launches"][n]}})
         mark.update(t=time.perf_counter(), launches=dict(LAUNCHES))
-    history = launch_train.main(
-        ["--arch", L["arch"], "--batch", str(batch), "--seq", str(L["seq"]),
-         "--steps", str(L["steps"]), "--device", str(dev)], on_step=on_step)
+    history = launch_train.main([*argv, "--device", str(dev)],
+                                on_step=on_step)
     torch.cuda.synchronize(dev)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     launches = {n: c for n, c in LAUNCHES.items() if c}
     _release()
+    return history, steps, peak_gb, launches
+
+
+def phase_launch_train(dev, reckonings):
+    """``repro_torch.launch.train``'s ``main`` in this process: full-width
+    gemma2-2b, LAUNCH_TRAIN's steps at the config's one microbatch, on the
+    card (batch LAUNCH_TRAIN["batch"] where the dry run reckons it under
+    ENS_PEAK_LIMIT_GB); finite losses, the flash launches of every step
+    (all wgmma), steps and tokens a second; then its dryrun row.  Returns
+    the launches."""
+    L = LAUNCH_TRAIN
+    batch = L["batch"]
+    why = None
+    reckoning = reckonings.get(f"launch train {batch}")
+    if reckoning["peak_bytes"] / 1e9 > ENS_PEAK_LIMIT_GB:
+        why = (f"batch {batch} reckoned at {reckoning['peak_bytes'] / 1e9:.2f}"
+               f" GB, over {ENS_PEAK_LIMIT_GB} GB")
+        batch = L["fallback_batch"]
+        reckoning = reckonings.get(f"launch train {batch}")
+    from repro_torch.configs import get_config
+    want = _launches(flash=(get_config(L["arch"]).num_layers, 1))
+    history, steps, peak_gb, launches = _launch_train_run(
+        dev, ["--arch", L["arch"], "--batch", str(batch), "--seq",
+              str(L["seq"]), "--steps", str(L["steps"])])
     warm = [s_["ms"] for s_ in steps[1:]] or [steps[0]["ms"]]
     step_ms = sum(warm) / len(warm)
     tokens = batch * L["seq"]
@@ -2057,6 +2123,144 @@ def phase_launch_train(dev, reckonings):
         raise AssertionError(f"launch train phase failed: {row}")
     phase_dryrun("launch train", reckoning, peak_gb,
                  [s_["launches"] for s_ in steps], want, step_ms=step_ms)
+    return launches
+
+
+# train_4k phases: the reference's one training cell, SHAPES["train_4k"]
+# (src/repro/configs/base.py:211-216; 4,096-token rows, the default of its
+# trainer), through repro_torch.launch.train's main at full width and the
+# train phases' depth cuts, TRAIN_4K_STEPS steps at the config's
+# microbatches.  Each arch's batch is the largest power of two, at most
+# TRAIN_4K_CAP rows, whose dry-run peak stays under ENS_PEAK_LIMIT_GB: the
+# rule is checked on this run's reckonings of the batch and of twice it.
+# The cap keeps the script's time in bounds: more rows add time, not new
+# work for a kernel.  At 4,096 tokens both sliding windows bite on a train
+# path (recurrentgemma-2b's 2,048, gemma3-4b's 1,024), and the scans'
+# backwards, gmm_bwd (C = 384 a microbatch) and the chunked LM-head loss
+# run at the cell's length.  The comparison with impl="ref" takes the
+# first row of the data seed 1 batch on launch.train's seed-0 state, at
+# "check_layers" where the plain scans' step-by-step loops would take
+# minutes at the run's depth; "L<i>:" picks leaves of layer i (the first
+# local attention layer of recurrentgemma-2b, whose window is 2,048).
+TRAIN_4K_SHAPE = "train_4k"
+TRAIN_4K_CAP = 4
+TRAIN_4K_STEPS = 2
+FALCON_CHECK_LAYERS = 4
+TRAIN_4K = [
+    dict(arch="gemma2-2b", batch=4, launches=_launches(flash=(26, 1)),
+         mixer="attn", picked=("wq", "wk", "wv", "wo")),
+    dict(arch="recurrentgemma-2b", batch=4,
+         launches=_launches(flash=(8, 1), rec=(18, 1)), mixer="rec",
+         picked=("wx", "wy", "wa", "a_param", "wo", "L2:attn/wq",
+                 "L2:attn/wk", "L2:attn/wv", "L2:attn/wo")),
+    dict(arch=f"falcon-mamba-7b-L{FALCON_LAYERS}", batch=4,
+         launches=_launches(mamba=(FALCON_LAYERS, 1)), mixer="mamba",
+         picked=("in_proj", "x_proj", "dt_proj", "A_log", "D", "out_proj"),
+         check_layers=FALCON_CHECK_LAYERS),
+    dict(arch=f"qwen3-moe-30b-a3b-L{QWEN_LAYERS}", batch=4,
+         launches=_launches(flash=(QWEN_LAYERS, 4), moe=(QWEN_LAYERS, 4)),
+         mixer="attn",
+         picked=("wq", "wk", "wv", "wo", "moe/router", "moe/wi", "moe/wg",
+                 "moe/wo")),
+    dict(arch=f"gemma3-4b-L{GEMMA3_LAYERS}", batch=2,
+         launches=_launches(flash=(GEMMA3_LAYERS, 1)), mixer="attn",
+         picked=("wq", "wk", "wv", "wo", "q_norm", "k_norm", "mlp/wg")),
+]
+
+
+def _train_4k_cells():
+    """The train_4k phases' reckonings: each arch at its batch and at twice
+    it."""
+    from repro_torch.configs import SHAPES
+    seq = SHAPES[TRAIN_4K_SHAPE].seq_len
+    return {f"train_4k {s_['arch']} {b}": dict(arch=s_["arch"], batch=b,
+                                               seq=seq)
+            for s_ in TRAIN_4K for b in (s_["batch"], 2 * s_["batch"])}
+
+
+def _train_4k_rule(reckonings, spec):
+    """The batch rule of a TRAIN_4K entry on the reckonings of its batch B
+    and of 2B: B a power of two within TRAIN_4K_CAP whose peak stays under
+    ENS_PEAK_LIMIT_GB, and 2B past the cap or reckoned at or over the
+    limit; ``decided_by`` names which of the two stops 2B."""
+    arch, B = spec["arch"], spec["batch"]
+    gb = reckonings.get(f"train_4k {arch} {B}")["peak_bytes"] / 1e9
+    nxt = reckonings.get(f"train_4k {arch} {2 * B}")["peak_bytes"] / 1e9
+    by = [w for w, stops in (("limit", nxt >= ENS_PEAK_LIMIT_GB),
+                             ("cap", 2 * B > TRAIN_4K_CAP)) if stops]
+    return {"batch": B, "cap": TRAIN_4K_CAP, "reckoned_peak_gb": gb,
+            "next_batch_reckoned_peak_gb": nxt,
+            "peak_limit_gb": ENS_PEAK_LIMIT_GB, "decided_by": by,
+            "ok": B & (B - 1) == 0 and B <= TRAIN_4K_CAP
+            and gb < ENS_PEAK_LIMIT_GB and bool(by)}
+
+
+def phase_train_4k(dev, spec, reckonings):
+    """``repro_torch.launch.train.main(["--arch", A, "--shape", "train_4k",
+    "--batch", B, ...])`` on the card: the batch rule, finite losses, each
+    step's launches equal to the entry's (flash, gmm and gmm_bwd all on
+    wgmma), first and warm step ms, tokens a second; then one row of 4,096
+    tokens against ``impl="ref"`` (``_vs_ref``) and the dryrun row (peak
+    and tally against the reckoning, model-FLOP share).  Returns the
+    run's launches."""
+    import torch
+
+    from repro_torch.configs import SHAPES, resolve_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    arch, B = spec["arch"], spec["batch"]
+    seq = SHAPES[TRAIN_4K_SHAPE].seq_len
+    rule = _train_4k_rule(reckonings, spec)
+    cfg = resolve_config(arch)
+    history, steps, peak_gb, launches = _launch_train_run(
+        dev, ["--arch", arch, "--shape", TRAIN_4K_SHAPE, "--batch", str(B),
+              "--steps", str(TRAIN_4K_STEPS)])
+    warm = [s_["ms"] for s_ in steps[1:]] or [steps[0]["ms"]]
+    step_ms = sum(warm) / len(warm)
+
+    # launch.train's seed-0 state (its params: the f32 masters), at the
+    # comparison's depth, and the first row of the data seed 1 batch
+    n = spec.get("check_layers")
+    ccfg = cfg if n is None else cfg.replace(
+        name=re.sub(r"-L\d+$", "", cfg.name) + f"-L{n}", num_layers=n)
+    params = init_params(ccfg, torch.Generator(device=dev).manual_seed(0))
+    batch = SyntheticLM(ccfg, ShapeSpec("train", "train", seq, B), seed=1,
+                        device=dev).batch_at(0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    vs_ref, vs_ok = _vs_ref(ccfg, params, {k: t[:1] for k, t in
+                                           batch.items()}, spec)
+    vs_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    del params, batch
+    _release()
+    windows = sorted({ccfg.sliding_window for i in range(ccfg.num_layers)
+                      if ccfg.layer_kind(i) == "local"})
+    losses = [h["loss"] for h in history]
+    ok = (rule["ok"] and len(steps) == TRAIN_4K_STEPS
+          and all(map(math.isfinite, losses))
+          and all(s_["launches"] == spec["launches"] for s_ in steps)
+          and peak_gb <= ENS_PEAK_LIMIT_GB and vs_ok)
+    row = {"phase": f"train_4k {arch}", "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "shape": TRAIN_4K_SHAPE, "batch": B, "seq": seq,
+           "microbatches": cfg.microbatches, "steps": TRAIN_4K_STEPS,
+           "batch_rule": rule, "history": history, "steps_run": steps,
+           "first_step_ms": steps[0]["ms"], "step_ms_warm": step_ms,
+           "tokens_per_s": B * seq / (step_ms / 1e3), "launches": launches,
+           "launches_per_step": spec["launches"], "peak_mem_gb": peak_gb,
+           "peak_limit_gb": ENS_PEAK_LIMIT_GB,
+           "vs_ref": {"rows": 1, "positions": seq, "layers": ccfg.num_layers,
+                      "local_windows": windows,
+                      "past_window": all(seq > w for w in windows),
+                      "params": "launch.train's seed-0 state",
+                      "peak_mem_gb": vs_peak, **vs_ref},
+           "ok": ok}
+    emit(row)
+    if not ok:
+        raise AssertionError(f"train_4k phase failed: {row}")
+    phase_dryrun(row["phase"], reckonings.get(f"train_4k {arch} {B}"),
+                 peak_gb, [s_["launches"] for s_ in steps], spec["launches"],
+                 step_ms=step_ms)
     return launches
 
 
@@ -2920,7 +3124,7 @@ def phase_serve_ensemble(dev):
     from repro_torch.core.resource_handler import Pilot, ResourceSpec
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models.convert import train_state_from_numpy
-    from repro_torch.optim.adamw import tree_leaves, tree_zip
+    from repro_torch.optim.adamw import tree_zip
     from repro_torch.plugins import lm, serve
     from repro_torch.runtime.executor import PilotRuntime
     from repro_torch.runtime.journal import Journal
@@ -3316,9 +3520,14 @@ LS_BWD_CASES = [
     dict(name="train", B=2, T=1024, C=2560, dtype="float32"),
     dict(name="bf16", B=2, T=1024, C=2560, dtype="bfloat16"),
     dict(name="ragged", B=3, T=1000, C=1000, dtype="float32"),
+    # recurrentgemma-2b's train_4k microbatch (TRAIN_4K)
+    dict(name="rg_4k", B=4, T=4096, C=2560, dtype="float32"),
 ]
 SS_BWD_CASES = [
     dict(name="train", B=4, T=1024, d=8192, n=16, dtype="bfloat16"),
+    # falcon-mamba-7b's train_4k microbatch (TRAIN_4K): 512 checkpoints a
+    # row
+    dict(name="falcon_4k", B=4, T=4096, d=8192, n=16, dtype="bfloat16"),
     dict(name="f32", B=2, T=512, d=1024, n=16, dtype="float32"),
     dict(name="ragged", B=2, T=1000, d=1000, n=12, dtype="bfloat16"),
 ]
@@ -3619,14 +3828,16 @@ ROUTER = dict(base="qwen3-moe-30b-a3b", arch="qwen3-moe-30b-a3b-L1",
 
 
 def _router_sizes(dev):
-    """{"serve", "train"}: the group sizes of qwen3-moe-30b-a3b's layer-0
-    router (full width, bf16 params from seed 0: layer 0 of the config cut
-    to one layer, which init_params draws as the full model's) on
-    SyntheticLM's batch 0 (seed 0, 4 x 1024 tokens): all of it, the serve
-    shape (T=4096, C=384), and its first row, the train microbatch (T=1024,
-    C=80)."""
+    """{"serve", "train", "train_4k"}: the group sizes of
+    qwen3-moe-30b-a3b's layer-0 router (full width, bf16 params from seed
+    0: layer 0 of the config cut to one layer, which init_params draws as
+    the full model's) on SyntheticLM's batch 0 (seed 0, 4 x 1024 tokens):
+    all of it, the serve shape (T=4096, C=384), and its first row, the
+    train microbatch (T=1024, C=80); and on the first row of the train_4k
+    cell's batch 0 (T=4096, C=384), that phase's microbatch."""
     import torch
 
+    from repro_torch.configs import SHAPES
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data import SyntheticLM
     from repro_torch.models import forward, init_params
@@ -3638,8 +3849,12 @@ def _router_sizes(dev):
     tokens = SyntheticLM(cfg, ShapeSpec("router", "train", R["seq"],
                                         R["batch"]), seed=R["seed"],
                          device=dev).batch_at(0)["tokens"]
+    row_4k = SyntheticLM(cfg, ShapeSpec(
+        "router", "train", SHAPES[TRAIN_4K_SHAPE].seq_len, 1),
+        seed=R["seed"], device=dev).batch_at(0)["tokens"]
     sizes = {}
-    for name, rows in (("serve", tokens), ("train", tokens[:1])):
+    for name, rows in (("serve", tokens), ("train", tokens[:1]),
+                       ("train_4k", row_4k)):
         seen = []
         with _recording_sizes(seen), torch.inference_mode():
             forward(cfg, params, rows)
@@ -5540,6 +5755,10 @@ def _phases(dev, baselines, reckonings):
                      row["peak_mem_gb"],
                      [s_["launches"] for s_ in row["steps_run"]],
                      spec["launches"], step_ms=row["step_ms_steady"])
+    for spec in TRAIN_4K:
+        for name, n in phase_train_4k(dev, spec, reckonings).items():
+            if name in launches:
+                launches[name][f"train_4k {spec['arch']}"] = n
     for name, n in phase_launch_train(dev, reckonings).items():
         if name in launches:
             launches[name]["launch train"] = n

@@ -4,9 +4,14 @@
         --batch 4 --seq 1024 --steps 4 [--ckpt-dir DIR]
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
         --reduced --steps 6 --batch 4 --seq 64 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-4b-L30 \\
+        --shape train_4k --batch 2 --steps 2
 
 The JAX package's CLI and printed lines, with ``--device`` (default
-``cuda``; ``cpu`` runs the plain PyTorch path).  The schedule is the
+``cuda``; ``cpu`` runs the plain PyTorch path).  ``--arch`` also takes
+``<base>-L<n>``, the full-width base cut to its first n layers
+(``configs.resolve_config``; with ``--reduced`` the cut keeps n layers),
+trained under its base's schedule.  The schedule is the
 config module's ``SCHEDULE`` (minicpm-2b: ``wsd``) unless ``--schedule``
 names one; warmup is ``min(100, steps // 10 + 1)``; the config's own
 ``microbatches``; batches from ``SyntheticLM.batches`` (seed 0); the state
@@ -30,13 +35,14 @@ from __future__ import annotations
 
 import argparse
 import importlib
+import re
 import time
 from typing import Callable, List, Optional
 
 import torch
 
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.configs import SHAPES, get_config, reduced
+from repro_torch.configs import SHAPES, reduced, resolve_config
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.data import SyntheticLM
 from repro_torch.flags import resolve_device
@@ -49,9 +55,11 @@ from repro_torch.train import TrainHyper, build_train_step, make_train_state
 
 
 def arch_schedule(arch: str) -> str:
-    """The config module's ``SCHEDULE`` (default cosine)."""
+    """The config module's ``SCHEDULE`` (default cosine); a depth cut
+    ``<base>-L<n>`` takes its base's (minicpm-2b-L3: wsd)."""
+    base = re.sub(r"-L\d+$", "", arch)
     mod = importlib.import_module(
-        f"repro_torch.configs.{arch.replace('-', '_')}")
+        f"repro_torch.configs.{base.replace('-', '_')}")
     return getattr(mod, "SCHEDULE", "cosine")
 
 
@@ -132,9 +140,10 @@ def main(argv=None, on_step: Optional[Callable[[int, dict], None]] = None):
     mesh = None
     if args.mesh == "prod":
         mesh = make_production_mesh(multi_pod=args.multi_pod)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
+    cfg = resolve_config(args.arch)
+    if args.reduced:   # a depth cut keeps its depth
+        cut = re.search(r"-L(\d+)$", args.arch)
+        cfg = reduced(cfg, layers=int(cut[1]) if cut else None)
     shape = SHAPES[args.shape]
     if args.batch or args.seq:
         shape = ShapeSpec("cli", "train", args.seq or shape.seq_len,

@@ -34,7 +34,7 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import get_config, reduced, resolve_config
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.core.kernel_plugin import register_kernel
 from repro_torch.data import SyntheticLM
@@ -56,9 +56,11 @@ _MEMBER_LOCKS: Dict[Tuple[str, int], threading.Lock] = {}
 
 
 def resolve_cfg(name: str):
+    """A registered arch, ``reduced:<arch>``, or ``<base>-L<n>`` (the
+    full-width base cut to n layers, ``configs.resolve_config``)."""
     if name.startswith("reduced:"):
         return reduced(get_config(name.split(":", 1)[1]))
-    return get_config(name)
+    return resolve_config(name)
 
 
 def _steps(cfg, kind: str, hyper: TrainHyper = TrainHyper()):
