@@ -3,16 +3,18 @@ steps of a full-width model (bf16 params, random weights from seed 0) on
 the GPU, and print one JSON line per step kind.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--arch gemma2-2b|recurrentgemma-2b|falcon-mamba-7b|qwen3-moe-30b-a3b]
-        [--shape serve|prefill_32k|decode_32k]
+        [--arch gemma2-2b|...|grok-1-314b-L4] [--shape serve|prefill_32k|decode_32k]
 
+``--arch`` takes a registered config or a depth cut ``<base>-L<n>``.
 ``--shape serve`` (the default) is the serve phases of ``chip_smoke.py``:
 batch 4, prompt 1024, 8 decode steps.  ``prefill_32k`` is the reference's
 cell of that name as ``chip_smoke.py``'s long phases run it: a wave of
 ``LONG_BATCH`` prompts of 32,768 - 9 tokens (one prefill after a warm-up
 one), then 7 decode steps over its cache.  ``decode_32k``: decode steps
 at position 32,767 of a 32,768-position cache filled from a 16-token
-prompt (``launch.dryrun``'s form of the cell), at its ``LONG_BATCH``.
+prompt (``launch.dryrun``'s form of the cell: an encoder's cross k, v
+from stand-in frames of zeros), at its ``LONG_BATCH``.  Prompts are
+tokens alone, as the server's.
 Each line holds the host wall time per call (ending in a synchronize),
 the summed device time of the kernels that ran (one stream, so kernels do
 not overlap), the device's idle share of the wall time, and the device
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import SHAPES, get_config
+from repro_torch.configs import SHAPES, resolve_config
 from repro_torch.models import init_params
 from repro_torch.serve import build_prefill_step, build_serve_step
 
@@ -40,9 +42,15 @@ B, S0, DECODE_STEPS = 4, 1024, 8
 # reckonings).
 LONG_BATCH = {
     "prefill_32k": {"gemma2-2b": 8, "recurrentgemma-2b": 16,
-                    "falcon-mamba-7b": 8, "qwen3-moe-30b-a3b": 1},
+                    "falcon-mamba-7b": 8, "qwen3-moe-30b-a3b": 1,
+                    "gemma3-4b": 8, "minicpm-2b": 4, "nemotron-4-15b": 4,
+                    "whisper-large-v3": 8, "internvl2-26b": 2,
+                    "grok-1-314b-L4": 1},
     "decode_32k": {"gemma2-2b": 16, "recurrentgemma-2b": 128,
-                   "falcon-mamba-7b": 128, "qwen3-moe-30b-a3b": 4}}
+                   "falcon-mamba-7b": 128, "qwen3-moe-30b-a3b": 4,
+                   "gemma3-4b": 64, "minicpm-2b": 4, "nemotron-4-15b": 8,
+                   "whisper-large-v3": 8, "internvl2-26b": 4,
+                   "grok-1-314b-L4": 32}}
 _GROUPS = (("flash_attention", ("flash_attention_fwd",)),
            ("flash_attention_bwd", ("flash_attention_bwd",)),
            ("linear_scan", ("linear_scan_kernel",)),
@@ -102,7 +110,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve measures the GPU; CUDA is missing")
     dev = torch.device("cuda")
-    cfg = get_config(args.arch).replace(param_dtype="bfloat16")
+    cfg = resolve_config(args.arch).replace(param_dtype="bfloat16")
     if args.shape == "serve":
         batch, prompt, max_len = B, S0, S0 + DECODE_STEPS + 2
     else:
@@ -113,6 +121,11 @@ def main(argv=None):
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, prompt))).to(dev)
+    inputs = {"tokens": tokens}
+    if args.shape == "decode_32k" and cfg.encoder_layers:
+        inputs["enc_frames"] = torch.zeros(
+            (batch, cfg.encoder_seq, cfg.d_model), dtype=torch.bfloat16,
+            device=dev)
     prefill = build_prefill_step(cfg, cache_len=max_len)
     step = build_serve_step(cfg)
     res = {}
@@ -121,7 +134,7 @@ def main(argv=None):
 
         def pre():
             held.pop("out", None)     # one cache at a time
-            held["out"] = prefill(params, {"tokens": tokens})
+            held["out"] = prefill(params, inputs)
         if args.shape == "decode_32k":
             pre()
         else:

@@ -35,6 +35,7 @@ from repro.serve import Request as JaxRequest  # noqa: E402
 from repro.serve import build_prefill_step as jax_prefill_step  # noqa: E402
 from repro.serve import build_serve_step as jax_serve_step  # noqa: E402
 from repro_torch.configs import SHAPES, get_config, reduced  # noqa: E402
+from repro_torch.configs import cell_applicable, list_configs  # noqa: E402
 from repro_torch.configs import resolve_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig, ShapeSpec  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fref  # noqa: E402
@@ -49,9 +50,12 @@ from repro_torch.serve import (  # noqa: E402
     build_prefill_step,
     build_serve_step,
 )
+from test_torch_train_4k import _one_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ATOL = 1e-4
+
+
 LONG_ARCHS = ["gemma2-2b", "gemma3-4b", "recurrentgemma-2b",
               "falcon-mamba-7b"]
 PREFILL_ARCHS = LONG_ARCHS + ["qwen3-moe-30b-a3b"]
@@ -284,7 +288,9 @@ def test_chip_smoke_reckon_takes_a_shape_kind(kind, shape, batch, seq):
 def test_chip_smoke_long_cells_cover_every_applicable_cell():
     """The long phases' reckonings: each arch's cell at its batch and at
     twice it (within the cell's global batch), every serving cell of
-    SHAPES that applies to the arch, qwen3-moe's long_500k skipped."""
+    SHAPES that applies to the arch, qwen3-moe's long_500k skipped; every
+    registered arch has a LONG entry (grok-1-314b as its serve entry's
+    cut)."""
     cs = _chip_smoke()
     cells = cs._long_cells()
     assert cells["long gemma2-2b prefill_32k 8"] == dict(
@@ -293,29 +299,35 @@ def test_chip_smoke_long_cells_cover_every_applicable_cell():
     assert "long recurrentgemma-2b decode_32k 256" not in cells
     assert "long qwen3-moe-30b-a3b long_500k 1" not in cells
     assert cells["long gemma3-4b long_500k 1"]["seq"] == 524_288
+    assert cells["long whisper-large-v3 decode_32k 8"] == dict(
+        arch="whisper-large-v3", batch=8, seq=32768, kind="decode")
+    assert cells["long grok-1-314b-L4 prefill_32k 1"]["kind"] == "prefill"
     archs = {s["arch"] for s in cs.LONG}
     assert {k.split()[1] for k in cells} == archs
     for spec in cs.LONG:
         assert any(e[0] == spec["arch"] for e in cs.SERVE)
+        cfg = resolve_config(spec["arch"])
+        for cell in cs.LONG_CELLS:   # every applicable cell, at its batch
+            B = cs._long_batch(spec, cell)
+            assert (f"long {spec['arch']} {cell} {B}" in cells) == \
+                cell_applicable(cfg, SHAPES[cell])[0], (spec, cell)
+    # every registered arch's serving cells (tests/test_torch_long_context_
+    # grid.py holds the whole grid, train_4k too)
+    assert {resolve_config(a).name.split("-L")[0] for a in archs} == {
+        a for a in list_configs() if not a.startswith("serve-")}
 
 
 _LONG_REHEARSAL = {"prefill_32k": 96, "decode_32k": 64, "long_500k": 128}
 CPU_H_LIMIT = 1e-4   # as the serve rehearsal: plain against plain is 0
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "recurrentgemma-2b",
-                                  "falcon-mamba-7b", "qwen3-moe-30b-a3b",
-                                  "gemma3-4b"])
-def test_chip_smoke_long_phase_rehearsal(arch, monkeypatch):
-    """``chip_smoke.py``'s ``long <arch>`` phases on the CPU at reduced
-    widths (bf16 compute, head_dim 64) and short cells (prefill 96
-    positions, past the reduced window of 16; decode 64; long_500k 128):
-    the wrappers the model calls count as launches (not under
-    impl="ref"), the reckonings are stand-ins that keep the batch rule,
-    and the peak check is off (the CPU has no device memory).  Each row's
-    own checks pass: the server's launches and loop, the comparison's
-    launches at its depth, the hidden states at 0 with each control above
-    CPU_H_LIMIT, the long_500k tokens equal."""
+def rehearse_long_phase(arch, monkeypatch):
+    """The rehearsal of ``arch``'s LONG entry (``arch`` its name: a
+    registered config or ``<base>-L<n>``); returns its rows by cell.  A
+    stubbed frontend's checked prefill takes its stub inputs (STUB_PREFILL
+    and an entry's own ``decode`` launches rescaled to the reduced
+    config), whisper's first attention sublayers read under CPU_H_LIMIT
+    too."""
     from repro_torch.configs import base as cfg_base
     from repro_torch.kernels import count_launch
     from repro_torch.kernels.flash_attention import ops as fops
@@ -324,12 +336,21 @@ def test_chip_smoke_long_phase_rehearsal(arch, monkeypatch):
 
     cs = _chip_smoke()
     spec = dict(next(s for s in cs.LONG if s["arch"] == arch))
-    full = get_config(arch)
-    cfg = reduced(full).replace(name=arch, dtype="bfloat16", head_dim=64)
+    full = resolve_config(arch)
+    base = arch.rpartition("-L")[0] if arch not in cfg_base._REGISTRY \
+        else arch
+    cfg = reduced(get_config(base)).replace(name=arch, dtype="bfloat16",
+                                            head_dim=64)
     monkeypatch.setitem(cfg_base._REGISTRY, arch, cfg)
     if "check" in spec:     # the comparison's cut within the reduced depth
         spec["check"] = dict(spec["check"], layers=spec["check"]["layers"]
-                             and 1)
+                             and min(spec["check"]["layers"],
+                                     cfg.num_layers))
+    if "decode" in spec:   # the entry's decode variant: the card's routes
+        cfg = cfg.replace(num_experts=full.num_experts,
+                          experts_per_tok=full.experts_per_tok)
+        monkeypatch.setitem(cfg_base._REGISTRY, arch, cfg)
+        spec["decode"] = cs._layer_counts(spec["decode"], full, cfg)
     for cell, seq in _LONG_REHEARSAL.items():
         old = SHAPES[cell]
         monkeypatch.setitem(SHAPES, cell, ShapeSpec(
@@ -361,17 +382,25 @@ def test_chip_smoke_long_phase_rehearsal(arch, monkeypatch):
     monkeypatch.setattr(cs, "DRYRUN_PEAK_RTOL", float("inf"))
     monkeypatch.setitem(cs.PREFILL_H_LIMIT, arch, CPU_H_LIMIT)
     monkeypatch.setattr(cs, "LONG_H_LIMIT", {})
+    if arch in cs.PREFILL_ATTN1:
+        monkeypatch.setitem(cs.PREFILL_ATTN1, arch, CPU_H_LIMIT)
+    if arch in cs.STUB_PREFILL:   # an encoder's flash launches, one a layer
+        e, e_r = full.encoder_layers, cfg.encoder_layers
+        monkeypatch.setitem(cs.STUB_PREFILL, arch, {
+            k: e_r + (v - e) * cfg.num_layers // full.num_layers
+            for k, v in cs.STUB_PREFILL[arch].items()})
     entry = next(e for e in cs.SERVE if e[0] == arch)
     monkeypatch.setattr(cs, "SERVE", [(
         arch, entry[1], cs._layer_counts(entry[2], full, cfg),
         cs._layer_counts(entry[3], full, cfg))])
 
-    class Reckonings:      # the batch rule holds: B under, 2B over
-        def get(self, key):
+    class Reckonings:      # the batch rule holds: B under, 2B over; a
+        def get(self, key):   # decode step's tally is the entry's
             b = int(key.split()[-1])
             cell = key.split()[2]
             return {"peak_bytes": 1e9 if b == cs._long_batch(spec, cell)
-                    else 1e12}
+                    else 1e12,
+                    "kernel_calls": spec.get("decode", cs.SERVE[0][3])}
     rows = []
     monkeypatch.setattr(cs, "emit", rows.append)
     with torch.inference_mode():
@@ -379,7 +408,8 @@ def test_chip_smoke_long_phase_rehearsal(arch, monkeypatch):
     got = {r["cell"]: r for r in rows}
     assert all(r["ok"] for r in rows)
     assert set(got) == {c for c in spec.get("cells", cs.LONG_CELLS)
-                        if not (c == "long_500k" and cfg.num_experts)}
+                        if not (c == "long_500k"
+                                and not cfg.supports_long_context)}
     assert set(paths) == {r["phase"] for r in rows}
     if "prefill_32k" in got:
         row = got["prefill_32k"]
@@ -398,9 +428,20 @@ def test_chip_smoke_long_phase_rehearsal(arch, monkeypatch):
             assert f32["kernels_vs_ref"] == 0.0 and f32["ratio"] == 1.0
         if cfg.num_experts:
             assert chk["routing"]["assignments"] > 0
+        assert bool(chk["stub_inputs"]) == (arch in cs.STUB_PREFILL)
+        assert row["peak_held"] == (arch not in cs.STUB_PREFILL)
+        subs = chk["first_attention_sublayers"]
+        assert bool(subs) == (arch in cs.PREFILL_ATTN1)
+        for sub in subs.values():
+            assert sub["h_rel_frobenius"] == 0.0
+            assert all(c > CPU_H_LIMIT for c in sub["controls"].values())
     if "long_500k" in got:
         row = got["long_500k"]
         assert row["tokens_equal"] and row["logit_max_abs_err"] == 0.0
         assert row["positions"] == [128 - cs.LONG_NEW, 127]
     if "decode_32k" in got:
-        assert got["decode_32k"]["position"] == 63
+        row = got["decode_32k"]
+        assert row["position"] == 63
+        assert row["step_launches"] == row["step_launches_expected"]
+        assert bool(row["cross_cache"]) == bool(cfg.encoder_layers)
+    return got

@@ -82,8 +82,28 @@ def _chip_smoke():
 
 
 CS = _chip_smoke()
-ARCHS = [s["arch"] for s in CS.TRAIN_4K]
-BASES = {a: a.rpartition("-L")[0] if "-L" in a else a for a in ARCHS}
+# the archs this file holds; tests/test_torch_train_4k_grid.py holds the
+# other TRAIN_4K entries (minicpm-2b, whisper-large-v3, nemotron-4-15b-L3,
+# internvl2-26b-L9) with these helpers, so that each file stays short
+ARCHS = ["gemma2-2b", "recurrentgemma-2b", f"falcon-mamba-7b-L{CS.FALCON_LAYERS}",
+         f"qwen3-moe-30b-a3b-L{CS.QWEN_LAYERS}",
+         f"gemma3-4b-L{CS.GEMMA3_LAYERS}"]
+
+
+def base_of(arch):
+    """The registered config a TRAIN_4K arch cuts (``<base>-L<n>``)."""
+    return arch.rpartition("-L")[0] if "-L" in arch else arch
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread a test: these small CPU ops gain nothing from
+    more, and a worker's pool of a thread a core, beside the suite's other
+    workers', slows them several-fold."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture(autouse=True)
@@ -121,7 +141,14 @@ def test_train_4k_form_matches_jax(arch):
     train loop from one state: 4 rows of 128 positions, past eight of the
     reduced windows of 16 (gemma2-2b, recurrentgemma-2b, gemma3-4b);
     qwen3-moe in 4 microbatches of one row in both."""
-    base = BASES[arch]
+    check_form_matches_jax(arch)
+
+
+def check_form_matches_jax(arch):
+    """``test_train_4k_form_matches_jax``'s check of one arch: the config's
+    microbatches in both loops, its stub inputs (frames, vision
+    embeddings) from each package's SyntheticLM."""
+    base = base_of(arch)
     jcfg = jax_reduced(jax_get_config(base)).replace(
         microbatches=get_config(base).microbatches)
     assert FORM["seq"] == 8 * jcfg.sliding_window or not jcfg.sliding_window
@@ -152,7 +179,7 @@ def test_train_4k_form_matches_jax(arch):
     got = launch_train.train_loop(
         cfg, ShapeSpec("cli", "train", FORM["seq"], FORM["batch"]), state,
         steps=FORM["steps"], hyper=hyper, device="cpu", log=lambda s: None)
-    assert cfg.microbatches == (4 if cfg.num_experts else 1)
+    assert cfg.microbatches == get_config(base).microbatches
     np.testing.assert_allclose([h["loss"] for h in got], want_loss,
                                atol=STEP_ATOL, rtol=0)
     np.testing.assert_allclose([h["lr"] for h in got], lrs, rtol=1e-6)
@@ -259,8 +286,12 @@ def test_train_4k_batch_rule(arch):
     ``TRAIN_4K_CAP`` rows, whose full-width dry-run peak stays under
     ``ENS_PEAK_LIMIT_GB``; the cap stops every batch but gemma3-4b-L30's,
     whose 4 rows reckon over the limit."""
+    check_batch_rule(arch, RECKONINGS)
+
+
+def check_batch_rule(arch, reckonings):
     spec = next(s for s in CS.TRAIN_4K if s["arch"] == arch)
-    rule = CS._train_4k_rule(RECKONINGS, spec)
+    rule = CS._train_4k_rule(reckonings, spec)
     assert rule["ok"], rule
     assert rule["decided_by"] == (["limit"] if arch.startswith("gemma3")
                                   else ["cap"] if rule[
@@ -275,8 +306,12 @@ def test_train_4k_launches_are_the_dry_runs_tally(arch):
     """Each entry's launches a step are the dry run's tally of its cell:
     flash on wgmma, linear_scan and selective_scan forward twice (remat)
     and backward once, gmm and gmm_bwd (dx, dw) on wgmma at C = 384."""
+    check_launches_tally(arch, RECKONINGS)
+
+
+def check_launches_tally(arch, reckonings):
     spec = next(s for s in CS.TRAIN_4K if s["arch"] == arch)
-    calls = RECKONINGS.get(f"train_4k {arch} {spec['batch']}")[
+    calls = reckonings.get(f"train_4k {arch} {spec['batch']}")[
         "kernel_calls"]
     assert calls == spec["launches"]
     if "qwen3" in arch:
@@ -371,7 +406,7 @@ def _rehearsal_cfg(arch):
     layers (the comparison cuts it to 4), recurrentgemma-2b at 6 (two
     local layers), qwen3-moe with 16 experts top-8 (C > 16 a microbatch:
     gmm's wgmma variant) in its config's 4 microbatches."""
-    base = BASES[arch]
+    base = base_of(arch)
     layers = {"falcon-mamba-7b": 6, "recurrentgemma-2b": 6,
               "qwen3-moe-30b-a3b": 2}.get(base)
     cfg = reduced(get_config(base), layers=layers).replace(
@@ -382,16 +417,11 @@ def _rehearsal_cfg(arch):
     return cfg
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_chip_smoke_train_4k_phase_rehearsal(arch, monkeypatch, capsys):
-    """``chip_smoke.py``'s ``train_4k <arch>`` phase on the CPU: a reduced
-    config under the phase's arch, the cell at 128 positions (past eight
-    of the reduced windows), 2 steps through ``launch.train.main``: the
-    batch rule on the reckonings (gemma3-4b-L30's 2 rows by a limit set
-    between its reckonings of 2 and 4), exact launches a step (flash,
-    gmm and gmm_bwd on wgmma), the comparison with ``impl="ref"`` (plain
-    against plain: 0) over the picked leaves (recurrentgemma-2b's first
-    local layer too; falcon-mamba at 4 layers), and the dryrun row."""
+def rehearse_train_4k_phase(arch, monkeypatch, capsys):
+    """The rehearsal of ``arch``'s TRAIN_4K entry; an encoder's flash
+    calls (its layers, the decoder's self- and cross-attention) and an
+    entry's ``f32_held`` leaves (held against the plain run itself here:
+    ratio 1) counted too."""
     import json
     cs = _chip_smoke()
     cfg = _rehearsal_cfg(arch)
@@ -401,7 +431,9 @@ def test_chip_smoke_train_4k_phase_rehearsal(arch, monkeypatch, capsys):
     spec = dict(next(s for s in cs.TRAIN_4K if s["arch"] == arch))
     kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
     mbs = cfg.microbatches
-    per = {"flash": kinds.count("local") + kinds.count("global"),
+    attn = kinds.count("local") + kinds.count("global")
+    per = {"flash": attn * (2 if cfg.encoder_layers else 1)
+           + cfg.encoder_layers,
            "rec": kinds.count("rec"), "mamba": kinds.count("mamba"),
            "moe": cfg.num_layers if cfg.num_experts else 0}
     spec["launches"] = cs._launches(**{f: (n, mbs) for f, n in per.items()
@@ -436,8 +468,13 @@ def test_chip_smoke_train_4k_phase_rehearsal(arch, monkeypatch, capsys):
     names = {w if w == "head" else (
         f"layer{w[1:w.index(':')]}/{w[w.index(':') + 1:]}"
         if w.startswith("L") else f"layer0/{w}") for w in spec["picked"]}
-    assert set(vs["grad_rel_frobenius"]) == {"embed"} | names
+    held = {w if w in ("head", "embed") else f"layer0/{w}"
+            for w in spec.get("f32_held", ())}
+    assert set(vs["grad_rel_frobenius"]) == ({"embed"} | names) - held
     assert all(g == 0.0 for g in vs["grad_rel_frobenius"].values())
+    assert set(vs["f32_held"] or {}) == held
+    assert all(h["kernels_vs_ref"] == 0.0 and h["ratio"] == 1.0
+               for h in (vs["f32_held"] or {}).values())
     assert vs["loss_kernels"] == vs["loss_ref"]
     if cfg.num_experts:
         assert vs["same_group_sizes"] and vs["gmm_calls"] == 3 * 2
