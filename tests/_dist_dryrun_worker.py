@@ -1,16 +1,17 @@
 """Rank 0 of fake process groups of 256 and 512 ranks, for
 ``tests/test_torch_dist_dryrun.py``.
 
-    python tests/_dist_dryrun_worker.py bytes|cells OUT_JSON
+    python tests/_dist_dryrun_worker.py PART OUT_JSON
 
 ``bytes``: for each production mesh and every registered arch, lays the params out
 as ``launch.dryrun.reckon`` does (DTensors of this rank's shard shapes, on
-fake tensors) and records this rank's bytes of them.  ``cells``: reckons
-gemma2-2b's train_4k cell on both meshes, qwen3-moe-30b-a3b's
-decode_32k on ``pod16x16``, and gemma2-2b's train_4k at batch 2 x 1024 on
-a 1x2 mesh (``--mesh 1x2``) and on one device, through
-``launch.dryrun.run_cell``.  ``mamba``: falcon-mamba-7b's train_4k on
-``pod16x16`` (tensor-parallel Mamba, ``in_proj`` gathered over
+fake tensors) and records this rank's bytes of them.  The other parts
+reckon cells through ``launch.dryrun.run_cell``, each part the cells one
+test reads: ``pod16x16`` and ``pod2x16x16`` gemma2-2b's train_4k cell on
+that mesh, ``decode`` qwen3-moe-30b-a3b's decode_32k on ``pod16x16``,
+``two_rank`` gemma2-2b's train_4k at batch 2 x 1024 on a 1x2 mesh
+(``--mesh 1x2``) and on one device, ``mamba`` falcon-mamba-7b's train_4k
+on ``pod16x16`` (tensor-parallel Mamba, ``in_proj`` gathered over
 ``model``).
 """
 from __future__ import annotations
@@ -33,11 +34,11 @@ SMALL = dict(batch=2, seq=1024)
 
 CELLS = {
     "bytes": [],
-    "cells": [("gemma2-2b", "train_4k", "pod16x16", {}),
-              ("gemma2-2b", "train_4k", "pod2x16x16", {}),
-              ("qwen3-moe-30b-a3b", "decode_32k", "pod16x16", {}),
-              ("gemma2-2b", "train_4k", "1x2", SMALL),
-              ("gemma2-2b", "train_4k", None, SMALL)],
+    "pod16x16": [("gemma2-2b", "train_4k", "pod16x16", {})],
+    "pod2x16x16": [("gemma2-2b", "train_4k", "pod2x16x16", {})],
+    "decode": [("qwen3-moe-30b-a3b", "decode_32k", "pod16x16", {})],
+    "two_rank": [("gemma2-2b", "train_4k", "1x2", SMALL),
+                 ("gemma2-2b", "train_4k", None, SMALL)],
     "mamba": [("falcon-mamba-7b", "train_4k", "pod16x16", {})],
 }
 

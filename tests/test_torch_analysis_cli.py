@@ -10,6 +10,7 @@ from pathlib import Path
 
 import pytest
 
+from _threads import _one_thread  # noqa: F401
 from _port_examples import printed
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -1,8 +1,9 @@
 """The port's production-mesh dry run on fake process groups of 256 and
-512 ranks (``torch.testing._internal.distributed.fake_pg``), each in a
-subprocess of its own (``tests/_dist_dryrun_worker.py``,
+512 ranks (``torch.testing._internal.distributed.fake_pg``), each part in
+a subprocess of its own (``tests/_dist_dryrun_worker.py``,
 ``python -m repro_torch.launch.ensemble_dryrun``), held against the JAX
-package's specs.
+package's specs.  The parts start together; a test waits only on the part
+it reads, under that part's own limit.
 
 * Each rank's bytes of every arch's params, and of gemma2-2b's whole train
   state in the reckoned train_4k cells, equal the sum over the JAX
@@ -21,16 +22,15 @@ package's specs.
 """
 import json
 import math
-import os
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import pytest
 
 pytest.importorskip("torch")
 
+from _procs import Started, child_env  # noqa: E402
+from _threads import _one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -41,46 +41,40 @@ from repro.models import init_params as jax_init_params  # noqa: E402
 from repro.train import train_state_specs  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+WORKER = ROOT / "tests" / "_dist_dryrun_worker.py"
 MESHES = {"pod16x16": ((16, 16), ("data", "model")),
           "pod2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 
 
-def _env():
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("PYTEST_", "MASTER_", "RANK", "WORLD_"))}
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src"), str(ROOT / "tests")]
-        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    env["OMP_NUM_THREADS"] = "1"
-    return env
-
-
-def _run(cmd):
-    proc = subprocess.run(cmd, cwd=ROOT, env=_env(), capture_output=True,
-                          text=True, timeout=300)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    return proc.stdout
+# each part's limit in seconds, counted from its start: at least 3x its
+# seconds inside the whole tier-1 run (6 xdist workers) on a slow host,
+# where all parts run at once beside the other workers' tests (49, 57,
+# 63, 84, 84, 84 and 98 s; 21-35 s each on a quiet host)
+LIMITS = {"bytes": 180, "pod16x16": 240, "pod2x16x16": 240, "decode": 300,
+          "two_rank": 300, "mamba": 300, "ensemble": 360}
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def parts(tmp_path_factory):
+    """Every part started at once; a test waits on the part it reads
+    (``parts[name].wait()``)."""
     tmp = tmp_path_factory.mktemp("dryrun")
-    worker = str(ROOT / "tests" / "_dist_dryrun_worker.py")
-    cmds = {"bytes": [sys.executable, worker, "bytes",
-                      str(tmp / "bytes.json")],
-            "cells": [sys.executable, worker, "cells",
-                      str(tmp / "cells.json")],
-            "mamba": [sys.executable, worker, "mamba",
-                      str(tmp / "mamba.json")],
-            "ensemble": [sys.executable, "-m",
-                         "repro_torch.launch.ensemble_dryrun"]}
-    with ThreadPoolExecutor(len(cmds)) as pool:
-        outs = {k: pool.submit(_run, c) for k, c in cmds.items()}
-        outs = {k: f.result() for k, f in outs.items()}
-    return {"bytes": json.loads((tmp / "bytes.json").read_text()),
-            "cells": json.loads((tmp / "cells.json").read_text()),
-            "mamba": json.loads((tmp / "mamba.json").read_text()),
-            "ensemble": outs["ensemble"]}
+    started = {}
+    for name, limit in LIMITS.items():
+        cmd = ([sys.executable, "-m", "repro_torch.launch.ensemble_dryrun"]
+               if name == "ensemble" else
+               [sys.executable, str(WORKER), name, str(tmp / f"{name}.json")])
+        started[name] = Started(name, [cmd], [tmp / name], limit, cwd=ROOT,
+                                env=child_env(ROOT))
+    yield started
+    for part in started.values():
+        part.stop()
+
+
+def _read(parts, name):
+    """A part's JSON, once it has ended."""
+    parts[name].wait()
+    return json.loads(parts[name].logs[0].with_suffix(".json").read_text())
 
 
 def _shard_bytes(cfg, mesh_name, specs) -> int:
@@ -100,20 +94,20 @@ def _shard_bytes(cfg, mesh_name, specs) -> int:
 
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 @pytest.mark.parametrize("arch", list(jax_list_configs()))
-def test_rank_param_bytes_follow_the_jax_spec(runs, arch, mesh_name):
+def test_rank_param_bytes_follow_the_jax_spec(parts, arch, mesh_name):
     cfg = jax_get_config(arch)
     specs = jax.eval_shape(lambda: jax_init_params(cfg,
                                                    jax.random.PRNGKey(0)))
-    assert runs["bytes"][f"{arch}/{mesh_name}"] == \
+    assert _read(parts, "bytes")[f"{arch}/{mesh_name}"] == \
         _shard_bytes(cfg, mesh_name, specs)
 
 
 @pytest.mark.parametrize("mesh_name", list(MESHES))
-def test_reckoned_train_cell_on_a_production_mesh(runs, mesh_name):
+def test_reckoned_train_cell_on_a_production_mesh(parts, mesh_name):
     """The tensor-parallel step fits one card on both meshes: gemma2-2b's
     train_4k reckoned 129.84 GB a rank on pod16x16 while its compute
     gathered every parameter and ran replicated over ``model``."""
-    r = runs["cells"][f"gemma2-2b/train_4k/{mesh_name}"]
+    r = _read(parts, mesh_name)[f"gemma2-2b/train_4k/{mesh_name}"]
     assert r["status"] == "ok", r["error"]
     assert r["mesh"] == mesh_name
     assert r["chips"] == math.prod(MESHES[mesh_name][0])
@@ -128,14 +122,14 @@ def test_reckoned_train_cell_on_a_production_mesh(runs, mesh_name):
     assert r["peak_bytes"] < 40e9
 
 
-def test_reckoned_mamba_train_cell_on_pod16x16(runs):
+def test_reckoned_mamba_train_cell_on_pod16x16(parts):
     """falcon-mamba-7b's train_4k on one rank of pod16x16: Mamba computes
     tensor-parallel, its ``in_proj`` compute copy gathered over ``model``
     (the contiguous split gives the first half of the ranks only x's
     columns, ``layers._mamba_in``) and its gradient reduce-scattered back;
     the step fits one card and runs the scans as the one-rank step does
     (forward, remat recompute, backward: 64 layers)."""
-    r = runs["mamba"]["falcon-mamba-7b/train_4k/pod16x16"]
+    r = _read(parts, "mamba")["falcon-mamba-7b/train_4k/pod16x16"]
     assert r["status"] == "ok", r["error"]
     assert r["mesh"] == "pod16x16" and r["chips"] == 256
     assert r["kernel_calls"] == {"selective_scan": 128,
@@ -144,13 +138,14 @@ def test_reckoned_mamba_train_cell_on_pod16x16(runs):
     assert r["state_bytes_exact"] < r["peak_bytes"] < 80e9
 
 
-def test_reckoned_train_cell_on_a_two_rank_mesh(runs):
+def test_reckoned_train_cell_on_a_two_rank_mesh(parts):
     """``launch.dryrun --mesh 1x2``: one rank of a (data, model) mesh of
     1 x 2 (the card's two-rank part): its state is its shards by the JAX
     specs on that mesh, its flash calls are the one-device step's (at half
     the heads), and its peak is below the one-device step's."""
-    r = runs["cells"]["gemma2-2b/train_4k/1x2"]
-    one = runs["cells"]["gemma2-2b/train_4k/h100"]
+    cells = _read(parts, "two_rank")
+    r = cells["gemma2-2b/train_4k/1x2"]
+    one = cells["gemma2-2b/train_4k/h100"]
     assert r["status"] == "ok", r["error"]
     assert one["status"] == "ok", one["error"]
     assert r["mesh"] == "1x2" and r["chips"] == 2
@@ -167,14 +162,15 @@ def test_reckoned_train_cell_on_a_two_rank_mesh(runs):
     assert r["fits"] and r["peak_bytes"] < one["peak_bytes"]
 
 
-def test_reckoned_expert_parallel_decode_cell(runs):
-    r = runs["cells"]["qwen3-moe-30b-a3b/decode_32k/pod16x16"]
+def test_reckoned_expert_parallel_decode_cell(parts):
+    r = _read(parts, "decode")["qwen3-moe-30b-a3b/decode_32k/pod16x16"]
     assert r["status"] == "ok", r["error"]
     assert r["kernel_calls"] == {"gmm": 144, "gmm.mma_sync": 144}
 
 
-def test_ensemble_dryrun_prints_the_examples_lines(runs):
-    lines = [ln for ln in runs["ensemble"].splitlines()
+def test_ensemble_dryrun_prints_the_examples_lines(parts):
+    parts["ensemble"].wait()
+    lines = [ln for ln in parts["ensemble"].stdout().splitlines()
              if not ln.startswith("[rank")]
     assert lines[0] == ("pilot: 512 ranks, axes ('pod', 'data', 'model') "
                         "{'pod': 2, 'data': 16, 'model': 16}")

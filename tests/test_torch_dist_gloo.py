@@ -31,8 +31,6 @@ And the CPU rehearsal of ``chip_smoke.py``'s ``mesh`` phase on a one-rank
 group (``tests/_mesh_phase_rehearsal.py``).
 """
 import json
-import os
-import subprocess
 import sys
 from pathlib import Path
 
@@ -40,52 +38,39 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _procs import Started, child_env, rank_outputs  # noqa: E402
+from _threads import _one_thread  # noqa: E402,F401
+
 ROOT = Path(__file__).resolve().parents[1]
 WORLDS = {2: ("1x2", "2x1"), 4: ("2x2",)}
 CASES = [(w, m) for w, ms in WORLDS.items() for m in ms]
 
 
-def _launch(world, meshes, tmp):
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("PYTEST_", "MASTER_", "RANK", "WORLD_"))}
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src"), str(ROOT / "tests")]
-        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    env["OMP_NUM_THREADS"] = "1"
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "_dist_worker.py"), str(r),
-         str(world), str(tmp / "store"), str(tmp / f"out{r}.json"),
-         *meshes], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=240)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r}:\n{logs[r][-4000:]}"
-    return [json.loads((tmp / f"out{r}.json").read_text())
-            for r in range(world)]
+# each world's limit in seconds, counted from its start
+LIMIT = 240
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(len(WORLDS)) as pool:
-        futs = {w: pool.submit(_launch, w, ms,
-                               tmp_path_factory.mktemp(f"world{w}"))
-                for w, ms in WORLDS.items()}
-        return {w: f.result() for w, f in futs.items()}
+    """Both worlds started at once; a test waits on the world it reads."""
+    worlds = {}
+    for w, meshes in WORLDS.items():
+        tmp = tmp_path_factory.mktemp(f"world{w}")
+        cmds = [[sys.executable, str(ROOT / "tests" / "_dist_worker.py"),
+                 str(r), str(w), str(tmp / "store"), str(tmp / f"out{r}.json"),
+                 *meshes] for r in range(w)]
+        worlds[w] = Started(f"world {w}", cmds,
+                            [tmp / f"rank{r}" for r in range(w)], LIMIT,
+                            cwd=ROOT, env=child_env(ROOT))
+    yield worlds
+    for started in worlds.values():
+        started.stop()
 
 
 @pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-moe-30b-a3b"])
 @pytest.mark.parametrize("world,mesh", CASES)
 def test_train_step_on_a_mesh_matches_no_mesh(runs, world, mesh, arch):
-    for rank, res in enumerate(runs[world]):
+    for rank, res in enumerate(rank_outputs(runs[world])):
         r = res[f"{mesh}/{arch}"]
         assert abs(r["loss"] - r["loss_ref"]) <= 1e-5 * abs(r["loss_ref"]), \
             (rank, r)
@@ -105,7 +90,7 @@ def test_train_step_on_a_mesh_matches_no_mesh(runs, world, mesh, arch):
 @pytest.mark.parametrize("server", ["serve", "serve_gemma"])
 @pytest.mark.parametrize("world,mesh", CASES)
 def test_served_tokens_on_a_mesh_are_exact(runs, world, mesh, server):
-    for res in runs[world]:
+    for res in rank_outputs(runs[world]):
         r = res[f"{mesh}/{server}"]
         assert r["tokens"] == r["tokens_ref"]
         assert len(r["tokens"]) == 5
@@ -113,7 +98,7 @@ def test_served_tokens_on_a_mesh_are_exact(runs, world, mesh, server):
 
 @pytest.mark.parametrize("world,mesh", CASES)
 def test_fused_ensemble_and_train_loop_on_a_mesh(runs, world, mesh):
-    for res in runs[world]:
+    for res in rank_outputs(runs[world]):
         f = res[f"{mesh}/fused"]
         for got, want in ((f["losses"], f["losses_ref"]),
                           (f["temps"], f["temps_ref"])):
@@ -128,13 +113,13 @@ def test_fused_ensemble_and_train_loop_on_a_mesh(runs, world, mesh):
 
 @pytest.mark.parametrize("world,mesh", CASES)
 def test_checkpoint_restores_onto_shardings(runs, world, mesh):
-    for res in runs[world]:
+    for res in rank_outputs(runs[world]):
         assert res[f"{mesh}/checkpoint"] == {"step": 3, "same_shards": True}
 
 
 @pytest.mark.parametrize("world", list(WORLDS))
 def test_exchange_swaps_on_the_granted_submesh(runs, world):
-    for res in runs[world]:
+    for res in rank_outputs(runs[world]):
         r = res["pilot"]
         assert r["n_failed"] == 0
         assert sorted(r["temps"]) == [1.0, 10.0, 20.0, 40.0]
@@ -149,16 +134,10 @@ def test_chip_smoke_mesh_phase_rehearsal(tmp_path):
     configs: every part passes, the losses equal the unsharded rows'
     exactly (one rank reorders no sum), the served tokens too."""
     out = tmp_path / "mesh.json"
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("PYTEST_", "MASTER_", "RANK", "WORLD_"))}
-    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),
-                                         str(ROOT / "tests")])
-    env["OMP_NUM_THREADS"] = "1"
-    proc = subprocess.run(
-        [sys.executable, str(ROOT / "tests" / "_mesh_phase_rehearsal.py"),
-         str(out)], cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=240)
-    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    Started("mesh phase rehearsal",
+            [[sys.executable, str(ROOT / "tests" / "_mesh_phase_rehearsal.py"),
+              str(out)]], [tmp_path / "mesh"], LIMIT, cwd=ROOT,
+            env=child_env(ROOT)).wait()
     row = json.loads(out.read_text())["row"]
     assert row["phase"] == "mesh" and row["ok"]
     parts = {p["part"]: p for p in row["parts"]}

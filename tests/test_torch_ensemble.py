@@ -15,6 +15,7 @@ from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 
+from _threads import _one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

@@ -22,6 +22,7 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _threads import _one_thread  # noqa: E402,F401
 from _port_examples import example_module, port_example, printed  # noqa: E402,E501
 
 PACKAGES = ("repro", "repro_torch")

@@ -27,6 +27,7 @@ from _port_examples import example_module, printed
 
 torch = pytest.importorskip("torch")
 
+from _threads import _one_thread  # noqa: E402,F401
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGES = ("repro", "repro_torch")
 

@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _threads import _one_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash  # noqa: E402

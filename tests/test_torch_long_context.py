@@ -22,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _threads import _one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -50,7 +51,6 @@ from repro_torch.serve import (  # noqa: E402
     build_prefill_step,
     build_serve_step,
 )
-from test_torch_train_4k import _one_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ATOL = 1e-4

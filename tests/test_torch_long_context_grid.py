@@ -22,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _threads import _one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -39,7 +40,6 @@ from test_torch_long_context import (  # noqa: E402
     ATOL,
     _assert_caches_equal,
     _chip_smoke,
-    _one_thread,  # noqa: F401
     _setup,
     _tokens,
     rehearse_long_phase,

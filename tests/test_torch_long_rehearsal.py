@@ -8,7 +8,7 @@ import pytest
 
 pytest.importorskip("torch")
 
-from test_torch_long_context import _one_thread  # noqa: E402,F401
+from _threads import _one_thread  # noqa: E402,F401
 from test_torch_long_context import rehearse_long_phase  # noqa: E402
 
 

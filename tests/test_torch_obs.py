@@ -17,6 +17,7 @@ from types import SimpleNamespace
 
 import pytest
 
+from _threads import _one_thread  # noqa: F401
 from _port_examples import example_module, printed
 
 PACKAGES = ("repro", "repro_torch")

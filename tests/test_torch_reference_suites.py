@@ -24,6 +24,7 @@ from pathlib import Path
 
 import pytest
 
+from _threads import _one_thread  # noqa: F401
 ROOT = Path(__file__).resolve().parents[1]
 SUITES = ("flow", "staging", "faults", "strategy", "patterns", "pst",
           "runtime", "serving", "federation", "obs", "analysis")

@@ -16,6 +16,7 @@ from types import SimpleNamespace
 
 import pytest
 
+from _threads import _one_thread  # noqa: F401
 from _port_examples import example_module
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -17,6 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _threads import _one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 
 import repro.core as jcore  # noqa: E402

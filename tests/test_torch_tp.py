@@ -24,14 +24,15 @@ within 1e-4 of the largest; and every compute copy of a leaf the spec
 splits over ``model`` is its shard: 1/m of its elements.
 """
 import json
-import os
-import subprocess
 import sys
 from pathlib import Path
 
 import pytest
 
 pytest.importorskip("torch")
+
+from _procs import Started, child_env, rank_outputs  # noqa: E402
+from _threads import _one_thread  # noqa: E402,F401
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLDS = {2: ("1x2", "2x1"), 4: ("2x2", "1x4")}
@@ -41,41 +42,29 @@ ARCHS = ["gemma2-2b", "recurrentgemma-2b", "falcon-mamba-7b",
          "gemma2-2b-v256", "gemma2-2b-h6"]
 
 
-def _launch(world, meshes, tmp):
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("PYTEST_", "MASTER_", "RANK", "WORLD_"))}
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src"), str(ROOT / "tests")]
-        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
-    env["OMP_NUM_THREADS"] = "1"
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "_tp_worker.py"), str(r),
-         str(world), str(tmp / "store"), str(tmp / f"out{r}.json"),
-         *meshes], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=240)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r}:\n{logs[r][-4000:]}"
-    return [json.loads((tmp / f"out{r}.json").read_text())
-            for r in range(world)]
+# each world's limit in seconds, counted from its start: at least 3x its
+# seconds inside the whole tier-1 run (6 xdist workers) on a slow host,
+# where both worlds run at once beside the other workers' tests (80 and
+# 179 s; 31 and 59 s on a quiet host).  Each collective waits for its
+# slowest rank, so a loaded host slows these more than the other tests.
+LIMITS = {2: 300, 4: 600}
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(len(WORLDS)) as pool:
-        futs = {w: pool.submit(_launch, w, ms,
-                               tmp_path_factory.mktemp(f"tp{w}"))
-                for w, ms in WORLDS.items()}
-        return {w: f.result() for w, f in futs.items()}
+    """Both worlds started at once; a test waits on the world it reads."""
+    worlds = {}
+    for w, meshes in WORLDS.items():
+        tmp = tmp_path_factory.mktemp(f"tp{w}")
+        cmds = [[sys.executable, str(ROOT / "tests" / "_tp_worker.py"),
+                 str(r), str(w), str(tmp / "store"), str(tmp / f"out{r}.json"),
+                 *meshes] for r in range(w)]
+        worlds[w] = Started(f"world {w}", cmds,
+                            [tmp / f"rank{r}" for r in range(w)], LIMITS[w],
+                            cwd=ROOT, env=child_env(ROOT))
+    yield worlds
+    for started in worlds.values():
+        started.stop()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -83,7 +72,7 @@ def runs(tmp_path_factory):
 def test_tensor_parallel_train_step_matches_no_mesh(runs, world, mesh,
                                                     arch):
     model = int(mesh.split("x")[1])
-    for rank, res in enumerate(runs[world]):
+    for rank, res in enumerate(rank_outputs(runs[world])):
         r = res[f"{mesh}/{arch}/train"]
         assert abs(r["loss"] - r["loss_ref"]) <= 1e-5 * abs(r["loss_ref"]), \
             (rank, r)
@@ -102,7 +91,7 @@ def test_tensor_parallel_train_step_matches_no_mesh(runs, world, mesh,
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("world,mesh", CASES)
 def test_tensor_parallel_served_tokens_are_exact(runs, world, mesh, arch):
-    for res in runs[world]:
+    for res in rank_outputs(runs[world]):
         r = res[f"{mesh}/{arch}/serve"]
         assert r["tokens"] == r["tokens_ref"]
         assert len(r["tokens"]) == 5
@@ -116,28 +105,12 @@ def test_chip_smoke_mesh_tp_part_rehearsal(tmp_path):
     1e-5 of rank 0's unsharded run and their gradients (shards joined)
     within 1e-4, the last prefill logits within 1e-4, every served token
     the unsharded server's; each rank reports its rows."""
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith(("PYTEST_", "MASTER_", "RANK", "WORLD_"))}
-    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"),
-                                         str(ROOT / "tests")])
-    env["OMP_NUM_THREADS"] = "1"
     out = str(tmp_path / "rank%d.json")
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "_mesh_tp_rehearsal.py"),
-         str(r), str(tmp_path / "store"), out], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=240)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r}:\n{logs[r][-4000:]}"
+    Started("mesh tp rehearsal",
+            [[sys.executable, str(ROOT / "tests" / "_mesh_tp_rehearsal.py"),
+              str(r), str(tmp_path / "store"), out] for r in range(2)],
+            [tmp_path / f"rank{r}" for r in range(2)], 240, cwd=ROOT,
+            env=child_env(ROOT)).wait()
     ranks = [json.loads(Path(out % r).read_text()) for r in range(2)]
     for r, rk in enumerate(ranks):
         parts = {row["part"]: row for row in rk["rows"]}

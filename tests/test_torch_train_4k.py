@@ -32,6 +32,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _threads import _one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 
 from repro.checkpoint.checkpoint import _flatten  # noqa: E402
@@ -93,17 +94,6 @@ ARCHS = ["gemma2-2b", "recurrentgemma-2b", f"falcon-mamba-7b-L{CS.FALCON_LAYERS}
 def base_of(arch):
     """The registered config a TRAIN_4K arch cuts (``<base>-L<n>``)."""
     return arch.rpartition("-L")[0] if "-L" in arch else arch
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread a test: these small CPU ops gain nothing from
-    more, and a worker's pool of a thread a core, beside the suite's other
-    workers', slows them several-fold."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.fixture(autouse=True)

@@ -12,10 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _threads import _one_thread  # noqa: E402,F401
 from test_torch_train_4k import (  # noqa: E402
     CS,
     _attention_case,
-    _one_thread,  # noqa: F401
     _Reckonings,
     check_batch_rule,
     check_form_matches_jax,

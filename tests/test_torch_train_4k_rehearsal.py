@@ -7,8 +7,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _threads import _one_thread  # noqa: E402,F401
 from test_torch_train_4k import ARCHS, rehearse_train_4k_phase  # noqa: E402
-from test_torch_train_4k import _one_thread  # noqa: E402,F401
 from test_torch_train_4k_grid import ARCHS as GRID_ARCHS  # noqa: E402
 
 
