@@ -11,72 +11,42 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  memory as the library states it)
   kernel ...     hold each kernel (flash_attention, flash_attention_bwd,
                  linear_scan, selective_scan, gmm, linear_scan_bwd,
-                 selective_scan_bwd, gmm_bwd) against its plain
-                 PyTorch version on the card at the main paths' shapes, and
-                 time kernel, plain version, the nearest PyTorch library
-                 call (where one computes the same function) and the card's
-                 bound.  Flash attention's cases include packed segment ids
-                 and check the forward's log-sum-exp; the backward's check
+                 selective_scan_bwd, gmm_bwd) against its plain PyTorch
+                 version on the card at the main paths' shapes, one case
+                 runner (``kernel_case``) for every case of every phase:
+                 the variant the launch counter shows (for gmm and gmm_bwd
+                 also the library's own rule), the phase's comparison and
+                 tolerances, bitwise repeats where the phase asks, then
+                 device times of the kernel and the nearest PyTorch
+                 library call (where one computes the same function; the
+                 timed calls queue behind a sleep kernel, so host launch
+                 overhead is not in them), the kernel's time with the
+                 host, the plain version's time, and the card's bound.
+                 Flash attention's cases include packed segment ids and
+                 check the forward's log-sum-exp; the backward's check
                  dq, dk, dv (relative Frobenius distance and largest
-                 error, beside the plain gradient's rms; one case puts the
-                 scores at the softcap) and that two calls give
-                 bitwise-equal gradients, against SDPA's forward and
-                 backward; the backward's reported case is the train step's
-                 own (one segment of all-zero ids, as SyntheticLM gives).
-                 Kernel
-                 and library times are device times: the timed calls queue
-                 behind a sleep kernel, so host launch overhead is not in
-                 them.  Flash attention, gmm and gmm_bwd report the kernel
-                 variant each case took (wgmma, mma_sync, f32; the launch
-                 counter must show it, and for gmm and gmm_bwd the
-                 library's own rule must name it), flash also TFLOP/s;
-                 flash, selective_scan and gmm give the wrapper's
-                 host-inclusive time per call beside the device time.
-                 ``--baseline NAME=PATH`` (NAME one of
-                 flash_attention, flash_attention_bwd, linear_scan,
-                 selective_scan, gmm, linear_scan_bwd, selective_scan_bwd,
-                 gmm_bwd; repeatable)
-                 builds an earlier version of that
-                 kernel's ``.cu`` (same C entry) and times it on every
-                 case of its phase in the same run, with its error against
-                 the plain version (flash_attention: cases without segment
-                 ids, through the older entry flash_attention_fwd;
-                 flash_attention_bwd: every case, through the entry
-                 flash_attention_bwd; it also runs the wgmma backward at
-                 more shapes than its launcher keeps plans for, and the
-                 first shape again, bitwise, after its plan was evicted;
-                 gmm_bwd: every case, through the entry gmm_bwd, with the
-                 phase's own checks).
-                 The linear_scan phase's cases include recurrentgemma-2b's
-                 serve shape and its train microbatch, each call repeated
-                 bitwise.  The selective_scan phase includes a
-                 case with T * d > 2^32 (64-bit offsets in a batch row):
-                 its last 256 steps must equal, bitwise, a run on them
-                 alone from the state the first T - 256 steps leave.  The
-                 scans' backward phases hold their gradients by the flash
-                 backward's measures with bitwise repeats;
-                 linear_scan_bwd's bf16 case also checks that its state
-                 pass's float32 states, rounded to bf16, are the forward's
-                 y bit for bit; selective_scan_bwd's includes a batch row
-                 of T * d >= 2^31, whose last 256 steps' gradients must
-                 equal, bitwise, a backward of those steps alone.  gmm's
-                 cases include
-                 group sizes from qwen3-moe-30b-a3b's own layer-0 router
-                 (seed-0 weights, a SyntheticLM batch) at the serve shape
-                 (C = 384) and the train microbatch's (C = 80); gmm_bwd's
-                 (dx and dw) are held by the flash backward's measures,
-                 with dx's padding rows and empty experts' dw exactly 0,
-                 bitwise repeats and nonzero dy on the padding rows, at
-                 qwen3's train, eval and fused shapes, grok-1-314b's
-                 expert shape (E=8, D=6144, F=32768), every tail of the
-                 wgmma kernels (``ragged_wgmma``), NaN in x's and dy's
-                 padding rows (``nan_padding``), ragged (F % 8 != 0),
-                 empty and f32, against the bound and a torch.bmm pair.
-                 The backward phases also hold the train_4k phases' own
-                 problems (4,096-token rows: flash at gemma2-2b's,
-                 recurrentgemma-2b's, gemma3-4b's and qwen3's shapes,
-                 both scans at their microbatches, gmm_bwd at C = 384
-                 with the router's sizes on such a row)
+                 error; one case puts the scores at the softcap) against
+                 SDPA's forward and backward, its reported case the train
+                 step's own, and run the wgmma backward at more shapes
+                 than its launcher keeps plans for, the first shape again
+                 bitwise after its plan was evicted.  The selective_scan
+                 phases include a batch row of T * d > 2^32 (forward) and
+                 >= 2^31 (backward): its last 256 steps must equal,
+                 bitwise, a run on them alone.  The scans' and gmm's
+                 backward phases hold their gradients by the flash
+                 backward's measures; linear_scan_bwd's bf16 case checks
+                 that its state pass's float32 states, rounded, are the
+                 forward's y bit for bit; gmm_bwd's dx padding rows and
+                 empty experts' dw must be exactly 0, NaN padding rows
+                 included.  gmm's cases include the group sizes of
+                 qwen3-moe-30b-a3b's and grok-1-314b's own layer-0
+                 routers; the backward phases the train_4k phases' own
+                 problems (4,096-token rows).  ``--baseline NAME=PATH``
+                 (NAME a kernel above; repeatable) builds an earlier
+                 version of that kernel's ``.cu`` (same C entry; flash's
+                 forward through the older entry flash_attention_fwd, on
+                 cases without segment ids) and times and checks it on
+                 every case of its phase in the same run
   train gemma2-2b
                  ``lm.train`` of full-width gemma2-2b (f32 master params
                  and Adam moments, bf16 compute, remat, batch 4 of 1024
@@ -1232,21 +1202,6 @@ def _flash_baseline(lib):
     return run
 
 
-def _sdpa_unmasked(c, seg_q) -> bool:
-    """Whether SDPA's own masks (``is_causal`` or none) give case ``c``'s
-    mask: no segment ids, no window that bites, and a causal case square
-    with no query offset."""
-    return (seg_q is None and (not c["window"] or c["window"] >= c["Sk"])
-            and (not c["causal"] or (c["q_offset"] == 0
-                                     and c["Sq"] == c["Sk"])))
-
-
-def _sdpa_window(c, seg_q) -> bool:
-    """Whether case ``c``'s mask is a window that bites (and no segment
-    ids): a mask SDPA's own flags cannot state."""
-    return seg_q is None and 0 < c["window"] < c["Sk"]
-
-
 def _sdpa_efficient(q, k, v, mask, scale, grad_of=None):
     """(the library call, its label): SDPA on its memory-efficient backend
     with ``mask`` as attn_mask, which that backend takes as a bias (its
@@ -1284,12 +1239,177 @@ def _library_ms(lib, label, iters):
             str(e).splitlines()[0][:300]
 
 
+# A plain call of at least this many ms is timed once, on the call that
+# gave the case's reference (a warm-up would cost as much again: 0.6-5.8 s
+# at 32k on an H100); a shorter one after a warm-up, as before, so that
+# the host gauge (the plain linear_scan serve case, ~33 ms) keeps its
+# meaning.
+PLAIN_ONCE_MS = 500.0
+
+
+def _once(fn):
+    """(fn()'s result, its time in ms by ``time_ms``): one call, cold."""
+    box = []
+    ms = time_ms(lambda: box.append(fn()), 1, warmup=0)
+    return box[0], ms
+
+
+def _same(a, b) -> bool:
+    """Two calls' outputs (a tensor or a sequence of them) bitwise equal."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return bool(torch.equal(a, b))
+    return all(_same(x, y) for x, y in zip(a, b))
+
+
+def _grad_checks(names, grads, refs, dtypes) -> dict:
+    """Each gradient's ``grad_check`` against its plain version, the
+    largest error of them and whether all hold."""
+    checks = {n: grad_check(g, r, dt)
+              for n, g, r, dt in zip(names, grads, refs, dtypes)}
+    return {"max_abs_err": max(ch["max_abs_err"] for ch in checks.values()),
+            "checks": checks, "ok": all(ch["ok"] for ch in checks.values())}
+
+
+def _baseline_checks(b):
+    """A backward kernel's baseline fields: its gradients' checks."""
+    return {"baseline_checks": b and b["checks"]}
+
+
+def _emit_checked(row: dict, what: str = "") -> dict:
+    """Emit a phase's row; a failed one (``ok`` false) then raises, naming
+    ``what`` (by default a kernel phase's kernel and case)."""
+    emit(row)
+    if not row["ok"]:
+        what = what or (f"{row['phase'].removeprefix('kernel ')} case "
+                        f"{row['case']}")
+        raise AssertionError(f"{what} failed: {row}")
+    return row
+
+
+def kernel_case(phase, case, *, kernel, plain, check, cost, iters,
+                plain_iters, counters=(), variants=None, repeat=None,
+                extra=None, baseline=None, library=(None, None),
+                timed=None, fields=None):
+    """Run, check, time and emit one case of a kernel phase; returns the
+    row.  ``kernel()`` and ``plain()`` call the kernel's wrapper and its
+    plain version on the case's inputs.  The ``variants`` ({rule: the
+    variant it names}) must agree; the kernel's call (and with ``repeat``,
+    the row field of their bitwise equality, a second) must add one a call
+    to each of ``counters``.  ``check(out, ref)`` gives an output's fields,
+    ``max_abs_err`` and ``ok`` among them; ``extra(out, ref)`` more of the
+    kernel's.  ``baseline``: (an earlier kernel's call or None, a map of
+    its check, or None, to fields).  ``device_ms`` (``iters`` calls a
+    batch) of the kernel, the baseline, ``library`` ((call or None,
+    label)) and each of ``timed`` ({field: call}); ``time_ms`` of the
+    kernel and the plain version (PLAIN_ONCE_MS); the bound of ``cost``
+    ((flops, bytes, the dtype whose peak applies))."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+    name = phase.removeprefix("kernel ")
+    if variants and len(set(variants.values())) > 1:
+        raise AssertionError(f"{name} case {case}: the variant rules "
+                             "disagree: " + ", ".join(
+                                 f"{k} {v}" for k, v in variants.items()))
+    runs = 2 if repeat else 1
+    before = [LAUNCHES[n] for n in counters]
+    out = kernel()
+    again = kernel() if repeat else None
+    torch.cuda.synchronize()
+    if [LAUNCHES[n] for n in counters] != [b + runs for b in before]:
+        raise AssertionError(f"{name} case {case}: {runs} call(s) did not "
+                             f"count as many launches of each of {counters}")
+    ref, once_ms = _once(plain)
+
+    def checked(out, again):
+        f = check(out, ref)
+        if repeat:
+            f[repeat] = _same(out, again)
+            f["ok"] = f["ok"] and f[repeat]
+        return f
+    row = {"phase": phase, "case": case, **(fields or {}),
+           **checked(out, again)}
+    for k, v in (extra(out, ref) if extra else {}).items():
+        row[k] = row[k] and v if k == "ok" else v
+    old, old_fields = baseline or (None, None)
+    if old_fields:
+        row.update(old_fields(old and checked(old(), repeat and old())))
+    del out, again, ref
+    flops, nbytes, dtype = cost
+    ms = device_ms(kernel, iters)
+    baseline_ms = device_ms(old, iters) if old else None
+    library_ms, label = _library_ms(*library, iters)
+    bound_ms, bound_by = _bound(flops, nbytes, dtype)
+    row.update({
+        "ms": ms, "host_ms": time_ms(kernel, iters),
+        "plain_ms": (once_ms if once_ms >= PLAIN_ONCE_MS
+                     else time_ms(plain, plain_iters)),
+        "baseline_ms": baseline_ms, "library_ms": library_ms,
+        "library": label,
+        **{k: device_ms(fn, iters) for k, fn in (timed or {}).items()},
+        "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+        "tflops": flops / ms / 1e9,
+        "baseline_tflops": baseline_ms and flops / baseline_ms / 1e9,
+        "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms,
+        "bound_by": bound_by})
+    return _emit_checked(row)
+
+
+def _kernel_phase(cases, one):
+    """{case: row} of ``one(case)``; the CUDA cache emptied once, after."""
+    import torch
+    rows = {c["name"]: one(c) for c in cases}
+    torch.cuda.empty_cache()
+    return rows
+
+
+ATTN_DIMS = ("B", "Sq", "Sk", "H", "KH", "D")
+
+
+def _attention_case(c, gen, dev, grad=False):
+    """A flash case's q, k, v, do (the backward's; else None), keyword
+    arguments (segment ids among them, drawn last), mask-live (q, k)
+    pairs and fixed row fields."""
+    import torch
+    dt = getattr(torch, c["dtype"])
+    B, Sq, Sk, H, KH, D = (c[k] for k in ATTN_DIMS)
+    q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
+    k = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
+    v = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
+    do = (torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
+          if grad else None)
+    seg_q = _segments(B, Sq, c.get("seg", 0), gen, dev)
+    seg_kv = seg_q if Sk == Sq else _segments(B, Sk, c.get("seg", 0), gen,
+                                              dev)
+    kw = dict(causal=c["causal"], window=c["window"], softcap=c["softcap"],
+              scale=c["scale"], q_offset=c["q_offset"], seg_q=seg_q,
+              seg_kv=seg_kv)
+    pairs = int(_mask(c, dev, seg_q, seg_kv).sum()) * (
+        1 if seg_q is not None else B)
+    fields = {"shape": {n: c[n] for n in ATTN_DIMS},
+              **{n: c[n] for n in ("causal", "window", "softcap", "q_offset",
+                                   "scale", "dtype")},
+              "segments": c.get("seg", 0)}
+    return q, k, v, do, kw, pairs, fields
+
+
+def _heads_first(c, *ts):
+    """(B, H, S, D) copies of q-shaped and kv-shaped tensors, kv heads
+    repeated to H: SDPA's layout."""
+    G = c["H"] // c["KH"]
+    return [t.repeat_interleave(G if t.shape[2] != c["H"] else 1, dim=2)
+            .transpose(1, 2).contiguous() for t in ts]
+
+
 def phase_kernel_flash_attention(dev, baseline=None):
+    """o and lse of the forward kernel against attention_fwd_ref; device
+    time against the bound, the plain version and one SDPA call on the
+    same q, k, v and masks without softcap."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import LAUNCHES
-    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_attention.ops import (
         cost,
         flash_attention_cuda,
@@ -1298,113 +1418,78 @@ def phase_kernel_flash_attention(dev, baseline=None):
     from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
     gen = torch.Generator(device=dev).manual_seed(0)
     old = _baseline("flash_attention", baseline)
-    results = {}
-    for c in FA_CASES:
-        dt = getattr(torch, c["dtype"])
-        B, Sq, Sk, H, KH, D = (c[k] for k in ("B", "Sq", "Sk", "H", "KH", "D"))
-        q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
-        k = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
-        v = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
-        seg_q = _segments(B, Sq, c.get("seg", 0), gen, dev)
-        seg_kv = seg_q if Sk == Sq else _segments(B, Sk, c.get("seg", 0),
-                                                  gen, dev)
-        kw = dict(causal=c["causal"], window=c["window"],
-                  softcap=c["softcap"], scale=c["scale"],
-                  q_offset=c["q_offset"], seg_q=seg_q, seg_kv=seg_kv)
-        kind = variant(dt, D)
-        counter = f"flash_attention.{kind}"
-        before = LAUNCHES[counter]
-        out = flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
-        if LAUNCHES[counter] != before + 1:
-            raise AssertionError(f"flash_attention case {c['name']} did not "
-                                 f"launch the {kind} kernel")
-        ref, lse_ref = attention_fwd_ref(q, k, v, **kw)
-        err = float((out.float() - ref.float()).abs().max())
-        finite = bool(torch.isfinite(out.float()).all())
-        out_l, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-        torch.cuda.synchronize()
-        live = torch.isfinite(lse_ref)
-        lse_err = (float((lse[live] - lse_ref[live]).abs().max())
-                   if live.any() else 0.0)
-        lse_inf_match = bool(torch.equal(torch.isfinite(lse), live))
-        out_l_same = bool(torch.equal(out_l, out))
-        old_c = old if seg_q is None else None   # an older C interface
-        baseline_err = (float((old_c(q, k, v, **kw).float() - ref.float())
-                              .abs().max()) if old_c else None)
-        del ref, lse_ref, out_l, lse
-        big = Sq * Sk > 4_000_000
-        ms = device_ms(lambda: flash_attention(q, k, v, **kw), 3 if big else 10)
-        host_ms = time_ms(lambda: flash_attention(q, k, v, **kw),
-                          3 if big else 10)
-        # one timed plain call at 32k (each takes 0.04-1.4 s on an H100)
-        plain_ms = time_ms(lambda: attention_ref(q, k, v, **kw),
-                           1 if Sq * Sk >= 2 ** 30 else 2 if big else 5)
-        baseline_ms = (device_ms(lambda: old_c(q, k, v, **kw),
-                                 3 if big else 10) if old_c else None)
 
-        # yardstick: one SDPA call, same q/k/v and masks, without softcap
-        mask = _mask(c, dev, seg_q, seg_kv)
-        qt = q.transpose(1, 2).contiguous()
-        kt = k.repeat_interleave(H // KH, dim=2).transpose(1, 2).contiguous()
-        vt = v.repeat_interleave(H // KH, dim=2).transpose(1, 2).contiguous()
+    def one(c):
+        q, k, v, _, kw, pairs, fields = _attention_case(c, gen, dev)
+        B, Sq, Sk, H, KH, D = (c[n] for n in ATTN_DIMS)
+        seg_q, kind = kw["seg_q"], variant(q.dtype, D)
+
+        def check(o, ref):
+            f = {"max_abs_err": float((o.float() - ref[0].float()).abs()
+                                      .max()), "tol": c["tol"],
+                 "finite": bool(torch.isfinite(o.float()).all())}
+            f["ok"] = f["finite"] and f["max_abs_err"] <= c["tol"]
+            return f
+
+        def lse_check(o, ref):
+            o_l, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+            live = torch.isfinite(ref[1])
+            f = {"lse_max_abs_err": (float((lse[live] - ref[1][live]).abs()
+                                           .max()) if live.any() else 0.0),
+                 "lse_tol": LSE_TOL[c["dtype"]],
+                 "lse_inf_rows_match": bool(torch.equal(torch.isfinite(lse),
+                                                        live)),
+                 "o_with_lse_equal": _same(o_l, o)}
+            f["ok"] = (f["lse_inf_rows_match"] and f["o_with_lse_equal"]
+                       and f["lse_max_abs_err"] <= f["lse_tol"])
+            return f
+        old_c = old if seg_q is None else None   # an older C interface
+
+        # yardstick: one SDPA call, same q/k/v and masks, without softcap:
+        # SDPA's own flags (is_causal or none) where they state the mask
+        # (no segment ids, no window that bites, a causal case square with
+        # no query offset), a window that bites as a bias
+        mask = _mask(c, dev, seg_q, kw["seg_kv"])
+        qt, kt, vt = _heads_first(c, q, k, v)
+        sdpa = functools.partial(F.scaled_dot_product_attention, qt, kt, vt,
+                                 scale=c["scale"])
+        bites = 0 < c["window"] < Sk
         lib, library = None, ("scaled_dot_product_attention, no softcap"
                               + (", segment mask as attn_mask"
                                  if seg_q is not None else ""))
-        if _sdpa_unmasked(c, seg_q):
-            def lib():
-                return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=c["causal"], scale=c["scale"])
-        elif _sdpa_window(c, seg_q):
+        if seg_q is None and not bites and (
+                not c["causal"] or (c["q_offset"] == 0 and Sq == Sk)):
+            lib = functools.partial(sdpa, is_causal=c["causal"])
+        elif seg_q is None and bites:
             lib, library = _sdpa_efficient(qt, kt, vt, mask, c["scale"])
         elif 2 * 4 * B * H * Sq * Sk <= SDPA_MASK_BYTES:
-            def lib():
-                return F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, scale=c["scale"])
+            lib = functools.partial(sdpa, attn_mask=mask)
         else:
             library = "none: the mask does not fit SDPA_MASK_BYTES"
-        library_ms, library = _library_ms(lib, library, 3 if big else 10)
-
-        pairs = int(mask.sum()) * (1 if seg_q is not None else B)
-        flops, nbytes = cost(B, Sq, Sk, H, KH, D, q.element_size(),
-                             causal=c["causal"], window=c["window"],
-                             q_offset=c["q_offset"],
-                             segments=seg_q is not None, live_pairs=pairs)
-        bound_ms, bound_by = _bound(flops, nbytes, c["dtype"])
-        ok = (finite and err <= c["tol"] and lse_inf_match and out_l_same
-              and lse_err <= LSE_TOL[c["dtype"]])
-        row = {"phase": "kernel flash_attention", "case": c["name"],
-               "shape": {n: c[n] for n in ("B", "Sq", "Sk", "H", "KH", "D")},
-               "causal": c["causal"], "window": c["window"],
-               "softcap": c["softcap"], "q_offset": c["q_offset"],
-               "scale": c["scale"], "dtype": c["dtype"], "variant": kind,
-               "segments": c.get("seg", 0),
-               "item_rows_used": ((H // KH) * min(Sq, WGMMA_ROWS // (H // KH))
-                                  if kind == "wgmma" else None),
-               "max_abs_err": err, "tol": c["tol"], "lse_max_abs_err": lse_err,
-               "lse_tol": LSE_TOL[c["dtype"]],
-               "lse_inf_rows_match": lse_inf_match,
-               "o_with_lse_equal": out_l_same, "ok": ok, "ms": ms,
-               "host_ms": host_ms, "tflops": flops / ms / 1e9,
-               "baseline_ms": baseline_ms,
-               "baseline_max_abs_err": baseline_err, "plain_ms": plain_ms,
-               "library_ms": library_ms, "library": library,
-               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-               "bound_ms": bound_ms, "bound_us": 1e3 * bound_ms,
-               "bound_by": bound_by,
-               "f32_matmul_precision": torch.get_float32_matmul_precision(),
-               "tf32": torch.backends.cuda.matmul.allow_tf32}
-        emit(row)
-        if not ok:
-            raise AssertionError(f"flash_attention case {c['name']}: "
-                                 f"max error {err} (tol {c['tol']}), lse "
-                                 f"error {lse_err}, -inf rows match "
-                                 f"{lse_inf_match}, o with lse equal "
-                                 f"{out_l_same}, finite={finite}")
-        results[c["name"]] = row
-        del q, k, v, out, qt, kt, vt, mask
-        torch.cuda.empty_cache()
-    return results
+        big = Sq * Sk > 4_000_000
+        return kernel_case(
+            "kernel flash_attention", c["name"],
+            kernel=lambda: flash_attention(q, k, v, **kw),
+            plain=lambda: attention_fwd_ref(q, k, v, **kw), check=check,
+            extra=lse_check,
+            cost=(*cost(B, Sq, Sk, H, KH, D, q.element_size(),
+                        causal=c["causal"], window=c["window"],
+                        q_offset=c["q_offset"], segments=seg_q is not None,
+                        live_pairs=pairs), c["dtype"]),
+            iters=3 if big else 10,
+            plain_iters=1 if Sq * Sk >= 2 ** 30 else 2 if big else 5,
+            counters=(f"flash_attention.{kind}",),
+            baseline=(old_c and (lambda: old_c(q, k, v, **kw)), lambda b: {
+                "baseline_max_abs_err": b and b["max_abs_err"]}),
+            library=(lib, library),
+            fields={**fields, "variant": kind,
+                    "item_rows_used": ((H // KH) * min(Sq, WGMMA_ROWS //
+                                                       (H // KH))
+                                       if kind == "wgmma" else None),
+                    "f32_matmul_precision":
+                        torch.get_float32_matmul_precision(),
+                    "tf32": torch.backends.cuda.matmul.allow_tf32})
+    return _kernel_phase(FA_CASES, one)
 
 
 def phase_kernel_flash_attention_bwd(dev, baseline=None):
@@ -1416,7 +1501,6 @@ def phase_kernel_flash_attention_bwd(dev, baseline=None):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.flash_attention.ops import (
         bwd_cost,
         bwd_variant,
@@ -1426,103 +1510,51 @@ def phase_kernel_flash_attention_bwd(dev, baseline=None):
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     gen = torch.Generator(device=dev).manual_seed(4)
     old = _baseline("flash_attention_bwd", baseline)
-    results = {}
-    for c in FA_BWD_CASES:
-        dt = getattr(torch, c["dtype"])
-        B, Sq, Sk, H, KH, D = (c[k] for k in ("B", "Sq", "Sk", "H", "KH", "D"))
-        q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
-        k = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
-        v = torch.randn((B, Sk, KH, D), generator=gen, device=dev).to(dt)
-        do = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
-        seg_q = _segments(B, Sq, c["seg"], gen, dev)
-        seg_kv = seg_q if Sk == Sq else _segments(B, Sk, c["seg"], gen, dev)
-        kw = dict(causal=c["causal"], window=c["window"],
-                  softcap=c["softcap"], scale=c["scale"],
-                  q_offset=c["q_offset"], seg_q=seg_q, seg_kv=seg_kv)
+
+    def one(c):
+        q, k, v, do, kw, live, fields = _attention_case(c, gen, dev, True)
+        B, Sq, Sk, H, KH, D = (c[n] for n in ATTN_DIMS)
         o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
-        kind = bwd_variant(dt, D)
-        before = LAUNCHES[f"flash_attention_bwd.{kind}"]
-        grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
-        again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
-        torch.cuda.synchronize()
-        if LAUNCHES[f"flash_attention_bwd.{kind}"] != before + 2:
-            raise AssertionError(f"flash_attention_bwd case {c['name']} did "
-                                 f"not launch the {kind} kernels")
-        bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
-        del again
-        refs = attention_bwd_ref(q, k, v, o, lse, do, **kw)
-        checks = {name: grad_check(a, r, c["dtype"])
-                  for name, a, r in zip(("dq", "dk", "dv"), grads, refs)}
-        base_checks = ({name: grad_check(a, r, c["dtype"]) for name, a, r in
-                        zip(("dq", "dk", "dv"),
-                            old(q, k, v, o, lse, do, **kw), refs)}
-                       if old else None)
-        del refs, grads
-        big = Sq * Sk * H * B > 20_000_000
-        ms = device_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,
-                                                        **kw), 5 if big else 20)
-        host_ms = time_ms(lambda: flash_attention_bwd_cuda(q, k, v, o, lse,
-                                                           do, **kw),
-                          5 if big else 20)
-        plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
-                                                     **kw), 2 if big else 5)
-        baseline_ms = (device_ms(lambda: old(q, k, v, o, lse, do, **kw),
-                                 5 if big else 20) if old else None)
+        args = (q, k, v, o, lse, do)
+        kind = bwd_variant(q.dtype, D)
 
         # yardstick: SDPA forward + backward at the same shape, causal as
         # the case, no softcap, no segments, kv heads repeated to H
-        with torch.enable_grad():
-            qt = q.transpose(1, 2).contiguous().requires_grad_(True)
-            kt = (k.repeat_interleave(H // KH, dim=2).transpose(1, 2)
-                  .contiguous().requires_grad_(True))
-            vt = (v.repeat_interleave(H // KH, dim=2).transpose(1, 2)
-                  .contiguous().requires_grad_(True))
-            dot = do.transpose(1, 2).contiguous()
+        qt, kt, vt = (t.requires_grad_(True)
+                      for t in _heads_first(c, q, k, v))
+        dot, = _heads_first(c, do)
 
-            def lib():
+        def lib():
+            with torch.enable_grad():
                 out = F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=c["causal"], scale=c["scale"])
                 return torch.autograd.grad(out, (qt, kt, vt), dot)
-            library = ("scaled_dot_product_attention forward + backward, "
-                       f"is_causal={c['causal']}, no softcap, no segments, "
-                       "kv heads repeated")
-            if 0 < c["window"] < c["Sk"]:   # the window as a bias
-                lib, library = _sdpa_efficient(qt, kt, vt, _mask(c, dev),
-                                               c["scale"], grad_of=dot)
-                library += ", no segments"
-            library_ms, library = _library_ms(lib, library, 5 if big else 20)
-        del qt, kt, vt, dot, lib
-
-        live = int(_mask(c, dev, seg_q, seg_kv).sum()) * (
-            1 if seg_q is not None else B)
-        flops, nbytes = bwd_cost(B, Sq, Sk, H, KH, D, q.element_size(),
-                                 causal=c["causal"], window=c["window"],
-                                 q_offset=c["q_offset"],
-                                 segments=seg_q is not None, live_pairs=live)
-        bound_ms, bound_by = _bound(flops, nbytes, c["dtype"])
-        ok = bitwise and all(ch["ok"] for ch in checks.values())
-        row = {"phase": "kernel flash_attention_bwd", "case": c["name"],
-               "shape": {n: c[n] for n in ("B", "Sq", "Sk", "H", "KH", "D")},
-               "causal": c["causal"], "window": c["window"],
-               "softcap": c["softcap"], "q_offset": c["q_offset"],
-               "scale": c["scale"], "dtype": c["dtype"], "variant": kind,
-               "segments": c["seg"],
-               "max_abs_err": max(ch["max_abs_err"] for ch in checks.values()),
-               "checks": checks, "bitwise_equal_calls": bitwise,
-               "ok": ok, "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
-               "baseline_ms": baseline_ms, "baseline_checks": base_checks,
-               "library_ms": library_ms, "library": library,
-               "live_pairs": live, "gflop": flops / 1e9,
-               "mbytes": nbytes / 1e6, "tflops": flops / ms / 1e9,
-               "baseline_tflops": baseline_ms and flops / baseline_ms / 1e9,
-               "bound_ms": bound_ms, "bound_by": bound_by}
-        emit(row)
-        if not ok:
-            raise AssertionError(f"flash_attention_bwd case {c['name']}: "
-                                 f"{checks}, bitwise {bitwise}")
-        results[c["name"]] = row
-        del q, k, v, do, o, lse
-        torch.cuda.empty_cache()
+        library = ("scaled_dot_product_attention forward + backward, "
+                   f"is_causal={c['causal']}, no softcap, no segments, "
+                   "kv heads repeated")
+        if 0 < c["window"] < c["Sk"]:   # the window as a bias
+            lib, library = _sdpa_efficient(qt, kt, vt, _mask(c, dev),
+                                           c["scale"], grad_of=dot)
+            library += ", no segments"
+        big = Sq * Sk * H * B > 20_000_000
+        return kernel_case(
+            "kernel flash_attention_bwd", c["name"],
+            kernel=lambda: flash_attention_bwd_cuda(*args, **kw),
+            plain=lambda: attention_bwd_ref(*args, **kw),
+            check=lambda g, r: _grad_checks(("dq", "dk", "dv"), g, r,
+                                            (c["dtype"],) * 3),
+            cost=(*bwd_cost(B, Sq, Sk, H, KH, D, q.element_size(),
+                            causal=c["causal"], window=c["window"],
+                            q_offset=c["q_offset"],
+                            segments=kw["seg_q"] is not None,
+                            live_pairs=live), c["dtype"]),
+            iters=5 if big else 20, plain_iters=2 if big else 5,
+            counters=(f"flash_attention_bwd.{kind}",),
+            repeat="bitwise_equal_calls",
+            baseline=(old and (lambda: old(*args, **kw)), _baseline_checks),
+            library=(lib, library),
+            fields={**fields, "variant": kind, "live_pairs": live})
+    results = _kernel_phase(FA_BWD_CASES, one)
     results["plan_eviction"] = _bwd_plan_eviction(dev, gen)
     return results
 
@@ -1536,7 +1568,8 @@ def _bwd_plan_eviction(dev, gen):
     """The wgmma backward at PLAN_SHAPES small shapes (B=1, S = 64 + 8 i,
     H=2, KH=1, D=64, causal), each against the plain version; then the
     first shape again, after its plan was evicted and is rebuilt: its
-    gradients must equal the first call's bitwise."""
+    gradients must equal the first call's bitwise.  No times: the shapes
+    are there for the launcher's plan cache."""
     import torch
 
     from repro_torch.kernels.flash_attention.ops import (
@@ -1555,22 +1588,19 @@ def _bwd_plan_eviction(dev, gen):
         o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
         args = (q, k, v, o, lse, do)
         grads = flash_attention_bwd_cuda(*args, **kw)
-        for a, r in zip(grads, attention_bwd_ref(*args, **kw)):
-            ch = grad_check(a, r, "bfloat16")
-            ok = ok and ch["ok"]
-            worst = max(worst, ch["rel_err"])
+        f = _grad_checks("qkv", grads, attention_bwd_ref(*args, **kw),
+                         ("bfloat16",) * 3)
+        ok = ok and f["ok"]
+        worst = max([worst] + [ch["rel_err"] for ch in f["checks"].values()])
         if first is None:
             first = (args, grads)
-    again = flash_attention_bwd_cuda(*first[0], **kw)
-    bitwise = all(torch.equal(a, b) for a, b in zip(again, first[1]))
-    row = {"phase": "kernel flash_attention_bwd", "case": "plan_eviction",
-           "shapes": PLAN_SHAPES, "worst_rel_err": worst,
-           "rel_tol": BWD_TOL["bfloat16"][0],
-           "bitwise_after_eviction": bitwise, "ok": ok and bitwise}
-    emit(row)
-    if not row["ok"]:
-        raise AssertionError(f"flash_attention_bwd plan eviction: {row}")
-    return row
+    bitwise = _same(flash_attention_bwd_cuda(*first[0], **kw), first[1])
+    return _emit_checked({"phase": "kernel flash_attention_bwd",
+                       "case": "plan_eviction", "shapes": PLAN_SHAPES,
+                       "worst_rel_err": worst,
+                       "rel_tol": BWD_TOL["bfloat16"][0],
+                       "bitwise_after_eviction": bitwise,
+                       "ok": ok and bitwise})
 
 
 # train phases: lm.train's arguments, kernel launches per train step, and
@@ -2166,10 +2196,7 @@ def phase_dryrun(of, reckoning, peak_gb, measured, hand, step_ms=None):
             / (step_s * HW.peak_flops),
             "card": _card()}
     row["ok"] = tally_equal and abs(rel) <= DRYRUN_PEAK_RTOL
-    emit(row)
-    if not row["ok"]:
-        raise AssertionError(f"dryrun of {of}: {row}")
-    return row
+    return _emit_checked(row, f"dryrun of {of}")
 
 
 def _launch_train_run(dev, argv):
@@ -2241,9 +2268,7 @@ def phase_launch_train(dev, reckonings):
            "steps_per_s": 1e3 / step_ms,
            "tokens_per_s": tokens / (step_ms / 1e3), "peak_mem_gb": peak_gb,
            "peak_limit_gb": ENS_PEAK_LIMIT_GB, "ok": ok}
-    emit(row)
-    if not ok:
-        raise AssertionError(f"launch train phase failed: {row}")
+    _emit_checked(row, "launch train phase")
     phase_dryrun("launch train", reckoning, peak_gb,
                  [s_["launches"] for s_ in steps], want, step_ms=step_ms)
     return launches
@@ -2411,9 +2436,7 @@ def phase_train_4k(dev, spec, reckonings):
                       "params": "launch.train's seed-0 state",
                       "peak_mem_gb": vs_peak, **vs_ref},
            "ok": ok}
-    emit(row)
-    if not ok:
-        raise AssertionError(f"train_4k phase failed: {row}")
+    _emit_checked(row, "train_4k phase")
     phase_dryrun(row["phase"], reckonings.get(f"train_4k {arch} {B}"),
                  peak_gb, [s_["launches"] for s_ in steps], spec["launches"],
                  step_ms=step_ms)
@@ -3482,49 +3505,29 @@ def phase_serve_ensemble(dev):
     return launches
 
 
-def _scan_check(name, case, kernel, plain, y_dtype, nbytes, flops, extra,
-                old=None):
-    """Run ``kernel`` and ``plain`` on the same inputs, compare (y, h_last),
-    time both (and ``old``, an earlier kernel, where given) and emit the
-    row."""
-    import torch
+SCAN_LIBRARY = "none: no single PyTorch call computes the recurrence"
+SCAN_BWD_LIBRARY = ("none: no single PyTorch call computes the gradient of "
+                    "the recurrence")
 
-    def errors(fn):
-        y, h = fn()
-        torch.cuda.synchronize()
-        return (float((y.float() - y_ref.float()).abs().max()),
-                float((h - h_ref).abs().max()),
-                bool(torch.isfinite(y.float()).all()
-                     and torch.isfinite(h).all()))
-    y_ref, h_ref = plain()
-    y_err, h_err, finite = errors(kernel)
-    scale = max(1.0, float(y_ref.float().abs().max()))
-    y_tol = 1e-4 if y_dtype == "float32" else 2.0 ** -7 * scale
-    ok = finite and y_err <= y_tol and h_err <= 1e-4
-    base_err = errors(old)[:2] if old else None
-    del y_ref, h_ref
-    ms = device_ms(kernel, 20)
-    host_ms = time_ms(kernel, 20)
-    baseline_ms = device_ms(old, 20) if old else None
-    # a 32k case's plain loop takes seconds a call: one, already warm
-    plain_ms = (time_ms(plain, 1, warmup=0) if case["T"] >= 32768
-                else time_ms(plain, 2))
-    bound_ms, bound_by = _bound(flops, nbytes, "float32")
-    row = {"phase": f"kernel {name}", "case": case["name"],
-           "shape": {k: v for k, v in case.items() if k != "name"},
-           "max_abs_err": y_err, "tol": y_tol, "h_last_err": h_err,
-           "h_last_tol": 1e-4, "ok": ok, "ms": ms, "host_ms": host_ms,
-           "baseline_ms": baseline_ms, "baseline_max_abs_err": base_err,
-           "plain_ms": plain_ms, "library_ms": None,
-           "library": "none: no single PyTorch call computes the recurrence",
-           "mbytes": nbytes / 1e6, "gflop": flops / 1e9,
-           "bound_ms": bound_ms, "bound_by": bound_by, **extra}
-    emit(row)
-    if not ok:
-        raise AssertionError(f"{name} case {case['name']}: y error {y_err} "
-                             f"(tol {y_tol}), h_last error {h_err} (tol 1e-4), "
-                             f"finite={finite}")
-    return row
+
+def _scan_fields(out, ref, dtype):
+    """A scan's (y, h_last) against the plain version's: y at 1e-4 in f32,
+    at one bf16 step of its largest value in bf16; h_last at 1e-4."""
+    import torch
+    (y, h), (y_ref, h_ref) = out, ref
+    y_err = float((y.float() - y_ref.float()).abs().max())
+    h_err = float((h - h_ref).abs().max())
+    finite = bool(torch.isfinite(y.float()).all() and torch.isfinite(h).all())
+    y_tol = (1e-4 if dtype == "float32"
+             else 2.0 ** -7 * max(1.0, float(y_ref.float().abs().max())))
+    return {"max_abs_err": y_err, "tol": y_tol, "h_last_err": h_err,
+            "h_last_tol": 1e-4, "finite": finite,
+            "ok": finite and y_err <= y_tol and h_err <= 1e-4}
+
+
+def _scan_baseline(b):
+    """A forward scan's baseline fields: its (y, h_last) errors."""
+    return {"baseline_max_abs_err": b and (b["max_abs_err"], b["h_last_err"])}
 
 
 def phase_kernel_linear_scan(dev, baseline=None):
@@ -3537,66 +3540,88 @@ def phase_kernel_linear_scan(dev, baseline=None):
     from repro_torch.kernels.rglru.ops import cost
     gen = torch.Generator(device=dev).manual_seed(1)
     old = _baseline("linear_scan", baseline)
-    results = {}
-    for c in LS_CASES:
+
+    def one(c):
         dt = getattr(torch, c["dtype"])
         B, T, C = c["B"], c["T"], c["C"]
         x = torch.randn((B, T, C), generator=gen, device=dev).to(dt)
         a = (0.5 + 0.49 * torch.rand((B, T, C), generator=gen,
                                      device=dev)).to(dt)
         h0 = torch.randn((B, C), generator=gen, device=dev)
-        flops, nbytes = cost(B, T, C, x.element_size())
-        first, again = linear_scan(x, a, h0), linear_scan(x, a, h0)
-        bitwise = all(map(torch.equal, first, again))
-        del first, again
-        results[c["name"]] = _scan_check(
-            "linear_scan", c, lambda: linear_scan(x, a, h0),
-            lambda: linear_scan_ref(x, a, h0), c["dtype"], nbytes,
-            flops, {"bitwise_equal_calls": bitwise,
-                    "blocks": -(-B * C // 32)},
-            old=(lambda: old(x, a, h0)) if old else None)
-        del x, a, h0
-        if not bitwise:
-            raise AssertionError(f"linear_scan case {c['name']}: two calls "
-                                 "differ")
-        torch.cuda.empty_cache()
-    return results
+        return kernel_case(
+            "kernel linear_scan", c["name"],
+            kernel=lambda: linear_scan(x, a, h0),
+            plain=lambda: linear_scan_ref(x, a, h0),
+            check=lambda out, ref: _scan_fields(out, ref, c["dtype"]),
+            cost=(*cost(B, T, C, x.element_size()), "float32"), iters=20,
+            plain_iters=2, counters=("linear_scan",),
+            repeat="bitwise_equal_calls",
+            baseline=(old and (lambda: old(x, a, h0)), _scan_baseline),
+            library=(None, SCAN_LIBRARY),
+            fields={"shape": {k: v for k, v in c.items() if k != "name"},
+                    "blocks": -(-B * C // 32)})
+    return _kernel_phase(LS_CASES, one)
+
+
+def _ss_inputs(c, gen, dev, cast=()):
+    """x, dt, A, Bm, C, D, h0 of a selective-scan case (Bm and C column
+    slices of one x_proj-shaped tensor), made in place; x and xdbc (the
+    x_proj output) drawn in the case's dtype, or where ``cast`` names them
+    in f32 and cast, as each phase always drew them: a draw of more than
+    2^31 bytes takes other numbers in f32 than in bf16."""
+    import torch
+    dt_ = getattr(torch, c["dtype"])
+    B, T, d, n = c["B"], c["T"], c["d"], c["n"]
+
+    def randn(name, shape):
+        if name in cast:
+            return torch.randn(shape, generator=gen, device=dev).to(dt_)
+        return torch.randn(shape, generator=gen, device=dev, dtype=dt_)
+    x = randn("x", (B, T, d))
+    dt = torch.rand((B, T, d), generator=gen, device=dev).mul_(0.099).add_(
+        1e-3)
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device=dev)[None].repeat(
+        d, 1)
+    xdbc = randn("xdbc", (B, T, DT_RANK + 2 * n))
+    Bm, Cc = xdbc[..., DT_RANK:DT_RANK + n], xdbc[..., DT_RANK + n:]
+    D = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
+    h0 = torch.randn((B, d, n), generator=gen, device=dev)
+    return x, dt, A, Bm, Cc, D, h0
 
 
 def phase_kernel_selective_scan(dev, baseline=None):
+    """(y, h_last) of the selective-scan kernel against selective_scan_ref
+    (Bm and C read in place as column slices); device time against the
+    bound and the special-function floor; then the long row."""
     import torch
 
     from repro_torch.kernels.mamba import selective_scan, selective_scan_ref
     from repro_torch.kernels.mamba.ops import cost, variant
     gen = torch.Generator(device=dev).manual_seed(2)
     old = _baseline("selective_scan", baseline)
-    results = {}
-    for c in SS_CASES:
-        dt_ = getattr(torch, c["dtype"])
+
+    def one(c):
+        args = _ss_inputs(c, gen, dev, cast=("x", "xdbc"))
+        x, Bm = args[0], args[3]
         B, T, d, n = c["B"], c["T"], c["d"], c["n"]
-        x = torch.randn((B, T, d), generator=gen, device=dev).to(dt_)
-        dt = 1e-3 + 0.099 * torch.rand((B, T, d), generator=gen, device=dev)
-        A = -torch.arange(1, n + 1, dtype=torch.float32,
-                          device=dev)[None].repeat(d, 1)
-        xdbc = torch.randn((B, T, DT_RANK + 2 * n), generator=gen,
-                           device=dev).to(dt_)
-        Bm, Cc = xdbc[..., DT_RANK:DT_RANK + n], xdbc[..., DT_RANK + n:]
-        D = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
-        h0 = torch.randn((B, d, n), generator=gen, device=dev)
-        args = (x, dt, A, Bm, Cc, D, h0)
-        flops, nbytes = cost(B, T, d, n, x.element_size(), Bm.element_size())
         exps = B * T * d * n
-        extra = {"variant": variant(n), "exponentials": exps,
-                 "exp_bound_ms": 1e3 * exps / PEAK_EXP,
-                 "bm_c": "column slices of one x_proj-shaped tensor, "
-                         "read in place through their strides"}
-        results[c["name"]] = _scan_check(
-            "selective_scan", c, lambda: selective_scan(*args),
-            lambda: selective_scan_ref(*args), c["dtype"], nbytes,
-            flops, extra,
-            old=(lambda: old(*args)) if old else None)
-        del x, dt, A, xdbc, Bm, Cc, D, h0, args
-        torch.cuda.empty_cache()
+        return kernel_case(
+            "kernel selective_scan", c["name"],
+            kernel=lambda: selective_scan(*args),
+            plain=lambda: selective_scan_ref(*args),
+            check=lambda out, ref: _scan_fields(out, ref, c["dtype"]),
+            cost=(*cost(B, T, d, n, x.element_size(), Bm.element_size()),
+                  "float32"), iters=20, plain_iters=2,
+            counters=("selective_scan",),
+            baseline=(old and (lambda: old(*args)), _scan_baseline),
+            library=(None, SCAN_LIBRARY),
+            fields={"shape": {k: v for k, v in c.items() if k != "name"},
+                    "variant": variant(n),
+                    "exponentials": exps,
+                    "exp_bound_ms": 1e3 * exps / PEAK_EXP,
+                    "bm_c": "column slices of one x_proj-shaped tensor, "
+                            "read in place through their strides"})
+    results = _kernel_phase(SS_CASES, one)
     results[SS_LONG["name"]] = _selective_scan_long_row(dev, gen)
     return results
 
@@ -3607,31 +3632,15 @@ def _selective_scan_long_row(dev, gen):
     alone from the state that a run on the first T - tail steps leaves (a
     run of at least 2^32 elements too); that tail run is held against the
     plain version.  x and dt are made in place, with no f32 copy of x and
-    no temporaries of dt's size."""
+    no temporaries of dt's size.  The whole run is timed once: it is ~35 GB
+    of inputs, and the plain version runs on the tail alone."""
     import torch
 
     from repro_torch.kernels.mamba import selective_scan, selective_scan_ref
     c = SS_LONG
-    B, T, d, n, tail = c["B"], c["T"], c["d"], c["n"], c["tail"]
-    T0 = T - tail
-    x = torch.randn((B, T, d), generator=gen, device=dev,
-                    dtype=torch.bfloat16)
-    dt = torch.rand((B, T, d), generator=gen, device=dev).mul_(0.099).add_(
-        1e-3)
-    A = -torch.arange(1, n + 1, dtype=torch.float32, device=dev)[None].repeat(
-        d, 1)
-    xdbc = torch.randn((B, T, DT_RANK + 2 * n), generator=gen,
-                       device=dev).to(torch.bfloat16)
-    Bm, Cc = xdbc[..., DT_RANK:DT_RANK + n], xdbc[..., DT_RANK + n:]
-    D = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
-    h0 = torch.randn((B, d, n), generator=gen, device=dev)
-    start, end = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-    start.record()
-    y, h_last = selective_scan(x, dt, A, Bm, Cc, D, h0)
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end)
+    T, d, T0 = c["T"], c["d"], c["T"] - c["tail"]
+    x, dt, A, Bm, Cc, D, h0 = _ss_inputs(c, gen, dev, cast=("xdbc",))
+    (y, h_last), ms = _once(lambda: selective_scan(x, dt, A, Bm, Cc, D, h0))
     y_tail = y[:, T0:].clone()
     del y
     y_head, h_head = selective_scan(x[:, :T0], dt[:, :T0], A, Bm[:, :T0],
@@ -3640,28 +3649,19 @@ def _selective_scan_long_row(dev, gen):
     tail_args = (x[:, T0:].contiguous(), dt[:, T0:].contiguous(), A,
                  Bm[:, T0:], Cc[:, T0:], D, h_head)
     del x, dt
-    torch.cuda.empty_cache()
     y_t, h_t = selective_scan(*tail_args)
-    y_r, h_r = selective_scan_ref(*tail_args)
-    torch.cuda.synchronize()
     bitwise = bool(torch.equal(y_t, y_tail) and torch.equal(h_t, h_last))
-    y_err = float((y_t.float() - y_r.float()).abs().max())
-    h_err = float((h_t - h_r).abs().max())
-    y_tol = 2.0 ** -7 * max(1.0, float(y_r.float().abs().max()))
-    ok = (bitwise and y_err <= y_tol and h_err <= 1e-4
-          and bool(torch.isfinite(y_t.float()).all()))
-    row = {"phase": "kernel selective_scan", "case": c["name"],
-           "shape": {k: c[k] for k in ("B", "T", "d", "n")},
-           "row_elements": T * d, "dtype": c["dtype"],
-           "tail_bitwise_equal": bitwise, "tail_max_abs_err": y_err,
-           "tol": y_tol, "tail_h_last_err": h_err, "h_last_tol": 1e-4,
-           "ok": ok, "ms": ms}
-    emit(row)
-    del tail_args, y_t, h_t, y_r, h_r, y_tail, h_last, h_head, xdbc, Bm, Cc
-    torch.cuda.empty_cache()
-    if not ok:
-        raise AssertionError(f"selective_scan long row: {row}")
-    return row
+    check = _scan_fields((y_t, h_t), selective_scan_ref(*tail_args),
+                         c["dtype"])
+    return _emit_checked({"phase": "kernel selective_scan", "case": c["name"],
+                       "shape": {k: c[k] for k in ("B", "T", "d", "n")},
+                       "row_elements": T * d, "dtype": c["dtype"],
+                       "tail_bitwise_equal": bitwise,
+                       "tail_max_abs_err": check["max_abs_err"],
+                       "tol": check["tol"],
+                       "tail_h_last_err": check["h_last_err"],
+                       "h_last_tol": 1e-4, "ok": bitwise and check["ok"],
+                       "ms": ms})
 
 
 # Scan backward cases: the train shapes of recurrentgemma-2b (a microbatch
@@ -3695,41 +3695,10 @@ SS_BWD_LONG = dict(name="long_row", B=1, T=2 ** 31 // 8192 + 256, d=8192,
                    n=16, dtype="bfloat16", tail=256)
 
 
-def _bwd_row(name, c, grads, again, refs, names, dtypes, nbytes, flops,
-             kernel, plain, extra, old=None):
-    """Check ``grads`` against ``refs`` and ``again`` bitwise, time
-    ``kernel`` and ``plain`` (and ``old``, an earlier kernel on the same
-    inputs, where given, with its checks), emit and return the row."""
-    import torch
-    checks = {n: grad_check(g, r, dt) for n, g, r, dt in
-              zip(names, grads, refs, dtypes)}
-    bitwise = all(torch.equal(a, b) for a, b in zip(grads, again))
-    base_checks = ({n: grad_check(g, r, dt) for n, g, r, dt in
-                    zip(names, old(), refs, dtypes)} if old else None)
-    ms = device_ms(kernel, 10)
-    baseline_ms = device_ms(old, 10) if old else None
-    host_ms = time_ms(kernel, 10)
-    plain_ms = time_ms(plain, 1)
-    bound_ms, bound_by = _bound(flops, nbytes, "float32")
-    ok = bitwise and all(ch["ok"] for ch in checks.values())
-    row = {"phase": f"kernel {name}", "case": c["name"],
-           "shape": {k: v for k, v in c.items() if k not in ("name",
-                                                             "dtype")},
-           "dtype": c["dtype"],
-           "max_abs_err": max(ch["max_abs_err"] for ch in checks.values()),
-           "checks": checks, "bitwise_equal_calls": bitwise, "ok": ok,
-           "ms": ms, "host_ms": host_ms, "baseline_ms": baseline_ms,
-           "baseline_checks": base_checks, "plain_ms": plain_ms,
-           "library_ms": None,
-           "library": "none: no single PyTorch call computes the gradient "
-                      "of the recurrence",
-           "mbytes": nbytes / 1e6, "gflop": flops / 1e9,
-           "bound_ms": bound_ms, "bound_by": bound_by, **extra}
-    emit(row)
-    if not ok:
-        raise AssertionError(f"{name} case {c['name']}: {checks}, bitwise "
-                             f"{bitwise}")
-    return row
+def _scan_bwd_fields(c):
+    return {"shape": {k: v for k, v in c.items() if k not in ("name",
+                                                              "dtype")},
+            "dtype": c["dtype"]}
 
 
 def phase_kernel_linear_scan_bwd(dev, baseline=None):
@@ -3740,7 +3709,6 @@ def phase_kernel_linear_scan_bwd(dev, baseline=None):
     an older source's time and checks where ``baseline`` names one)."""
     import torch
 
-    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.rglru import linear_scan_bwd_ref
     from repro_torch.kernels.rglru.ops import (
         bwd_cost,
@@ -3749,8 +3717,9 @@ def phase_kernel_linear_scan_bwd(dev, baseline=None):
     )
     gen = torch.Generator(device=dev).manual_seed(5)
     old = _baseline("linear_scan_bwd", baseline)
-    results = {}
-    for c in LS_BWD_CASES:
+    names = ("dx", "da", "dh0")
+
+    def one(c):
         dt = getattr(torch, c["dtype"])
         B, T, C = c["B"], c["T"], c["C"]
         x = torch.randn((B, T, C), generator=gen, device=dev).to(dt)
@@ -3761,30 +3730,24 @@ def phase_kernel_linear_scan_bwd(dev, baseline=None):
         dh = torch.randn((B, C), generator=gen, device=dev)
         y, _ = linear_scan_cuda(x, a, h0)
         args = (x, a, h0, y, dy, dh)
-        before = LAUNCHES["linear_scan_bwd"]
-        grads = linear_scan_bwd_cuda(*args)
-        again = linear_scan_bwd_cuda(*args)
-        torch.cuda.synchronize()
-        if LAUNCHES["linear_scan_bwd"] != before + 2:
-            raise AssertionError("linear_scan_bwd did not count its launches")
-        refs = linear_scan_bwd_ref(x, a, h0, dy, dh)
-        flops, nbytes = bwd_cost(B, T, C, x.element_size())
-        extra = {"blocks": -(-B * C // 32)}
-        if dt == torch.bfloat16:   # the states the gradient is taken at
-            extra["states_equal_forward_y"] = torch.equal(
-                _bwd_states(*args).to(dt), y)
-        results[c["name"]] = _bwd_row(
-            "linear_scan_bwd", c, grads, again, refs, ("dx", "da", "dh0"),
-            (c["dtype"], c["dtype"], "float32"), nbytes, flops,
-            lambda: linear_scan_bwd_cuda(*args),
-            lambda: linear_scan_bwd_ref(x, a, h0, dy, dh), extra,
-            old=(lambda: old(*args)) if old else None)
-        del x, a, h0, dy, dh, y, args, grads, again, refs
-        torch.cuda.empty_cache()
-        if extra.get("states_equal_forward_y") is False:
-            raise AssertionError("linear_scan_bwd: bf16 of the state pass's "
-                                 "hs differs from the forward's y")
-    return results
+        dtypes = (c["dtype"], c["dtype"], "float32")
+
+        def states(out, ref):   # the states the gradient is taken at
+            same = torch.equal(_bwd_states(*args).to(dt), y)
+            return {"states_equal_forward_y": same, "ok": same}
+        return kernel_case(
+            "kernel linear_scan_bwd", c["name"],
+            kernel=lambda: linear_scan_bwd_cuda(*args),
+            plain=lambda: linear_scan_bwd_ref(x, a, h0, dy, dh),
+            check=lambda g, r: _grad_checks(names, g, r, dtypes),
+            extra=states if dt == torch.bfloat16 else None,
+            cost=(*bwd_cost(B, T, C, x.element_size()), "float32"),
+            iters=10, plain_iters=1, counters=("linear_scan_bwd",),
+            repeat="bitwise_equal_calls",
+            baseline=(old and (lambda: old(*args)), _baseline_checks),
+            library=(None, SCAN_BWD_LIBRARY),
+            fields={**_scan_bwd_fields(c), "blocks": -(-B * C // 32)})
+    return _kernel_phase(LS_BWD_CASES, one)
 
 
 def _bwd_states(x, a, h0, y, dy, dh_last):
@@ -3808,36 +3771,11 @@ def _bwd_states(x, a, h0, y, dy, dh_last):
     return hs
 
 
-def _patched_ms(old, fn):
-    """Device ms of ``fn`` with ``old``'s constants set (None without
-    ``old``)."""
-    if not old:
-        return None
-    with old.patched():
-        return device_ms(fn, 10)
-
-
-def _ss_inputs(c, gen, dev, T=None):
-    """x, dt, A, Bm, C, D, h0 of a selective-scan case (Bm and C column
-    slices of one x_proj-shaped tensor), made in place."""
-    import torch
-    dt_ = getattr(torch, c["dtype"])
-    B, d, n = c["B"], c["d"], c["n"]
-    T = T or c["T"]
-    x = torch.randn((B, T, d), generator=gen, device=dev, dtype=dt_)
-    dt = torch.rand((B, T, d), generator=gen, device=dev).mul_(0.099).add_(
-        1e-3)
-    A = -torch.arange(1, n + 1, dtype=torch.float32, device=dev)[None].repeat(
-        d, 1)
-    xdbc = torch.randn((B, T, DT_RANK + 2 * n), generator=gen, device=dev,
-                       dtype=dt_)
-    Bm, Cc = xdbc[..., DT_RANK:DT_RANK + n], xdbc[..., DT_RANK + n:]
-    D = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
-    h0 = torch.randn((B, d, n), generator=gen, device=dev)
-    return x, dt, A, Bm, Cc, D, h0
-
-
 SS_GRADS = ("dx", "ddt", "dA", "dBm", "dC", "dD", "dh0")
+
+
+def _ss_grad_dtypes(dtype):
+    return (dtype, "float32", "float32", dtype, dtype, "float32", "float32")
 
 
 def phase_kernel_selective_scan_bwd(dev, baseline=None):
@@ -3849,7 +3787,6 @@ def phase_kernel_selective_scan_bwd(dev, baseline=None):
     row."""
     import torch
 
-    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.mamba import selective_scan_bwd_ref
     from repro_torch.kernels.mamba.ops import (
         BWD_CHANNELS,
@@ -3860,57 +3797,53 @@ def phase_kernel_selective_scan_bwd(dev, baseline=None):
     )
     gen = torch.Generator(device=dev).manual_seed(6)
     old = _baseline("selective_scan_bwd", baseline)
-    results = {}
-    for c in SS_BWD_CASES:
+
+    def one(c):
         args = _ss_inputs(c, gen, dev)
         x = args[0]
         B, T, d, n = c["B"], c["T"], c["d"], c["n"]
         dy = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
         dh = torch.randn(args[6].shape, generator=gen, device=dev)
         _, _, ckpt = selective_scan_cuda(*args, checkpoints=True)
-        ck_old = None
-        if old:     # the earlier kernel's checkpoints, at its interval
-            with old.patched():
-                _, _, ck_old = selective_scan_cuda(*args, checkpoints=True)
-        before = LAUNCHES["selective_scan_bwd"]
-        grads = selective_scan_bwd_cuda(*args, ckpt, dy, dh)
-        again = selective_scan_bwd_cuda(*args, ckpt, dy, dh)
-        torch.cuda.synchronize()
-        if LAUNCHES["selective_scan_bwd"] != before + 2:
-            raise AssertionError("selective_scan_bwd did not count its "
-                                 "launches")
-        refs = selective_scan_bwd_ref(*args, dy, dh)
-        flops, nbytes = bwd_cost(B, T, d, n, x.element_size(),
-                                 args[3].element_size())
+        dtypes = _ss_grad_dtypes(c["dtype"])
         # the function's exponentials, the recompute's and the reverse's
         # (the floor every row is held to), and those the kernel evaluates:
         # each of the recompute's once, over n padded to BWD_STATES
         exps = 2 * B * T * d * n
         design_exps = B * T * d * BWD_STATES
-        dtypes = (c["dtype"], "float32", "float32", c["dtype"], c["dtype"],
-                  "float32", "float32")
-        results[c["name"]] = _bwd_row(
-            "selective_scan_bwd", c, grads, again, refs, SS_GRADS, dtypes,
-            nbytes, flops,
-            lambda: selective_scan_bwd_cuda(*args, ckpt, dy, dh),
-            lambda: selective_scan_bwd_ref(*args, dy, dh),
-            {"variant": f"np{BWD_STATES}", "exponentials": exps,
-             "exp_bound_ms": 1e3 * exps / PEAK_EXP,
-             "design_exponentials": design_exps,
-             "design_exp_bound_ms": 1e3 * design_exps / PEAK_EXP,
-             "blocks": B * -(-d // BWD_CHANNELS),
-             "part_bc_mbytes": B * -(-d // BWD_CHANNELS) * T * 2 * BWD_STATES
-             * 4 / 1e6,
-             "checkpoint_mbytes": ckpt.numel() * 4 / 1e6,
-             # the forward that writes the checkpoints, at this kernel's
-             # interval and (with --baseline) the earlier kernel's
-             "forward_ckpt_ms": device_ms(
-                 lambda: selective_scan_cuda(*args, checkpoints=True), 10),
-             "baseline_forward_ckpt_ms": _patched_ms(
-                 old, lambda: selective_scan_cuda(*args, checkpoints=True))},
-            old=(lambda: old(*args, ck_old, dy, dh)) if old else None)
-        del args, x, dy, dh, ckpt, ck_old, grads, again, refs
-        torch.cuda.empty_cache()
+
+        def forward():   # writes the checkpoints, at this kernel's interval
+            return selective_scan_cuda(*args, checkpoints=True)
+        timed, ck_old = {"forward_ckpt_ms": forward}, None
+        if old:   # the earlier kernel, its checkpoints at its interval
+            def old_forward():
+                with old.patched():
+                    return forward()
+            timed["baseline_forward_ckpt_ms"] = old_forward
+            _, _, ck_old = old_forward()
+        return kernel_case(
+            "kernel selective_scan_bwd", c["name"],
+            kernel=lambda: selective_scan_bwd_cuda(*args, ckpt, dy, dh),
+            plain=lambda: selective_scan_bwd_ref(*args, dy, dh),
+            check=lambda g, r: _grad_checks(SS_GRADS, g, r, dtypes),
+            cost=(*bwd_cost(B, T, d, n, x.element_size(),
+                            args[3].element_size()), "float32"),
+            iters=10, plain_iters=1, counters=("selective_scan_bwd",),
+            repeat="bitwise_equal_calls",
+            baseline=(old and (lambda: old(*args, ck_old, dy, dh)),
+                      _baseline_checks),
+            library=(None, SCAN_BWD_LIBRARY), timed=timed,
+            fields={**_scan_bwd_fields(c), "variant": f"np{BWD_STATES}",
+                    "exponentials": exps,
+                    "exp_bound_ms": 1e3 * exps / PEAK_EXP,
+                    "design_exponentials": design_exps,
+                    "design_exp_bound_ms": 1e3 * design_exps / PEAK_EXP,
+                    "blocks": B * -(-d // BWD_CHANNELS),
+                    "part_bc_mbytes": B * -(-d // BWD_CHANNELS) * T * 2
+                    * BWD_STATES * 4 / 1e6,
+                    "checkpoint_mbytes": ckpt.numel() * 4 / 1e6,
+                    "baseline_forward_ckpt_ms": None})
+    results = _kernel_phase(SS_BWD_CASES, one)
     results[SS_BWD_LONG["name"]] = _selective_scan_bwd_long_row(dev, gen)
     return results
 
@@ -3920,7 +3853,8 @@ def _selective_scan_bwd_long_row(dev, gen):
     of the last ``tail`` steps (dx, ddt, dBm, dC) must equal, bitwise, a
     backward of those steps alone from the state the forward kept before
     them, with the same output gradients; that tail run is held against
-    the plain version."""
+    the plain version.  The whole backward is timed once: it is ~43 GB,
+    and the plain version runs on the tail alone."""
     import torch
 
     from repro_torch.kernels.mamba import selective_scan_bwd_ref
@@ -3939,13 +3873,7 @@ def _selective_scan_bwd_long_row(dev, gen):
     y, _, ckpt = selective_scan_cuda(*args, checkpoints=True)
     del y
     h_T0 = ckpt[:, T0 // CKPT_STEPS].contiguous()
-    start, end = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-    start.record()
-    full = selective_scan_bwd_cuda(*args, ckpt, dy, dh)
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end)
+    full, ms = _once(lambda: selective_scan_bwd_cuda(*args, ckpt, dy, dh))
     full_tail = [g[:, T0:].clone() for g in (full[0], full[1], full[3],
                                              full[4])]
     del full, ckpt
@@ -3954,29 +3882,18 @@ def _selective_scan_bwd_long_row(dev, gen):
                  Bm[:, T0:], Cc[:, T0:], D, h_T0)
     dy_t = dy[:, T0:].contiguous()
     del args, x, x_, dt_, dy
-    torch.cuda.empty_cache()
     _, _, ck_t = selective_scan_cuda(*tail_args, checkpoints=True)
     got = selective_scan_bwd_cuda(*tail_args, ck_t, dy_t, dh)
-    refs = selective_scan_bwd_ref(*tail_args, dy_t, dh)
-    torch.cuda.synchronize()
-    bitwise = all(torch.equal(a, b) for a, b in
-                  zip((got[0], got[1], got[3], got[4]), full_tail))
-    dtypes = (c["dtype"], "float32", "float32", c["dtype"], c["dtype"],
-              "float32", "float32")
-    checks = {n: grad_check(g, r, dt) for n, g, r, dt in
-              zip(SS_GRADS, got, refs, dtypes)}
-    ok = bitwise and all(ch["ok"] for ch in checks.values())
-    row = {"phase": "kernel selective_scan_bwd", "case": c["name"],
-           "shape": {k: c[k] for k in ("B", "T", "d", "n")},
-           "row_elements": T * c["d"], "dtype": c["dtype"],
-           "tail_bitwise_equal": bitwise, "tail_checks": checks, "ok": ok,
-           "ms": ms}
-    emit(row)
-    del tail_args, dy_t, ck_t, got, refs, full_tail, h_T0, dh
-    torch.cuda.empty_cache()
-    if not ok:
-        raise AssertionError(f"selective_scan_bwd long row: {row}")
-    return row
+    bitwise = _same([got[0], got[1], got[3], got[4]], full_tail)
+    check = _grad_checks(SS_GRADS, got, selective_scan_bwd_ref(
+        *tail_args, dy_t, dh), _ss_grad_dtypes(c["dtype"]))
+    return _emit_checked({"phase": "kernel selective_scan_bwd",
+                       "case": c["name"],
+                       "shape": {k: c[k] for k in ("B", "T", "d", "n")},
+                       "row_elements": T * c["d"], "dtype": c["dtype"],
+                       "tail_bitwise_equal": bitwise,
+                       "tail_checks": check["checks"],
+                       "ok": bitwise and check["ok"], "ms": ms})
 
 
 ROUTER = dict(base="qwen3-moe-30b-a3b", arch="qwen3-moe-30b-a3b-L1",
@@ -4068,79 +3985,62 @@ def _gmm_sizes(c, gen, dev, router):
                       for _ in range(n)])
 
 
+def _gmm_fields(c, kind, sizes):
+    live = sizes.clamp(0, c["C"])
+    return {"shape": {n: c[n] for n in ("E", "C", "D", "F")},
+            "dtype": c["dtype"], "variant": kind,
+            "live_rows": int(live.sum()),
+            "live_experts": int((live > 0).sum())}
+
 def phase_kernel_gmm(dev, router, baseline=None):
+    """y of the grouped-matmul kernel against gmm_ref: the variant by
+    ``ops.variant``, the library's rule and the launch counters, padding
+    rows exactly 0; device time against the bound and torch.bmm."""
     import torch
 
-    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.moe_gmm import gmm, gmm_ref
     from repro_torch.kernels.moe_gmm.ops import cost, kernel_variant, variant
     gen = torch.Generator(device=dev).manual_seed(3)
     old = _baseline("gmm", baseline)
-    results = {}
-    for c in GMM_CASES:
+
+    def one(c):
         dt = getattr(torch, c["dtype"])
         E, C, D, F = c["E"], c["C"], c["D"], c["F"]
         x = torch.randn((E, C, D), generator=gen, device=dev).to(dt)
         w = (0.02 * torch.randn((E, D, F), generator=gen, device=dev)).to(dt)
         sizes = _gmm_sizes(c, gen, dev, router)
         kind = variant(dt, E, C, D, F)
-        if kernel_variant(dt, E, C, D, F) != kind:
-            raise AssertionError(f"gmm case {c['name']}: the library's rule "
-                                 f"names {kernel_variant(dt, E, C, D, F)}, "
-                                 f"ops.variant {kind}")
-        before = LAUNCHES[f"gmm.{kind}"]
-        out = gmm(x, w, sizes)
-        torch.cuda.synchronize()
-        if LAUNCHES[f"gmm.{kind}"] != before + 1:
-            raise AssertionError(f"gmm case {c['name']} did not launch the "
-                                 f"{kind} kernel")
-        ref = gmm_ref(x, w, sizes)
-        scale = max(1.0, float(ref.float().abs().max()))
-        tol = 2.0 ** -7 * scale if c["dtype"] == "bfloat16" else 1e-4
         valid = torch.arange(C, device=dev)[None, :] < sizes[:, None]
 
-        def check(y):
-            return (float((y.float() - ref.float()).abs().max()),
-                    bool((y[~valid] == 0).all()),
-                    bool(torch.isfinite(y.float()).all()))
-        err, padding_zero, finite = check(out)
-        base_check = check(old(x, w, sizes)) if old else None
-        del ref
-        big = E * C * D > 10_000_000
-        ms = device_ms(lambda: gmm(x, w, sizes), 10 if big else 50)
-        host_ms = time_ms(lambda: gmm(x, w, sizes), 10 if big else 50)
-        baseline_ms = (device_ms(lambda: old(x, w, sizes), 10 if big else 50)
-                       if old else None)
-        plain_ms = time_ms(lambda: gmm_ref(x, w, sizes), 2 if big else 10)
-        library_ms = device_ms(lambda: torch.bmm(x, w), 10 if big else 50)
+        def check(y, ref):
+            tol = (2.0 ** -7 * max(1.0, float(ref.float().abs().max()))
+                   if c["dtype"] == "bfloat16" else 1e-4)
+            f = {"max_abs_err": float((y.float() - ref.float()).abs().max()),
+                 "tol": tol, "all_padding_zero": bool((y[~valid] == 0).all()),
+                 "finite": bool(torch.isfinite(y.float()).all())}
+            f["ok"] = (f["finite"] and f["all_padding_zero"]
+                       and f["max_abs_err"] <= tol)
+            return f
 
-        live_rows = int(sizes.sum())
-        live_experts = int((sizes > 0).sum())
-        flops, nbytes = cost(E, C, D, F, x.element_size(),
-                             live_rows=live_rows, live_experts=live_experts)
-        bound_ms, bound_by = _bound(flops, nbytes, c["dtype"])
-        ok = finite and padding_zero and err <= tol
-        row = {"phase": "kernel gmm", "case": c["name"],
-               "shape": {n: c[n] for n in ("E", "C", "D", "F")},
-               "dtype": c["dtype"], "variant": kind, "live_rows": live_rows,
-               "live_experts": live_experts, "max_abs_err": err, "tol": tol,
-               "all_padding_zero": padding_zero, "ok": ok, "ms": ms,
-               "host_ms": host_ms, "baseline_ms": baseline_ms,
-               "baseline_max_abs_err": base_check and base_check[0],
-               "baseline_padding_zero": base_check and base_check[1],
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "library": "torch.bmm in x's dtype over every row and expert",
-               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-               "bound_ms": bound_ms, "bound_by": bound_by}
-        emit(row)
-        if not ok:
-            raise AssertionError(f"gmm case {c['name']}: max error {err} > "
-                                 f"{tol}, padding rows zero={padding_zero}, "
-                                 f"finite={finite}")
-        results[c["name"]] = row
-        del x, w, sizes, out, valid
-        torch.cuda.empty_cache()
-    return results
+        fields = _gmm_fields(c, kind, sizes)
+        big = E * C * D > 10_000_000
+        return kernel_case(
+            "kernel gmm", c["name"], kernel=lambda: gmm(x, w, sizes),
+            plain=lambda: gmm_ref(x, w, sizes), check=check,
+            cost=(*cost(E, C, D, F, x.element_size(),
+                        live_rows=fields["live_rows"],
+                        live_experts=fields["live_experts"]), c["dtype"]),
+            iters=10 if big else 50, plain_iters=2 if big else 10,
+            counters=(f"gmm.{kind}",),
+            variants={"ops.variant": kind,
+                      "the library's rule": kernel_variant(dt, E, C, D, F)},
+            baseline=(old and (lambda: old(x, w, sizes)), lambda b: {
+                "baseline_max_abs_err": b and b["max_abs_err"],
+                "baseline_padding_zero": b and b["all_padding_zero"]}),
+            library=(lambda: torch.bmm(x, w),
+                     "torch.bmm in x's dtype over every row and expert"),
+            fields=fields)
+    return _kernel_phase(GMM_CASES, one)
 
 
 def phase_kernel_gmm_bwd(dev, router, baseline=None):
@@ -4153,7 +4053,6 @@ def phase_kernel_gmm_bwd(dev, router, baseline=None):
     ``baseline`` names one."""
     import torch
 
-    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.moe_gmm import gmm_bwd_ref
     from repro_torch.kernels.moe_gmm.ops import (
         bwd_cost,
@@ -4163,8 +4062,8 @@ def phase_kernel_gmm_bwd(dev, router, baseline=None):
     )
     gen = torch.Generator(device=dev).manual_seed(5)
     old = _baseline("gmm_bwd", baseline)
-    results = {}
-    for c in GMM_BWD_CASES:
+
+    def one(c):
         dt = getattr(torch, c["dtype"])
         E, C, D, F = c["E"], c["C"], c["D"], c["F"]
         x = torch.randn((E, C, D), generator=gen, device=dev).to(dt)
@@ -4176,87 +4075,44 @@ def phase_kernel_gmm_bwd(dev, router, baseline=None):
             x[~valid] = float("nan")
             dy[~valid] = float("nan")
         kind = bwd_variant(dt, E, C, D, F)
-        lib_kind = kernel_bwd_variant(dt, E, C, D, F)
-        if not kind == lib_kind == c["variant"]:
-            raise AssertionError(f"gmm_bwd case {c['name']}: ops.bwd_variant "
-                                 f"names {kind}, the library {lib_kind}, "
-                                 f"the case {c['variant']}")
-        names = ("gmm_bwd", "gmm_bwd.dx", "gmm_bwd.dw", f"gmm_bwd.{kind}")
-        before = [LAUNCHES[n] for n in names]
-        dx, dw = gmm_bwd_cuda(x, w, sizes, dy)
-        torch.cuda.synchronize()
-        if [LAUNCHES[n] for n in names] != [b + 1 for b in before]:
-            raise AssertionError(f"gmm_bwd case {c['name']} did not launch "
-                                 f"its {kind} kernels once each")
-        rx, rw = gmm_bwd_ref(x, w, sizes, dy)
 
-        def check(dx, dw, again):
-            """The measures of one kernel's (dx, dw) and a second call's."""
-            dx2, dw2 = again()
-            out = {"checks": {"dx": grad_check(dx, rx, c["dtype"]),
-                              "dw": grad_check(dw, rw, c["dtype"])},
-                   "bitwise_repeat": bool(torch.equal(dx, dx2)
-                                          and torch.equal(dw, dw2)),
-                   "dx_padding_rows_zero": bool((dx[~valid] == 0).all()),
-                   "dw_empty_experts_zero": bool((dw[sizes == 0] == 0).all())}
-            out["ok"] = all(v["ok"] for v in out["checks"].values()) and all(
-                out[k] for k in ("bitwise_repeat", "dx_padding_rows_zero",
-                                 "dw_empty_experts_zero"))
-            return out
-        mine = check(dx, dw, lambda: gmm_bwd_cuda(x, w, sizes, dy))
-        del dx, dw
-        base = None
-        if old:
-            base = check(*old(x, w, sizes, dy), lambda: old(x, w, sizes, dy))
-        del rx, rw
-        torch.cuda.empty_cache()
-        big = E * D * F > 100_000_000
-
-        def kernel():
-            return gmm_bwd_cuda(x, w, sizes, dy)
-
-        def library():
-            return torch.bmm(dy, w.mT), torch.bmm(x.mT, dy)
-        n_it = 5 if big else 20
-        ms = device_ms(kernel, n_it)
-        host_ms = time_ms(kernel, n_it)
-        dx_ms = device_ms(lambda: gmm_bwd_cuda(x, w, sizes, dy,
-                                               need_dw=False), n_it)
-        dw_ms = device_ms(lambda: gmm_bwd_cuda(x, w, sizes, dy,
-                                               need_dx=False), n_it)
-        baseline_ms = (device_ms(lambda: old(x, w, sizes, dy), n_it)
-                       if old else None)
-        plain_ms = time_ms(lambda: gmm_bwd_ref(x, w, sizes, dy), 2)
-        library_ms = device_ms(library, n_it)
-
-        live = sizes.clamp(0, C)
-        rows = int(live.sum())
-        live_experts = int((live > 0).sum())
-        flops, nbytes = bwd_cost(E, C, D, F, x.element_size(),
-                                 live_rows=rows, live_experts=live_experts)
-        bound_ms, bound_by = _bound(flops, nbytes, c["dtype"])
-        row = {"phase": "kernel gmm_bwd", "case": c["name"],
-               "shape": {n: c[n] for n in ("E", "C", "D", "F")},
-               "dtype": c["dtype"], "variant": kind, "live_rows": rows,
-               "live_experts": live_experts, **mine,
-               "max_abs_err": max(v["max_abs_err"]
-                                  for v in mine["checks"].values()),
-               "ms": ms, "dx_ms": dx_ms, "dw_ms": dw_ms,
-               "host_ms": host_ms, "baseline_ms": baseline_ms,
-               "baseline": base, "plain_ms": plain_ms,
-               "library_ms": library_ms,
-               "library": "torch.bmm(dy, w.mT) + torch.bmm(x.mT, dy) in x's "
-                          "dtype over every row and expert",
-               "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-               "tflops": flops / ms / 1e9,
-               "bound_ms": bound_ms, "bound_by": bound_by}
-        emit(row)
-        if not mine["ok"]:
-            raise AssertionError(f"gmm_bwd case {c['name']}: {row}")
-        results[c["name"]] = row
-        del x, w, dy, sizes, valid
-        torch.cuda.empty_cache()
-    return results
+        def check(grads, refs):
+            """The measures of one kernel's (dx, dw)."""
+            dx, dw = grads
+            f = _grad_checks(("dx", "dw"), grads, refs, (c["dtype"],) * 2)
+            f["dx_padding_rows_zero"] = bool((dx[~valid] == 0).all())
+            f["dw_empty_experts_zero"] = bool((dw[sizes == 0] == 0).all())
+            f["ok"] = (f["ok"] and f["dx_padding_rows_zero"]
+                       and f["dw_empty_experts_zero"])
+            return f
+        fields = _gmm_fields(c, kind, sizes)
+        n_it = 5 if E * D * F > 100_000_000 else 20
+        return kernel_case(
+            "kernel gmm_bwd", c["name"],
+            kernel=lambda: gmm_bwd_cuda(x, w, sizes, dy),
+            plain=lambda: gmm_bwd_ref(x, w, sizes, dy), check=check,
+            cost=(*bwd_cost(E, C, D, F, x.element_size(),
+                            live_rows=fields["live_rows"],
+                            live_experts=fields["live_experts"]),
+                  c["dtype"]),
+            iters=n_it, plain_iters=2,
+            counters=("gmm_bwd", "gmm_bwd.dx", "gmm_bwd.dw",
+                      f"gmm_bwd.{kind}"),
+            variants={"ops.bwd_variant": kind,
+                      "the library": kernel_bwd_variant(dt, E, C, D, F),
+                      "the case": c["variant"]},
+            repeat="bitwise_repeat",
+            baseline=(old and (lambda: old(x, w, sizes, dy)),
+                      lambda b: {"baseline": b}),
+            library=(lambda: (torch.bmm(dy, w.mT), torch.bmm(x.mT, dy)),
+                     "torch.bmm(dy, w.mT) + torch.bmm(x.mT, dy) in x's "
+                     "dtype over every row and expert"),
+            timed={"dx_ms": lambda: gmm_bwd_cuda(x, w, sizes, dy,
+                                                 need_dw=False),
+                   "dw_ms": lambda: gmm_bwd_cuda(x, w, sizes, dy,
+                                                 need_dx=False)},
+            fields=fields)
+    return _kernel_phase(GMM_BWD_CASES, one)
 
 
 @contextlib.contextmanager
@@ -5199,9 +5055,7 @@ def phase_long(dev, spec, reckonings):
         row.update({"reckoned_peak_gb": reckoned, "peak_rel_diff": rel,
                     "peak_rtol": DRYRUN_PEAK_RTOL, "card": _card()})
         row["ok"] = ok and rule["ok"] and abs(rel) <= DRYRUN_PEAK_RTOL
-        emit(row)
-        if not row["ok"]:
-            raise AssertionError(f"long {arch} {cell}: {row}")
+        _emit_checked(row, f"long {arch} {cell}")
         _release()
     if served:
         B = _long_batch(spec, "prefill_32k")
@@ -5248,9 +5102,7 @@ def phase_long(dev, spec, reckonings):
                         "check": f"{check['config']}, the wave's first "
                                  f"{check['rows']} of {B} rows"},
                "card": _card(), "ok": ok}
-        emit(row)
-        if not ok:
-            raise AssertionError(f"long {arch} prefill_32k: {row}")
+        _emit_checked(row, f"long {arch} prefill_32k")
     return paths
 
 
@@ -5557,9 +5409,7 @@ def phase_mesh(dev, refs):
     row = {"phase": "mesh", "backend": "nccl", "world": 1,
            "mesh": dict(zip(MESH["axes"], MESH["shape"])), "card": _card(),
            "parts": rows, "ok": all(r["ok"] for r in rows)}
-    emit(row)
-    if not row["ok"]:
-        raise AssertionError(f"mesh phase failed: {row}")
+    _emit_checked(row, "mesh phase")
     out = {}
     for r in rows:
         per = r.get("launches_per_step") or [r["launches"]]
@@ -5883,14 +5733,12 @@ def phase_mesh_tp(dev, refs, reckonings):
         row["ok"] = (row["ok"] and abs(rel) <= MESH_TP_PEAK_RTOL
                      and row["peak_gb"] < one
                      and rec["kernel_calls"] == row["launches_expected"])
-    emit({"phase": "mesh tp", "backend": "gloo", "world": 2,
-          "mesh": dict(zip(MESH_TP["axes"], MESH_TP["shape"])),
-          "card": _card(), "wall_s": wall,
-          "rank_seconds": [rk["seconds"] for rk in ranks],
-          "staged": [rk["staged"] for rk in ranks], "parts": rows,
-          "ok": all(r["ok"] for r in rows)})
-    if not all(r["ok"] for r in rows):
-        raise AssertionError("mesh tp part failed")
+    _emit_checked({"phase": "mesh tp", "backend": "gloo", "world": 2,
+                   "mesh": dict(zip(MESH_TP["axes"], MESH_TP["shape"])),
+                   "card": _card(), "wall_s": wall,
+                   "rank_seconds": [rk["seconds"] for rk in ranks],
+                   "staged": [rk["staged"] for rk in ranks], "parts": rows,
+                   "ok": all(r["ok"] for r in rows)}, "mesh tp part")
     launches = {}
     for r in rows:
         per = r.get("launches_per_step") or [r["launches"]]
@@ -5988,9 +5836,7 @@ def phase_examples(dev):
     _release()
     row = {"phase": "examples", "parts": rows,
            "ok": all(r["ok"] for r in rows)}
-    emit(row)
-    if not row["ok"]:
-        raise AssertionError("examples phase failed")
+    _emit_checked(row, "examples phase")
     out = {}
     for r in rows:
         for name, c in r["launches"].items():
@@ -6017,6 +5863,10 @@ def _phases(dev, baselines, reckonings):
         # one router's full-width layer at a time on the card
         router = {**_router_sizes(dev),
                   **_router_sizes(dev, GROK_ROUTER, _long_router_rows)}
+        # what lives now lives to the end (the modules that torch and the
+        # port import, the routers' sizes): _release's collections, after
+        # every phase, no longer scan it
+        gc.freeze()
         cases = {"flash_attention": phase_kernel_flash_attention(
                      dev, baselines.get("flash_attention")),
                  "linear_scan": phase_kernel_linear_scan(
@@ -6035,74 +5885,56 @@ def _phases(dev, baselines, reckonings):
         dev, baselines.get("flash_attention_bwd"))
     _release()
     launches = {name: {} for name in KERNELS}
+
+    def add(counts, path=None):
+        """Keep a main path's launches: {kernel: n} of ``path``, or
+        {kernel: {path: n}}."""
+        for name, n in counts.items():
+            if name in launches:
+                launches[name].update(n if path is None else {path: n})
     emit({"phase": "dryrun", "workers": DRYRUN_WORKERS,
           "waited_s": reckonings.wait()})
     refs = {}   # the unsharded rows the mesh phase is held against
     for spec in TRAIN_PHASES:
         row = phase_train(dev, spec)
         refs[row["phase"]] = row
-        for name, n in row["launches"].items():
-            if name in launches:
-                launches[name][row["phase"]] = n
+        add(row["launches"], row["phase"])
         phase_dryrun(row["phase"], reckonings.get(row["phase"]),
                      row["peak_mem_gb"],
                      [s_["launches"] for s_ in row["steps_run"]],
                      spec["launches"], step_ms=row["step_ms_steady"])
     for spec in TRAIN_4K:
-        for name, n in phase_train_4k(dev, spec, reckonings).items():
-            if name in launches:
-                launches[name][f"train_4k {spec['arch']}"] = n
-    for name, n in phase_launch_train(dev, reckonings).items():
-        if name in launches:
-            launches[name]["launch train"] = n
-    for name, n in phase_ensemble(dev).items():
-        if name in launches:
-            launches[name]["ensemble"] = n
-    for name, n in phase_federation(dev).items():
-        if name in launches:
-            launches[name]["federation"] = n
+        add(phase_train_4k(dev, spec, reckonings), f"train_4k {spec['arch']}")
+    add(phase_launch_train(dev, reckonings), "launch train")
+    add(phase_ensemble(dev), "ensemble")
+    add(phase_federation(dev), "federation")
     for spec in (FUSED, FUSED_MOE):
         rows = []
-        for name, n in phase_fused(dev, spec, rows).items():
-            if name in launches:
-                launches[name][f"fused {spec['arch']}"] = n
+        add(phase_fused(dev, spec, rows), f"fused {spec['arch']}")
         phase_dryrun(f"fused {spec['arch']}",
                      reckonings.get(f"fused {spec['arch']}"),
                      rows[0]["peak_mem_gb"],
                      [c_["launches"] for c_ in rows[0]["fused_cycles"]],
                      rows[0]["launches_per_cycle_expected"])
-    for name, n in phase_serve_ensemble(dev).items():
-        if name in launches:
-            launches[name]["serve_ensemble"] = n
+    add(phase_serve_ensemble(dev), "serve_ensemble")
     with torch.inference_mode():
         for arch, loop, per_prefill, per_decode in SERVE:
             row = phase_serve(dev, arch, loop, per_prefill, per_decode)
             refs[row["phase"]] = row
-            for name, n in row["launches"].items():
-                if n and name in launches:
-                    launches[name][arch] = n
+            add({k: n for k, n in row["launches"].items() if n}, arch)
             if row["stub_inputs"]:   # build_prefill_step with them
-                for name, n in row["checked_prefill_launches"].items():
-                    if name in launches:
-                        launches[name][f"{arch} prefill, stub inputs"] = n
+                add(row["checked_prefill_launches"],
+                    f"{arch} prefill, stub inputs")
             _release()
         for spec in LONG:
             for path, counts in phase_long(dev, spec, reckonings).items():
-                for name, n in counts.items():
-                    if name in launches:
-                        launches[name][path] = n
+                add(counts, path)
             _release()
         phase_task(dev)
         phase_continuous(dev)
-    for name, paths in phase_mesh(dev, refs).items():
-        if name in launches:
-            launches[name].update(paths)
-    for name, paths in phase_mesh_tp(dev, refs, reckonings).items():
-        if name in launches:
-            launches[name].update(paths)
-    for name, paths in phase_examples(dev).items():
-        if name in launches:
-            launches[name].update(paths)
+    add(phase_mesh(dev, refs))
+    add(phase_mesh_tp(dev, refs, reckonings))
+    add(phase_examples(dev))
     return launches, cases
 
 

@@ -8,7 +8,12 @@
 * ``python tests/_timings.py phases SMOKE.out [OTHER.out]``:
   ``chip_smoke.py``'s total and its longest phases, each phase the step of
   ``script_s`` from the row before it; given a second run's output, each
-  phase in both and their difference, the largest first.
+  phase in both and their difference, the largest first.  Then each run's
+  seconds per group (each ``kernel <name>`` phase, their sum, ``build``,
+  ``train``, ``train_4k``, ``long``, ``serve``, ``serve_ensemble``,
+  ``mesh`` with ``mesh tp``, and the rest) and its host gauge: the plain
+  ``linear_scan`` serve case's ``plain_ms``, which says how slow the
+  run's host was.
 * ``python tests/_timings.py sample OUT.json [ARGS...]`` (from the
   repository's root, on the card): ``chip_smoke.py`` with its main
   thread's stack sampled every 0.1 s; OUT.json gets the samples per
@@ -66,12 +71,52 @@ def _steps(path):
     return steps, last
 
 
+GROUPS = ("build", "train", "train_4k", "long", "serve", "serve_ensemble",
+          "mesh")
+
+
+def groups(path):
+    """({group: seconds}, the last ``script_s``, the host gauge): each
+    row's step of ``script_s`` summed by its phase's group."""
+    out, last, gauge = {}, 0.0, None
+    for line in Path(path).read_text().splitlines():
+        if not (line.startswith("{") and '"script_s"' in line):
+            continue
+        r = json.loads(line)
+        word = r["phase"].split()[0]
+        group = (r["phase"] if word == "kernel"
+                 else word if word in GROUPS else "rest")
+        out[group] = out.get(group, 0.0) + r["script_s"] - last
+        last = r["script_s"]
+        if r["phase"] == "kernel linear_scan" and r.get("case") == "serve":
+            gauge = r["plain_ms"]
+    return out, last, gauge
+
+
+def _print_groups(paths):
+    runs = [groups(p) for p in paths]
+    names = sorted({name for by_group, _, _ in runs for name in by_group},
+                   key=lambda g: (not g.startswith("kernel"), g))
+    for name in names:
+        print(f"  {name:34}" + "".join(f" {g.get(name, 0.0):8.2f}"
+                                       for g, _, _ in runs))
+    print(f"  {'kernel phases':34}" + "".join(
+        f" {sum(v for k, v in g.items() if k.startswith('kernel')):8.2f}"
+        for g, _, _ in runs))
+    print(f"  {'whole script':34}" + "".join(f" {t:8.2f}"
+                                             for _, t, _ in runs))
+    print(f"  {'gauge (plain linear_scan serve, ms)':34}" + "".join(
+        f" {gauge:8.2f}" if gauge is not None else "      n/a"
+        for _, _, gauge in runs))
+
+
 def phases(path, other=None, top=10):
     a, total = _steps(path)
     if other is None:
         print(f"{len(a)} rows, last at {total:.2f} s")
         for label, dt in sorted(a.items(), key=lambda kv: -kv[1])[:top]:
             print(f"  {dt:8.2f}  {label}")
+        _print_groups([path])
         return
     b, total_b = _steps(other)
     print(f"last row at {total:.2f} and {total_b:.2f} s "
@@ -80,6 +125,7 @@ def phases(path, other=None, top=10):
     for d, label in sorted(rows, key=lambda r: -abs(r[0]))[:top]:
         print(f"  {a.get(label, 0.0):8.2f} {b.get(label, 0.0):8.2f} "
               f"{d:+8.2f}  {label}")
+    _print_groups([path, other])
 
 
 def _where(frame) -> str:
