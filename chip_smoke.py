@@ -56,6 +56,20 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  (every one a hand kernel); then one microbatch's loss,
                  grad norm and leaf grads against ``impl="ref"`` (on the
                  eval's batch, which no step saw)
+  train gemma2-2b-dots
+                 (after the other train phases) the same config under
+                 remat="dots" (the reference's
+                 dots_with_no_batch_dims_saveable: each block keeps its
+                 products' outputs; registered by the script), 2 steps
+                 from the same seed-0 state and batches: losses within
+                 1e-6 of ``train gemma2-2b``'s first two (bitwise
+                 expected), its flash launches a step (the attention is
+                 recomputed as under "full"), the warm step ms and peak
+                 beside that phase's; then one microbatch's loss and
+                 every gradient leaf against remat="full" on the same
+                 params with the kernels (largest relative Frobenius
+                 distance within 1e-6, bitwise expected); its dryrun row
+                 holds the peak within 1%
   train recurrentgemma-2b, train falcon-mamba-7b-L24
                  the same for the scan archs (full-width recurrentgemma-2b;
                  falcon-mamba-7b cut to 24 layers, one microbatch), 2
@@ -97,7 +111,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
                  tensors on the meta device, nothing allocated, computed
                  in worker processes that see no card while the kernel
                  phases run): the reckoned peak beside
-                 max_memory_allocated (within 5%), the flash backward's
+                 max_memory_allocated (within 5%; 1% for the dots phase),
+                 the flash backward's
                  C-side bytes on their own, the tally of
                  kernel calls beside each step's (cycle's) measured
                  launches and the hand counts (equal); for the train
@@ -1615,6 +1630,12 @@ def _bwd_plan_eviction(dev, gen):
 # distance) by a few bf16 steps, 0.05.
 TRAIN_LOSS_TOL = 0.01
 TRAIN_GRAD_RTOL = 0.05
+# The dots phase against remat="full" (losses, gradients: the policy
+# changes what the backward pass keeps, not what it computes, so bitwise
+# is expected) and its dry-run peak (the full phase's reads within 0.5%
+# on an H100)
+DOTS_RTOL = 1e-6
+DOTS_PEAK_RTOL = 0.01
 # A phase's "f32_held" leaves have gradients that bf16 cannot resolve
 # after its steps: whisper-large-v3's cross-attention q and k projections,
 # whose true gradient falls 1000x in two AdamW steps (its cross-attention
@@ -1746,18 +1767,37 @@ TRAIN_PHASES = [
          launches=_launches(flash=(INTERNVL_LAYERS, 4)), mixer="attn",
          picked=("wq", "wk", "wv", "wo", "mlp/wi", "mlp/wo", "head"),
          f32_held=("wq", "wk", "wv", "wo", "mlp/wi", "mlp/wo")),
+    # gemma2-2b under remat="dots" (the JAX package's other policy),
+    # registered by the script, at the first phase's shape and seeds: its
+    # losses, launches, step ms and peak beside that phase's, one
+    # microbatch's gradients against remat="full" (_vs_full), its dry-run
+    # peak within DOTS_PEAK_RTOL.  Under "dots" each layer keeps q, k, v,
+    # attention out, MLP wi, wg and wo (27,136 bf16 values a token, 2.9 GB
+    # over 26 layers at one microbatch of 2 x 1024); the attention, a
+    # product with batch dimensions, is recomputed as under "full"
+    dict(arch="gemma2-2b-dots", base="gemma2-2b", remat="dots", steps=2,
+         decode=False, launches=_launches(flash=(26, 2)),
+         peak_rtol=DOTS_PEAK_RTOL),
 ]
 
 
-def _cut_cfg(name, base, layers):
+def _cut_cfg(name, base, layers=None, **fields):
     """Config ``name``: the full-width ``base`` config at ``layers``
-    layers, registered once."""
+    layers (its own depth where None), ``fields`` replaced, registered
+    once."""
     from repro_torch.configs import get_config, register
     try:
         return get_config(name)
     except KeyError:
-        return register(get_config(base).replace(name=name,
-                                                 num_layers=layers))
+        cfg = get_config(base)
+        return register(cfg.replace(name=name,
+                                    num_layers=layers or cfg.num_layers,
+                                    **fields))
+
+
+def _spec_fields(spec) -> dict:
+    """The config fields a train phase sets on its base: its remat."""
+    return {"remat": spec["remat"]} if "remat" in spec else {}
 
 
 @contextlib.contextmanager
@@ -1802,6 +1842,31 @@ def _recording_sizes(out):
         layers.gmm = real
 
 
+def _loss_grads(cfg, params, leaves, batch, impl=None,
+                forward=contextlib.nullcontext):
+    """``cfg``'s train loss (remat) of ``batch`` on ``params`` (f32
+    masters) and its backward pass: (the loss, the gradients of
+    ``leaves``, every leaf of ``params``, in that order).  ``forward()``
+    is the context of the forward pass alone, not of its recompute; the
+    leaves are left as they came."""
+    from repro_torch.train import compute_cast
+    from repro_torch.train.step import lm_loss
+
+    for p in leaves:
+        p.requires_grad_(True)
+        p.grad = None
+    try:
+        with forward():
+            loss, _, _ = lm_loss(cfg, compute_cast(cfg, params), batch,
+                                 impl, remat=True)
+        loss.backward()
+        return float(loss.detach()), [p.grad for p in leaves]
+    finally:
+        for p in leaves:
+            p.grad = None
+            p.requires_grad_(False)
+
+
 def _vs_ref(cfg, params, mb, spec):
     """The batch ``mb`` through ``cfg``'s train loss (remat) with the
     kernels and with ``impl="ref"``, in turn, on ``params`` (f32 masters):
@@ -1816,8 +1881,6 @@ def _vs_ref(cfg, params, mb, spec):
     import torch
 
     from repro_torch.optim.adamw import global_norm, tree_leaves
-    from repro_torch.train import compute_cast
-    from repro_torch.train.step import lm_loss
 
     def pick(w):
         """(its name in the row, the leaf) of a picked name."""
@@ -1840,26 +1903,20 @@ def _vs_ref(cfg, params, mb, spec):
     # near-ties can route a few assignments differently in the two
     routed = {}
 
+    leaves = list(tree_leaves(params))
+
     def grads_of(impl, tag, routes, replay=False, c=cfg, batch=mb):
-        leaves = list(tree_leaves(params))
-        for p in leaves:
-            p.requires_grad_(True)
-            p.grad = None
-        try:
-            with _routing(routes, replay):   # the recompute's top-k too
-                with _recording_sizes(routed.setdefault(tag, [])):
-                    loss, _, _ = lm_loss(c, compute_cast(c, params), batch,
-                                         impl, remat=True)
-                loss.backward()
-            with torch.no_grad():
-                norm = float(global_norm([p.grad for p in leaves]))
-                out = {n: t.grad.clone() for n, t in picked.items()}
-        finally:
-            for p in leaves:
-                p.grad = None
-                p.requires_grad_(False)
+        with _routing(routes, replay):   # the recompute's top-k too
+            loss, grads = _loss_grads(
+                c, params, leaves, batch, impl, functools.partial(
+                    _recording_sizes, routed.setdefault(tag, [])))
+        with torch.no_grad():
+            norm = float(global_norm(grads))
+            of = {id(p): g for p, g in zip(leaves, grads)}
+            out = {n: of[id(t)] for n, t in picked.items()}
+        del grads, of
         _release()
-        return float(loss.detach()), norm, out
+        return loss, norm, out
 
     def rel(a, b):
         return {n: float((a[n] - b[n]).norm() / b[n].norm()) for n in picked}
@@ -1918,12 +1975,46 @@ def _vs_ref(cfg, params, mb, spec):
     return vs, ok
 
 
-def phase_train(dev, spec=TRAIN_PHASES[0]):
+def _vs_full(cfg, params, mb):
+    """The batch ``mb`` through ``cfg``'s train loss (remat) under its
+    policy ("dots") and under "full", in turn, with the kernels, on
+    ``params``: the losses and every gradient leaf, the largest relative
+    Frobenius distance within DOTS_RTOL (bitwise expected).  Returns (the
+    row's ``vs_full`` fields, ok)."""
+    import torch
+
+    from repro_torch.dist.sharding import tree_map_with_path
+    named = []
+    tree_map_with_path(lambda p, t: named.append(("/".join(p), t)), params)
+    leaves = [t for _, t in named]
+    loss_d, g_d = _loss_grads(cfg, params, leaves, mb)
+    loss_f, g_f = _loss_grads(cfg.replace(remat="full"), params, leaves, mb)
+    with torch.no_grad():
+        rel = [float((a - b).norm() / b.norm()) if b.norm() > 0
+               else float(a.norm()) for a, b in zip(g_d, g_f)]
+        bitwise = all(torch.equal(a, b) for a, b in zip(g_d, g_f))
+    del g_d, g_f
+    _release()
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    loss_rel = abs(loss_d - loss_f) / abs(loss_f)
+    vs = {"remat": cfg.remat, "against": "full", "loss": loss_d,
+          "loss_full": loss_f, "loss_rel": loss_rel, "leaves": len(rel),
+          "grad_rel_frobenius_max": rel[worst],
+          "worst_leaf": named[worst][0], "bitwise": bitwise,
+          "rtol": DOTS_RTOL}
+    return vs, loss_rel <= DOTS_RTOL and rel[worst] <= DOTS_RTOL
+
+
+def phase_train(dev, spec=TRAIN_PHASES[0], refs=None):
     """``spec["steps"]`` lm.train tasks of one step each at
     profile_train.TRAIN's batch and sequence (``spec`` may set its own
     microbatches), exact kernel launches a step, ``lm.eval`` (and
     ``lm.decode`` where ``spec["decode"]``), then one microbatch's loss,
-    grad norm and the layer-0 mixer's leaf grads against ``impl="ref"``."""
+    grad norm and the layer-0 mixer's leaf grads against ``impl="ref"``.
+    A spec with ``remat`` (its base config under that policy) is held
+    against its base's row in ``refs`` instead: the same losses and
+    launches a step, and one microbatch's loss and gradients against
+    remat="full" (``_vs_full``)."""
     import torch
 
     from repro_torch.configs.base import ShapeSpec
@@ -1935,7 +2026,8 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
     from repro_torch.plugins import lm
 
     if "base" in spec:
-        _cut_cfg(spec["arch"], spec["base"], spec["layers"])
+        _cut_cfg(spec["arch"], spec["base"], spec.get("layers"),
+                 **_spec_fields(spec))
     mbs = spec.get("microbatches", TRAIN["microbatches"])
     args = {"arch": spec["arch"], "device": str(dev), "steps": 1,
             "batch": TRAIN["batch"], "seq": TRAIN["seq"],
@@ -1998,7 +2090,10 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
                                     TRAIN["batch"]), seed=1,
                      device=dev).batch_at(0)
     mb = {n: t[:TRAIN["batch"] // mbs] for n, t in mb.items()}
-    vs_ref, vs_ok = _vs_ref(cfg, params, mb, spec)
+    if "remat" in spec:
+        vs_key, (vs, vs_ok) = "vs_full", _vs_full(cfg, params, mb)
+    else:
+        vs_key, (vs, vs_ok) = "vs_ref", _vs_ref(cfg, params, mb, spec)
 
     losses = [s_["loss"] for s_ in steps]
     per_step_ok = all(s_["launches"] == want_step for s_ in steps)
@@ -2008,6 +2103,20 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
     ok = (all(map(math.isfinite, losses)) and per_step_ok and decode_ok
           and math.isfinite(eval_out["loss"]) and vs_ok
           and peak_gb <= ENS_PEAK_LIMIT_GB)
+    base = None
+    if "remat" in spec:   # beside its base config's phase of this run
+        b = refs[f"train {spec['base']}"]
+        base = {"phase": b["phase"], "remat": b["remat"],
+                "losses": b["losses"][:steps_n],
+                "step_ms_steady": b["step_ms_steady"],
+                "peak_mem_gb": b["peak_mem_gb"],
+                "peak_over_base_gb": peak_gb - b["peak_mem_gb"],
+                "launches_per_step": b["steps_run"][0]["launches"]}
+        base["loss_rel"] = max(abs(a - w) / abs(w) for a, w in
+                               zip(losses, base["losses"]))
+        base["same_launches"] = all(
+            s_["launches"] == base["launches_per_step"] for s_ in steps)
+        ok = ok and base["loss_rel"] <= DOTS_RTOL and base["same_launches"]
     row = {"phase": f"train {spec['arch']}", "arch": cfg.name,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
@@ -2030,8 +2139,8 @@ def phase_train(dev, spec=TRAIN_PHASES[0]):
            "eval": eval_out,
            "decode": dec_out and {n: dec_out[n]
                                   for n in ("served", "params", "tokens")},
-           "vs_ref": {"microbatch": TRAIN["batch"] // mbs, **vs_ref},
-           "ok": ok}
+           vs_key: {"microbatch": TRAIN["batch"] // mbs, **vs},
+           "base_phase": base, "ok": ok}
     emit(row)
     lm.STATE_STORE.clear()
     lm.CONFIG_STORE.clear()
@@ -2073,17 +2182,20 @@ def _dryrun_init(src: str) -> None:
 
 
 def _reckon(arch, batch, seq, microbatches=None, members=0, steps=1,
-            mesh=None, kind="train"):
+            mesh=None, kind="train", remat=None):
     """``launch.dryrun.reckon`` of a phase's cell: ``arch`` a registered
-    name or ``<base>-L<n>`` (``configs.resolve_config``), ``kind`` the
-    path (train, prefill, decode); ``mesh`` ("DxM") one rank of that mesh
-    on a fake group (``--mesh DxM``)."""
+    name or ``<base>-L<n>`` (``configs.resolve_config``), under ``remat``
+    where given, ``kind`` the path (train, prefill, decode); ``mesh``
+    ("DxM") one rank of that mesh on a fake group (``--mesh DxM``)."""
     from repro_torch.configs import resolve_config
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch.dryrun import fake_world, parse_mesh, reckon
     from repro_torch.launch.mesh import make_host_mesh
     t = time.perf_counter()
-    args = (resolve_config(arch), ShapeSpec("chip_smoke", kind, seq, batch))
+    cfg = resolve_config(arch)
+    if remat:
+        cfg = cfg.replace(remat=remat)
+    args = (cfg, ShapeSpec("chip_smoke", kind, seq, batch))
     if mesh is None:
         out = reckon(*args, microbatches=microbatches, members=members,
                      steps_per_cycle=steps)
@@ -2092,17 +2204,19 @@ def _reckon(arch, batch, seq, microbatches=None, members=0, steps=1,
         with fake_world(math.prod(dims)):
             out = reckon(*args, microbatches=microbatches,
                          mesh=make_host_mesh(dims, axes))
-    return {**out, "reckon_s": time.perf_counter() - t}
+    return {**out, "remat": cfg.remat, "reckon_s": time.perf_counter() - t}
 
 
 def _reckon_cells():
     """The cells of the dryrun phase: key -> ``_reckon``'s arguments."""
     from repro_torch.launch.profile_train import TRAIN
     cells = {}
-    for spec in TRAIN_PHASES:
+    for spec in TRAIN_PHASES:   # a spec with remat: its base under it
         cells[f"train {spec['arch']}"] = dict(
-            arch=spec["arch"], batch=TRAIN["batch"], seq=TRAIN["seq"],
-            microbatches=spec.get("microbatches", TRAIN["microbatches"]))
+            arch=spec["base"] if "remat" in spec else spec["arch"],
+            batch=TRAIN["batch"], seq=TRAIN["seq"],
+            microbatches=spec.get("microbatches", TRAIN["microbatches"]),
+            **_spec_fields(spec))
     for F in (FUSED, FUSED_MOE):
         cells[f"fused {F['arch']}"] = dict(
             arch=F["arch"], batch=F["batch"], seq=F["seq"],
@@ -2159,9 +2273,10 @@ def _card():
     return smi.stdout.strip().splitlines()[0]
 
 
-def phase_dryrun(of, reckoning, peak_gb, measured, hand, step_ms=None):
+def phase_dryrun(of, reckoning, peak_gb, measured, hand, step_ms=None,
+                 rtol=DRYRUN_PEAK_RTOL):
     """The dryrun row of phase ``of``: the reckoned peak beside the
-    measured ``peak_gb`` (within DRYRUN_PEAK_RTOL), the C launchers' bytes
+    measured ``peak_gb`` (within ``rtol``), the C launchers' bytes
     on their own, the tally of fake kernel calls beside the ``measured``
     launches of each step or cycle (a list) and the ``hand`` counts (all
     equal); with ``step_ms`` (a warm step), the roofline row and the
@@ -2174,8 +2289,9 @@ def phase_dryrun(of, reckoning, peak_gb, measured, hand, step_ms=None):
     row = {"phase": "dryrun", "of": of, "arch": reckoning["arch"],
            **{k: reckoning[k] for k in ("batch", "seq", "microbatches",
                                         "members", "device")},
+           "remat": reckoning.get("remat"),
            "reckoned_peak_gb": reckoned_gb, "measured_peak_gb": peak_gb,
-           "peak_rel_diff": rel, "peak_rtol": DRYRUN_PEAK_RTOL,
+           "peak_rel_diff": rel, "peak_rtol": rtol,
            "param_gb": reckoning["param_bytes"] / 1e9,
            "state_gb": reckoning["state_bytes"] / 1e9,
            "host_alloc_bytes": reckoning["host_alloc"],
@@ -2195,7 +2311,7 @@ def phase_dryrun(of, reckoning, peak_gb, measured, hand, step_ms=None):
             "model_flop_share": r["model_flops_total"]
             / (step_s * HW.peak_flops),
             "card": _card()}
-    row["ok"] = tally_equal and abs(rel) <= DRYRUN_PEAK_RTOL
+    row["ok"] = tally_equal and abs(rel) <= rtol
     return _emit_checked(row, f"dryrun of {of}")
 
 
@@ -5896,13 +6012,14 @@ def _phases(dev, baselines, reckonings):
           "waited_s": reckonings.wait()})
     refs = {}   # the unsharded rows the mesh phase is held against
     for spec in TRAIN_PHASES:
-        row = phase_train(dev, spec)
+        row = phase_train(dev, spec, refs)
         refs[row["phase"]] = row
         add(row["launches"], row["phase"])
         phase_dryrun(row["phase"], reckonings.get(row["phase"]),
                      row["peak_mem_gb"],
                      [s_["launches"] for s_ in row["steps_run"]],
-                     spec["launches"], step_ms=row["step_ms_steady"])
+                     spec["launches"], step_ms=row["step_ms_steady"],
+                     rtol=spec.get("peak_rtol", DRYRUN_PEAK_RTOL))
     for spec in TRAIN_4K:
         add(phase_train_4k(dev, spec, reckonings), f"train_4k {spec['arch']}")
     add(phase_launch_train(dev, reckonings), "launch train")

@@ -35,6 +35,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.mamba.ops import selective_scan, selective_step
 from repro_torch.kernels.moe_gmm.ops import gmm
 from repro_torch.kernels.rglru.ops import linear_scan
+from repro_torch.models.remat import dot
 
 Params = Dict[str, Any]
 
@@ -152,15 +153,18 @@ def _mlp_act(cfg: ModelConfig, hi, hg):
     raise ValueError(cfg.mlp)
 
 
-def apply_mlp(cfg: ModelConfig, p: Params, x, mesh=None):
+def apply_mlp(cfg: ModelConfig, p: Params, x, mesh=None, keep_out=False):
     """Under ``mesh`` with ``d_ff`` split over ``model``: ``wi`` and ``wg``
-    column-parallel, ``wo`` row-parallel."""
+    column-parallel, ``wo`` row-parallel.  ``wi``'s and ``wg``'s outputs
+    are kept products (``models.remat.dot``); ``wo``'s only where
+    ``keep_out`` (the caller's backward pass reads it)."""
     tp = tensor_parallel(mesh).over(cfg, ("mlp", "wo"),
                                     (cfg.d_ff, cfg.d_model))
     x = tp.copy(x)
-    hi = x @ cast(cfg, p["wi"])
-    hg = x @ cast(cfg, p["wg"]) if "wg" in p else None
-    return tp.sum(_mlp_act(cfg, hi, hg) @ cast(cfg, p["wo"]))
+    hi = dot(x, cast(cfg, p["wi"]), "wi")
+    hg = dot(x, cast(cfg, p["wg"]), "wg") if "wg" in p else None
+    h, wo = _mlp_act(cfg, hi, hg), cast(cfg, p["wo"])
+    return tp.sum(dot(h, wo, "wo") if keep_out else h @ wo)
 
 
 # ---------------------------------------------------------------- attention
@@ -206,13 +210,14 @@ def _attn_tp(cfg: ModelConfig, mesh):
                                       (cfg.d_model, cfg.q_dim))
 
 
-def _col(tp, x, w, split: bool, keep: bool):
-    """``x @ w`` inside a tensor-parallel region: of a column shard ``w``
-    (``split``) this rank's columns where ``keep``, else every column,
-    gathered; a whole ``w`` joins the region through ``copy``."""
+def _col(tp, x, w, name: str, split: bool, keep: bool):
+    """``x @ w`` (the parameter ``name``) inside a tensor-parallel region:
+    of a column shard ``w`` (``split``) this rank's columns where ``keep``,
+    else every column, gathered; a whole ``w`` joins the region through
+    ``copy``."""
     if not split:
-        return x @ tp.copy(w)
-    y = x @ w
+        return dot(x, tp.copy(w), name)
+    y = dot(x, w, name)
     return y if keep else tp.gather(y, -1)
 
 
@@ -244,10 +249,10 @@ def _qkv(cfg: ModelConfig, p: Params, xq, xkv, positions, kind: str, tp,
     kv_local = local and cfg.num_kv_heads % tp.size == 0
     kv_split = tp.param_dim(cfg, ("attn", "wk"),
                             (cfg.d_model, cfg.kv_dim)) is not None
-    q = _col(tp, xq, cast(cfg, p["wq"]), tp is not ONE, local)
+    q = _col(tp, xq, cast(cfg, p["wq"]), "wq", tp is not ONE, local)
     q = q.reshape(B, S, -1, hd)
-    k = _col(tp, xkv, cast(cfg, p["wk"]), kv_split, kv_local)
-    v = _col(tp, xkv, cast(cfg, p["wv"]), kv_split, kv_local)
+    k = _col(tp, xkv, cast(cfg, p["wk"]), "wk", kv_split, kv_local)
+    v = _col(tp, xkv, cast(cfg, p["wv"]), "wv", kv_split, kv_local)
     k, v = k.reshape(B, Sk, -1, hd), v.reshape(B, Sk, -1, hd)
     if kind != "cross":
         if cfg.qk_norm:
@@ -271,7 +276,7 @@ def _attn_out(cfg: ModelConfig, p: Params, o, tp, local: bool):
     o = o.reshape(B, S, -1)
     if not local:
         o = tp.shard(o, -1)
-    return tp.sum(o @ cast(cfg, p["wo"]))
+    return tp.sum(dot(o, cast(cfg, p["wo"]), "wo"))
 
 
 def _kv_cache_dim(cfg: ModelConfig, tp) -> Optional[int]:
@@ -407,7 +412,7 @@ def attn_decode_cross(cfg: ModelConfig, p: Params, x, cache: Params,
     xk = cache["xk"]
     mask = torch.ones((B, xk.shape[1]), dtype=torch.bool, device=x.device)
     tp = _attn_tp(cfg, mesh)
-    q = _col(tp, x, cast(cfg, p["wq"]), tp is not ONE,
+    q = _col(tp, x, cast(cfg, p["wq"]), "wq", tp is not ONE,
              cfg.num_kv_heads % tp.size == 0)
     q = q.reshape(B, 1, -1, cfg.head_dim)
     return _decode_out(cfg, p, q, xk, cache["xv"], mask, tp)
@@ -439,7 +444,7 @@ def _route(cfg: ModelConfig, p: Params, xt):
     ``probs.mean`` does."""
     T = xt.shape[0]
     E, k = cfg.num_experts, cfg.experts_per_tok
-    logits = xt.float() @ p["router"].float()
+    logits = dot(xt.float(), p["router"].float(), "router")
     probs = torch.softmax(logits, dim=-1)                        # (T, E)
     wts, idx = torch.topk(probs, k, dim=-1, sorted=True)         # (T, k)
     wts = wts / wts.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -662,8 +667,8 @@ def _rglru_gates(p: Params, xb, xb_all, a_param):
     rank's slice."""
     xf = xb.float()
     xa = xf if xb_all is xb else xb_all.float()
-    r = torch.sigmoid(xa @ p["wa"].float())
-    i = torch.sigmoid(xa @ p["wi_g"].float())
+    r = torch.sigmoid(dot(xa, p["wa"].float(), "wa"))
+    i = torch.sigmoid(dot(xa, p["wi_g"].float(), "wi_g"))
     log_a = RGLRU_C * r * F.logsigmoid(a_param)[None]
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -695,8 +700,8 @@ def apply_rglru(cfg: ModelConfig, p: Params, x, *, mesh=None, h0=None,
     conv_b = tp.shard(tp.copy(p["conv_b"]))
     a_param = tp.shard(tp.copy(p["a_param"]))
     W = p["wx"].shape[-1]
-    xb = x @ cast(cfg, p["wx"])
-    yb = F.gelu(x @ cast(cfg, p["wy"]), approximate="tanh")
+    xb = dot(x, cast(cfg, p["wx"]), "wx")
+    yb = F.gelu(dot(x, cast(cfg, p["wy"]), "wy"), approximate="tanh")
     if conv_buf is not None:
         raise NotImplementedError(
             "stateful RG-LRU prefill (a conv buffer carried in): the JAX "
@@ -706,7 +711,7 @@ def apply_rglru(cfg: ModelConfig, p: Params, x, *, mesh=None, h0=None,
     if h0 is None:
         h0 = torch.zeros((B, W), dtype=torch.float32, device=x.device)
     h, h_last = linear_scan(x_eff, a, h0, impl=impl)
-    out = tp.sum((h.to(_dt(cfg)) * yb) @ cast(cfg, p["wo"]))
+    out = tp.sum(dot(h.to(_dt(cfg)) * yb, cast(cfg, p["wo"]), "wo"))
     if return_state:
         # conv state: the last (cw-1) pre-conv inputs, copied out of xb
         buf = xb[:, -(cfg.ssm_conv - 1):, :].contiguous()
@@ -760,10 +765,11 @@ def _mamba_bcdt(cfg: ModelConfig, p: Params, xin, tp):
     product is summed over ``model`` (and rejoins the region through
     ``copy``); ``dt_proj`` is column-parallel, ``dt_bias`` sliced."""
     n, dr = cfg.ssm_state, cfg.dt_rank_
-    xdbc = tp.copy(tp.sum(xin @ cast(cfg, p["x_proj"])))
+    xdbc = tp.copy(tp.sum(dot(xin, cast(cfg, p["x_proj"]), "x_proj")))
     dt_bias = tp.shard(tp.copy(p["dt_bias"]))
     dt_r, Bm, Cc = torch.split(xdbc, [dr, n, n], dim=-1)
-    dt = F.softplus(dt_r.float() @ p["dt_proj"].float() + dt_bias[None])
+    dt = F.softplus(dot(dt_r.float(), p["dt_proj"].float(), "dt_proj")
+                    + dt_bias[None])
     return dt, Bm, Cc
 
 
@@ -782,16 +788,16 @@ def _mamba_in(cfg: ModelConfig, p: Params, x, tp):
     ``d_model`` (decode), else of the weight."""
     w = cast(cfg, p["in_proj"])
     if tp is ONE:
-        return (x @ w).chunk(2, dim=-1)
+        return dot(x, w, "in_proj").chunk(2, dim=-1)
     di = cfg.d_inner
     n = di // tp.size
     lo = tp.rank * n
     if x.numel() // x.shape[-1] <= x.shape[-1]:
-        xz = tp.gather(x @ w, -1)
+        xz = tp.gather(dot(x, w, "in_proj"), -1)
         return xz.narrow(-1, lo, n), xz.narrow(-1, di + lo, n)
     wf = tp.gather(w, -1)
     w = torch.cat([wf.narrow(-1, lo, n), wf.narrow(-1, di + lo, n)], -1)
-    return (x @ w).chunk(2, dim=-1)
+    return dot(x, w, "in_proj").chunk(2, dim=-1)
 
 
 def apply_mamba(cfg: ModelConfig, p: Params, x, *, mesh=None,

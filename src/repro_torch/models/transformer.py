@@ -164,10 +164,13 @@ def forward_block(cfg: ModelConfig, bp: Params, h, kind: str, *, positions,
 
 
 def _ffn(cfg: ModelConfig, bp: Params, x, impl: Optional[str], mesh=None):
-    """The FFN half of an attention block: (y, aux), aux 0 for a dense MLP."""
+    """The FFN half of an attention block: (y, aux), aux 0 for a dense MLP.
+    Under post-norms the block's backward pass reads the MLP's output
+    through its norm, so a dots remat keeps it (as the reference's)."""
     if "moe" in bp:
         return L.apply_moe(cfg, bp["moe"], x, mesh=mesh, impl=impl)
-    return L.apply_mlp(cfg, bp["mlp"], x, mesh), 0.0
+    return L.apply_mlp(cfg, bp["mlp"], x, mesh,
+                       keep_out=cfg.post_norms), 0.0
 
 
 def _rec_mlp(cfg: ModelConfig, bp: Params, h, mesh=None):
@@ -325,7 +328,9 @@ def _run_block(cfg, bp, h, kind, *, positions, seg_ids, mem, impl, remat,
                cache_len=None, mesh=None):
     """``forward_block``, recomputed in the backward pass under ``remat``
     (every tensor it reads passed as an argument, ``mem`` too, so that the
-    recompute's gradients reach the encoder)."""
+    recompute's gradients reach the encoder); with ``cfg.remat == "dots"``
+    the products the layers mark (``models.remat.dot``) are kept, not
+    recomputed, as the reference's ``_remat_policy``."""
     if not remat:
         return forward_block(cfg, bp, h, kind, positions=positions,
                              seg_ids=seg_ids, cache_len=cache_len, mem=mem,
@@ -337,7 +342,8 @@ def _run_block(cfg, bp, h, kind, *, positions, seg_ids, mem, impl, remat,
                                   mesh=mesh, impl=impl)
         return out, torch.as_tensor(a, dtype=torch.float32,
                                     device=out.device)
-    out, a = _remat(block, h, bp, positions, seg_ids, mem)
+    out, a = _remat(block, h, bp, positions, seg_ids, mem,
+                    policy="dots" if cfg.remat == "dots" else None)
     return out, a, None
 
 
@@ -360,7 +366,10 @@ def forward(cfg: ModelConfig, params: Params, tokens, *, positions=None,
     None (the tensors' device decides) or "ref" (the plain versions).
     ``remat``: recompute each block in the backward pass instead of keeping
     its activations (``models.remat``, which ``torch.func.vmap`` reaches),
-    as the JAX package's ``remat="full"`` saves nothing inside a block.
+    the encoder's blocks too: with ``cfg.remat`` "full" nothing inside a
+    block is saved, with "dots" the outputs of its products with no batch
+    dimensions that the backward pass reads, as the JAX package's
+    policies.
     ``mesh``: the device mesh the call's tensors are local shards of (see
     the module docstring); ``batch_kind`` names the layout
     ``constrain_batch`` keeps ("train", "serve").

@@ -2,8 +2,8 @@
 
 Append-only JSONL of task transitions.  On restart, ``replay`` marks DONE
 tasks so the executor skips re-running them — this is the checkpoint/restart
-path for pattern state (model state itself is checkpointed by
-repro.checkpoint at the kernel level in the JAX package; not ported yet).
+path for pattern state (model state itself is checkpointed at the kernel
+level by ``repro_torch.checkpoint``: the ``lm.checkpoint`` task).
 """
 from __future__ import annotations
 

@@ -117,14 +117,6 @@ def decay_mask(cfg: ModelConfig, params):
     return out
 
 
-def _remat(cfg: ModelConfig) -> bool:
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs) is not ported; no "
-            "config uses it")
-    return cfg.remat != "none"
-
-
 def lm_loss(cfg: ModelConfig, params, batch, impl: Optional[str] = None,
             remat: bool = False, mesh=None):
     """(mean nll, token count, aux loss) of one batch: the forward pass and
@@ -191,7 +183,7 @@ def build_train_step(cfg: ModelConfig, hyper: TrainHyper = TrainHyper(),
     the module docstring)."""
     sched = make_schedule(hyper.schedule, base_lr=hyper.base_lr,
                           warmup=hyper.warmup, total_steps=hyper.total_steps)
-    remat = _remat(cfg)
+    remat = cfg.remat != "none"       # "full" or "dots"
     nmb = cfg.microbatches
 
     def train_step(state: TrainState, batch) -> tuple:

@@ -224,14 +224,16 @@ NEAR_EPS = {"gemma2-2b": [],
 
 @pytest.mark.parametrize("arch,remat", [
     ("gemma2-2b", "none"), ("gemma2-2b", "full"),
-    ("qwen3-moe-30b-a3b", "none"), ("grok-1-314b", "none")],
-    ids=["none", "full", "qwen3-moe-30b-a3b", "grok-1-314b"])
+    ("qwen3-moe-30b-a3b", "none"), ("grok-1-314b", "none"),
+    ("gemma2-2b", "dots")],
+    ids=["none", "full", "qwen3-moe-30b-a3b", "grok-1-314b", "dots"])
 def test_fused_ensemble_matches_jax(arch, remat):
     """Reduced ``arch``, 4 members, 2 cycles of 1 step at
     ShapeSpec("t", "train", 32, 2) from the JAX ensemble's initial state,
     on its uniforms: losses and final state within the one-step
     tolerances, temperatures and accepted counts identical.  ``remat``
-    "full" runs the blocks' and the loss chunks' recompute under vmap.
+    "full" runs the blocks' and the loss chunks' recompute under vmap;
+    "dots" keeps the blocks' products under it (``_Remat``'s rule).
 
     The MoE case runs the dispatch under vmap and reports losses with
     0.01 aux, which the swap takes as energies.  Its state is held at

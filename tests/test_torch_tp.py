@@ -11,7 +11,9 @@ qwen3-moe-30b-a3b (``tp_ep`` experts with attention over ``model``),
 grok-1-314b (``tp``: every expert's F split), whisper-large-v3 (encoder
 and cross-attention), gemma2-2b with V = 256 (the vocab-parallel
 embedding, loss and logits; the reduced configs' V = 257 takes the
-d_model fallback) and gemma2-2b with H = 6, KH = 2 (case (c) at model 4).
+d_model fallback), gemma2-2b with H = 6, KH = 2 (case (c) at model 4) and
+gemma2-2b under ``remat="dots"`` (the kept products are each rank's local
+products before the row-parallel sums; trained, not served).
 
 Each case is held against ``mesh=None`` in the same process: the loss
 within 1e-5, every gradient within 1e-4 of the largest, the parameters
@@ -40,6 +42,7 @@ CASES = [(w, m) for w, ms in WORLDS.items() for m in ms]
 ARCHS = ["gemma2-2b", "recurrentgemma-2b", "falcon-mamba-7b",
          "qwen3-moe-30b-a3b", "grok-1-314b", "whisper-large-v3",
          "gemma2-2b-v256", "gemma2-2b-h6"]
+TRAIN_ARCHS = ARCHS + ["gemma2-2b-dots"]   # and the dots step
 
 
 # each world's limit in seconds, counted from its start: at least 3x its
@@ -67,7 +70,7 @@ def runs(tmp_path_factory):
         started.stop()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 @pytest.mark.parametrize("world,mesh", CASES)
 def test_tensor_parallel_train_step_matches_no_mesh(runs, world, mesh,
                                                     arch):

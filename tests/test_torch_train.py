@@ -65,6 +65,9 @@ ARCHS = ["gemma2-2b", "recurrentgemma-2b", "falcon-mamba-7b",
          "qwen3-moe-30b-a3b", "grok-1-314b", "whisper-large-v3",
          "internvl2-26b", "gemma3-4b", "minicpm-2b", "nemotron-4-15b"]
 STUB_ARCHS = ["whisper-large-v3", "internvl2-26b"]   # frontends stubbed
+# the archs whose one step is also held under remat="dots"
+DOTS_ARCHS = ["gemma2-2b", "recurrentgemma-2b", "falcon-mamba-7b",
+              "qwen3-moe-30b-a3b", "whisper-large-v3", "internvl2-26b"]
 STEP_ATOL = 1e-5
 STEP_RTOL = 1e-5
 # AdamW's defaults in both packages (repro.optim.adamw.adamw_update)
@@ -276,9 +279,11 @@ def test_decay_mask_follows_the_stacked_layout():
     assert mask["embed"]["tok"] is True
 
 
-def _jax_state(arch, microbatches):
+def _jax_state(arch, microbatches, remat=None):
     jcfg = jax_reduced(jax_get_config(arch)).replace(
         microbatches=microbatches)
+    if remat:
+        jcfg = jcfg.replace(remat=remat)
     state = jax_make_train_state(jcfg, jax.random.PRNGKey(0))
     flat = {k: np.asarray(v) for k, v in _flatten(state).items()}
     return jcfg, state, flat
@@ -294,12 +299,15 @@ def test_train_state_round_trips():
         np.testing.assert_array_equal(back[k], v)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_one_train_step_matches_jax(arch):
+@pytest.mark.parametrize("arch,remat", [
+    *(pytest.param(a, None, id=a) for a in ARCHS),
+    *(pytest.param(a, "dots", id=f"{a}-dots") for a in DOTS_ARCHS)])
+def test_one_train_step_matches_jax(arch, remat):
     """One step with microbatches=2 (as ``tests/test_models.py``'s train
     smoke test) from the same state and batch: loss, grad_norm, lr, and
-    every param and moment after the step."""
-    jcfg, jstate, flat = _jax_state(arch, 2)
+    every param and moment after the step; ``remat`` "dots" replaces the
+    config's "full" on both sides."""
+    jcfg, jstate, flat = _jax_state(arch, 2, remat)
     cfg = port_cfg(jcfg)
     hyper = dict(warmup=1, total_steps=10)
     jstep = jax.jit(jax_build_train_step(jcfg,
@@ -425,10 +433,42 @@ def test_train_eval_decode_serves_the_trained_member():
         lm.STATE_STORE.pop(("test_c1", 1), None)
 
 
-def test_train_step_rejects_dots_remat():
-    cfg = reduced(get_config("gemma2-2b")).replace(remat="dots")
-    with pytest.raises(NotImplementedError):
-        build_train_step(cfg)
+def test_dots_remat_trains_through_the_entry_points(monkeypatch, capsys):
+    """A config with ``remat="dots"`` (the reference's
+    ``dots_with_no_batch_dims_saveable``) trains through
+    ``build_train_step``, ``lm.train`` and ``launch.train``, each loss
+    bitwise the one of the same config under ``remat="full"``: the policy
+    changes what the backward pass keeps, no value (the saved set is
+    held against the reference in ``test_torch_remat_dots.py``)."""
+    from repro_torch.configs import base as cfg_base
+    from repro_torch.core.kernel_plugin import Kernel
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.step import make_train_state
+    full = reduced(get_config("gemma2-2b"))
+    losses = {}
+    for remat in ("full", "dots"):
+        name = f"gemma2-2b-{remat}-test"
+        cfg = full.replace(name=name, remat=remat, microbatches=2)
+        monkeypatch.setitem(cfg_base._REGISTRY, name, cfg)
+        state = make_train_state(cfg, torch.Generator().manual_seed(0))
+        batch = SyntheticLM(cfg, ShapeSpec("t", "train", 32, 4),
+                            device="cpu").batch_at(0)
+        _, m = build_train_step(cfg)(state, batch)
+        k = Kernel("lm.train")
+        k.arguments = {"arch": name, "device": "cpu", "ensemble": "dots",
+                       "member": 0, "steps": 2}
+        try:
+            out = k.execute()
+        finally:
+            lm.STATE_STORE.pop(("dots", 0), None)
+        hist = launch_train.main(["--arch", name, "--steps", "2", "--batch",
+                                  "2", "--seq", "32", "--schedule", "cosine",
+                                  "--device", "cpu"])
+        losses[remat] = [float(m["loss"]), out["loss"]] + [
+            h["loss"] for h in hist]
+    capsys.readouterr()
+    assert all(np.isfinite(losses["dots"]))
+    assert losses["dots"] == losses["full"]
 
 
 # ------------------------------------------------ encoder and vision inputs
@@ -472,17 +512,20 @@ def _jax_loss(jcfg, remat):
     return loss
 
 
-@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("remat", [False, True, "dots"])
 @pytest.mark.parametrize("arch", STUB_ARCHS)
 def test_stub_grads_match_jax(arch, remat):
     """Loss and every gradient leaf, the encoder's (``enc/...``) and the
     cross-attention's (``xattn``, ``lnx``) among them, against
-    ``jax.grad`` of the JAX step's loss, with remat on and off: a
-    rematerialised block that closed over the encoder's output would give
-    the encoder no gradient."""
+    ``jax.grad`` of the JAX step's loss, with remat off, on ("full") and
+    on under "dots" (both packages' configs): a rematerialised block that
+    closed over the encoder's output would give the encoder no
+    gradient."""
     from repro_torch.models.convert import params_from_numpy, params_to_flat
     from repro_torch.train.step import lm_loss
-    jcfg, jstate, flat = _jax_state(arch, 1)
+    jcfg, jstate, flat = _jax_state(arch, 1,
+                                    "dots" if remat == "dots" else None)
+    remat = bool(remat)
     cfg = port_cfg(jcfg)
     jbatch = JaxSyntheticLM(jcfg, JaxShapeSpec("t", "train", 32, 2),
                             seed=3).batch_at(0)
@@ -681,12 +724,17 @@ def test_chip_smoke_train_phase_states_its_configs_launches(arch):
     implies at its microbatches (forward twice under remat, backward once):
     flash per attention call, linear_scan per RG-LRU layer, selective_scan
     per Mamba layer, 3 gmm calls per MoE layer; and profile_train times
-    the same cell."""
+    the same cell.  An entry with ``remat`` (its base config under that
+    policy, which recomputes the attention as "full" does) states its
+    base's launches, and profile_train times its base."""
     from repro_torch.launch import profile_train
     cs = _CHIP_SMOKE
     spec = next(s for s in cs.TRAIN_PHASES if s["arch"] == arch)
-    if "base" in spec:   # registered by the phase as _cut_cfg cuts it
+    if "layers" in spec:   # registered by the phase as _cut_cfg cuts it
         assert arch == f"{spec['base']}-L{spec['layers']}"
+    if "remat" in spec:
+        assert spec["remat"] != "none"
+        arch = spec["base"]
     cfg = profile_train.train_config(arch)
     mbs = spec.get("microbatches", profile_train.TRAIN["microbatches"])
     kinds = cfg.layer_kinds
